@@ -1,0 +1,31 @@
+// Causal GQA flash attention for prefill on Hopper (sm_90a).
+//
+// Replaces the Pallas kernel repro/kernels/flash_prefill/flash_prefill.py
+// ::_kernel (launched by flash_prefill_grouped through ops.py
+// ::flash_prefill): FlashAttention-2 style causal attention whose mask comes
+// from the indices (key s visible to query t iff s <= t), so no (S, S) mask
+// exists.  The TPU version walks the kv blocks as a sequential grid axis and
+// masks the blocks above the diagonal; here the key loop runs inside one
+// block (attention_tile.cuh) and stops at the diagonal of the block's last
+// query row.  Not carried over: the TPU layout shims (dh padded to 128 with
+// a sqrt(dh_p/dh) fix on q, S padded to a block multiple).
+//
+// Bound at the serving path's cohort prefill, (B,S,H,K,dh) = (4,128,12,2,
+// 128) in bf16: the causal products are 4*B*H*dh*S*(S+1)/2 = 0.2 GFLOP,
+// about 0.2 us at 989 TFLOP/s; q and the output are 3.1 MB and K+V 0.5 MB,
+// about 1.1 us at 3.35 TB/s — so the call is bound by bytes.
+//
+// What this simple design leaves on the table: f32 CUDA-core products (no
+// mma/wgmma), K/V re-read from L2 by every block of 16 grouped rows (with
+// G = 6 a block covers under three query positions), two shared-memory
+// operands per FMA in the score loop, and no cp.async/TMA prefetch of the
+// next tile.
+#include "attention_tile.cuh"
+
+extern "C" int flash_prefill_launch(const void* q, const void* k,
+                                    const void* v, void* out, int B, int S,
+                                    int H, int K, int dh, int dtype,
+                                    void* stream) {
+  return (int)attn::dispatch<true>(q, k, v, nullptr, out, B, S, S, H, K, dh,
+                                   dtype, (cudaStream_t)stream);
+}

@@ -1,0 +1,352 @@
+"""Config-driven decoder-only transformer, dense KV layout (PyTorch port of
+``repro.models.transformer``).
+
+  * ``prefill`` / ``prefill_into_slot`` — causal forward that fills a KV
+    cache (all lanes / one lane) and returns the logits of each sequence's
+    last real token.
+  * ``tree_step`` — the Lookahead step: T = 1+decoding_length slots with a
+    tree-structured attention mask attend to the cache; their KV rows are
+    written at cache_len + slot.
+  * ``commit_cache`` / ``verify_accept_device`` / ``pack_step_result`` —
+    the device epilogue of the fused decode step.
+
+Parameters keep the JAX package's layout: per-layer weights stacked along a
+leading ``(L, ...)`` axis and ``x @ W`` orientation (``wq`` is
+``(L, d, H*dh)``).  A Python loop over layers takes the place of
+``lax.scan``.  The cache dict ``{"k", "v"}`` of ``(L, B, S, K, dh)`` tensors
+is updated in place where JAX donates the buffer and returns a new one;
+every function that writes it also returns it, as the reference does.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn_backends
+from repro_torch.models.layers import (ACTS, apply_rope, rms_norm,
+                                       rope_angles, swiglu)
+
+Params = Dict[str, Any]
+Cache = Dict[str, torch.Tensor]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str = "tiny"
+    n_layers: int = 2
+    d_model: int = 64
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 128
+    vocab_size: int = 256
+    head_dim: Optional[int] = None          # default: d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    act: str = "silu"
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    # MoE (fields kept for config parity; the port serves dense FFNs only)
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.5
+    moe_impl: str = "auto"
+    # execution
+    dtype: str = "float32"                  # activation dtype
+    param_dtype: str = "float32"
+    remat: bool = False
+    scan_layers: bool = True
+    q_chunk: int = 0
+    max_seq_len: int = 512                  # KV cache allocation length
+    # per-phase attention backends, resolved from the registry in
+    # repro_torch.models.attention: "dense" | "cuda"
+    prefill_backend: str = "cuda"
+    decode_backend: str = "cuda"
+    attn_score_f32: bool = True
+    kv_layout: str = "dense"
+    kv_block_size: int = 64
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def n_params(self) -> int:
+        """Total parameter count (dense FFN)."""
+        d, dh, V = self.d_model, self.dh, self.vocab_size
+        qkvo = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
+        per_layer = qkvo + 3 * d * self.d_ff + 2 * d
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+
+# ------------------------------------------------------------------- layer fwd
+def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, T, _ = h.shape
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q = h @ lp["wq"]
+    k = h @ lp["wk"]
+    v = h @ lp["wv"]
+    if cfg.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    return (q.reshape(B, T, H, dh), k.reshape(B, T, K, dh),
+            v.reshape(B, T, K, dh))
+
+
+def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    if cfg.moe:
+        raise NotImplementedError("MoE FFN: not yet ported (ROADMAP A15)")
+    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], ACTS[cfg.act])
+
+
+def _layer_self(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+                positions: torch.Tensor, len_mask: torch.Tensor):
+    """Self-attention layer over the full sequence (prefill).  Returns new
+    hidden states and the (k, v) tensors for cache filling."""
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, hn)
+    cos, sin = rope_angles(positions, cfg.dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    backend = attn_backends.get_backend(cfg.prefill_backend)
+    attn = backend.prefill_attention(cfg, q, k, v, positions, len_mask)
+    B, T, H, dh = attn.shape
+    h = h + attn.reshape(B, T, H * dh) @ lp["wo"]
+    h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h, (k, v)
+
+
+def _layer_tree(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+                positions: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, attend: Callable) -> torch.Tensor:
+    """Tree-decode layer: T slots attend to cache + tree siblings.
+    ``attend`` (from ``make_tree_attend``) writes the slots' KV into
+    ``k_cache``/``v_cache`` in place, then attends."""
+    B, T, _ = h.shape
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, hn)
+    cos, sin = rope_angles(positions, cfg.dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = attend(q, k, v, k_cache, v_cache)
+    H, dh = cfg.n_heads, cfg.dh
+    h = h + attn.reshape(B, T, H * dh) @ lp["wo"]
+    return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+
+def _layer_params(cfg: TransformerConfig, params: Params, i: int) -> Params:
+    """Layer i's weights, floating ones cast to the activation dtype (a
+    no-op when the parameter and activation dtypes agree)."""
+    return {name: (a[i].to(cfg.adtype) if a.is_floating_point() else a[i])
+            for name, a in params["layers"].items()}
+
+
+# ----------------------------------------------------------------- full models
+def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    return params["embed"].to(cfg.adtype)[tokens.long()]
+
+
+def _unembed(cfg: TransformerConfig, params: Params, h: torch.Tensor
+             ) -> torch.Tensor:
+    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return h @ w.to(h.dtype)
+
+
+def _self_forward(cfg: TransformerConfig, params: Params,
+                  tokens: torch.Tensor, lens: torch.Tensor, write_kv: Callable
+                  ) -> torch.Tensor:
+    """Causal forward over padded prompts; ``write_kv(i, k, v)`` stores
+    layer i's (B, S, K, dh) KV.  Returns the last real token's logits."""
+    B, S = tokens.shape
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    len_mask = positions < lens[:, None]
+    for i in range(cfg.n_layers):
+        h, (k, v) = _layer_self(cfg, _layer_params(cfg, params, i), h,
+                                positions, len_mask)
+        write_kv(i, k, v)
+    h_last = h[torch.arange(B, device=h.device), lens.long() - 1]
+    return _unembed(cfg, params, h_last)
+
+
+def init_cache(cfg: TransformerConfig, batch: int,
+               dtype: Optional[torch.dtype] = None,
+               device: Optional[torch.device] = None) -> Cache:
+    L, S, K, dh = cfg.n_layers, cfg.max_seq_len, cfg.n_kv_heads, cfg.dh
+    dt = dtype or cfg.adtype
+    return {"k": torch.zeros((L, batch, S, K, dh), dtype=dt, device=device),
+            "v": torch.zeros((L, batch, S, K, dh), dtype=dt, device=device)}
+
+
+def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+            lens: torch.Tensor, cache: Optional[Cache] = None
+            ) -> Tuple[Cache, torch.Tensor]:
+    """Causal forward over padded prompts; fills cache[:, :, :S] in place.
+
+    cache=None allocates the cache (S must be max_seq_len).  Returns
+    (cache, last_logits (B, V)) at position lens-1 of each row.
+    """
+    B, S = tokens.shape
+    if cache is None:
+        assert S == cfg.max_seq_len, (S, cfg.max_seq_len)
+        cache = init_cache(cfg, B, device=tokens.device)
+
+    def write_kv(i, k, v):
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+
+    logits = _self_forward(cfg, params, tokens, lens, write_kv)
+    return cache, logits
+
+
+def prefill_into_slot(cfg: TransformerConfig, params: Params, cache: Cache,
+                      slot: int, tokens: torch.Tensor, lens: torch.Tensor
+                      ) -> Tuple[Cache, torch.Tensor]:
+    """Prefill ONE request into batch lane ``slot`` of an existing cache.
+
+    tokens (1, S) padded prompt; lens (1,).  Writes KV for positions [0, S)
+    of that lane only (other lanes untouched).  Returns (cache,
+    last_logits (1, V))."""
+    B, S = tokens.shape
+    assert B == 1, "prefill_into_slot admits one request at a time"
+    slot = int(slot)
+
+    def write_kv(i, k, v):
+        cache["k"][i, slot, :S] = k[0]
+        cache["v"][i, slot, :S] = v[0]
+
+    logits = _self_forward(cfg, params, tokens, lens, write_kv)
+    return cache, logits
+
+
+def reset_slot(cache: Cache, slot: int) -> Cache:
+    """Zero one batch lane of the KV cache in place.  Hygiene only:
+    correctness never depends on it (rows >= cache_len are never
+    attended)."""
+    for buf in cache.values():
+        buf[:, int(slot)].zero_()
+    return cache
+
+
+def tree_step(cfg: TransformerConfig, params: Params, cache: Cache,
+              cache_lens: torch.Tensor, tokens: torch.Tensor,
+              positions: torch.Tensor, tree_mask: torch.Tensor
+              ) -> Tuple[Cache, torch.Tensor]:
+    """Lookahead VA forward.
+
+    tokens (B, T), positions (B, T), tree_mask (B, T, T) ancestor-closure.
+    Writes the slots' KV at cache_len + slot (in place) and returns
+    (cache, logits (B, T, V)).
+    """
+    S_max = cache["k"].shape[2]
+    h = _embed(cfg, params, tokens)
+    backend = attn_backends.get_backend(cfg.decode_backend)
+    attend = backend.make_tree_attend(cfg, cache_lens, tree_mask, S_max)
+    for i in range(cfg.n_layers):
+        h = _layer_tree(cfg, _layer_params(cfg, params, i), h, positions,
+                        cache["k"][i], cache["v"][i], attend)
+    return cache, _unembed(cfg, params, h)
+
+
+def commit_cache(cache: Cache, cache_lens: torch.Tensor,
+                 gather_idx: torch.Tensor, n_accept: torch.Tensor
+                 ) -> Tuple[Cache, torch.Tensor]:
+    """Compact accepted slots in place: new position m+j takes KV from
+    m+gather[j].
+
+    gather_idx (B, T) slot indices (monotone increasing over valid j);
+    n_accept (B,).  Rows beyond n_accept keep garbage (never attended).
+    Every source row is gathered into its own tensor before any row is
+    written, as JAX's functional update does: row m+j may be the source of
+    a later row (gather[j'] = j for j' > j) and must be read first.
+    """
+    k, v = cache["k"], cache["v"]
+    B, T = gather_idx.shape
+    lens = cache_lens.long()
+    bidx = torch.arange(B, device=k.device)[:, None]
+    src = lens[:, None] + gather_idx.long()                      # (B, T)
+    dst = lens[:, None] + torch.arange(T, device=k.device)[None, :]
+    kg = k[:, bidx, src]                                         # (L,B,T,K,dh)
+    vg = v[:, bidx, src]
+    k[:, bidx, dst] = kg
+    v[:, bidx, dst] = vg
+    return cache, cache_lens + n_accept
+
+
+def verify_accept_device(tree_tokens: torch.Tensor, parent: torch.Tensor,
+                         n_live: torch.Tensor, chosen: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device twin of ``repro_torch.core.verify.verify_accept`` (the host
+    accept walk), batched over lanes — the fused-step epilogue.
+
+    tree_tokens (B, T) draft-slot tokens; parent (B, T) slot parents
+    (root = -1); n_live (B,) live slot count per lane (0 marks an idle
+    lane); chosen (B, T) the model's prediction at each slot.
+
+    Returns (n_acc (B,), acc_tokens (B, T), kv_slots (B, T)) int32.  The
+    walk starts at the root (acc_tokens[0] = chosen[0], kv_slots[0] = 0) and
+    T-1 times steps to the smallest slot c with ``parent[c] == cur and
+    tree_tokens[c] == chosen[cur] and 0 < c < n_live``.  Entries past n_acc
+    are zero; idle lanes return n_acc == 0.  A loop of T-1 batched tensor
+    ops: nothing leaves the device.
+    """
+    B, T = tree_tokens.shape
+    dev = tree_tokens.device
+    tok = tree_tokens.long()
+    par = parent.long()
+    nl = n_live.long()
+    ch = chosen.long()
+    slots = torch.arange(T, device=dev)[None, :]
+    live = (slots < nl[:, None]) & (slots > 0)
+    acc = torch.zeros((B, T), dtype=torch.long, device=dev)
+    acc[:, 0] = ch[:, 0]
+    kvs = torch.zeros((B, T), dtype=torch.long, device=dev)
+    cur = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    n = torch.ones((B, 1), dtype=torch.long, device=dev)
+    done = (nl <= 0)[:, None]
+    for _ in range(max(T - 1, 0)):
+        want = ch.gather(1, cur)
+        ok = (par == cur) & (tok == want) & live & ~done
+        nxt = ok.to(torch.int32).argmax(dim=1, keepdim=True)  # first max
+        found = ok.gather(1, nxt)
+        acc.scatter_(1, n, torch.where(found, ch.gather(1, nxt),
+                                       acc.gather(1, n)))
+        kvs.scatter_(1, n, torch.where(found, nxt, kvs.gather(1, n)))
+        cur = torch.where(found, nxt, cur)
+        n = torch.where(found, n + 1, n)
+        done = done | ~found
+    n = torch.where(nl[:, None] > 0, n, torch.zeros_like(n))[:, 0]
+    return n.int(), acc.int(), kvs.int()
+
+
+def pack_step_result(n_acc: torch.Tensor, acc_tokens: torch.Tensor,
+                     kv_slots: torch.Tensor) -> torch.Tensor:
+    """Pack the fused-step outputs into the ONE (B, 1+2T) int32 tensor that
+    crosses to the host per decode step:
+    ``[n_acc | acc_tokens (T) | kv_slots (T)]`` per lane."""
+    return torch.cat([n_acc[:, None].int(), acc_tokens.int(),
+                      kv_slots.int()], dim=1)
+
+
+__all__ = ["TransformerConfig", "Params", "init_cache", "prefill",
+           "prefill_into_slot", "reset_slot", "tree_step", "commit_cache",
+           "verify_accept_device", "pack_step_result"]

@@ -1,0 +1,197 @@
+"""Build the ``StepFns`` driving a Lookahead engine for a transformer LM
+(PyTorch port of ``repro.serving.session``, dense KV layout, greedy).
+
+Each member takes the host's numpy inputs, moves them to the device through
+pinned staging buffers without waiting, runs the step with torch ops (and
+the port's CUDA kernels) and returns device tensors: no member syncs the
+host — the serving loop pulls one packed result per decode step through
+its own ``_pull``.  The KV cache dict is updated in place (the port's
+stand-in for JAX's buffer donation) and returned, as the reference's
+donated functions return the new cache.
+
+PyTorch runs eagerly, so there is nothing to compile; every member still
+exposes ``_cache_size()`` — the number of distinct input-shape signatures
+it has seen — so the compile-once checks of the serving loop (each member
+sees one shape per engine, I2) read the same surface as on JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.request import SamplingParams, StepFns
+from repro_torch.models import attention as attn_backends
+from repro_torch.models import transformer as tx
+from repro_torch.models.params import resolve_device
+from repro_torch.serving.sampler import choose_tokens_lanes
+
+
+def _signature(x: Any):
+    """Shape signature of a call argument (values never count: the lane
+    index and lengths are runtime inputs, as traced scalars are in JAX)."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return (tuple(x.shape), str(x.dtype))
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(v) for v in x)
+    return type(x).__name__
+
+
+class _Member:
+    """A step function plus the compile-once introspection surface."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+        self._sigs = set()
+
+    def __call__(self, *args, lane_params=None):
+        self._sigs.add(_signature(args))
+        return self._fn(*args)
+
+    def _cache_size(self) -> int:
+        return len(self._sigs)
+
+
+def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
+                     sample: bool = False, temperature: float = 1.0,
+                     seed: Optional[int] = None,
+                     slots: int = 1, pad_id: int = 0,
+                     prefill_len: Optional[int] = None,
+                     logits_transform: Optional[Callable] = None,
+                     backend: Optional[str] = None,
+                     prefill_backend: Optional[str] = None,
+                     decode_backend: Optional[str] = None,
+                     kv_layout: Optional[str] = None,
+                     device=None) -> StepFns:
+    """Step functions over ``params`` on ``device`` (None = CUDA; raises when
+    CUDA is missing).  ``params`` are moved there if they live elsewhere.
+
+    ``slots`` is the tree width T = 1 + decoding_length the serving loop pads
+    every draft to; ``prefill_len`` fixes the prompt pad length.
+    ``logits_transform(logits, tokens, positions)`` optionally rewrites the
+    step logits before token choice (the guided bench model) — it must stay
+    a pure function of (token, position) to preserve losslessness.
+    ``backend`` overrides both attention phases at once, ``prefill_backend``
+    / ``decode_backend`` one phase ("dense" | "cuda"; bad names fail here).
+
+    The session is greedy: ``sample=True`` and the paged layout raise
+    ``NotImplementedError`` (ROADMAP A10 and A8), and the returned StepFns
+    declare ``sampling="greedy"`` so the scheduler refuses sampled requests
+    (``temperature``/``seed`` only fill the session's default params).
+    """
+    if sample:
+        raise NotImplementedError(
+            "sampled decoding: not yet ported (ROADMAP A10, sampled mode)")
+    overrides = {}
+    if backend is not None:
+        overrides["prefill_backend"] = backend
+        overrides["decode_backend"] = backend
+    if prefill_backend is not None:
+        overrides["prefill_backend"] = prefill_backend
+    if decode_backend is not None:
+        overrides["decode_backend"] = decode_backend
+    if kv_layout is not None:
+        overrides["kv_layout"] = kv_layout
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    attn_backends.get_backend(cfg.prefill_backend)
+    attn_backends.get_backend(cfg.decode_backend)
+    if cfg.kv_layout == "paged":
+        raise NotImplementedError(
+            "kv_layout='paged': not yet ported (ROADMAP A8, paged layout)")
+    if cfg.kv_layout != "dense":
+        raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
+    dev = resolve_device(device)
+    params = _to_device(params, dev)
+    defaults = SamplingParams(sample=False, temperature=float(temperature),
+                              seed=int(seed or 0)).validate()
+
+    def put(x, dtype=None):
+        """Host input -> device tensor, staged through pinned memory so the
+        copy neither blocks the host nor races a later host write."""
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        if dtype is not None:
+            t = t.to(dtype)
+        if t.device == dev:
+            return t
+        if dev.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(dev, non_blocking=True)
+
+    def choose(logits, tokens, pos):
+        if logits_transform is not None:
+            logits = logits_transform(logits, tokens, pos)
+        return choose_tokens_lanes(logits, pos + 1, None)
+
+    def choose_last(tokens, lens, last_logits):
+        last_tok = tokens.gather(1, (lens - 1)[:, None].long())
+        return choose(last_logits[:, None, :], last_tok,
+                      (lens - 1)[:, None])[:, 0]
+
+    def _prefill(tokens, lens):
+        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
+        cache = tx.init_cache(cfg, tokens.shape[0], device=dev)
+        cache, last_logits = tx.prefill(cfg, params, tokens, lens, cache)
+        return cache, choose_last(tokens, lens, last_logits)
+
+    def _prefill_into_slot(cache, slot, tokens, lens):
+        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
+        cache, last_logits = tx.prefill_into_slot(cfg, params, cache,
+                                                  int(slot), tokens, lens)
+        return cache, choose_last(tokens, lens, last_logits)
+
+    def _forward(cache, cache_lens, tokens, pos, mask):
+        cache_lens = put(cache_lens, torch.int32)
+        tokens, pos = put(tokens, torch.int32), put(pos, torch.int32)
+        cache, logits = tx.tree_step(cfg, params, cache, cache_lens, tokens,
+                                     pos, put(mask, torch.bool))
+        return cache, cache_lens, tokens, choose(logits, tokens, pos)
+
+    def _tree_step(cache, cache_lens, tokens, pos, mask):
+        cache, _, _, chosen = _forward(cache, cache_lens, tokens, pos, mask)
+        return cache, chosen
+
+    def _commit(cache, cache_lens, gather_idx, n_accept):
+        return tx.commit_cache(cache, put(cache_lens, torch.int32),
+                               put(gather_idx, torch.int32),
+                               put(n_accept, torch.int32))
+
+    def _fused_step(cache, cache_lens, tokens, pos, mask, parent, n_live):
+        cache, cache_lens, tokens, chosen = _forward(cache, cache_lens,
+                                                     tokens, pos, mask)
+        n_acc, acc_tok, kv_slots = tx.verify_accept_device(
+            tokens, put(parent, torch.int32), put(n_live, torch.int32),
+            chosen)
+        cache, _ = tx.commit_cache(cache, cache_lens, kv_slots, n_acc)
+        return cache, tx.pack_step_result(n_acc, acc_tok, kv_slots)
+
+    def _reset_slot(cache, slot):
+        return tx.reset_slot(cache, int(slot))
+
+    def _init_cache(lanes: int):
+        return tx.init_cache(cfg, lanes, device=dev)
+
+    return StepFns(prefill=_Member(_prefill),
+                   tree_step=_Member(_tree_step),
+                   fused_step=_Member(_fused_step),
+                   commit=_Member(_commit),
+                   slots=slots, max_seq_len=cfg.max_seq_len, pad_id=pad_id,
+                   init_cache=_Member(_init_cache),
+                   prefill_into_slot=_Member(_prefill_into_slot),
+                   reset_slot=_Member(_reset_slot), prefill_len=prefill_len,
+                   per_lane_params=True, session_defaults=defaults,
+                   sampling="greedy")
+
+
+def _to_device(params, dev: torch.device):
+    if isinstance(params, dict):
+        return {k: _to_device(v, dev) for k, v in params.items()}
+    return params.to(dev)
+
+
+__all__ = ["make_session_fns"]

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels on the card, held against their plain PyTorch
+versions (which tests/test_torch_kernels.py holds against the JAX package).
+
+Needs an NVIDIA card with nvcc: every test is marked ``gpu`` and skips
+without CUDA.  Imports no JAX, so it runs on the card's machine:
+``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
+Tolerance: f32 atol=3e-5, rtol=1e-4; bf16 atol=1e-4, rtol=1.6e-2.  Both
+sides sum in f32 and round once to bf16, so they differ by about one output
+ulp (2^-7 relative); rtol is two ulps and atol covers f32 sum-order noise
+near zero, while typical |outputs| here are 1e-2 to 1e-1.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.tree_attention.ops import tree_attention
+
+pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TREE_SHAPES = [(1, 1, 4, 4, 64, 128), (2, 5, 8, 4, 64, 256),
+               (1, 9, 4, 1, 96, 512), (2, 65, 12, 2, 128, 1024),
+               (1, 33, 16, 16, 128, 384), (4, 33, 12, 2, 128, 512),
+               (1, 3, 4, 2, 16, 40), (1, 4, 8, 2, 256, 100)]
+PREFILL_SHAPES = [(2, 256, 4, 2, 64), (1, 512, 8, 8, 96),
+                  (2, 256, 6, 2, 128), (1, 128, 2, 1, 80),
+                  (4, 128, 12, 2, 128), (1, 300, 6, 3, 80),
+                  (1, 70, 2, 2, 256)]
+
+
+def _tol(dtype):
+    return dict(atol=1e-4, rtol=1.6e-2) if dtype == "bfloat16" \
+        else dict(atol=3e-5, rtol=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels build and run "
+                    "only there")
+    return torch.device("cuda")
+
+
+def _t(x, dtype, dev):
+    return torch.from_numpy(x.astype(np.float32)).to(dev, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,K,dh,S", TREE_SHAPES)
+def test_tree_attention_kernel_matches_plain(cuda, B, T, H, K, dh, S, dtype):
+    rng = np.random.RandomState(0)
+    q = _t(rng.randn(B, T, H, dh) * 0.3, dtype, cuda)
+    k = _t(rng.randn(B, S, K, dh) * 0.3, dtype, cuda)
+    v = _t(rng.randn(B, S, K, dh) * 0.3, dtype, cuda)
+    lens = rng.randint(S // 4, S // 2, size=(B,))
+    mask = np.zeros((B, T, S), bool)
+    for b in range(B):
+        mask[b, :, :lens[b]] = True
+        mask[b, :, lens[b]:lens[b] + T] = np.tril(np.ones((T, T), bool))
+    mask[0, -1] = False                  # one row that sees no key -> 0
+    mask = torch.from_numpy(mask).to(cuda)
+    n0 = tree_attention.launches
+    out = tree_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert tree_attention.launches == n0 + 1
+    assert torch.count_nonzero(out[0, -1]) == 0
+    ref = tree_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,K,dh", PREFILL_SHAPES)
+def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, K, dh, dtype):
+    rng = np.random.RandomState(1)
+    q, k, v = (_t(rng.randn(B, S, n, dh) * 0.3, dtype, cuda)
+               for n in (H, K, K))
+    n0 = flash_prefill.launches
+    out = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == n0 + 1
+    ref = flash_prefill(q.cpu(), k.cpu(), v.cpu())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), **_tol(dtype))
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 4, 16, device=cuda)
+    k = torch.zeros(1, 8, 2, 16, device=cuda)
+    mask = torch.ones(1, 2, 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tree_attention(q.half(), k.half(), k.half(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        tree_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                       k, mask)
+    kv = torch.zeros(1, 2, 2, 12, device=cuda)          # dh = 12 < 16
+    with pytest.raises(ValueError, match="dh=12"):
+        flash_prefill(q[..., :12].contiguous(), kv, kv)
+    with pytest.raises(ValueError, match="mask"):
+        tree_attention(q, k, k, mask.int())
