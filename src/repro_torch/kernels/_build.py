@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and load them
 with ``ctypes``.
 
-Each kernel source (``<kernel>/csrc/<kernel>.cu``, plus the shared headers
+Each kernel source (``<module>/csrc/<kernel>.cu``, plus the shared headers
 in ``kernels/csrc/``) compiles into its own shared library with a plain C
 interface — no PyTorch headers, so a build takes seconds.  Libraries land in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), named
@@ -27,6 +27,8 @@ HEADERS = _PKG / "csrc"
 SOURCES: Dict[str, Path] = {
     "tree_attention": _PKG / "tree_attention" / "csrc" / "tree_attention.cu",
     "flash_prefill": _PKG / "flash_prefill" / "csrc" / "flash_prefill.cu",
+    "paged_tree_attention": (_PKG / "tree_attention" / "csrc"
+                             / "paged_tree_attention.cu"),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,6 +41,8 @@ _ENTRY = {
                        [_P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
     "flash_prefill": ("flash_prefill_launch",
                       [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "paged_tree_attention": ("paged_tree_attention_launch",
+                             [_P] * 6 + [_I] * 9 + [_P]),
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,11 +1,22 @@
-// Shared body of the port's two attention kernels (tree-verification decode
-// attention and causal flash prefill): GQA attention of a tile of query rows
-// against one KV head, with an online softmax carried in f32 registers.
+// Shared body of the port's attention kernels (tree-verification decode
+// attention on the dense and on the paged KV layout, and causal flash
+// prefill): GQA attention of a tile of query rows against one KV head, with
+// an online softmax carried in f32 registers.
 //
 // Layouts (the public layouts of the JAX wrappers; no grouped copy is made):
-//   q, out  (B, n_q, H, dh)     k, v  (B, S, K, dh)     H = K * G
-//   mask    (B, n_q, S) bool    (tree kernel only; the causal kernel derives
+//   q, out  (B, n_q, H, dh)     H = K * G
+//   k, v    dense: (B, S, K, dh); paged: the block pool (n_blocks, bs, K, dh)
+//           shared by every lane, with S = bpl * bs logical positions a lane
+//   mask    (B, n_q, S) bool    (tree kernels only; the causal kernel derives
 //                                s <= t from the indices)
+//   bt      (B, bpl) int32      (paged only: lane b's logical block j lives
+//                                in physical block bt[b, j])
+// The row-address hook (template parameter kPaged) is the one place the two
+// layouts differ: key s of lane b is row b*S + s of k/v (dense) or row
+// bt[b, s / bs] * bs + s % bs (paged, the lane's table row staged in shared
+// memory at block start).  Key tiles stay on LOGICAL positions s0 = 0, 32,
+// ... in both, so a row's arithmetic does not depend on the layout: the paged
+// kernel gives the dense kernel's bits on the same logical K/V.
 // A block owns (lane b, KV head kh, kRows consecutive grouped rows), where
 // grouped row r = t * G + g is query position t of head kh * G + g: the G
 // heads that share a KV head share every K/V tile the block stages.
@@ -79,18 +90,28 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-inline size_t smem_bytes(int dh) {
+// Paged addressing: the block tables and the pool's geometry (unused, and
+// left zero, on the dense layout).
+struct Paged {
+  const int* bt = nullptr;    // (B, bpl) int32
+  int bpl = 0;                // table entries per lane
+  int bs = 0;                 // KV rows per block
+  int n_blocks = 0;           // pool size
+};
+
+inline size_t smem_bytes(int dh, int table_entries) {
   return sizeof(float) * (size_t)(kRows * dh + kKeys * (dh + 1) + kKeys * dh)
-         + kRows * kKeys;
+         + sizeof(int) * (size_t)table_entries + kRows * kKeys;
 }
 
-// NC = ceil(dh / 32) output columns per lane; kCausal selects the mask.
-template <typename T, int NC, bool kCausal>
+// NC = ceil(dh / 32) output columns per lane; kCausal selects the mask;
+// kPaged the key-row address (see the top of this file).
+template <typename T, int NC, bool kCausal, bool kPaged>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  T* __restrict__ out, int n_q, int S, int H, int K, int dh,
-                 float scale) {
+                 float scale, Paged pg) {
   const int G = H / K;
   const int b = blockIdx.z, kh = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
@@ -101,7 +122,17 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* qs = smem;                          // kRows x dh
   float* ks = qs + kRows * dh;               // kKeys x (dh + 1)
   float* vs = ks + kKeys * (dh + 1);         // kKeys x dh
-  uint8_t* ms = reinterpret_cast<uint8_t*>(vs + kKeys * dh);  // kRows x kKeys
+  int* bts = reinterpret_cast<int*>(vs + kKeys * dh);  // bpl (paged only)
+  uint8_t* ms = reinterpret_cast<uint8_t*>(bts + (kPaged ? pg.bpl : 0));
+                                             // kRows x kKeys
+
+  if (kPaged) {
+    // the lane's table row; an entry outside the pool is clamped into it
+    // (memory safety only: the serving path never writes one)
+    for (int i = threadIdx.x; i < pg.bpl; i += blockDim.x)
+      bts[i] = min(max(pg.bt[(long)b * pg.bpl + i], 0), pg.n_blocks - 1);
+    __syncthreads();
+  }
 
   for (int i = threadIdx.x; i < kRows * dh; i += blockDim.x) {
     const int rl = i / dh, d = i - rl * dh, r = row0 + rl;
@@ -147,7 +178,9 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = i / vecs, d0 = (i - j * vecs) * V, s = s0 + j;
       float kx[V], vx[V];
       if (s < S) {
-        const long off = (((long)b * S + s) * K + kh) * dh + d0;
+        const long row = kPaged ? (long)bts[s / pg.bs] * pg.bs + s % pg.bs
+                                : (long)b * S + s;
+        const long off = (row * K + kh) * dh + d0;
         Vec<T>::load(k + off, kx);
         Vec<T>::load(v + off, vx);
       } else {
@@ -211,12 +244,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC, bool kCausal>
+template <typename T, int NC, bool kCausal, bool kPaged>
 cudaError_t run(const void* q, const void* k, const void* v,
                 const void* mask, void* out, int B, int n_q, int S, int H,
-                int K, int dh, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh);
-  auto kern = attention_kernel<T, NC, kCausal>;
+                int K, int dh, Paged pg, cudaStream_t stream) {
+  const size_t smem = smem_bytes(dh, kPaged ? pg.bpl : 0);
+  auto kern = attention_kernel<T, NC, kCausal, kPaged>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -227,26 +260,33 @@ cudaError_t run(const void* q, const void* k, const void* v,
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), n_q, S, H, K, dh, scale);
+      static_cast<T*>(out), n_q, S, H, K, dh, scale, pg);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  dh in [16, 256], a multiple of 8.
-template <bool kCausal>
+// dtype: 0 = float32, 1 = bfloat16.  dh in [8, 256], a multiple of 8 (the
+// wrappers of the dense kernels take dh >= 16, the paged one dh >= 8).
+// Paged: S = pg.bpl * pg.bs, and pg.bt a (B, pg.bpl) table into a pool of
+// pg.n_blocks blocks.
+template <bool kCausal, bool kPaged>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* mask, void* out, int B, int n_q, int S,
-                     int H, int K, int dh, int dtype, cudaStream_t stream) {
-  if (dh < 16 || dh > 256 || dh % 8 || K < 1 || H % K || dtype < 0 ||
+                     int H, int K, int dh, int dtype, cudaStream_t stream,
+                     Paged pg = Paged()) {
+  if (dh < 8 || dh > 256 || dh % 8 || K < 1 || H % K || dtype < 0 ||
       dtype > 1)
+    return cudaErrorInvalidValue;
+  if (kPaged && (pg.bt == nullptr || pg.bpl < 1 || pg.bs < 1 ||
+                 pg.n_blocks < 1 || (long)pg.bpl * pg.bs != S))
     return cudaErrorInvalidValue;
   if (B == 0 || n_q == 0) return cudaSuccess;
 #define ATTN_CASE(NC)                                                        \
   case NC:                                                                   \
     return dtype == 0                                                        \
-               ? run<float, NC, kCausal>(q, k, v, mask, out, B, n_q, S, H,   \
-                                         K, dh, stream)                      \
-               : run<__nv_bfloat16, NC, kCausal>(q, k, v, mask, out, B, n_q, \
-                                                 S, H, K, dh, stream);
+               ? run<float, NC, kCausal, kPaged>(q, k, v, mask, out, B, n_q, \
+                                                 S, H, K, dh, pg, stream)    \
+               : run<__nv_bfloat16, NC, kCausal, kPaged>(                    \
+                     q, k, v, mask, out, B, n_q, S, H, K, dh, pg, stream);
   switch ((dh + 31) / 32) {
     ATTN_CASE(1) ATTN_CASE(2) ATTN_CASE(3) ATTN_CASE(4)
     ATTN_CASE(5) ATTN_CASE(6) ATTN_CASE(7) ATTN_CASE(8)

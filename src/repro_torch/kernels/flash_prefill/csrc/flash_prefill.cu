@@ -26,6 +26,6 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
                                     int H, int K, int dh, int dtype,
                                     void* stream) {
-  return (int)attn::dispatch<true>(q, k, v, nullptr, out, B, S, S, H, K, dh,
-                                   dtype, (cudaStream_t)stream);
+  return (int)attn::dispatch<true, false>(q, k, v, nullptr, out, B, S, S, H,
+                                          K, dh, dtype, (cudaStream_t)stream);
 }

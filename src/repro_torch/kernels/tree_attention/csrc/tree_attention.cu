@@ -31,6 +31,6 @@ extern "C" int tree_attention_launch(const void* q, const void* k,
                                      void* out, int B, int T, int S, int H,
                                      int K, int dh, int dtype,
                                      void* stream) {
-  return (int)attn::dispatch<false>(q, k, v, mask, out, B, T, S, H, K, dh,
-                                    dtype, (cudaStream_t)stream);
+  return (int)attn::dispatch<false, false>(q, k, v, mask, out, B, T, S, H, K,
+                                           dh, dtype, (cudaStream_t)stream);
 }

@@ -1,5 +1,7 @@
-"""Plain PyTorch version of the tree-attention decode kernel (mirrors
-``tree_attention_ref`` / ``tree_attention_reference`` of the JAX package)."""
+"""Plain PyTorch versions of the tree-attention kernels, dense and paged
+(mirror ``tree_attention_ref`` / ``tree_attention_reference`` of the JAX
+package, and the gather the reference's paged tests hold its paged kernel
+against)."""
 from __future__ import annotations
 
 import torch
@@ -37,4 +39,26 @@ def tree_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, T, H, dh)
 
 
-__all__ = ["tree_attention_ref", "tree_attention_reference"]
+def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """Each lane's blocks of the (n_blocks, bs, K, dh) pool in table order:
+    (B, bpl * bs, K, dh), logical position p of lane b at row p."""
+    B, bpl = block_tables.shape
+    _, bs, K, dh = pool.shape
+    return pool[block_tables.long()].reshape(B, bpl * bs, K, dh)
+
+
+def paged_tree_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   mask: torch.Tensor) -> torch.Tensor:
+    """The plain version of the paged kernel: gather each lane's blocks,
+    then the dense plain version.  q (B, T, H, dh); k/v pool (n_blocks,
+    bs, K, dh); block_tables (B, bpl) int; mask (B, T, bpl * bs)
+    -> (B, T, H, dh)."""
+    return tree_attention_reference(q, paged_gather(k_pool, block_tables),
+                                    paged_gather(v_pool, block_tables), mask)
+
+
+__all__ = ["tree_attention_ref", "tree_attention_reference", "paged_gather",
+           "paged_tree_attention_reference"]

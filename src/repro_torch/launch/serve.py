@@ -6,14 +6,22 @@ stream.
         --requests 8 --lanes 4
 
 runs on the card (``--device cuda``, the default; ``--smoke --device cpu``
-runs a reduced config on the CPU).  Weights are random, made on the device
-from a seed.  Reports throughput (tokens/s), EDL, lane occupancy, the
-per-step time split and per-request latency percentiles.  ``--rate 0``
+runs a reduced config on the CPU).  ``--kv-layout paged`` serves from a
+block pool sized to the workload's worst case, ``--prefix-cache`` adds the
+radix prefix cache on it, and ``--shared-prefix N`` gives every request the
+same N-token head (the reference's shared system-prompt workload):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+        --prefix-cache --shared-prefix 80
+
+Weights are random, made on the device from a seed.  Reports throughput
+(tokens/s), EDL, lane occupancy, the per-step time split, the KV pool and
+prefix-cache counts, and per-request latency percentiles.  ``--rate 0``
 submits every request at t=0; a positive rate draws Poisson inter-arrival
 gaps and the scheduler admits mid-flight.
 
-This slice serves greedy requests on the dense KV layout; the reference
-CLI's other flags exit with "not yet ported".
+The port serves greedy requests; the reference CLI's other flags exit
+with "not yet ported".
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from repro_torch.core import LookaheadEngine, Request, SamplingParams
 from repro_torch.models import attention as attn_backends
 from repro_torch.models.params import init_params
 from repro_torch.serving.api import EngineConfig, build_engine
+from repro_torch.serving.block_allocator import worst_case_pool_blocks
 from repro_torch.training.data import PROFILES, SyntheticCorpus
 
 # flags of repro.launch.serve that later slices bring
@@ -36,9 +45,7 @@ NOT_PORTED = (
     "--draft-sources", "--adaptive-draft", "--trie-namespace-key",
     "--lane-shares", "--draft-budget-caps", "--autotune", "--sanitize",
     "--ckpt-dir", "--sample", "--temperature", "--prefill-backend",
-    "--decode-backend", "--kv-layout", "--block-size", "--kv-blocks",
-    "--prefix-cache", "--prefix-cache-blocks", "--shared-prefix",
-    "--replicas", "--routing", "--gossip-every", "--fleet-queue-depth",
+    "--decode-backend", "--replicas", "--routing", "--gossip-every", "--fleet-queue-depth",
     "--warm-state", "--verify-fleet")
 
 
@@ -69,6 +76,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=attn_backends.available_backends(),
                     help="attention backend for both phases (default: the "
                          "config's, i.e. the CUDA kernels)")
+    ap.add_argument("--kv-layout", default="dense",
+                    choices=["dense", "paged"],
+                    help="KV-cache layout: dense (lanes, max_seq_len) rows "
+                         "or a paged block pool with per-lane block tables")
+    ap.add_argument("--block-size", type=int, default=64,
+                    help="paged layout: KV rows per block")
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="paged layout: total pool blocks (0 = size the "
+                         "pool to the workload's worst-case footprint)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree prefix caching on the paged pool "
+                         "(copy-on-write block sharing; same outputs)")
+    ap.add_argument("--prefix-cache-blocks", type=int, default=0,
+                    help="cap on blocks the prefix cache may keep resident "
+                         "(0 = bounded only by pool pressure)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every request a shared system-prompt prefix "
+                         "of this many tokens")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -80,6 +105,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                        "ROADMAP.md)\n")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.prefix_cache and args.kv_layout != "paged":
+        ap.error("--prefix-cache requires --kv-layout paged")
+    if args.kv_layout == "paged" and args.mode == "lockstep":
+        ap.error("--kv-layout paged requires --mode continuous (the "
+                 "scheduler owns the block allocator)")
     return args
 
 
@@ -90,16 +120,33 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = type(cfg)(**{**cfg.__dict__, "max_seq_len": 768})
     params = init_params(cfg, seed=0, device=args.device)
+    n_blocks = None
+    if args.kv_layout == "paged":
+        # the pool the workload's worst case needs, by the formula the
+        # scheduler admits by (the paged layout's memory win)
+        n_blocks = args.kv_blocks or worst_case_pool_blocks(
+            args.lanes, args.prefill_len, args.max_new,
+            1 + args.decoding_length, cfg.max_seq_len, args.block_size)
     ecfg = EngineConfig(
         lanes=args.lanes, prefill_len=args.prefill_len,
         decoding_length=args.decoding_length,
         branch_length=args.branch_length, eos_id=args.eos_id,
-        backend=args.backend,
+        backend=args.backend, kv_layout=args.kv_layout,
+        block_size=args.block_size, n_blocks=n_blocks,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_blocks=args.prefix_cache_blocks or None,
         default_params=SamplingParams(max_new_tokens=args.max_new))
 
     corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=0)
     prompt_cap = min(96, args.prefill_len)
-    reqs = [Request(prompt=corpus.sample()[0][:prompt_cap],
+    system_prompt = (corpus.sample()[0][:min(args.shared_prefix, prompt_cap)]
+                     if args.shared_prefix > 0 else [])
+
+    def _prompt():
+        tail_cap = max(prompt_cap - len(system_prompt), 1)
+        return list(system_prompt) + corpus.sample()[0][:tail_cap]
+
+    reqs = [Request(prompt=_prompt(),
                     params=SamplingParams(max_new_tokens=args.max_new),
                     metadata={"i": i})
             for i in range(args.requests)]
@@ -150,8 +197,19 @@ def main(argv=None) -> None:
           f"{dt:.1f}s -> {tok/dt:.1f} tok/s")
     cache = engine.scheduler.cache
     if cache is not None:
-        print(f"kv cache [dense]: "
-              f"{sum(v.nbytes for v in cache.values()) / 2**20:.1f} MiB")
+        extra = (f", peak {st.peak_blocks} blocks, {st.block_waits} "
+                 "block-waits" if args.kv_layout == "paged" else "")
+        print(f"kv cache [{args.kv_layout}]: "
+              f"{sum(v.nbytes for v in cache.values()) / 2**20:.1f} MiB"
+              f"{extra}")
+    if args.prefix_cache:
+        print(f"prefix cache: {st.prefix_hits}/{st.prefix_lookups} hits "
+              f"({st.prefix_hit_rate:.0%}), "
+              f"{st.prefix_hit_tokens}/{st.prefix_prompt_tokens} prefill "
+              f"tokens saved ({st.prefill_tokens_saved:.0%}), "
+              f"{st.prefix_cow_forks} COW forks, "
+              f"{engine.scheduler.prefix.n_blocks} resident blocks, "
+              f"{st.prefix_evicted_blocks} evicted")
     br = st.breakdown()
     print(f"step breakdown: draft {br['host_draft_ms']:.2f} ms   "
           f"device {br['device_step_ms']:.2f} ms   "

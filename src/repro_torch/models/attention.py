@@ -1,5 +1,5 @@
 """Pluggable attention backends for the transformer serving stack (PyTorch
-port of ``repro.models.attention``, dense KV layout).
+port of ``repro.models.attention``).
 
 A backend implements the two serving phases:
 
@@ -12,14 +12,20 @@ A backend implements the two serving phases:
     draft-slot KV rows at ``cache_len + slot`` of the layer's cache (in
     place, where JAX donates the buffer) and attends the slots against the
     whole cache.
+  * ``make_paged_tree_attend(cfg, block_tables, cache_lens, tree_mask,
+    slot_valid=None)`` — the same closure over the paged layout, whose
+    per-layer caches are the (n_blocks, block_size, K, dh) block pool
+    reached through each lane's block table.
 
 Registered here:
 
   dense — plain torch GQA over the full cache (reference semantics;
-          materializes the (B, T, S) scores per layer)
-  cuda  — the port's CUDA kernels: kernels/flash_prefill for prefill and
-          kernels/tree_attention for the decode step (the plain versions
-          when the tensors lie on the CPU)
+          materializes the (B, T, S) scores per layer); on the paged
+          layout it gathers each lane's blocks first (the parity oracle)
+  cuda  — the port's CUDA kernels: kernels/flash_prefill for prefill,
+          kernels/tree_attention for the decode step on the dense layout
+          and its paged twin on the paged layout (the plain versions when
+          the tensors lie on the CPU)
 
 Both keep the reference's invariants: the mask semantics of
 ``build_full_tree_mask``, draft slot i's KV at row ``cache_len + i`` of
@@ -46,6 +52,22 @@ def scatter_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
     sidx = cache_lens.long()[:, None] + torch.arange(T, device=k.device)
     k_cache[bidx, sidx] = k.to(k_cache.dtype)
     v_cache[bidx, sidx] = v.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def scatter_kv_paged(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     slot_rows: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged twin of ``scatter_kv``: write the (B, T) draft-slot KV rows at
+    precomputed physical rows of the (n_blocks, block_size, K, dh) pool, in
+    place.  Rows are distinct across lanes (block ownership is exclusive);
+    only NULL-block garbage of idle lanes or pad slots ever collides."""
+    nb, bs, K, dh = k_cache.shape
+    flat = slot_rows.reshape(-1)
+    k_cache.view(nb * bs, K, dh)[flat] = k.reshape(-1, K, dh).to(
+        k_cache.dtype)
+    v_cache.view(nb * bs, K, dh)[flat] = v.reshape(-1, K, dh).to(
+        v_cache.dtype)
     return k_cache, v_cache
 
 
@@ -92,6 +114,58 @@ class AttentionBackend:
 
         return attend
 
+    def _paged_geometry(self, cfg, block_tables: torch.Tensor,
+                        cache_lens: torch.Tensor, tree_mask: torch.Tensor,
+                        slot_valid=None):
+        """Shared paged-decode precompute: the (B, T, S_virtual) full mask
+        and the physical rows of the draft-slot scatter.
+
+        slot_valid (B, T) bool: slots to actually scatter; invalid slots'
+        KV writes redirect to the NULL block (row 0).  Used by the bucketed
+        suffix prefill, whose pad slots may sit past the lane's table
+        coverage, where ``paged_row_index`` clipping would otherwise alias
+        them onto the last real block — committed KV."""
+        from repro_torch.models.transformer import paged_row_index
+        T = tree_mask.shape[1]
+        S_virtual = block_tables.shape[1] * cfg.kv_block_size
+        full_mask = build_full_tree_mask(cache_lens, tree_mask, S_virtual)
+        slots = cache_lens.long()[:, None] + torch.arange(
+            T, device=tree_mask.device)
+        slot_rows = paged_row_index(block_tables, slots, cfg.kv_block_size)
+        if slot_valid is not None:
+            slot_rows = torch.where(slot_valid, slot_rows,
+                                    torch.zeros_like(slot_rows))
+        return full_mask, slot_rows
+
+    def make_paged_tree_attend(self, cfg, block_tables: torch.Tensor,
+                               cache_lens: torch.Tensor,
+                               tree_mask: torch.Tensor,
+                               slot_valid=None) -> Callable:
+        """Tree-decode closure over the paged cache.  Reference semantics:
+        gather each lane's blocks back into a contiguous (B, S_virtual)
+        window and reuse the dense math (the parity oracle of the paged
+        kernel; positions beyond a lane's coverage resolve to NULL-block
+        garbage and are masked)."""
+        from repro_torch.models.transformer import paged_row_index
+        full_mask, slot_rows = self._paged_geometry(
+            cfg, block_tables, cache_lens, tree_mask, slot_valid)
+        B, _, S_virtual = full_mask.shape
+        all_pos = torch.arange(S_virtual, device=full_mask.device)
+        flat = paged_row_index(block_tables, all_pos[None].expand(
+            B, S_virtual), cfg.kv_block_size).reshape(-1)
+
+        def attend(q, k, v, k_cache, v_cache):
+            scatter_kv_paged(k_cache, v_cache, slot_rows, k, v)
+            nb, bs, K, dh = k_cache.shape
+            kg = k_cache.view(nb * bs, K, dh)[flat].reshape(B, S_virtual, K,
+                                                            dh)
+            vg = v_cache.view(nb * bs, K, dh)[flat].reshape(B, S_virtual, K,
+                                                            dh)
+            return gqa_attention(q, kg, vg, full_mask,
+                                 softmax_in_f32=cfg.attn_score_f32)
+
+        return attend
+
 
 class CudaBackend(AttentionBackend):
     """The port's CUDA kernels for both phases (twin of the reference's
@@ -118,6 +192,23 @@ class CudaBackend(AttentionBackend):
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv(k_cache, v_cache, cache_lens, k, v)
             return tree_attention(q, k_cache, v_cache, full_mask)
+
+        return attend
+
+    def make_paged_tree_attend(self, cfg, block_tables, cache_lens,
+                               tree_mask, slot_valid=None):
+        """The paged kernel reads each lane's keys through its block table:
+        no contiguous per-lane cache is gathered (a CUDA call the kernel
+        cannot take raises; it never falls back to the gather)."""
+        from repro_torch.kernels.tree_attention.paged import \
+            paged_tree_attention
+        full_mask, slot_rows = self._paged_geometry(
+            cfg, block_tables, cache_lens, tree_mask, slot_valid)
+
+        def attend(q, k, v, k_cache, v_cache):
+            scatter_kv_paged(k_cache, v_cache, slot_rows, k, v)
+            return paged_tree_attention(q, k_cache, v_cache, block_tables,
+                                        full_mask)
 
         return attend
 
@@ -149,4 +240,5 @@ register_backend(CudaBackend())
 
 __all__ = ["AttentionBackend", "CudaBackend", "register_backend",
            "get_backend", "available_backends", "scatter_kv",
-           "build_full_tree_mask", "dense_prefill_attention"]
+           "scatter_kv_paged", "build_full_tree_mask",
+           "dense_prefill_attention"]

@@ -1,5 +1,5 @@
-"""Config-driven decoder-only transformer, dense KV layout (PyTorch port of
-``repro.models.transformer``).
+"""Config-driven decoder-only transformer (PyTorch port of
+``repro.models.transformer``), on the dense and the paged KV layout.
 
   * ``prefill`` / ``prefill_into_slot`` — causal forward that fills a KV
     cache (all lanes / one lane) and returns the logits of each sequence's
@@ -9,12 +9,19 @@
     written at cache_len + slot.
   * ``commit_cache`` / ``verify_accept_device`` / ``pack_step_result`` —
     the device epilogue of the fused decode step.
+  * the paged twins (``init_paged_cache``, ``prefill_paged``,
+    ``prefill_into_slot_paged``, ``tree_step_paged``,
+    ``commit_paged_cache``, ``reset_blocks``), whose KV lives in a block
+    pool shared by every lane and is reached through per-lane block
+    tables, and the prefix cache's device surface
+    (``prefill_from_offset_paged``, ``copy_paged_block``).
 
 Parameters keep the JAX package's layout: per-layer weights stacked along a
 leading ``(L, ...)`` axis and ``x @ W`` orientation (``wq`` is
 ``(L, d, H*dh)``).  A Python loop over layers takes the place of
 ``lax.scan``.  The cache dict ``{"k", "v"}`` of ``(L, B, S, K, dh)`` tensors
-is updated in place where JAX donates the buffer and returns a new one;
+(paged: ``(L, n_blocks, block_size, K, dh)`` plus ``block_tables``) is
+updated in place where JAX donates the buffer and returns a new one;
 every function that writes it also returns it, as the reference does.
 """
 from __future__ import annotations
@@ -188,6 +195,18 @@ def _self_forward(cfg: TransformerConfig, params: Params,
     return _unembed(cfg, params, h_last)
 
 
+def _tree_forward(cfg: TransformerConfig, params: Params, cache: Cache,
+                  tokens: torch.Tensor, positions: torch.Tensor,
+                  attend: Callable) -> torch.Tensor:
+    """Embed ``tokens`` and run every tree-decode layer against the cache's
+    per-layer K/V through ``attend``; returns the last hidden states."""
+    h = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        h = _layer_tree(cfg, _layer_params(cfg, params, i), h, positions,
+                        cache["k"][i], cache["v"][i], attend)
+    return h
+
+
 def init_cache(cfg: TransformerConfig, batch: int,
                dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None) -> Cache:
@@ -258,12 +277,9 @@ def tree_step(cfg: TransformerConfig, params: Params, cache: Cache,
     (cache, logits (B, T, V)).
     """
     S_max = cache["k"].shape[2]
-    h = _embed(cfg, params, tokens)
     backend = attn_backends.get_backend(cfg.decode_backend)
     attend = backend.make_tree_attend(cfg, cache_lens, tree_mask, S_max)
-    for i in range(cfg.n_layers):
-        h = _layer_tree(cfg, _layer_params(cfg, params, i), h, positions,
-                        cache["k"][i], cache["v"][i], attend)
+    h = _tree_forward(cfg, params, cache, tokens, positions, attend)
     return cache, _unembed(cfg, params, h)
 
 
@@ -290,6 +306,199 @@ def commit_cache(cache: Cache, cache_lens: torch.Tensor,
     k[:, bidx, dst] = kg
     v[:, bidx, dst] = vg
     return cache, cache_lens + n_accept
+
+
+# ------------------------------------------------------------ paged KV cache
+def blocks_per_lane(cfg: TransformerConfig) -> int:
+    """Block-table width: blocks covering max_seq_len logical positions."""
+    return -(-cfg.max_seq_len // cfg.kv_block_size)
+
+
+def init_paged_cache(cfg: TransformerConfig, lanes: int,
+                     n_blocks: Optional[int] = None,
+                     dtype: Optional[torch.dtype] = None,
+                     device: Optional[torch.device] = None) -> Cache:
+    """Block-pool KV cache: k/v (L, n_blocks, block_size, K, dh) plus the
+    per-lane block tables (lanes, blocks_per_lane) int32.
+
+    ``n_blocks`` defaults to the dense-equivalent worst case (every lane can
+    hold max_seq_len rows) plus the reserved NULL block 0; serving stacks
+    pass a smaller pool sized to the workload.  Table entries start at 0
+    (the NULL block), where never-attended scatters land harmlessly.
+    """
+    L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.dh
+    bs, bpl = cfg.kv_block_size, blocks_per_lane(cfg)
+    nb = int(n_blocks) if n_blocks else 1 + lanes * bpl
+    dt = dtype or cfg.adtype
+    return {"k": torch.zeros((L, nb, bs, K, dh), dtype=dt, device=device),
+            "v": torch.zeros((L, nb, bs, K, dh), dtype=dt, device=device),
+            "block_tables": torch.zeros((lanes, bpl), dtype=torch.int32,
+                                        device=device)}
+
+
+def paged_row_index(block_tables: torch.Tensor, positions: torch.Tensor,
+                    block_size: int) -> torch.Tensor:
+    """Logical positions -> physical flat cache rows through block tables.
+
+    block_tables (B, blocks_per_lane) int; positions (B, N) logical token
+    positions.  Returns (B, N) int64 rows into the (n_blocks*block_size,
+    ...) flat view.  Positions inside the table's span but past a lane's
+    allocation resolve through table entries 0 to the NULL block (garbage
+    rows, never attended).  Block indices past the table CLIP to its last
+    entry, as the reference's do: a position at or past
+    blocks_per_lane*block_size aliases a row of the lane's last block, so
+    callers that can produce one (the suffix prefill's pad slots) redirect
+    it through ``slot_valid``."""
+    pos = positions.long()
+    blk = (pos // block_size).clamp(0, block_tables.shape[-1] - 1)
+    phys = block_tables.long().gather(-1, blk)
+    return phys * block_size + pos % block_size
+
+
+def _scatter_paged_rows(cache: Cache, layer: int, rows: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """Write layer ``layer``'s KV (B, N, K, dh) at flat physical ``rows``
+    (B, N) of the paged pool, in place.  Duplicate rows only ever arise on
+    NULL-block garbage, where any write order is fine."""
+    _, nb, bs, K, dh = cache["k"].shape
+    flat = rows.reshape(-1)
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name][layer].view(nb * bs, K, dh)
+        buf[flat] = new.reshape(-1, K, dh).to(buf.dtype)
+
+
+def prefill_paged(cfg: TransformerConfig, params: Params,
+                  tokens: torch.Tensor, lens: torch.Tensor, cache: Cache
+                  ) -> Tuple[Cache, torch.Tensor]:
+    """Batched causal prefill into a paged cache: row p of lane b lands at
+    the physical row its block table maps p to.  Rows past a lane's
+    allocated coverage (prompt padding, lanes without a request) resolve to
+    the NULL block — garbage, never attended (I3)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    rows = paged_row_index(cache["block_tables"], positions,
+                           cfg.kv_block_size)
+    logits = _self_forward(
+        cfg, params, tokens, lens,
+        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v))
+    return cache, logits
+
+
+def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
+                            cache: Cache, slot: int, tokens: torch.Tensor,
+                            lens: torch.Tensor
+                            ) -> Tuple[Cache, torch.Tensor]:
+    """Paged twin of ``prefill_into_slot``: one request's KV scatters
+    through lane ``slot``'s block table; every other lane's blocks are
+    untouched (block ownership is exclusive)."""
+    B, S = tokens.shape
+    assert B == 1, "prefill_into_slot admits one request at a time"
+    slot = int(slot)
+    bt_row = cache["block_tables"][slot:slot + 1]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    rows = paged_row_index(bt_row, positions, cfg.kv_block_size)
+    logits = _self_forward(
+        cfg, params, tokens, lens,
+        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v))
+    return cache, logits
+
+
+def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
+                              cache: Cache, slot: int, tokens: torch.Tensor,
+                              offset: torch.Tensor, lens: torch.Tensor
+                              ) -> Tuple[Cache, torch.Tensor]:
+    """Suffix prefill for prefix-cache hits: prefill only the uncached tail
+    of one request's prompt, attending the shared prefix blocks through
+    lane ``slot``'s block table.
+
+    tokens (1, Sb): the prompt suffix padded to a fixed bucket length;
+    offset (1,): cached prefix length (absolute position of tokens[0]);
+    lens (1,): real (un-padded) suffix length.
+
+    A causally masked paged tree step at cache_lens = offset: the decode
+    backend scatters the suffix KV at rows offset+i through the table and
+    masks attention to past or causal-within-suffix — what a full prefill
+    computes for those positions.  Pad slots scatter to the NULL block
+    (``slot_valid``) and are causally invisible to real queries.
+    """
+    B, Sb = tokens.shape
+    assert B == 1, "prefill_from_offset admits one request at a time"
+    slot = int(slot)
+    dev = tokens.device
+    bt_row = cache["block_tables"][slot:slot + 1]
+    ar = torch.arange(Sb, device=dev)
+    positions = offset.int()[:, None] + ar.int()[None, :]        # (1, Sb)
+    causal = torch.ones((Sb, Sb), dtype=torch.bool,
+                        device=dev).tril().expand(B, Sb, Sb)
+    valid = ar[None, :] < lens.long()[:, None]
+    backend = attn_backends.get_backend(cfg.decode_backend)
+    attend = backend.make_paged_tree_attend(cfg, bt_row, offset, causal,
+                                            valid)
+    h = _tree_forward(cfg, params, cache, tokens, positions, attend)
+    h_last = h[torch.arange(B, device=dev), lens.long() - 1]
+    return cache, _unembed(cfg, params, h_last)
+
+
+def copy_paged_block(cache: Cache, src: int, dst: int) -> Cache:
+    """Device copy of one physical block (all layers, K and V), in place —
+    the copy-on-write fork of a partially filled boundary block that a
+    prefix-cache hit must extend.  Rows past the valid prefix are garbage
+    in ``src`` and stay garbage in ``dst`` until the suffix prefill
+    overwrites them."""
+    for name in ("k", "v"):
+        cache[name][:, int(dst)] = cache[name][:, int(src)]
+    return cache
+
+
+def tree_step_paged(cfg: TransformerConfig, params: Params, cache: Cache,
+                    cache_lens: torch.Tensor, tokens: torch.Tensor,
+                    positions: torch.Tensor, tree_mask: torch.Tensor
+                    ) -> Tuple[Cache, torch.Tensor]:
+    """Lookahead VA forward over the paged cache: the decode backend's
+    ``make_paged_tree_attend`` scatters draft-slot KV through the block
+    tables and attends against the blocks (dense: a gather; cuda: the
+    paged kernel)."""
+    backend = attn_backends.get_backend(cfg.decode_backend)
+    attend = backend.make_paged_tree_attend(cfg, cache["block_tables"],
+                                            cache_lens, tree_mask)
+    h = _tree_forward(cfg, params, cache, tokens, positions, attend)
+    return cache, _unembed(cfg, params, h)
+
+
+def commit_paged_cache(cfg: TransformerConfig, cache: Cache,
+                       cache_lens: torch.Tensor, gather_idx: torch.Tensor,
+                       n_accept: torch.Tensor
+                       ) -> Tuple[Cache, torch.Tensor]:
+    """Paged twin of ``commit_cache``: logical src/dst positions resolve
+    through the block tables; every source row is gathered before any row
+    is written (a row may be the source of a later one)."""
+    k, v, bt = cache["k"], cache["v"], cache["block_tables"]
+    L, nb, bs, K, dh = k.shape
+    T = gather_idx.shape[1]
+    lens = cache_lens.long()[:, None]
+    src = lens + gather_idx.long()                               # (B, T)
+    dst = lens + torch.arange(T, device=k.device)[None, :]
+    src_rows = paged_row_index(bt, src, cfg.kv_block_size).reshape(-1)
+    dst_rows = paged_row_index(bt, dst, cfg.kv_block_size).reshape(-1)
+    kf = k.view(L, nb * bs, K, dh)
+    vf = v.view(L, nb * bs, K, dh)
+    kg = kf[:, src_rows]                                    # (L, B*T, K, dh)
+    vg = vf[:, src_rows]
+    kf[:, dst_rows] = kg
+    vf[:, dst_rows] = vg
+    return cache, cache_lens + n_accept
+
+
+def reset_blocks(cache: Cache, block_ids: torch.Tensor) -> Cache:
+    """Zero the given physical blocks of a paged cache in place (hygiene
+    scrub).  ``block_ids`` (N,) — pad with 0: scrubbing the NULL block is
+    harmless.  Called on blocks at free time, BEFORE the allocator can hand
+    them to a newly admitted request (a lane- or table-keyed scrub after
+    re-allocation would destroy the new request's KV)."""
+    ids = block_ids.long()
+    for name in ("k", "v"):
+        cache[name].index_fill_(1, ids, 0)
+    return cache
 
 
 def verify_accept_device(tree_tokens: torch.Tensor, parent: torch.Tensor,
@@ -349,4 +558,8 @@ def pack_step_result(n_acc: torch.Tensor, acc_tokens: torch.Tensor,
 
 __all__ = ["TransformerConfig", "Params", "init_cache", "prefill",
            "prefill_into_slot", "reset_slot", "tree_step", "commit_cache",
-           "verify_accept_device", "pack_step_result"]
+           "verify_accept_device", "pack_step_result", "blocks_per_lane",
+           "init_paged_cache", "paged_row_index", "prefill_paged",
+           "prefill_into_slot_paged", "prefill_from_offset_paged",
+           "copy_paged_block", "tree_step_paged", "commit_paged_cache",
+           "reset_blocks"]

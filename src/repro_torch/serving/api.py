@@ -1,7 +1,8 @@
 """Request-centric serving API (DESIGN.md §Serving API) — PyTorch port of
-``repro.serving.api``.  This slice serves greedy requests on the dense KV
-layout; ``EngineConfig.validate`` refuses what is not ported yet and names
-the ROADMAP item that brings it.
+``repro.serving.api``.  The port serves greedy requests on the dense and
+the paged KV layout, with or without the prefix cache;
+``EngineConfig.validate`` refuses what is not ported yet and names the
+ROADMAP item that brings it.
 
 The production surface over the continuous-batching stack:
 
@@ -126,14 +127,6 @@ class EngineConfig:
             temperature=self.default_params.temperature)
 
     def validate(self) -> "EngineConfig":
-        if self.kv_layout == "paged":
-            raise NotImplementedError(
-                "kv_layout='paged': not yet ported (ROADMAP A8, paged "
-                "layout)")
-        if self.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True: not yet ported (ROADMAP A9, prefix-"
-                "cache device surface)")
         if self.sanitize:
             raise NotImplementedError(
                 "sanitize=True: the runtime sanitizer is not yet ported "
@@ -213,7 +206,8 @@ def build_session_fns(cfg: EngineConfig, model_cfg, params, *,
         logits_transform=logits_transform, backend=cfg.backend,
         prefill_backend=cfg.prefill_backend,
         decode_backend=cfg.decode_backend, kv_layout=cfg.kv_layout,
-        device=device)
+        block_size=cfg.block_size if cfg.kv_layout == "paged" else None,
+        n_blocks=cfg.n_blocks, device=device)
 
 
 # --------------------------------------------------------------- RequestHandle

@@ -622,14 +622,17 @@ class ContinuousScheduler:
 
     def _sync_tables(self) -> None:
         """Push host-side block-table edits into the device cache dict (the
-        tables ride along as a regular input of every step fn).  Converted
-        to a device array up front: a raw np array inside the donated cache
-        pytree would change the donation mask and compile a second
-        executable (I2)."""
+        tables ride along as a regular input of every step fn).  The table
+        is copied at once (into pinned memory on a card, then uploaded
+        without waiting), so the upload neither blocks the host nor sees
+        later host edits of ``self.tables``."""
         if (self.allocator is not None and self._tables_dirty
                 and self.cache is not None):
-            self.cache["block_tables"] = torch.as_tensor(
-                self.tables, device=self.cache["k"].device)
+            dev = self.cache["k"].device
+            staged = torch.from_numpy(self.tables.copy())
+            if dev.type == "cuda":
+                staged = staged.pin_memory().to(dev, non_blocking=True)
+            self.cache["block_tables"] = staged
             self._tables_dirty = False
 
     # ------------------------------------------------------------ lane params

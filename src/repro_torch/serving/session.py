@@ -1,5 +1,6 @@
 """Build the ``StepFns`` driving a Lookahead engine for a transformer LM
-(PyTorch port of ``repro.serving.session``, dense KV layout, greedy).
+(PyTorch port of ``repro.serving.session``, dense and paged KV layouts,
+greedy).
 
 Each member takes the host's numpy inputs, moves them to the device through
 pinned staging buffers without waiting, runs the step with torch ops (and
@@ -12,11 +13,15 @@ donated functions return the new cache.
 PyTorch runs eagerly, so there is nothing to compile; every member still
 exposes ``_cache_size()`` — the number of distinct input-shape signatures
 it has seen — so the compile-once checks of the serving loop (each member
-sees one shape per engine, I2) read the same surface as on JAX.
+sees one shape per engine, I2) read the same surface as on JAX.  The paged
+layout's suffix prefill pads the prompt tail to a doubling bucket ladder
+(8, 16, ..., prefill_len), so its ``_cache_size()`` counts the buckets
+touched.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -66,6 +71,8 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
                      prefill_backend: Optional[str] = None,
                      decode_backend: Optional[str] = None,
                      kv_layout: Optional[str] = None,
+                     block_size: Optional[int] = None,
+                     n_blocks: Optional[int] = None,
                      device=None) -> StepFns:
     """Step functions over ``params`` on ``device`` (None = CUDA; raises when
     CUDA is missing).  ``params`` are moved there if they live elsewhere.
@@ -78,10 +85,15 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     ``backend`` overrides both attention phases at once, ``prefill_backend``
     / ``decode_backend`` one phase ("dense" | "cuda"; bad names fail here).
 
-    The session is greedy: ``sample=True`` and the paged layout raise
-    ``NotImplementedError`` (ROADMAP A10 and A8), and the returned StepFns
-    declare ``sampling="greedy"`` so the scheduler refuses sampled requests
-    (``temperature``/``seed`` only fill the session's default params).
+    ``kv_layout`` ("dense" | "paged") / ``block_size`` override the config's
+    KV-cache layout; for the paged layout ``n_blocks`` sizes the shared
+    block pool (None = lanes * ceil(max_seq_len / block_size) + 1 NULL
+    block).
+
+    The session is greedy: ``sample=True`` raises ``NotImplementedError``
+    (ROADMAP A10), and the returned StepFns declare ``sampling="greedy"``
+    so the scheduler refuses sampled requests (``temperature``/``seed``
+    only fill the session's default params).
     """
     if sample:
         raise NotImplementedError(
@@ -96,15 +108,16 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         overrides["decode_backend"] = decode_backend
     if kv_layout is not None:
         overrides["kv_layout"] = kv_layout
+    if block_size is not None:
+        overrides["kv_block_size"] = int(block_size)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     attn_backends.get_backend(cfg.prefill_backend)
     attn_backends.get_backend(cfg.decode_backend)
-    if cfg.kv_layout == "paged":
-        raise NotImplementedError(
-            "kv_layout='paged': not yet ported (ROADMAP A8, paged layout)")
-    if cfg.kv_layout != "dense":
+    if cfg.kv_layout not in ("dense", "paged"):
         raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
+    if cfg.kv_layout == "paged" and cfg.kv_block_size < 1:
+        raise ValueError(f"kv_block_size={cfg.kv_block_size}")
     dev = resolve_device(device)
     params = _to_device(params, dev)
     defaults = SamplingParams(sample=False, temperature=float(temperature),
@@ -133,23 +146,25 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         return choose(last_logits[:, None, :], last_tok,
                       (lens - 1)[:, None])[:, 0]
 
-    def _prefill(tokens, lens):
-        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
-        cache = tx.init_cache(cfg, tokens.shape[0], device=dev)
-        cache, last_logits = tx.prefill(cfg, params, tokens, lens, cache)
-        return cache, choose_last(tokens, lens, last_logits)
+    paged = cfg.kv_layout == "paged"
+    if paged:
+        tree_fn, slot_fn = tx.tree_step_paged, tx.prefill_into_slot_paged
+        commit_fn = functools.partial(tx.commit_paged_cache, cfg)
+    else:
+        tree_fn, slot_fn = tx.tree_step, tx.prefill_into_slot
+        commit_fn = tx.commit_cache
 
     def _prefill_into_slot(cache, slot, tokens, lens):
         tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
-        cache, last_logits = tx.prefill_into_slot(cfg, params, cache,
-                                                  int(slot), tokens, lens)
+        cache, last_logits = slot_fn(cfg, params, cache, int(slot), tokens,
+                                     lens)
         return cache, choose_last(tokens, lens, last_logits)
 
     def _forward(cache, cache_lens, tokens, pos, mask):
         cache_lens = put(cache_lens, torch.int32)
         tokens, pos = put(tokens, torch.int32), put(pos, torch.int32)
-        cache, logits = tx.tree_step(cfg, params, cache, cache_lens, tokens,
-                                     pos, put(mask, torch.bool))
+        cache, logits = tree_fn(cfg, params, cache, cache_lens, tokens, pos,
+                                put(mask, torch.bool))
         return cache, cache_lens, tokens, choose(logits, tokens, pos)
 
     def _tree_step(cache, cache_lens, tokens, pos, mask):
@@ -157,9 +172,9 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         return cache, chosen
 
     def _commit(cache, cache_lens, gather_idx, n_accept):
-        return tx.commit_cache(cache, put(cache_lens, torch.int32),
-                               put(gather_idx, torch.int32),
-                               put(n_accept, torch.int32))
+        return commit_fn(cache, put(cache_lens, torch.int32),
+                         put(gather_idx, torch.int32),
+                         put(n_accept, torch.int32))
 
     def _fused_step(cache, cache_lens, tokens, pos, mask, parent, n_live):
         cache, cache_lens, tokens, chosen = _forward(cache, cache_lens,
@@ -167,8 +182,24 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         n_acc, acc_tok, kv_slots = tx.verify_accept_device(
             tokens, put(parent, torch.int32), put(n_live, torch.int32),
             chosen)
-        cache, _ = tx.commit_cache(cache, cache_lens, kv_slots, n_acc)
+        cache, _ = commit_fn(cache, cache_lens, kv_slots, n_acc)
         return cache, tx.pack_step_result(n_acc, acc_tok, kv_slots)
+
+    common = dict(tree_step=_Member(_tree_step),
+                  fused_step=_Member(_fused_step), commit=_Member(_commit),
+                  prefill_into_slot=_Member(_prefill_into_slot), slots=slots,
+                  max_seq_len=cfg.max_seq_len, pad_id=pad_id,
+                  prefill_len=prefill_len, per_lane_params=True,
+                  session_defaults=defaults, sampling="greedy")
+    if paged:
+        return _paged_fns(cfg, params, dev, put, choose, choose_last, common,
+                          n_blocks=n_blocks)
+
+    def _prefill(tokens, lens):
+        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
+        cache = tx.init_cache(cfg, tokens.shape[0], device=dev)
+        cache, last_logits = tx.prefill(cfg, params, tokens, lens, cache)
+        return cache, choose_last(tokens, lens, last_logits)
 
     def _reset_slot(cache, slot):
         return tx.reset_slot(cache, int(slot))
@@ -177,15 +208,83 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         return tx.init_cache(cfg, lanes, device=dev)
 
     return StepFns(prefill=_Member(_prefill),
-                   tree_step=_Member(_tree_step),
-                   fused_step=_Member(_fused_step),
-                   commit=_Member(_commit),
-                   slots=slots, max_seq_len=cfg.max_seq_len, pad_id=pad_id,
                    init_cache=_Member(_init_cache),
-                   prefill_into_slot=_Member(_prefill_into_slot),
-                   reset_slot=_Member(_reset_slot), prefill_len=prefill_len,
-                   per_lane_params=True, session_defaults=defaults,
-                   sampling="greedy")
+                   reset_slot=_Member(_reset_slot), **common)
+
+
+def _paged_fns(cfg, params, dev, put, choose, choose_last, common, *,
+               n_blocks) -> StepFns:
+    """The paged layout's own members: the cohort prefill (which takes the
+    block tables: the cache does not exist yet), the block scrub, and the
+    prefix cache's suffix prefill and block copy; ``common`` holds the
+    members both layouts share."""
+
+    def _prefill(tokens, lens, block_tables):
+        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
+        cache = tx.init_paged_cache(cfg, tokens.shape[0], n_blocks,
+                                    device=dev)
+        cache["block_tables"] = put(block_tables, torch.int32)
+        cache, last_logits = tx.prefill_paged(cfg, params, tokens, lens,
+                                              cache)
+        return cache, choose_last(tokens, lens, last_logits)
+
+    def _reset_blocks(cache, block_ids):
+        return tx.reset_blocks(cache, put(block_ids, torch.int32))
+
+    def _prefill_suffix(cache, slot, tokens, offset, slen):
+        tokens = put(tokens, torch.int32)
+        offset, slen = put(offset, torch.int32), put(slen, torch.int32)
+        cache, last_logits = tx.prefill_from_offset_paged(
+            cfg, params, cache, int(slot), tokens, offset, slen)
+        last_tok = tokens.gather(1, (slen - 1)[:, None].long())
+        return cache, choose(last_logits[:, None, :], last_tok,
+                             (offset + slen - 1)[:, None])[:, 0]
+
+    def _copy_block(cache, src, dst):
+        return tx.copy_paged_block(cache, int(src), int(dst))
+
+    # the suffix prefill pads the uncached prompt tail to the smallest of a
+    # doubling ladder of buckets, so its input shapes (the reference's
+    # compiled executables) are the buckets touched, never the requests
+    cap = common["prefill_len"] or cfg.max_seq_len
+    suffix_buckets, b = [], 8
+    while b < cap:
+        suffix_buckets.append(b)
+        b *= 2
+    suffix_buckets = tuple(suffix_buckets + [cap])
+    # preallocated host scratch: ``put`` copies it into fresh pinned memory
+    # before the asynchronous upload, so reusing it across calls is safe
+    pad_id = common["pad_id"]
+    pad_bufs = {b: np.full((1, b), pad_id, np.int32) for b in suffix_buckets}
+    off_buf = np.zeros((1,), np.int32)
+    len_buf = np.zeros((1,), np.int32)
+    suffix_member = _Member(_prefill_suffix)
+
+    def prefill_suffix(cache, slot, tokens, offset, lane_params=None):
+        """tokens (1, n): the UN-padded prompt suffix; offset: the cached
+        prefix length.  Pads n up to the smallest suffix bucket."""
+        tokens = np.asarray(tokens, np.int32)
+        n = tokens.shape[1]
+        bucket = next(b for b in suffix_buckets if b >= n)
+        padded = pad_bufs[bucket]
+        padded[0, :n] = tokens[0]
+        padded[0, n:] = pad_id
+        off_buf[0] = offset
+        len_buf[0] = n
+        return suffix_member(cache, slot, padded, off_buf, len_buf)
+
+    prefill_suffix._cache_size = suffix_member._cache_size
+
+    def _init_cache(lanes: int):
+        return tx.init_paged_cache(cfg, lanes, n_blocks, device=dev)
+
+    return StepFns(prefill=_Member(_prefill),
+                   init_cache=_Member(_init_cache), reset_slot=None,
+                   kv_layout="paged", block_size=cfg.kv_block_size,
+                   n_blocks=n_blocks, reset_blocks=_Member(_reset_blocks),
+                   prefill_suffix=prefill_suffix,
+                   copy_block=_Member(_copy_block),
+                   suffix_buckets=suffix_buckets, **common)
 
 
 def _to_device(params, dev: torch.device):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions (which tests/test_torch_kernels.py holds against the JAX package).
+versions (which tests/test_torch_kernels.py and tests/test_torch_paged.py
+hold against the JAX package), and the paged kernel against the dense one.
 
 Needs an NVIDIA card with nvcc: every test is marked ``gpu`` and skips
 without CUDA.  Imports no JAX, so it runs on the card's machine:
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.tree_attention.ops import tree_attention
+from repro_torch.kernels.tree_attention.paged import paged_tree_attention
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
 
@@ -23,6 +25,12 @@ TREE_SHAPES = [(1, 1, 4, 4, 64, 128), (2, 5, 8, 4, 64, 256),
                (1, 9, 4, 1, 96, 512), (2, 65, 12, 2, 128, 1024),
                (1, 33, 16, 16, 128, 384), (4, 33, 12, 2, 128, 512),
                (1, 3, 4, 2, 16, 40), (1, 4, 8, 2, 256, 100)]
+# (B, T, H, K, dh, bs, bpl): decode and suffix-prefill shapes of the path,
+# MQA to MHA, dh 8 to 256, blocks of 8 to 64 rows
+PAGED_SHAPES = [(4, 33, 12, 2, 128, 64, 8), (1, 128, 12, 2, 128, 64, 8),
+                (3, 5, 4, 2, 16, 8, 6), (2, 9, 8, 1, 64, 16, 5),
+                (2, 7, 4, 4, 96, 32, 3), (1, 4, 8, 2, 256, 8, 12),
+                (2, 17, 6, 3, 80, 64, 2), (3, 5, 4, 2, 8, 32, 4)]
 PREFILL_SHAPES = [(2, 256, 4, 2, 64), (1, 512, 8, 8, 96),
                   (2, 256, 6, 2, 128), (1, 128, 2, 1, 80),
                   (4, 128, 12, 2, 128), (1, 300, 6, 3, 80),
@@ -85,6 +93,64 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, K, dh, dtype):
                                ref.float().numpy(), **_tol(dtype))
 
 
+def _paged_inputs(B, T, H, K, dh, bs, bpl, dtype, dev, seed=2):
+    """A pool with every lane's blocks out of order and NULL entries in
+    each table tail, a prefix-plus-tree mask, and one row that sees no
+    key."""
+    rng = np.random.RandomState(seed)
+    n_used = [max(1, bpl - 1 - b % 2) for b in range(B)]
+    nb = 1 + sum(n_used) + 2
+    q = _t(rng.randn(B, T, H, dh) * 0.3, dtype, dev)
+    k = _t(rng.randn(nb, bs, K, dh) * 0.3, dtype, dev)
+    v = _t(rng.randn(nb, bs, K, dh) * 0.3, dtype, dev)
+    ids = rng.permutation(np.arange(1, nb))
+    bt = np.zeros((B, bpl), np.int32)
+    S = bpl * bs
+    mask = np.zeros((B, T, S), bool)
+    for b in range(B):
+        bt[b, :n_used[b]] = ids[:n_used[b]]
+        ids = ids[n_used[b]:]
+        n = max(1, min(n_used[b] * bs - T, int(rng.randint(1, S))))
+        mask[b, :, :n] = True
+        mask[b, :, n:n + T] = np.tril(np.ones((T, T), bool))[:, :S - n]
+    mask[0, -1] = False                  # one row that sees no key -> 0
+    return (q, k, v, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,K,dh,bs,bpl", PAGED_SHAPES)
+def test_paged_tree_attention_kernel_matches_plain(cuda, B, T, H, K, dh, bs,
+                                                   bpl, dtype):
+    q, k, v, bt, mask = _paged_inputs(B, T, H, K, dh, bs, bpl, dtype, cuda)
+    n0 = paged_tree_attention.launches
+    out = paged_tree_attention(q, k, v, bt, mask)
+    torch.cuda.synchronize()
+    assert paged_tree_attention.launches == n0 + 1
+    assert torch.count_nonzero(out[0, -1]) == 0
+    ref = paged_tree_attention(q.cpu(), k.cpu(), v.cpu(), bt.cpu(),
+                               mask.cpu())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,K,dh,bs,bpl",
+                         [s for s in PAGED_SHAPES if s[4] >= 16])
+def test_paged_kernel_equals_dense_kernel_bitwise(cuda, B, T, H, K, dh, bs,
+                                                  bpl, dtype):
+    """B2 on the pool gives B1's bits on the same logical K/V (each lane's
+    blocks gathered into a dense cache): key tiles sit on logical
+    positions in both.  (B1's wrapper takes dh >= 16.)"""
+    from repro_torch.kernels.tree_attention.ref import paged_gather
+    q, k, v, bt, mask = _paged_inputs(B, T, H, K, dh, bs, bpl, dtype, cuda)
+    paged = paged_tree_attention(q, k, v, bt, mask)
+    dense = tree_attention(q, paged_gather(k, bt).contiguous(),
+                           paged_gather(v, bt).contiguous(), mask)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, dense)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 4, 16, device=cuda)
     k = torch.zeros(1, 8, 2, 16, device=cuda)
@@ -99,3 +165,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         flash_prefill(q[..., :12].contiguous(), kv, kv)
     with pytest.raises(ValueError, match="mask"):
         tree_attention(q, k, k, mask.int())
+    pool = torch.zeros(3, 4, 2, 16, device=cuda)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="block_tables"):
+        paged_tree_attention(q, pool, pool, bt.long(), mask)
+    with pytest.raises(ValueError, match="block_tables"):
+        paged_tree_attention(q, pool, pool, bt.cpu(), mask)
+    with pytest.raises(ValueError, match="mask must be"):
+        paged_tree_attention(q, pool, pool, bt, mask[..., :4].contiguous())

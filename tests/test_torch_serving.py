@@ -11,10 +11,12 @@
   * isolation: importing every ``repro_torch`` module loads no JAX and no
     ``repro``;
   * refusals: CUDA by default (raises without it), and the features later
-    slices bring raise ``NotImplementedError``.
+    slices bring raise ``NotImplementedError``;
+  * the serve CLI on the CPU, dense and paged with the prefix cache.
 """
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -249,8 +251,6 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(kv_layout="paged"), "A8"),
-    (dict(prefix_cache=True), "A9"),
     (dict(sanitize=True), "A12"),
     (dict(default_params=SamplingParams(sample=True)), "A10"),
 ])
@@ -277,8 +277,18 @@ def test_serve_cli_smoke_on_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "continuous [cpu]: 18 tokens / 3 requests" in proc.stdout
     assert "1.0 sync/step" in proc.stdout
-    proc = subprocess.run(base + ["--kv-layout", "paged"],
-                          capture_output=True, text=True, env=env,
+    paged = base[:-4] + ["--requests", "6", "--max-new", "6", "--lanes",
+                         "2", "--kv-layout", "paged", "--prefix-cache",
+                         "--shared-prefix", "40"]
+    proc = subprocess.run(paged, capture_output=True, text=True, env=env,
                           cwd=str(REPO), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "continuous [cpu]: 36 tokens / 6 requests" in proc.stdout
+    assert "kv cache [paged]" in proc.stdout
+    hits = re.search(r"prefix cache: (\d+)/\d+ hits", proc.stdout)
+    assert hits and int(hits.group(1)) > 0, proc.stdout
+    assert "1.0 sync/step" in proc.stdout
+    proc = subprocess.run(base + ["--sanitize"], capture_output=True,
+                          text=True, env=env, cwd=str(REPO), timeout=300)
     assert proc.returncode == 2
-    assert "--kv-layout: not yet ported" in proc.stderr
+    assert "--sanitize: not yet ported" in proc.stderr
