@@ -2,26 +2,29 @@
 """On-card smoke test of the PyTorch port (``src/repro_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,model,...]
 
 Phases, in order; any failure exits non-zero:
 
 1. the card: its name and power limit from ``nvidia-smi``;
-2. the build: the three CUDA kernels compiled from this checkout's sources,
+2. the build: the five CUDA kernels compiled from this checkout's sources,
    one ``nvcc`` each, in parallel;
 3. the kernels: each held against its plain PyTorch version on the card in
    f32 and bf16 — at the serving path's shapes and at the shapes of
-   ``tests/test_kernels.py`` / ``tests/test_paged_cache.py`` — and the
-   paged kernel against the dense one, bit for bit, on the same logical
-   K/V; then each timed beside its plain version, the one PyTorch library
-   call that computes the same function where there is one (timed here
-   only, never called by the port) and its bound (bytes over 3.35 TB/s or
-   operations over the peak rate for the input type, whichever is larger);
+   ``tests/test_kernels.py`` / ``tests/test_paged_cache.py`` — the paged
+   kernel against the dense one and the triangular-schedule prefill (B4)
+   against the plain prefill kernel (B3), bit for bit; the Gumbel-argmax
+   kernel's raw bits against the plain threefry2x32 bit for bit, its Gumbel
+   values within 2e-6 and its choices against the plain version's wherever
+   the top-two gap of z + g exceeds 1e-5; then each timed beside its plain
+   version, the one PyTorch library call that computes the same function
+   where there is one (timed here only, never called by the port) and its
+   bound (bytes over 3.35 TB/s or operations over the peak rate for the
+   input type, whichever is larger);
 4. the model: Qwen2-1.5B at full width with 2 layers, the cuda backend's
    logits against the dense backend's in f32 on both KV layouts (and the
    suffix prefill), and in bf16 both against the f32 path, with a limit
-   that kernels made 3 % wrong must fail (the main path's guided logits do
-   not depend on attention values);
+   that kernels made 3 % wrong must fail;
 5. the main path: Qwen2-1.5B at full width in bf16 with random weights from
    a seed, served through ``build_engine`` with the serve CLI's defaults and
    a guided logits transform (drafts verify, and token choice never rests on
@@ -31,10 +34,20 @@ Phases, in order; any failure exits non-zero:
    the other layout's / the other run's), each kernel must have launched on
    its path (the paged kernel on every paged decode step and suffix
    prefill, the dense one never there), each decode step must pull exactly
-   one packed result to the host, and no step function may sync the host.
+   one packed result to the host, and no step function may sync the host;
+6. batch-shape invariance: how many logits rows of one request differ in
+   bits between the serving shapes and the B = 1 shapes (a finding);
+7. sampled serving, unguided: one lane on the dense layout (all sampled)
+   and four lanes on the paged layout (greedy and sampled mixed); every
+   output must equal ``reference_decode`` at the serving batch shape, the
+   Gumbel-argmax kernel must carry the choices, one sync per decode step,
+   and no sampled member may sync the host;
+8. overlap: the guided dense path with ``overlap_drafts`` equals the serial
+   run, with no sync inside the dispatch.
 
 The second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
+no result line.  The script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -70,6 +83,20 @@ SHARED_HEAD, SHARED_TAIL, N_SHARED = 80, 16, 16   # shared-prefix workload
 BF16_LOGIT_RATIO = 1.25                # cuda vs dense, each against f32
 N_LAYERS = 28                          # timing rotates over 28 layer caches
 N_REQUESTS, MAX_NEW = 8, 48
+# B4 (the triangular-schedule prefill): the cohort prefill, a long prompt at
+# Qwen2-1.5B's heads, and the shapes of tests/test_kernels.py:131-133
+PATH_TRI = [(4, 128, 12, 2, 128), (1, 4096, 12, 2, 128)]
+TEST_TRI = [(1, 256, 4, 2, 64), (2, 512, 4, 4, 128), (1, 384, 6, 2, 96)]
+# the Gumbel-argmax kernel at the fused step's token choice
+GUMBEL_SHAPE = (4, 33, 151936)
+# 32-bit ALU operations per drawn entry: threefry2x32's 20 add/rotate/xor
+# rounds and 5 key injections (~72), the bits, the uniform (~4), two logs,
+# the division, the add and the compare
+OPS_PER_DRAW = 82
+ALU_OPS_PER_S = 67e12                  # H100 SXM non-tensor f32 rate
+GUMBEL_GAP = 1e-5                      # token agreement below this gap of z+g
+GUMBEL_ATOL = 2e-6                     # Gumbel values: two logf calls
+SAMPLED_TEMP = 0.8
 
 
 class SmokeError(RuntimeError):
@@ -224,17 +251,6 @@ def kernel_phase(gen):
         paged_tree_attention, paged_tree_attention_reference)
     from repro_torch.kernels.tree_attention.ref import paged_gather
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def hold(name, out, ref, dtype, shape):
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
-        typ = ref.float().abs().mean().item()
-        print(f"  {name} {str(dtype)[6:]:8s} {shape}: max|err| {err:.3e} "
-              f"mean|ref| {typ:.3e} {'ok' if ok else 'FAIL'} ({TOL[dtype]})")
-        check(ok, f"{name} disagrees with its plain version at {shape} "
-                  f"{dtype}: max abs err {err}")
-        return err
 
     errs = {"tree_attention": 0.0, "flash_prefill": 0.0,
             "paged_tree_attention": 0.0}
@@ -391,6 +407,191 @@ def kernel_phase(gen):
           f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP)")
     return errs, rows
+
+
+def hold(name, out, ref, dtype, shape):
+    """Check a kernel's output against its plain version within TOL."""
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
+    typ = ref.float().abs().mean().item()
+    print(f"  {name} {str(dtype)[6:]:8s} {shape}: max|err| {err:.3e} "
+          f"mean|ref| {typ:.3e} {'ok' if ok else 'FAIL'} ({TOL[dtype]})")
+    check(ok, f"{name} disagrees with its plain version at {shape} "
+              f"{dtype}: max abs err {err}")
+    return err
+
+
+def tri_phase(gen):
+    """B4, the triangular-schedule prefill behind flash_prefill(...,
+    triangular=True): against its plain version and bit for bit against B3
+    at every listed shape in f32 and bf16; then the op's own path (one call
+    per shape, counted); then timed in bf16 beside B3, the plain version and
+    scaled_dot_product_attention at both path shapes."""
+    import repro_torch.kernels.flash_prefill as fp_pkg
+    from repro_torch.kernels.flash_prefill.ops import (flash_prefill,
+                                                       flash_prefill_ref)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, S, H, K, dh) in PATH_TRI + TEST_TRI:
+            q = randn(gen, (B, S, H, dh), dtype)
+            k = randn(gen, (B, S, K, dh), dtype)
+            v = randn(gen, (B, S, K, dh), dtype)
+            out = flash_prefill(q, k, v, triangular=True)
+            e = hold("flash_prefill_tri", out, flash_prefill_ref(q, k, v),
+                     dtype, (B, S, H, K, dh))
+            if (B, S, H, K, dh) == PATH_TRI[0] and dtype == torch.bfloat16:
+                err = e
+            check(torch.equal(out, flash_prefill(q, k, v)),
+                  f"flash_prefill_tri {(B, S, H, K, dh)} {dtype}: not "
+                  "bit-equal to flash_prefill")
+    print(f"  flash_prefill_tri: bit-equal to flash_prefill at all "
+          f"{2 * len(PATH_TRI + TEST_TRI)} cases")
+
+    # the op's own path: the entry point a user calls, once per shape
+    ins = [tuple(randn(gen, shp, torch.bfloat16) for shp in
+                 ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+           for (B, S, H, K, dh) in PATH_TRI + TEST_TRI]
+    torch.cuda.synchronize()
+    flash_prefill.tri_launches = 0
+    outs = [fp_pkg.flash_prefill(*x, triangular=True) for x in ins]
+    torch.cuda.synchronize()
+    launches = flash_prefill.tri_launches
+    check(launches == len(ins) and all(bool(torch.isfinite(o).all())
+                                       for o in outs),
+          f"flash_prefill(..., triangular=True) path: {launches} launches")
+    del ins, outs
+
+    dt = torch.bfloat16
+    rows = []
+    for (B, S, H, K, dh), n_buf in zip(PATH_TRI, (N_LAYERS, 8)):
+        q = randn(gen, (n_buf, B, S, H, dh), dt)
+        k = randn(gen, (n_buf, B, S, K, dh), dt)
+        v = randn(gen, (n_buf, B, S, K, dh), dt)
+        L = n_buf
+        # in turns (B3, B4, B4, B3): the two differ in schedule only
+        turns = {False: [], True: []}
+        for tri in (False, True, True, False):
+            turns[tri].append(time_ms(lambda i: flash_prefill(
+                q[i % L], k[i % L], v[i % L], triangular=tri)))
+        ms, b3 = (float(np.mean(turns[t])) for t in (True, False))
+        plain = time_ms(lambda i: flash_prefill_ref(q[i % L], k[i % L],
+                                                    v[i % L]),
+                        iters=5 if S > 1024 else 10, warmup=2)
+        lib = time_ms(lambda i: sdpa(q[i % L].transpose(1, 2),
+                                     k[i % L].transpose(1, 2),
+                                     v[i % L].transpose(1, 2), is_causal=True,
+                                     enable_gqa=True))
+        nbytes = (2 * q[0].numel() + 2 * k[0].numel()) * 2
+        flops = 4.0 * B * H * dh * S * (S + 1) / 2
+        b_ms, b_by = bound(nbytes, flops, dt)
+        rows.append(dict(shape=[B, S, H, K, dh], ms=ms, flash_prefill_ms=b3,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by))
+        print(f"  flash_prefill_tri bf16 {(B, S, H, K, dh)}: kernel {ms:.4f} "
+              f"ms (in turns {turns[True][0]:.4f}, {turns[True][1]:.4f}), "
+              f"flash_prefill {b3:.4f} ms ({turns[False][0]:.4f}, "
+              f"{turns[False][1]:.4f}), plain {plain:.4f} ms, sdpa "
+              f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP)")
+        del q, k, v
+    row = dict(rows[0], long_prompt=rows[1])
+    return err, row, launches
+
+
+def lane_vectors(greedy, temp, seed):
+    """Per-lane token-choice vectors on the card, as the session uploads
+    them."""
+    return {"greedy": torch.tensor(greedy, device="cuda"),
+            "temp": torch.tensor(temp, dtype=torch.float32, device="cuda"),
+            "seed": torch.tensor(seed, dtype=torch.int64, device="cuda")}
+
+
+def gumbel_phase(gen):
+    """The Gumbel-argmax kernel at the fused step's shape, bf16 logits, two
+    greedy and two sampled lanes (temperatures 0.7 and 1.3, seeds 0 and
+    2^32 - 1), positions up to max_seq_len: its generator's raw bits equal
+    the plain version's bit for bit and its Gumbel values agree to
+    GUMBEL_ATOL; its choices (through choose_tokens_lanes) equal the plain
+    version's wherever the plain top-two gap of z + g exceeds GUMBEL_GAP;
+    then timed beside the plain version."""
+    from repro_torch.kernels.gumbel_argmax.ops import (gumbel_argmax,
+                                                       gumbel_noise)
+    from repro_torch.kernels.gumbel_argmax.ref import (fold_in, gumbel,
+                                                       gumbel_argmax_ref,
+                                                       random_bits32,
+                                                       random_key)
+    from repro_torch.serving.sampler import choose_tokens_lanes
+    B, T, V = GUMBEL_SHAPE
+    lp = lane_vectors([True, False, True, False], [1.0, 0.7, 1.0, 1.3],
+                      [5, 0, 6, 2**32 - 1])
+    logits = (torch.randn((B, T, V), generator=gen, device="cuda")
+              * 2.0).to(torch.bfloat16)
+    pos = torch.randint(0, 513, (B, T), generator=gen, device="cuda",
+                        dtype=torch.int32)
+
+    # the generator: every row's bits and Gumbel values
+    seeds = lp["seed"][:, None].expand(B, T).reshape(-1)
+    bits, g = gumbel_noise(seeds, pos.reshape(-1), V)
+    key = fold_in(random_key(seeds), pos.reshape(-1).long())
+    ref_bits = random_bits32(key, V)
+    ref_g = gumbel(key, V)
+    torch.cuda.synchronize()
+    check(torch.equal(bits, ref_bits), "gumbel_argmax: raw bits differ from "
+                                       "the plain threefry2x32")
+    g_err = (g - ref_g).abs().max().item()
+    n_diff = int((g != ref_g).sum().item())
+    print(f"  gumbel_argmax generator {B * T} rows x {V}: raw bits (and so "
+          f"the uniforms) equal bit for bit; Gumbel values max|err| "
+          f"{g_err:.3e} ({n_diff} of {B * T * V} differ; atol "
+          f"{GUMBEL_ATOL})")
+    check(g_err <= GUMBEL_ATOL, f"Gumbel values differ by {g_err}")
+    del bits, g, ref_bits
+
+    # the choice, through the serving entry point, against the plain one
+    got = choose_tokens_lanes(logits, pos, lp)
+    greedy = lp["greedy"][:, None].expand(B, T)
+    z = logits.float() / lp["temp"].clamp_min(1e-6)[:, None, None]
+    top2 = (z + ref_g.view(B, T, V)).topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    plain = torch.where(greedy, logits.argmax(-1).int(),
+                        gumbel_argmax_ref(logits, pos, lp["temp"],
+                                          lp["seed"], lp["greedy"]))
+    torch.cuda.synchronize()
+    near = (~greedy) & (gap <= GUMBEL_GAP)
+    bad = (got != plain) & ~near
+    print(f"  gumbel_argmax choices at {GUMBEL_SHAPE} bf16: "
+          f"{int((got == plain).sum())}/{B * T} equal the plain version; "
+          f"{int(near.sum())} sampled rows have a top-two gap of z + g "
+          f"under {GUMBEL_GAP} (smallest gap {gap[~greedy].min().item():.3e})")
+    check(not bool(bad.any()), f"gumbel_argmax: {int(bad.sum())} choices "
+                               "differ above the gap")
+    del ref_g, z, top2
+
+    # timing, each call on one of 8 logits buffers (320 MB: beyond L2)
+    L = 8
+    lg = torch.stack([logits] + [
+        (torch.randn((B, T, V), generator=gen, device="cuda") * 2.0)
+        .to(torch.bfloat16) for _ in range(L - 1)])
+    args = (pos, lp["temp"], lp["seed"], lp["greedy"])
+    ms = time_ms(lambda i: gumbel_argmax(lg[i % L], *args))
+    plain = time_ms(lambda i: gumbel_argmax_ref(lg[i % L], *args), iters=5,
+                    warmup=2)
+    n_rows = int((~greedy).sum().item())
+    nbytes = n_rows * V * 2 + pos.numel() * 4 + B * (4 + 8 + 1) \
+        + B * T * 4
+    t_ops = n_rows * V * OPS_PER_DRAW / ALU_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    print(f"  gumbel_argmax bf16 {GUMBEL_SHAPE}, {n_rows} sampled rows: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}: {n_rows * V * OPS_PER_DRAW / 1e9:.3f} G ALU ops at "
+          f"{ALU_OPS_PER_S / 1e12:.0f} T/s, {nbytes / 1e6:.3f} MB)")
+    del lg
+    return g_err, dict(ms=ms, plain_ms=plain, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by)
 
 
 # --------------------------------------------------------------- phase 4
@@ -823,11 +1024,14 @@ def paged_phase(cfg, params, prompts, dense_outs):
           f"({st.prefill_tokens_saved:.3f}), {st.prefix_cow_forks} COW "
           f"forks; suffix buckets touched {sorted(touched)}")
     check(outs == runs[False][1], "prefix cache on and off differ")
-    for i, (p, o) in enumerate(zip(shared, outs)):
+    # every other request against reference_decode (the cohort's misses
+    # and the hits alike); all 16 already equal the uncached run's
+    for i, (p, o) in list(enumerate(zip(shared, outs)))[::2]:
         check(o == reference_decode(fns, list(p), params=sp),
               f"shared-prefix request {i} differs from reference_decode")
     print(f"  all {N_SHARED} shared-prefix outputs equal with the cache on "
-          "and off, and equal reference_decode")
+          f"and off; the {N_SHARED // 2} even-numbered equal "
+          "reference_decode")
 
     # suffix prefill (1 x 16 after an 80-token hit) against the full
     # one-lane prefill (1 x 128), synchronized, on the run's cache
@@ -855,7 +1059,7 @@ def paged_phase(cfg, params, prompts, dense_outs):
     # the two layouts in turns on the dense path's requests: the host-bound
     # step time drifts within a call, so only alternating runs compare them
     paired = {"dense": [], "paged": []}
-    for layout in ("dense", "paged", "paged", "dense") * 2:
+    for layout in ("dense", "paged", "paged", "dense"):
         engine = build_engine(dataclasses.replace(ecfg, kv_layout=layout),
                               cfg, params, logits_transform=transform,
                               device="cuda")
@@ -871,17 +1075,293 @@ def paged_phase(cfg, params, prompts, dense_outs):
     return total
 
 
+def invariance_phase(cfg, params):
+    """Batch-shape invariance, a finding and not a check: the same request's
+    logits row computed at the serving shapes — a 4-lane cohort prefill
+    (4, 128) and a 4-lane fused step (4, 33) — and at the B = 1 shapes of
+    one-lane admission (1, 128) and of a width-1 reference decode (1, 1),
+    (4, 1) and (1, 33) besides.  Prints how many rows differ in any bit and
+    the largest difference."""
+    from repro_torch.models import transformer as tx
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    B, S, T = 4, 128, 33
+    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=2)
+    toks = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    lens = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        p = corpus.sample()[0][:96 - 8 * b]
+        toks[b, :len(p)] = torch.tensor(p, device="cuda")
+        lens[b] = len(p)
+    found = {}
+
+    def compare(label, a, b):
+        a, b = a.float().reshape(-1, a.shape[-1]), \
+            b.float().reshape(-1, b.shape[-1])
+        rows = int((a != b).any(dim=-1).sum().item())
+        diff = (a - b).abs().max().item()
+        found[label] = (rows, a.shape[0], diff)
+        print(f"  {label}: {rows}/{a.shape[0]} logits rows differ in bits, "
+              f"max|diff| {diff:.4e}")
+
+    cache, last = tx.prefill(cfg, params, toks, lens,
+                             tx.init_cache(cfg, B, device="cuda"))
+    alone = torch.cat([tx.prefill(cfg, params, toks[b:b + 1],
+                                  lens[b:b + 1],
+                                  tx.init_cache(cfg, 1, device="cuda"))[1]
+                       for b in range(B)])
+    compare("prefill, lane of a (4, 128) cohort vs alone at (1, 128)",
+            last, alone)
+    padded = []
+    for b in range(B):            # the port's one-lane admission
+        ptoks = torch.zeros_like(toks)
+        ptoks[b] = toks[b]
+        plens = torch.ones_like(lens)
+        plens[b] = lens[b]
+        padded.append(tx.prefill_into_slot(
+            cfg, params, tx.init_cache(cfg, B, device="cuda"), b, ptoks,
+            plens)[1])
+    compare("prefill, lane of a (4, 128) cohort vs admission padded to 4 "
+            "lanes", last, torch.cat(padded))
+
+    rng = np.random.RandomState(3)
+    tree = torch.from_numpy(rng.randint(2, cfg.vocab_size, (B, T))).cuda()
+    tree[:, 0] = last.argmax(-1)
+    tm = np.zeros((B, T, T), bool)
+    for b in range(B):
+        parent = [-1] + [int(rng.randint(0, i)) for i in range(1, T)]
+        for i in range(T):
+            j = i
+            while j >= 0:
+                tm[b, i, j] = True
+                j = parent[j]
+    tm = torch.from_numpy(tm).cuda()
+    pos = (lens[:, None] + tm.sum(-1) - 1).int()
+
+    def step(lanes, width):
+        c = {k: v[:, lanes].clone() for k, v in cache.items()}
+        return tx.tree_step(cfg, params, c, lens[lanes],
+                            tree[lanes, :width].contiguous(),
+                            pos[lanes, :width].contiguous(),
+                            tm[lanes, :width, :width].contiguous())[1]
+
+    full, narrow = step(list(range(B)), T), step(list(range(B)), 1)
+    one_full = torch.cat([step([b], T) for b in range(B)])
+    one_one = torch.cat([step([b], 1) for b in range(B)])
+    compare("step, (4, 33) vs (1, 33), every slot", full, one_full)
+    compare("step root slot, (4, 33) vs (1, 1) (serving vs width-1 "
+            "reference_decode)", full[:, :1], one_one)
+    compare("step root slot, (4, 1) vs (1, 1)", narrow, one_one)
+    compare("step root slot, (4, 33) vs (4, 1)", full[:, :1], narrow)
+    del cache, full, narrow, one_full, one_one
+
+    # the prefix cache's suffix prefill: a prompt's last-token row after an
+    # 80-token cached head (1, 16) against its padded admission (4, 128)
+    pcfg = dataclasses.replace(cfg, kv_layout="paged",
+                               kv_block_size=PATH_PAGED[5])
+    n = int(lens[0])
+    head, tail = SHARED_HEAD, n - SHARED_HEAD
+
+    def paged_cache():
+        c = tx.init_paged_cache(pcfg, B, device="cuda")
+        c["block_tables"] = shuffled_tables([tx.blocks_per_lane(pcfg)] * B,
+                                            tx.blocks_per_lane(pcfg), seed=4)
+        return c
+
+    def admit(c, length):
+        ptoks = torch.zeros_like(toks)
+        ptoks[0, :length] = toks[0, :length]
+        plens = torch.ones_like(lens)
+        plens[0] = length
+        return tx.prefill_into_slot_paged(pcfg, params, c, 0, ptoks, plens)
+
+    _, full_row = admit(paged_cache(), n)
+    c, _ = admit(paged_cache(), head)
+    _, suffix_row = tx.prefill_from_offset_paged(
+        pcfg, params, c, 0, toks[:1, head:n].contiguous(),
+        torch.tensor([head], device="cuda"),
+        torch.tensor([tail], device="cuda"))
+    compare(f"prefill, padded admission (4, 128) vs suffix prefill (1, "
+            f"{tail}) after a {head}-token cached head", full_row,
+            suffix_row)
+    return found
+
+
+def first_difference(a, b) -> int:
+    """Index of the first token where two outputs differ (len if none)."""
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def sampled_requests(vocab, n, seed, mixed):
+    """n prompts of 96 tokens and their params: every request sampled at
+    SAMPLED_TEMP with its own seed, or (``mixed``) greedy and sampled in
+    turn at distinct temperatures and seeds."""
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    corpus = SyntheticCorpus(PROFILES["antrag"], vocab, seed=seed)
+    prompts = [corpus.sample()[0][:96] for _ in range(n)]
+    if not mixed:
+        return prompts, [SamplingParams(max_new_tokens=MAX_NEW, sample=True,
+                                        temperature=SAMPLED_TEMP,
+                                        seed=101 + i) for i in range(n)]
+    temps = (0.6, 0.9, 1.2, 1.5)
+    return prompts, [SamplingParams(max_new_tokens=MAX_NEW)
+                     if i % 2 == 0 else
+                     SamplingParams(max_new_tokens=MAX_NEW, sample=True,
+                                    temperature=temps[i // 2 % 4],
+                                    seed=2**32 - 1 - i)
+                     for i in range(n)]
+
+
+def sampled_phase(cfg, params):
+    """Sampled and mixed serving, unguided, at full width in bf16: (a) one
+    lane on the dense layout, 4 requests all sampled; (b) four lanes on the
+    paged layout, 8 requests half greedy and half sampled.  Every output
+    must equal reference_decode at the serving batch shape, the Gumbel
+    kernel must carry the sampled choices, and each decode step must make
+    one host sync.  First every sampled member (cohort prefill, admission,
+    fused step, suffix prefill) is warmed with torch's sync check set to
+    "error".  Returns the Gumbel kernel's launches over (a) and (b)."""
+    from repro_torch.core import reference_decode
+    from repro_torch.core.request import Request
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
+    from repro_torch.serving.api import (EngineConfig, ServingEngine,
+                                         build_engine)
+    prompts, sps = sampled_requests(cfg.vocab_size, N_REQUESTS, 4, True)
+
+    wcfg = EngineConfig(kv_layout="paged", block_size=PATH_PAGED[5],
+                        prefix_cache=True)
+    fns = build_engine(wcfg, cfg, params, device="cuda").fns
+    calls = {}
+
+    def watched(name):
+        member = no_sync(getattr(fns, name))
+
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return member(*args, **kwargs)
+        return call
+
+    names = ("prefill", "prefill_into_slot", "fused_step", "prefill_suffix")
+    warm = ServingEngine(dataclasses.replace(
+        fns, **{n: watched(n) for n in names}), wcfg)
+    # the cohort, a cold admission, then two hits on the first prompt's head
+    head = prompts[0][:80]
+    for i, p in enumerate(prompts[:wcfg.lanes + 1]
+                          + [head + prompts[5][:16], head + prompts[6][:16]]):
+        warm.submit(Request(prompt=list(p), params=dataclasses.replace(
+            sps[1 if i % 2 else 0], max_new_tokens=8)))
+    warm.run()
+    check(all(calls.get(n, 0) > 0 for n in names),
+          f"the warm-up did not reach every sampled member: {calls}")
+    print(f"  no sampled member synced the host (calls {calls} under "
+          "torch.cuda.set_sync_debug_mode('error'))")
+    del warm, fns
+
+    total = 0
+    runs = (("one lane, dense, all sampled", EngineConfig(lanes=1),
+             sampled_requests(cfg.vocab_size, 4, 5, False)),
+            ("four lanes, paged, mixed", EngineConfig(
+                kv_layout="paged", block_size=PATH_PAGED[5]),
+             (prompts, sps)))
+    for label, ecfg, (ps, params_list) in runs:
+        engine = build_engine(ecfg, cfg, params, device="cuda")
+        engine.scheduler.record_breakdown = True
+        torch.cuda.synchronize()
+        gumbel_argmax.launches = 0
+        t0 = time.perf_counter()
+        handles = [engine.submit(Request(prompt=list(p), params=sp))
+                   for p, sp in zip(ps, params_list)]
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gumbel_argmax.launches
+        total += launches
+        st = engine.stats
+        outs = [h.result().tokens for h in handles]
+        n_tok = sum(map(len, outs))
+        n_steps = sum(h.result().stats.steps for h in handles)
+        fused = float(np.median([b["device_step_ms"]
+                                 for b in engine.scheduler.step_breakdown]))
+        print(f"  sampled, {label}: {len(ps)} requests ({sum(sp.sample for sp in params_list)} "
+              f"sampled), {n_tok} tokens in {wall:.3f} s -> "
+              f"{n_tok / wall:.1f} tokens/s; EDL {n_tok / n_steps:.3f}; "
+              f"{st.decode_steps} decode steps, median fused_step "
+              f"{fused:.3f} ms; gumbel_argmax launches {launches}")
+        check(launches > 0, f"{label}: the Gumbel kernel never launched")
+        check(st.decode_syncs == st.decode_steps,
+              f"{label}: {st.decode_syncs} decode syncs for "
+              f"{st.decode_steps} steps")
+        check(all(len(o) == MAX_NEW for o in outs), f"{label}: short outputs")
+        for i, (p, sp, o) in enumerate(zip(ps, params_list, outs)):
+            ref = reference_decode(engine.fns, list(p), params=sp,
+                                   lanes=ecfg.lanes)
+            check(o == ref, f"{label}, request {i}: served output differs "
+                            "from reference_decode at the serving shapes "
+                            f"(first difference at token "
+                            f"{first_difference(o, ref)})")
+        print(f"  all {len(ps)} outputs equal reference_decode at the "
+              "serving batch shape")
+        if ecfg.lanes > 1:
+            profile_decode(ecfg, cfg, params, None, ps,
+                           list(params_list[:ecfg.lanes]))
+        if ecfg.lanes == 1:
+            # the finding behind that repair: the width-1 reference rounds
+            # its rows at (1, 1), serving at (1, 33)
+            firsts = [first_difference(o, reference_decode(
+                engine.fns, list(p), params=sp))
+                for p, sp, o in zip(ps, params_list, outs)]
+            n_diff = sum(f < MAX_NEW for f in firsts)
+            print(f"  (finding) against the width-1 reference_decode: "
+                  f"{n_diff}/{len(ps)} outputs differ, first differences "
+                  f"at tokens {firsts}")
+    return total
+
+
+def overlap_phase(cfg, params, prompts, dense_outs):
+    """The guided dense path's 8 requests with overlap_drafts on: outputs
+    equal the serial run's, no step function syncs the host, one decode
+    sync per step."""
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.serving.api import (EngineConfig, ServingEngine,
+                                         build_engine)
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    ecfg = EngineConfig(overlap_drafts=True, default_params=sp)
+    fns = build_engine(ecfg, cfg, params,
+                       logits_transform=guided_transform(cfg.vocab_size),
+                       device="cuda").fns
+    engine = ServingEngine(dataclasses.replace(
+        fns, prefill=no_sync(fns.prefill),
+        prefill_into_slot=no_sync(fns.prefill_into_slot),
+        fused_step=no_sync(fns.fused_step)), ecfg)
+    outs, _, wall, tps, edl, fused = serve_counted(engine, prompts, sp, {})
+    st = engine.stats
+    print(f"  overlap_drafts, {len(prompts)} requests: {tps:.1f} tokens/s "
+          f"({wall:.3f} s), EDL {edl:.3f}; {st.decode_steps} decode steps, "
+          f"median fused_step {fused:.3f} ms; hidden host "
+          f"{st.breakdown()['hidden_host_ms']:.3f} ms/step")
+    check(outs == dense_outs, "overlap outputs differ from the serial run's")
+    check(st.decode_syncs == st.decode_steps,
+          f"{st.decode_syncs} decode syncs for {st.decode_steps} steps")
+    print("  overlap outputs equal the serial run's; no step function "
+          "synced the host")
+
+
 def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
     """Where a decode step's time goes: a torch.profiler window over
     ``steps`` scheduler iterations that are pure decode (all lanes busy, no
     admission): wall time, device busy time and idle share, kernel launches
-    per step, and the kernels that take the most device time."""
+    per step, and the kernels that take the most device time (and the
+    Gumbel-argmax kernel's).  ``sp`` is one SamplingParams for every lane
+    or a list, one per lane."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import build_engine
+    from repro_torch.core.request import Request
     engine = build_engine(ecfg, cfg, params, logits_transform=transform,
                           device="cuda")
-    for p in prompts[:ecfg.lanes]:
-        engine.submit(list(p), params=sp)
+    sps = sp if isinstance(sp, list) else [sp] * ecfg.lanes
+    for p, q in zip(prompts[:ecfg.lanes], sps):
+        engine.submit(Request(prompt=list(p), params=q))
     engine.step()                       # cohort prefill + first decode step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -900,12 +1380,28 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
           f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
           f"{1 - busy / wall:.3f}, {n_launch / steps:.0f} kernel launches "
           f"per step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in top[:8] + [e for e in top[8:] if "gumbel" in e.key]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count / steps:6.0f} launches/step  {e.key[:90]}")
 
 
-def main() -> int:
+PHASES = ("kernels", "model", "dense", "paged", "invariance", "sampled",
+          "overlap")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases to run "
+                         f"(default: all of {', '.join(PHASES)}); the last "
+                         "line's ok needs all of them")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -937,16 +1433,51 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    print("kernels:")
-    errs, rows = kernel_phase(gen)
-    print("model, full width, 2 layers:")
-    model_phase()
-    print("main path, dense layout:")
-    cfg, params = path_model()
-    launches, prompts, outs = path_phase(cfg, params)
-    print("main path, paged layout and prefix cache:")
-    paged = paged_phase(cfg, params, prompts, outs)
-    launches["paged_tree_attention"] = paged["paged_tree_attention"]
+    errs, rows, launches = {}, {}, {}
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"  [{name}: {now - t_phase[0]:.1f} s]")
+        t_phase[0] = now
+
+    if "kernels" in phases:
+        print("kernels:")
+        errs, rows = kernel_phase(gen)
+        (errs["flash_prefill_tri"], rows["flash_prefill_tri"],
+         launches["flash_prefill_tri"]) = tri_phase(gen)
+        errs["gumbel_argmax"], rows["gumbel_argmax"] = gumbel_phase(gen)
+        phase_done("kernels")
+    if "model" in phases:
+        print("model, full width, 2 layers:")
+        model_phase()
+        phase_done("model")
+    cfg = params = prompts = outs = None
+    if set(phases) & {"dense", "paged", "invariance", "sampled", "overlap"}:
+        cfg, params = path_model()
+    if set(phases) & {"dense", "paged", "overlap"}:
+        print("main path, dense layout:")
+        dense, prompts, outs = path_phase(cfg, params)
+        launches.update(dense)
+        phase_done("dense")
+    if "paged" in phases:
+        print("main path, paged layout and prefix cache:")
+        paged = paged_phase(cfg, params, prompts, outs)
+        launches["paged_tree_attention"] = paged["paged_tree_attention"]
+        phase_done("paged")
+    if "invariance" in phases:
+        print("batch-shape invariance of the logits (a finding, not a "
+              "check):")
+        invariance_phase(cfg, params)
+        phase_done("invariance")
+    if "sampled" in phases:
+        print("sampled and mixed serving, unguided:")
+        launches["gumbel_argmax"] = sampled_phase(cfg, params)
+        phase_done("sampled")
+    if "overlap" in phases:
+        print("overlap_drafts on the guided dense path:")
+        overlap_phase(cfg, params, prompts, outs)
+        phase_done("overlap")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",
@@ -957,11 +1488,21 @@ def main() -> int:
                "src/repro/kernels/tree_attention/paged.py:31"),
            "flash_prefill": (
                "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
-               "src/repro/kernels/flash_prefill/flash_prefill.py:24")}
+               "src/repro/kernels/flash_prefill/flash_prefill.py:24"),
+           "flash_prefill_tri": (
+               "src/repro_torch/kernels/flash_prefill/csrc/"
+               "flash_prefill_tri.cu",
+               "src/repro/kernels/flash_prefill/flash_prefill.py:110"),
+           "gumbel_argmax": (
+               "src/repro_torch/kernels/gumbel_argmax/csrc/gumbel_argmax.cu",
+               "src/repro/serving/sampler.py:82")}
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    if phases != list(PHASES):
+        print(f"partial run ({', '.join(phases)}): no result line")
+        return 0
     table = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
                   launches=launches[n], max_abs_err=errs[n], **rows[n])
              for n in src]
-    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -285,13 +285,34 @@ class LookaheadEngine:
 def reference_decode(fns: StepFns, prompt: Sequence[int],
                      max_new_tokens: Optional[int] = None,
                      eos_id: int = -1, pad_id: int = 0,
-                     params: Optional[SamplingParams] = None) -> List[int]:
+                     params: Optional[SamplingParams] = None, *,
+                     lanes: Optional[int] = None) -> List[int]:
     """Plain step-by-step decoding through the *same* device functions
     (width-1 step with an empty draft), honoring the request's own
-    ``SamplingParams``.  Ground truth for lossless tests."""
-    cfg = LookaheadConfig(strategy="none", decoding_length=0)
-    engine = LookaheadEngine(fns, cfg, eos_id=eos_id)
-    return engine.generate(prompt, max_new_tokens, params=params).tokens
+    ``SamplingParams``.  Ground truth for lossless tests.
+
+    ``lanes`` (port only) decodes at the serving batch shape instead: the
+    request runs in lane 0 of a ``lanes``-lane scheduler at the session's
+    full tree width, every tree holding the root alone (draft budget 0), so
+    still one token per step — but every device call has the shapes
+    serving gives it.  On the card a matrix product may round a row
+    differently at another batch shape, and a sampled (or unguided greedy)
+    choice can rest on those last bits; at the serving shapes the row sees
+    the same kernels and the same bits."""
+    if lanes is None:
+        cfg = LookaheadConfig(strategy="none", decoding_length=0)
+        engine = LookaheadEngine(fns, cfg, eos_id=eos_id)
+        return engine.generate(prompt, max_new_tokens, params=params).tokens
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    (sp,) = _per_request_params(fns, 1, max_new_tokens, params)
+    sched = ContinuousScheduler(
+        fns, LookaheadConfig(decoding_length=fns.slots - 1), lanes=lanes,
+        eos_id=eos_id, prefill_len=fns.prefill_len or len(prompt),
+        draft_policy=DraftPolicy(), draft_budget_caps={"": 0})
+    handle = sched.submit_request(Request(
+        prompt=list(prompt), params=dataclasses.replace(sp, draft=None)))
+    sched.run()
+    return handle.result().tokens
 
 
 __all__ = ["LookaheadEngine", "StepFns", "GenStats", "RequestResult",

@@ -29,6 +29,9 @@ SOURCES: Dict[str, Path] = {
     "flash_prefill": _PKG / "flash_prefill" / "csrc" / "flash_prefill.cu",
     "paged_tree_attention": (_PKG / "tree_attention" / "csrc"
                              / "paged_tree_attention.cu"),
+    "flash_prefill_tri": (_PKG / "flash_prefill" / "csrc"
+                          / "flash_prefill_tri.cu"),
+    "gumbel_argmax": _PKG / "gumbel_argmax" / "csrc" / "gumbel_argmax.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,7 +46,13 @@ _ENTRY = {
                       [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "paged_tree_attention": ("paged_tree_attention_launch",
                              [_P] * 6 + [_I] * 9 + [_P]),
+    "flash_prefill_tri": ("flash_prefill_tri_launch",
+                          [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "gumbel_argmax": ("gumbel_argmax_launch", [_P] * 8 + [_I] * 5 + [_P]),
 }
+# further C entry points of a library: name -> argtypes
+_EXTRA = {"gumbel_argmax": {"gumbel_noise_launch": [_P] * 4 + [_I] * 2
+                                                   + [_P]}}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -108,9 +117,11 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = ctypes.CDLL(str(path))
         fn_name, argtypes = _ENTRY[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in [(fn_name, argtypes),
+                                  *_EXTRA.get(name, {}).items()]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -19,7 +19,12 @@
 // kernel gives the dense kernel's bits on the same logical K/V.
 // A block owns (lane b, KV head kh, kRows consecutive grouped rows), where
 // grouped row r = t * G + g is query position t of head kh * G + g: the G
-// heads that share a KV head share every K/V tile the block stages.
+// heads that share a KV head share every K/V tile the block stages.  The
+// work-order hook (template parameter kLongestFirst, causal only) is how
+// blocks map to those items: a 3-D grid (row tile fastest, then kh, then b),
+// or a 1-D grid whose block i takes the row tile n_tiles - 1 - i / (K * B)
+// — the causal row tiles in falling order of length, so the launch's tail
+// is short blocks — at the same tile body and the same key tiles.
 //
 // Per key tile of kKeys = 32 rows the block stages K and V into shared memory
 // as f32 (K with a padded pitch, so lane j reading key j is conflict-free),
@@ -106,16 +111,30 @@ inline size_t smem_bytes(int dh, int table_entries) {
 
 // NC = ceil(dh / 32) output columns per lane; kCausal selects the mask;
 // kPaged the key-row address (see the top of this file).
-template <typename T, int NC, bool kCausal, bool kPaged>
+template <typename T, int NC, bool kCausal, bool kPaged,
+          bool kLongestFirst = false>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  T* __restrict__ out, int n_q, int S, int H, int K, int dh,
                  float scale, Paged pg) {
+  static_assert(kCausal || !kLongestFirst, "work order: causal only");
   const int G = H / K;
-  const int b = blockIdx.z, kh = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
   const int n_rows = n_q * G;
+  int b, kh, tile;
+  if (kLongestFirst) {
+    const int n_tiles = (n_rows + kRows - 1) / kRows;
+    const int items = (int)gridDim.x / n_tiles;   // K * B per row tile
+    const int i = (int)blockIdx.x;
+    tile = n_tiles - 1 - i / items;
+    kh = i % K;
+    b = (i % items) / K;
+  } else {
+    b = blockIdx.z;
+    kh = blockIdx.y;
+    tile = blockIdx.x;
+  }
+  const int row0 = tile * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   extern __shared__ float smem[];
@@ -244,18 +263,20 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC, bool kCausal, bool kPaged>
+template <typename T, int NC, bool kCausal, bool kPaged, bool kLongestFirst>
 cudaError_t run(const void* q, const void* k, const void* v,
                 const void* mask, void* out, int B, int n_q, int S, int H,
                 int K, int dh, Paged pg, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh, kPaged ? pg.bpl : 0);
-  auto kern = attention_kernel<T, NC, kCausal, kPaged>;
+  auto kern = attention_kernel<T, NC, kCausal, kPaged, kLongestFirst>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((n_q * (H / K) + kRows - 1) / kRows, K, B);
+  const int n_tiles = (n_q * (H / K) + kRows - 1) / kRows;
+  const dim3 grid = kLongestFirst ? dim3(n_tiles * K * B)
+                                  : dim3(n_tiles, K, B);
   const float scale = (float)(1.0 / sqrt((double)dh));
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -268,7 +289,7 @@ cudaError_t run(const void* q, const void* k, const void* v,
 // wrappers of the dense kernels take dh >= 16, the paged one dh >= 8).
 // Paged: S = pg.bpl * pg.bs, and pg.bt a (B, pg.bpl) table into a pool of
 // pg.n_blocks blocks.
-template <bool kCausal, bool kPaged>
+template <bool kCausal, bool kPaged, bool kLongestFirst = false>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* mask, void* out, int B, int n_q, int S,
                      int H, int K, int dh, int dtype, cudaStream_t stream,
@@ -283,9 +304,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 #define ATTN_CASE(NC)                                                        \
   case NC:                                                                   \
     return dtype == 0                                                        \
-               ? run<float, NC, kCausal, kPaged>(q, k, v, mask, out, B, n_q, \
-                                                 S, H, K, dh, pg, stream)    \
-               : run<__nv_bfloat16, NC, kCausal, kPaged>(                    \
+               ? run<float, NC, kCausal, kPaged, kLongestFirst>(             \
+                     q, k, v, mask, out, B, n_q, S, H, K, dh, pg, stream)    \
+               : run<__nv_bfloat16, NC, kCausal, kPaged, kLongestFirst>(     \
                      q, k, v, mask, out, B, n_q, S, H, K, dh, pg, stream);
   switch ((dh + 31) / 32) {
     ATTN_CASE(1) ATTN_CASE(2) ATTN_CASE(3) ATTN_CASE(4)

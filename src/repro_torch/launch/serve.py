@@ -14,25 +14,44 @@ same N-token head (the reference's shared system-prompt workload):
     PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
         --prefix-cache --shared-prefix 80
 
+Requests carry their own ``SamplingParams``: ``--sample --temperature T``
+samples every request, ``--mixed-sampling`` alternates greedy and sampled
+requests (distinct temperatures and seeds) in one lane pool, ``--mixed``
+alternates short and long budgets, and ``--cancel-every N`` cancels every
+Nth request mid-flight through its handle:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mixed-sampling --lanes 2
+
+The scheduler's host-side features are flags too: ``--overlap-drafts``,
+``--draft-sources``, ``--adaptive-draft``, ``--trie-namespace-key`` (with
+``--lane-shares`` and ``--draft-budget-caps`` per namespace) and
+``--autotune``; ``--prefill-backend`` / ``--decode-backend`` pick one
+attention phase's backend.
+
 Weights are random, made on the device from a seed.  Reports throughput
 (tokens/s), EDL, lane occupancy, the per-step time split, the KV pool and
-prefix-cache counts, and per-request latency percentiles.  ``--rate 0``
-submits every request at t=0; a positive rate draws Poisson inter-arrival
-gaps and the scheduler admits mid-flight.
+prefix-cache counts, and per-request latency percentiles (per tenant when
+requests carry namespaces).  ``--rate 0`` submits every request at t=0; a
+positive rate draws Poisson inter-arrival gaps and the scheduler admits
+mid-flight.
 
-The port serves greedy requests; the reference CLI's other flags exit
-with "not yet ported".
+The reference CLI's runtime sanitizer, checkpoint and fleet flags exit with
+"not yet ported".
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List
 
 import numpy as np
 
 from repro_torch import configs as cfgreg
-from repro_torch.core import LookaheadEngine, Request, SamplingParams
+from repro_torch.core import (DraftPolicy, LookaheadEngine, Request,
+                              SamplingParams)
+from repro_torch.core.draft_sources import available_sources
 from repro_torch.models import attention as attn_backends
 from repro_torch.models.params import init_params
 from repro_torch.serving.api import EngineConfig, build_engine
@@ -40,17 +59,42 @@ from repro_torch.serving.block_allocator import worst_case_pool_blocks
 from repro_torch.training.data import PROFILES, SyntheticCorpus
 
 # flags of repro.launch.serve that later slices bring
-NOT_PORTED = (
-    "--mixed", "--mixed-sampling", "--cancel-every", "--overlap-drafts",
-    "--draft-sources", "--adaptive-draft", "--trie-namespace-key",
-    "--lane-shares", "--draft-budget-caps", "--autotune", "--sanitize",
-    "--ckpt-dir", "--sample", "--temperature", "--prefill-backend",
-    "--decode-backend", "--replicas", "--routing", "--gossip-every", "--fleet-queue-depth",
-    "--warm-state", "--verify-fleet")
+NOT_PORTED = ("--sanitize", "--ckpt-dir", "--warm-state", "--replicas",
+              "--routing", "--gossip-every", "--fleet-queue-depth",
+              "--verify-fleet")
 
 
 def _pct(xs: List[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+def _request_params(args, i: int) -> SamplingParams:
+    """Per-request SamplingParams for request i of the synthetic stream."""
+    max_new = args.max_new if (not args.mixed or i % 2) else \
+        max(args.max_new // 4, 2)
+    if args.mixed_sampling:
+        # alternate greedy / sampled at cycling temperatures, one seed per
+        # request — a co-batched mix the per-lane param vectors must honor
+        if i % 2:
+            return SamplingParams(max_new_tokens=max_new, sample=True,
+                                  temperature=(0.5, 0.8, 1.1)[i % 3],
+                                  seed=1000 + i)
+        return SamplingParams(max_new_tokens=max_new)
+    return SamplingParams(max_new_tokens=max_new, sample=args.sample,
+                          temperature=args.temperature, seed=0)
+
+
+def _ns_map(spec, cast):
+    """``ns=value,...`` -> {ns: cast(value)} (None when unset)."""
+    if not spec:
+        return None
+    out = {}
+    for cell in spec.split(","):
+        ns, sep, val = cell.partition("=")
+        if not sep:
+            raise SystemExit(f"bad ns=value cell {cell!r}")
+        out[ns] = cast(val)
+    return out
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -66,16 +110,60 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rate", type=float, default=0.0,
                     help="mean arrivals/s (Poisson); 0 = all at t0")
     ap.add_argument("--max-new", type=int, default=48)
+    ap.add_argument("--mixed", action="store_true",
+                    help="mixed-length workload: alternate max_new/4 and "
+                         "max_new budgets (the continuous-batching case)")
+    ap.add_argument("--mixed-sampling", action="store_true",
+                    help="mixed per-request sampling: alternate greedy and "
+                         "sampled (distinct temperatures/seeds) requests in "
+                         "the same lane pool")
+    ap.add_argument("--cancel-every", type=int, default=0,
+                    help="cancel every Nth request mid-flight through its "
+                         "RequestHandle (0 = never)")
+    ap.add_argument("--overlap-drafts", action="store_true",
+                    help="overlap host work with the in-flight device step "
+                         "(deferred retirement + admission settles after "
+                         "draft building); the same outputs as the serial "
+                         "path")
     ap.add_argument("--prefill-len", type=int, default=128,
                     help="fixed prompt pad length")
     ap.add_argument("--decoding-length", type=int, default=32)
     ap.add_argument("--branch-length", type=int, default=12)
+    ap.add_argument("--draft-sources", default="trie",
+                    help="comma-separated draft sources feeding every "
+                         "request's trees, in merge-priority order "
+                         f"(registry: {', '.join(available_sources())})")
+    ap.add_argument("--adaptive-draft", action="store_true",
+                    help="per-lane adaptive draft budget from the "
+                         "accepted-length EMA")
+    ap.add_argument("--trie-namespace-key", default=None,
+                    help="request-metadata key whose value scopes the trie "
+                         "namespace (the synthetic stream tags requests "
+                         "with 'tenant')")
+    ap.add_argument("--lane-shares", default=None,
+                    help="per-namespace lane shares as ns=frac,... (e.g. "
+                         "t0=0.5,t1=0.5): weighted-fair admission with a "
+                         "lane-occupancy cap of ceil(lanes*frac) each")
+    ap.add_argument("--draft-budget-caps", default=None,
+                    help="per-namespace draft budget caps as ns=int,...")
+    ap.add_argument("--autotune", action="store_true",
+                    help="per-namespace draft-source auto-tuning (EMA "
+                         "acceptance controller; outputs unchanged)")
+    ap.add_argument("--sample", action="store_true",
+                    help="sample every request (Gumbel-argmax, seed 0)")
+    ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="EOS token id ending generation early (-1 = none)")
     ap.add_argument("--backend", default=None,
                     choices=attn_backends.available_backends(),
                     help="attention backend for both phases (default: the "
                          "config's, i.e. the CUDA kernels)")
+    ap.add_argument("--prefill-backend", default=None,
+                    choices=attn_backends.available_backends(),
+                    help="prefill-phase attention backend override")
+    ap.add_argument("--decode-backend", default=None,
+                    choices=attn_backends.available_backends(),
+                    help="tree-decode-phase attention backend override")
     ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"],
                     help="KV-cache layout: dense (lanes, max_seq_len) rows "
@@ -110,11 +198,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.kv_layout == "paged" and args.mode == "lockstep":
         ap.error("--kv-layout paged requires --mode continuous (the "
                  "scheduler owns the block allocator)")
+    if (args.lane_shares or args.draft_budget_caps) \
+            and not args.trie_namespace_key:
+        ap.error("--lane-shares/--draft-budget-caps key on the request "
+                 "namespace; set --trie-namespace-key (e.g. tenant) so "
+                 "requests carry one")
+    if args.mode == "lockstep" and (
+            args.draft_sources != "trie" or args.adaptive_draft
+            or args.trie_namespace_key or args.autotune):
+        ap.error("--draft-sources/--adaptive-draft/--trie-namespace-key/"
+                 "--autotune require --mode continuous (the lock-step loop "
+                 "is the hardwired-trie baseline)")
     return args
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    lane_shares = _ns_map(args.lane_shares, float)
+    draft_caps = _ns_map(args.draft_budget_caps, int)
+    draft_policy = DraftPolicy(
+        sources=tuple(args.draft_sources.split(",")),
+        adaptive=args.adaptive_draft).validate()
     mod = cfgreg.get_arch(args.arch)
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
     if args.smoke:
@@ -131,11 +235,17 @@ def main(argv=None) -> None:
         lanes=args.lanes, prefill_len=args.prefill_len,
         decoding_length=args.decoding_length,
         branch_length=args.branch_length, eos_id=args.eos_id,
-        backend=args.backend, kv_layout=args.kv_layout,
+        backend=args.backend, prefill_backend=args.prefill_backend,
+        decode_backend=args.decode_backend, kv_layout=args.kv_layout,
         block_size=args.block_size, n_blocks=n_blocks,
+        default_params=SamplingParams(
+            max_new_tokens=args.max_new, sample=args.sample,
+            temperature=args.temperature),
+        draft_policy=draft_policy, overlap_drafts=args.overlap_drafts,
         prefix_cache=args.prefix_cache,
         prefix_cache_blocks=args.prefix_cache_blocks or None,
-        default_params=SamplingParams(max_new_tokens=args.max_new))
+        lane_shares=lane_shares, draft_budget_caps=draft_caps,
+        autotune=args.autotune)
 
     corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=0)
     prompt_cap = min(96, args.prefill_len)
@@ -146,10 +256,17 @@ def main(argv=None) -> None:
         tail_cap = max(prompt_cap - len(system_prompt), 1)
         return list(system_prompt) + corpus.sample()[0][:tail_cap]
 
-    reqs = [Request(prompt=_prompt(),
-                    params=SamplingParams(max_new_tokens=args.max_new),
-                    metadata={"i": i})
+    reqs = [Request(prompt=_prompt(), params=_request_params(args, i),
+                    metadata={"i": i, "tenant": f"t{i % 2}"})
             for i in range(args.requests)]
+    if args.trie_namespace_key:
+        # scenario-scoped tries: each request speculates inside the trie
+        # namespace its metadata names (per-request DraftPolicy override)
+        for r in reqs:
+            ns = str(r.metadata.get(args.trie_namespace_key, ""))
+            r.params = dataclasses.replace(
+                r.params,
+                draft=dataclasses.replace(draft_policy, namespace=ns))
     engine = build_engine(ecfg, cfg, params, device=args.device)
 
     if args.mode == "lockstep":
@@ -173,29 +290,43 @@ def main(argv=None) -> None:
     rng = np.random.RandomState(0)
     arrivals = (np.cumsum(rng.exponential(1.0 / args.rate, size=len(reqs)))
                 if args.rate > 0 else np.zeros(len(reqs)))
-    handles = []
+    streamed = [0]          # tokens observed through handle callbacks
+    handles, cancelled = [], []
     t0 = time.time()
     nxt = 0
     while nxt < len(reqs) or not engine.idle:
         now = time.time() - t0
         while nxt < len(reqs) and arrivals[nxt] <= now:
-            handles.append(engine.submit(reqs[nxt]))
+            h = engine.submit(reqs[nxt])
+            h.on_token(lambda delta: streamed.__setitem__(
+                0, streamed[0] + len(delta)))
+            handles.append(h)
+            if args.cancel_every and (nxt % args.cancel_every
+                                      == args.cancel_every - 1):
+                cancelled.append(h)
             nxt += 1
         if engine.idle:
             time.sleep(min(max(arrivals[nxt] - now, 0.0), 0.05))
             continue
         engine.step()
+        for h in cancelled:
+            if not h.done:
+                h.cancel()
     dt = time.time() - t0
     results = [h.result() for h in handles]
 
-    tok = sum(len(r.tokens) for r in results)
-    steps = sum(r.stats.steps for r in results)
+    live = [r for r in results if not r.cancelled]
+    tok = sum(len(r.tokens) for r in live)
+    steps = sum(r.stats.steps for r in live)
     st = engine.stats
-    print(f"continuous [{args.device}]: {tok} tokens / {len(results)} "
-          f"requests ({st.decode_steps} device steps, EDL "
-          f"{tok/max(steps,1):.2f}, occupancy {st.occupancy:.2f}) in "
-          f"{dt:.1f}s -> {tok/dt:.1f} tok/s")
-    cache = engine.scheduler.cache
+    sched = engine.scheduler
+    n_sampled = sum(1 for r in reqs if r.params.sample)
+    print(f"continuous [{args.device}]: {tok} tokens / {len(live)} "
+          f"requests ({len(results) - len(live)} cancelled, {n_sampled} "
+          f"sampled, {streamed[0]} streamed tokens, {st.decode_steps} "
+          f"device steps, EDL {tok/max(steps,1):.2f}, occupancy "
+          f"{st.occupancy:.2f}) in {dt:.1f}s -> {tok/dt:.1f} tok/s")
+    cache = sched.cache
     if cache is not None:
         extra = (f", peak {st.peak_blocks} blocks, {st.block_waits} "
                  "block-waits" if args.kv_layout == "paged" else "")
@@ -208,21 +339,58 @@ def main(argv=None) -> None:
               f"{st.prefix_hit_tokens}/{st.prefix_prompt_tokens} prefill "
               f"tokens saved ({st.prefill_tokens_saved:.0%}), "
               f"{st.prefix_cow_forks} COW forks, "
-              f"{engine.scheduler.prefix.n_blocks} resident blocks, "
+              f"{sched.prefix.n_blocks} resident blocks, "
               f"{st.prefix_evicted_blocks} evicted")
     br = st.breakdown()
-    print(f"step breakdown: draft {br['host_draft_ms']:.2f} ms   "
+    mode = "overlap" if args.overlap_drafts else "serial"
+    print(f"step breakdown [{mode}]: draft {br['host_draft_ms']:.2f} ms   "
           f"device {br['device_step_ms']:.2f} ms   "
           f"accept {br['accept_commit_ms']:.2f} ms   "
+          f"hidden {br['hidden_host_ms']:.2f} ms   "
           f"{br['syncs_per_step']:.1f} sync/step")
-    lat = [r.latency_s for r in results]
-    ttft = [r.ttft_s for r in results]
-    print(f"latency  p50 {_pct(lat, 50)*1e3:7.1f} ms   "
-          f"p95 {_pct(lat, 95)*1e3:7.1f} ms   "
-          f"p99 {_pct(lat, 99)*1e3:7.1f} ms")
-    print(f"ttft     p50 {_pct(ttft, 50)*1e3:7.1f} ms   "
-          f"p95 {_pct(ttft, 95)*1e3:7.1f} ms   "
-          f"p99 {_pct(ttft, 99)*1e3:7.1f} ms")
+    # pooled percentiles would let a hot tenant's volume dilute a cold
+    # tenant's p99, so multi-tenant runs report per namespace instead
+    ns_sum = st.namespace_summary()
+    if not (lane_shares or len(ns_sum) > 1):
+        lat = [r.latency_s for r in live]
+        ttft = [r.ttft_s for r in live]
+        print(f"latency  p50 {_pct(lat, 50)*1e3:7.1f} ms   "
+              f"p95 {_pct(lat, 95)*1e3:7.1f} ms   "
+              f"p99 {_pct(lat, 99)*1e3:7.1f} ms")
+        print(f"ttft     p50 {_pct(ttft, 50)*1e3:7.1f} ms   "
+              f"p95 {_pct(ttft, 95)*1e3:7.1f} ms   "
+              f"p99 {_pct(ttft, 99)*1e3:7.1f} ms")
+    else:
+        for ns, row in ns_sum.items():
+            print(f"tenant {ns or '<default>'!s:10s} "
+                  f"fin {row['finished']:3d}/{row['submitted']:3d} "
+                  f"({row['cancelled']} cancelled) "
+                  f"occ {row['occupancy']:.2f}  "
+                  f"p50 {row['p50_latency_s']*1e3:7.1f} ms  "
+                  f"p99 {row['p99_latency_s']*1e3:7.1f} ms  "
+                  f"ttft-p99 {row['p99_ttft_s']*1e3:7.1f} ms  "
+                  f"queue-p99 {row['p99_queue_s']*1e3:7.1f} ms")
+    forest = sched.sources["trie"].forest
+    print(f"trie={len(forest)} nodes across {len(forest.namespaces())} "
+          "namespace(s)")
+    drafted, accepted = {}, {}
+    for r in results:
+        for k, v in r.stats.source_drafted.items():
+            drafted[k] = drafted.get(k, 0) + v
+        for k, v in r.stats.source_accepted.items():
+            accepted[k] = accepted.get(k, 0) + v
+    if drafted:
+        cells = [f"{name} {accepted.get(name, 0)}/{n} "
+                 f"({accepted.get(name, 0) / max(n, 1):.0%})"
+                 for name, n in sorted(drafted.items())]
+        print(f"draft sources (accepted/drafted): {'   '.join(cells)}")
+    if sched.autotuner is not None:
+        for ns, srcs in sorted(sched.autotuner.snapshot().items()):
+            cells = [f"{name} {'on' if s['enabled'] else 'OFF'} "
+                     f"ema {s['ema']:.2f} ({s['accepted']}/{s['drafted']}, "
+                     f"{s['probes']} probes)"
+                     for name, s in sorted(srcs.items())]
+            print(f"autotune [{ns or '<default>'}]: {'   '.join(cells)}")
 
 
 if __name__ == "__main__":

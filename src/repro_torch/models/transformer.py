@@ -242,19 +242,22 @@ def prefill_into_slot(cfg: TransformerConfig, params: Params, cache: Cache,
                       ) -> Tuple[Cache, torch.Tensor]:
     """Prefill ONE request into batch lane ``slot`` of an existing cache.
 
-    tokens (1, S) padded prompt; lens (1,).  Writes KV for positions [0, S)
-    of that lane only (other lanes untouched).  Returns (cache,
+    tokens (1, S) padded prompt; lens (1,) — or (B, S) / (B,) holding the
+    request in row ``slot`` and padding in the other rows, computed
+    alongside so the forward runs at the cohort prefill's batch shape (on
+    the card a row's rounding depends on it).  Writes KV for positions
+    [0, S) of that lane only (other lanes untouched).  Returns (cache,
     last_logits (1, V))."""
     B, S = tokens.shape
-    assert B == 1, "prefill_into_slot admits one request at a time"
     slot = int(slot)
+    row = 0 if B == 1 else slot
 
     def write_kv(i, k, v):
-        cache["k"][i, slot, :S] = k[0]
-        cache["v"][i, slot, :S] = v[0]
+        cache["k"][i, slot, :S] = k[row]
+        cache["v"][i, slot, :S] = v[row]
 
     logits = _self_forward(cfg, params, tokens, lens, write_kv)
-    return cache, logits
+    return cache, logits[row:row + 1]
 
 
 def reset_slot(cache: Cache, slot: int) -> Cache:
@@ -388,19 +391,21 @@ def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
                             cache: Cache, slot: int, tokens: torch.Tensor,
                             lens: torch.Tensor
                             ) -> Tuple[Cache, torch.Tensor]:
-    """Paged twin of ``prefill_into_slot``: one request's KV scatters
-    through lane ``slot``'s block table; every other lane's blocks are
-    untouched (block ownership is exclusive)."""
+    """Paged twin of ``prefill_into_slot`` (the same (1, S) or padded
+    (B, S) batch): one request's KV scatters through lane ``slot``'s block
+    table; every other lane's blocks are untouched (block ownership is
+    exclusive)."""
     B, S = tokens.shape
-    assert B == 1, "prefill_into_slot admits one request at a time"
     slot = int(slot)
+    row = 0 if B == 1 else slot
     bt_row = cache["block_tables"][slot:slot + 1]
     positions = torch.arange(S, device=tokens.device)[None, :]
     rows = paged_row_index(bt_row, positions, cfg.kv_block_size)
     logits = _self_forward(
         cfg, params, tokens, lens,
-        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v))
-    return cache, logits
+        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k[row:row + 1],
+                                            v[row:row + 1]))
+    return cache, logits[row:row + 1]
 
 
 def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,

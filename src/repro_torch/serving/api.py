@@ -1,8 +1,8 @@
 """Request-centric serving API (DESIGN.md §Serving API) — PyTorch port of
-``repro.serving.api``.  The port serves greedy requests on the dense and
-the paged KV layout, with or without the prefix cache;
-``EngineConfig.validate`` refuses what is not ported yet and names the
-ROADMAP item that brings it.
+``repro.serving.api``.  The port serves greedy, sampled and mixed requests
+on the dense and the paged KV layout, with or without the prefix cache;
+``EngineConfig.validate`` refuses what is not ported yet (the runtime
+sanitizer) and names the ROADMAP item that brings it.
 
 The production surface over the continuous-batching stack:
 
@@ -131,7 +131,6 @@ class EngineConfig:
             raise NotImplementedError(
                 "sanitize=True: the runtime sanitizer is not yet ported "
                 "(ROADMAP A12, analysis on torch)")
-        _refuse_sampled(self.default_params)
         if self.lanes < 1:
             raise ValueError(f"lanes={self.lanes}: need >= 1")
         if self.prefill_len is not None and self.prefill_len < 1:
@@ -178,13 +177,6 @@ class EngineConfig:
         return self
 
 
-def _refuse_sampled(params: SamplingParams) -> None:
-    if params.sample:
-        raise NotImplementedError(
-            "sample=True: sampled decoding is not yet ported (ROADMAP A10, "
-            "sampled mode); the port serves greedy requests")
-
-
 def build_session_fns(cfg: EngineConfig, model_cfg, params, *,
                       logits_transform: Optional[Callable] = None,
                       device=None) -> StepFns:
@@ -201,7 +193,7 @@ def build_session_fns(cfg: EngineConfig, model_cfg, params, *,
     dp = cfg.default_params
     return make_session_fns(
         model_cfg, params, sample=dp.sample, temperature=dp.temperature,
-        seed=dp.seed, slots=cfg.slots,
+        seed=dp.seed, sampling=cfg.sampling, slots=cfg.slots,
         pad_id=cfg.pad_id, prefill_len=cfg.prefill_len,
         logits_transform=logits_transform, backend=cfg.backend,
         prefill_backend=cfg.prefill_backend,
@@ -345,8 +337,6 @@ class ServingEngine:
             request = Request(prompt=list(request), params=params)
         elif params is not None or param_overrides:
             raise ValueError("a Request already carries its params")
-        if request.params is not None:
-            _refuse_sampled(request.params)
         return self.scheduler.submit_request(request)
 
     def step(self) -> List[RequestResult]:

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions (which tests/test_torch_kernels.py and tests/test_torch_paged.py
-hold against the JAX package), and the paged kernel against the dense one.
+versions (which tests/test_torch_kernels.py, tests/test_torch_paged.py,
+tests/test_torch_sampler.py and tests/test_torch_sampling_serving.py hold
+against the JAX package), the paged kernel against the dense one and the
+triangular-schedule prefill against the plain prefill kernel, bit for bit.
 
 Needs an NVIDIA card with nvcc: every test is marked ``gpu`` and skips
 without CUDA.  Imports no JAX, so it runs on the card's machine:
@@ -8,13 +10,18 @@ without CUDA.  Imports no JAX, so it runs on the card's machine:
 Tolerance: f32 atol=3e-5, rtol=1e-4; bf16 atol=1e-4, rtol=1.6e-2.  Both
 sides sum in f32 and round once to bf16, so they differ by about one output
 ulp (2^-7 relative); rtol is two ulps and atol covers f32 sum-order noise
-near zero, while typical |outputs| here are 1e-2 to 1e-1.
+near zero, while typical |outputs| here are 1e-2 to 1e-1.  The
+Gumbel-argmax kernel's raw bits equal the plain generator's, its Gumbel
+values agree to 2e-6 (two logf calls), and its choices equal the plain
+version's wherever the plain top-two gap of z + g exceeds 1e-5.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.gumbel_argmax import ref as gref
+from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax, gumbel_noise
 from repro_torch.kernels.tree_attention.ops import tree_attention
 from repro_torch.kernels.tree_attention.paged import paged_tree_attention
 
@@ -173,3 +180,70 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         paged_tree_attention(q, pool, pool, bt.cpu(), mask)
     with pytest.raises(ValueError, match="mask must be"):
         paged_tree_attention(q, pool, pool, bt, mask[..., :4].contiguous())
+
+
+# (B, S, H, K, dh): the cohort prefill, a long prompt, tests/test_kernels.py's
+# triangular-grid shapes, and ragged S
+TRI_SHAPES = [(4, 128, 12, 2, 128), (1, 4096, 12, 2, 128), (1, 256, 4, 2, 64),
+              (2, 512, 4, 4, 128), (1, 384, 6, 2, 96), (1, 300, 6, 3, 80)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,K,dh", TRI_SHAPES)
+def test_triangular_prefill_kernel_matches_plain_and_b3_bitwise(
+        cuda, B, S, H, K, dh, dtype):
+    rng = np.random.RandomState(3)
+    q, k, v = (_t(rng.randn(B, S, n, dh) * 0.3, dtype, cuda)
+               for n in (H, K, K))
+    n0, t0 = flash_prefill.launches, flash_prefill.tri_launches
+    out = flash_prefill(q, k, v, triangular=True)
+    b3 = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill.tri_launches == t0 + 1
+    assert flash_prefill.launches == n0 + 1
+    assert torch.equal(out, b3)
+    ref = flash_prefill(q.cpu(), k.cpu(), v.cpu(), triangular=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,V", [(4, 33, 151936), (3, 5, 1000),
+                                   (2, 1, 4097)])
+def test_gumbel_argmax_kernel_matches_plain(cuda, B, T, V, dtype):
+    rng = np.random.RandomState(4)
+    logits = _t(rng.randn(B, T, V) * 2.0, dtype, cuda)
+    pos = torch.from_numpy(rng.randint(0, 513, (B, T))).to(cuda)
+    greedy = torch.tensor([b % 2 == 0 for b in range(B)], device=cuda)
+    temp = torch.tensor([0.7, 1.3, 0.5, 1.0][:B], device=cuda)
+    seed = torch.tensor([0, 2**32 - 1, 7, 1][:B], device=cuda)
+    rows = seed[:, None].expand(B, T).reshape(-1)
+    bits, g = gumbel_noise(rows, pos.reshape(-1), V)
+    key = gref.fold_in(gref.random_key(rows), pos.reshape(-1).long())
+    assert torch.equal(bits, gref.random_bits32(key, V))
+    ref_g = gref.gumbel(key, V)
+    assert (g - ref_g).abs().max().item() <= 2e-6
+    n0 = gumbel_argmax.launches
+    got = gumbel_argmax(logits, pos, temp, seed, greedy)
+    torch.cuda.synchronize()
+    assert gumbel_argmax.launches == n0 + 1
+    plain = gref.gumbel_argmax_ref(logits, pos, temp, seed, greedy)
+    z = logits.float() / temp.clamp_min(1e-6)[:, None, None]
+    top2 = (z + ref_g.view(B, T, V)).topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > 1e-5) | greedy[:, None]
+    assert torch.equal(got[clear], plain[clear])
+    assert torch.count_nonzero(got[greedy]) == 0
+
+
+def test_gumbel_argmax_refuses_what_it_does_not_take(cuda):
+    logits = torch.zeros(2, 3, 10, device=cuda)
+    pos = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    lane = (torch.ones(2, device=cuda), torch.zeros(2, dtype=torch.int64,
+                                                    device=cuda),
+            torch.zeros(2, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        gumbel_argmax(logits.half(), pos, *lane)
+    with pytest.raises(ValueError, match="pred_positions"):
+        gumbel_argmax(logits, pos[:, :2], *lane)
+    with pytest.raises(ValueError, match="temp"):
+        gumbel_argmax(logits, pos, lane[0].cpu(), *lane[1:])

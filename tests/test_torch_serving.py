@@ -11,7 +11,8 @@
   * isolation: importing every ``repro_torch`` module loads no JAX and no
     ``repro``;
   * refusals: CUDA by default (raises without it), and the features later
-    slices bring raise ``NotImplementedError``;
+    slices bring (the runtime sanitizer; the CLI's checkpoint, warm-state
+    and fleet flags) are refused;
   * the serve CLI on the CPU, dense and paged with the prefix cache.
 """
 import dataclasses
@@ -252,20 +253,10 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("change,item", [
     (dict(sanitize=True), "A12"),
-    (dict(default_params=SamplingParams(sample=True)), "A10"),
 ])
 def test_unported_features_are_refused(change, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tapi.EngineConfig(**ECFG, **change).validate()
-
-
-def test_sampled_request_is_refused_at_submit():
-    cfg = ttx.TransformerConfig(max_seq_len=96)
-    eng = tapi.build_engine(tapi.EngineConfig(**ECFG), cfg,
-                            init_params(cfg, device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.submit([3, 4, 5], sample=True, temperature=0.7)
-    assert eng.idle
 
 
 def test_serve_cli_smoke_on_cpu():
@@ -288,7 +279,11 @@ def test_serve_cli_smoke_on_cpu():
     hits = re.search(r"prefix cache: (\d+)/\d+ hits", proc.stdout)
     assert hits and int(hits.group(1)) > 0, proc.stdout
     assert "1.0 sync/step" in proc.stdout
-    proc = subprocess.run(base + ["--sanitize"], capture_output=True,
-                          text=True, env=env, cwd=str(REPO), timeout=300)
-    assert proc.returncode == 2
-    assert "--sanitize: not yet ported" in proc.stderr
+    for flag in ("--sanitize", "--ckpt-dir=ck", "--warm-state=ws",
+                 "--replicas=2", "--routing=round_robin", "--gossip-every=2",
+                 "--fleet-queue-depth=4", "--verify-fleet"):
+        proc = subprocess.run(base + [flag], capture_output=True,
+                              text=True, env=env, cwd=str(REPO), timeout=300)
+        assert proc.returncode == 2, flag
+        name = flag.split("=")[0]
+        assert f"{name}: not yet ported" in proc.stderr, flag
