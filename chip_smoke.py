@@ -7,7 +7,7 @@ NVIDIA GPU.
 Phases, in order; any failure exits non-zero:
 
 1. the card: its name and power limit from ``nvidia-smi``;
-2. the build: the five CUDA kernels compiled from this checkout's sources,
+2. the build: the six CUDA kernels compiled from this checkout's sources,
    one ``nvcc`` each, in parallel;
 3. the kernels: each held against its plain PyTorch version on the card in
    f32 and bf16 — at the serving path's shapes and at the shapes of
@@ -16,15 +16,26 @@ Phases, in order; any failure exits non-zero:
    against the plain prefill kernel (B3), bit for bit; the Gumbel-argmax
    kernel's raw bits against the plain threefry2x32 bit for bit, its Gumbel
    values within 2e-6 and its choices against the plain version's wherever
-   the top-two gap of z + g exceeds 1e-5; then each timed beside its plain
-   version, the one PyTorch library call that computes the same function
-   where there is one (timed here only, never called by the port) and its
-   bound (bytes over 3.35 TB/s or operations over the peak rate for the
-   input type, whichever is larger);
+   the top-two gap of z + g exceeds 1e-5; the fused EmbeddingBag (B5) with
+   masked slots and negative and out-of-range ids too; then each timed
+   beside its plain version, the one PyTorch library call that computes the
+   same function where there is one (timed here only, never called by the
+   port) and its bound (bytes over 3.35 TB/s or operations over the peak
+   rate for the input type, whichever is larger);
 4. the model: Qwen2-1.5B at full width with 2 layers, the cuda backend's
    logits against the dense backend's in f32 on both KV layouts (and the
    suffix prefill), and in bf16 both against the f32 path, with a limit
    that kernels made 3 % wrong must fail;
+4b. recsys scoring: Wide & Deep, Two-Tower, SASRec and BERT4Rec at their
+   full published configurations in f32, each serve cell through its
+   config's serve function (Wide & Deep serve_p99 and serve_bulk, Two-Tower
+   serve_p99 and retrieval_cand, SASRec and BERT4Rec serve_p99 and
+   retrieval_cand), timed, with B5 launched exactly twice per Wide & Deep
+   forward and never elsewhere, and the scores held against the same
+   function computed in float64 on the card (Two-Tower's top-128 indices
+   against the float64 ranking wherever neighbours are further apart than
+   the tolerance); B5 held against its plain version at Wide & Deep's bag
+   shapes in f32 and bf16 and timed there;
 5. the main path: Qwen2-1.5B at full width in bf16 with random weights from
    a seed, served through ``build_engine`` with the serve CLI's defaults and
    a guided logits transform (drafts verify, and token choice never rests on
@@ -36,12 +47,17 @@ Phases, in order; any failure exits non-zero:
    prefill, the dense one never there), each decode step must pull exactly
    one packed result to the host, and no step function may sync the host;
 6. batch-shape invariance: how many logits rows of one request differ in
-   bits between the serving shapes and the B = 1 shapes (a finding);
-7. sampled serving, unguided: one lane on the dense layout (all sampled)
-   and four lanes on the paged layout (greedy and sampled mixed); every
-   output must equal ``reference_decode`` at the serving batch shape, the
-   Gumbel-argmax kernel must carry the choices, one sync per decode step,
-   and no sampled member may sync the host;
+   bits between the serving shapes and the B = 1 shapes (a finding); the
+   padded one-lane admission and the prefix cache's suffix prefill (its
+   last-token logits and the tail's K/V rows in every layer) must give the
+   uncached admission's bits (a check);
+7. sampled serving, unguided: one lane on the dense layout (all sampled),
+   four lanes on the paged layout (greedy and sampled mixed), and sampled
+   requests sharing a cached prefix with the prefix cache on and off; every
+   output must equal ``reference_decode`` at the serving batch shape (and
+   the cached run the uncached one), the Gumbel-argmax kernel must carry the
+   choices, one sync per decode step, and no sampled member may sync the
+   host;
 8. overlap: the guided dense path with ``overlap_drafts`` equals the serial
    run, with no sync inside the dispatch.
 
@@ -97,6 +113,16 @@ ALU_OPS_PER_S = 67e12                  # H100 SXM non-tensor f32 rate
 GUMBEL_GAP = 1e-5                      # token agreement below this gap of z+g
 GUMBEL_ATOL = 2e-6                     # Gumbel values: two logf calls
 SAMPLED_TEMP = 0.8
+N_SHARED_SAMPLED, MAX_NEW_SHARED_SAMPLED = 8, 24  # sampled prefix-cache hits
+# B5 (the fused EmbeddingBag): the shapes of tests/test_kernels.py:66-67
+EB_SWEEP = [(100, 128, 16, 4), (500, 256, 8, 7), (64, 128, 32, 3),
+            (1000, 128, 4, 1)]
+# recsys scores (f32, TF32 off) against the same function in float64: f32
+# rounding of sums of up to 1,293 products and of the softmax, far below
+RECSYS_TOL = dict(rtol=1e-4, atol=1e-5)
+RECSYS_BULK_CHECK_ROWS = 16384         # serve_bulk rows held against float64
+N_ID_SETS = 8     # serve_p99 timing rotates over 8 input sets: 84 MB of
+                  # Wide & Deep rows, more than the 50 MB L2
 
 
 class SmokeError(RuntimeError):
@@ -681,7 +707,8 @@ def paged_model_logits(cfg, params, ins, backend):
     n = int(lens[1])
     cache, suffix = tx.prefill_from_offset_paged(
         c, params, cache, 1, toks[1:2, n - 16:n].contiguous(),
-        lens[1:2] - 16, torch.tensor([16], device="cuda"))
+        lens[1:2] - 16, torch.tensor([16], device="cuda"),
+        prefill_len=toks.shape[1])
     _, lg = tx.tree_step_paged(c, params, cache, lens, tree, pos, tm)
     return last.float(), suffix.float(), lg.float()
 
@@ -1056,10 +1083,11 @@ def paged_phase(cfg, params, prompts, dense_outs):
           f"(1, {ecfg.prefill_len}) {float(np.median(full)):.3f} ms")
     del runs, engine, fns, cache
 
-    # the two layouts in turns on the dense path's requests: the host-bound
-    # step time drifts within a call, so only alternating runs compare them
+    # the two layouts in turn on the dense path's requests, one run each
+    # (two each until the recsys phase needed the time): the host-bound step
+    # time drifts within a call, so only adjacent runs compare them
     paired = {"dense": [], "paged": []}
-    for layout in ("dense", "paged", "paged", "dense"):
+    for layout in ("paged", "dense"):
         engine = build_engine(dataclasses.replace(ecfg, kv_layout=layout),
                               cfg, params, logits_transform=transform,
                               device="cuda")
@@ -1076,12 +1104,15 @@ def paged_phase(cfg, params, prompts, dense_outs):
 
 
 def invariance_phase(cfg, params):
-    """Batch-shape invariance, a finding and not a check: the same request's
-    logits row computed at the serving shapes — a 4-lane cohort prefill
-    (4, 128) and a 4-lane fused step (4, 33) — and at the B = 1 shapes of
-    one-lane admission (1, 128) and of a width-1 reference decode (1, 1),
-    (4, 1) and (1, 33) besides.  Prints how many rows differ in any bit and
-    the largest difference."""
+    """Batch-shape invariance.  Findings: the same request's logits row
+    computed at the serving shapes — a 4-lane cohort prefill (4, 128) and a
+    4-lane fused step (4, 33) — and at the B = 1 shapes of one-lane
+    admission (1, 128) and of a width-1 reference decode (1, 1), (4, 1) and
+    (1, 33) besides; prints how many rows differ in any bit and the largest
+    difference.  Checks: the padded one-lane admission's row, and the prefix
+    cache's suffix prefill — its last-token logits row and the tail's K/V
+    rows in every layer — against the uncached admission: 0 rows may
+    differ."""
     from repro_torch.models import transformer as tx
     from repro_torch.training.data import PROFILES, SyntheticCorpus
     B, S, T = 4, 128, 33
@@ -1120,8 +1151,10 @@ def invariance_phase(cfg, params):
         padded.append(tx.prefill_into_slot(
             cfg, params, tx.init_cache(cfg, B, device="cuda"), b, ptoks,
             plens)[1])
-    compare("prefill, lane of a (4, 128) cohort vs admission padded to 4 "
-            "lanes", last, torch.cat(padded))
+    label = "prefill, lane of a (4, 128) cohort vs admission padded to 4 lanes"
+    compare(label, last, torch.cat(padded))
+    check(found[label][0] == 0, "the padded admission's logits rows differ "
+                                "from the cohort's")
 
     rng = np.random.RandomState(3)
     tree = torch.from_numpy(rng.randint(2, cfg.vocab_size, (B, T))).cuda()
@@ -1154,35 +1187,51 @@ def invariance_phase(cfg, params):
     compare("step root slot, (4, 33) vs (4, 1)", full[:, :1], narrow)
     del cache, full, narrow, one_full, one_one
 
-    # the prefix cache's suffix prefill: a prompt's last-token row after an
-    # 80-token cached head (1, 16) against its padded admission (4, 128)
+    # the prefix cache's suffix prefill (a check, not a finding): after an
+    # 80-token cached head, the tail (1, 16) computed at the padded
+    # admission's row shapes must give the admission's last-token logits row
+    # and tail K/V rows in every layer bit for bit — lane 1 of 4, (4, 128)
     pcfg = dataclasses.replace(cfg, kv_layout="paged",
                                kv_block_size=PATH_PAGED[5])
     n = int(lens[0])
-    head, tail = SHARED_HEAD, n - SHARED_HEAD
+    head, tail, slot = SHARED_HEAD, n - SHARED_HEAD, 1
+    tables = shuffled_tables([tx.blocks_per_lane(pcfg)] * B,
+                             tx.blocks_per_lane(pcfg), seed=4)
 
-    def paged_cache():
+    def admit(length):
         c = tx.init_paged_cache(pcfg, B, device="cuda")
-        c["block_tables"] = shuffled_tables([tx.blocks_per_lane(pcfg)] * B,
-                                            tx.blocks_per_lane(pcfg), seed=4)
-        return c
-
-    def admit(c, length):
+        c["block_tables"] = tables
         ptoks = torch.zeros_like(toks)
-        ptoks[0, :length] = toks[0, :length]
+        ptoks[slot, :length] = toks[0, :length]
         plens = torch.ones_like(lens)
-        plens[0] = length
-        return tx.prefill_into_slot_paged(pcfg, params, c, 0, ptoks, plens)
+        plens[slot] = length
+        return tx.prefill_into_slot_paged(pcfg, params, c, slot, ptoks,
+                                          plens)
 
-    _, full_row = admit(paged_cache(), n)
-    c, _ = admit(paged_cache(), head)
-    _, suffix_row = tx.prefill_from_offset_paged(
-        pcfg, params, c, 0, toks[:1, head:n].contiguous(),
+    full_cache, full_row = admit(n)
+    c, _ = admit(head)
+    c, suffix_row = tx.prefill_from_offset_paged(
+        pcfg, params, c, slot, toks[:1, head:n].contiguous(),
         torch.tensor([head], device="cuda"),
-        torch.tensor([tail], device="cuda"))
-    compare(f"prefill, padded admission (4, 128) vs suffix prefill (1, "
-            f"{tail}) after a {head}-token cached head", full_row,
-            suffix_row)
+        torch.tensor([tail], device="cuda"), prefill_len=S)
+    label = (f"prefill, padded admission (4, 128) vs suffix prefill (1, "
+             f"{tail}) after a {head}-token cached head")
+    compare(label, full_row, suffix_row)
+    rows = tx.paged_row_index(tables[slot:slot + 1],
+                              torch.arange(head, n, device="cuda")[None],
+                              pcfg.kv_block_size)[0]
+    kv_rows = 0
+    for name in ("k", "v"):
+        a = full_cache[name].flatten(1, 2)[:, rows]       # (L, tail, K, dh)
+        b = c[name].flatten(1, 2)[:, rows]
+        kv_rows += int((a != b).flatten(2).any(-1).sum().item())
+    print(f"  tail K/V, padded admission vs suffix prefill: {kv_rows}/"
+          f"{2 * cfg.n_layers * tail} rows (K and V, {cfg.n_layers} layers "
+          f"x {tail} positions) differ in bits")
+    check(found[label][0] == 0 and kv_rows == 0,
+          f"the suffix prefill's rows differ from the admission's: "
+          f"{found[label][0]} logits rows, {kv_rows} K/V rows")
+    found["suffix K/V rows"] = (kv_rows, 2 * cfg.n_layers * tail, 0.0)
     return found
 
 
@@ -1315,6 +1364,67 @@ def sampled_phase(cfg, params):
             print(f"  (finding) against the width-1 reference_decode: "
                   f"{n_diff}/{len(ps)} outputs differ, first differences "
                   f"at tokens {firsts}")
+    return total + shared_sampled_run(cfg, params)
+
+
+def shared_sampled_run(cfg, params):
+    """Sampled requests with prefix-cache hits: N_SHARED_SAMPLED prompts
+    sharing an 80-token head (16-token tails), all sampled at SAMPLED_TEMP
+    with distinct seeds, unguided, on the paged layout with four lanes (one
+    lane can wait forever on a shared prefix, ROADMAP §C), prefix cache on
+    and then off.  The outputs must be equal, and equal reference_decode at
+    the serving batch shape.  Returns the Gumbel kernel's launches."""
+    from repro_torch.core import reference_decode
+    from repro_torch.core.request import Request, SamplingParams
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
+    from repro_torch.serving.api import EngineConfig, build_engine
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=6)
+    head = corpus.sample()[0][:SHARED_HEAD]
+    prompts = [head + corpus.sample()[0][:SHARED_TAIL]
+               for _ in range(N_SHARED_SAMPLED)]
+    sps = [SamplingParams(max_new_tokens=MAX_NEW_SHARED_SAMPLED, sample=True,
+                          temperature=SAMPLED_TEMP, seed=501 + i)
+           for i in range(N_SHARED_SAMPLED)]
+    outs, total = {}, 0
+    for on in (True, False):
+        ecfg = EngineConfig(kv_layout="paged", block_size=PATH_PAGED[5],
+                            prefix_cache=on)
+        engine = build_engine(ecfg, cfg, params, device="cuda")
+        torch.cuda.synchronize()
+        gumbel_argmax.launches = 0
+        t0 = time.perf_counter()
+        handles = [engine.submit(Request(prompt=list(p), params=sp))
+                   for p, sp in zip(prompts, sps)]
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total += gumbel_argmax.launches
+        st = engine.stats
+        outs[on] = [h.result().tokens for h in handles]
+        print(f"  sampled shared prefix ({N_SHARED_SAMPLED} x {SHARED_HEAD}+"
+              f"{SHARED_TAIL} tokens, {ecfg.lanes} lanes, paged), cache "
+              f"{'on' if on else 'off'}: {sum(map(len, outs[on]))} tokens in "
+              f"{wall:.3f} s; {st.prefix_hits} hits; gumbel_argmax launches "
+              f"{gumbel_argmax.launches}")
+        check(st.decode_syncs == st.decode_steps,
+              f"{st.decode_syncs} decode syncs for {st.decode_steps} steps")
+        if on:
+            check(st.prefix_hits > 0, "the sampled shared-prefix run had no "
+                                      "prefix-cache hit")
+            fns, lanes = engine.fns, ecfg.lanes
+    check(outs[True] == outs[False], "sampled outputs differ with the prefix "
+                                     "cache on and off: " + str([
+                                         first_difference(a, b) for a, b in
+                                         zip(outs[True], outs[False])]))
+    for i, (p, sp, o) in enumerate(zip(prompts, sps, outs[True])):
+        ref = reference_decode(fns, list(p), params=sp, lanes=lanes)
+        check(o == ref, f"sampled shared-prefix request {i} differs from "
+                        "reference_decode at the serving shapes (first "
+                        f"difference at token {first_difference(o, ref)})")
+    print(f"  all {N_SHARED_SAMPLED} sampled shared-prefix outputs equal with "
+          f"the cache on and off and equal reference_decode(..., "
+          f"lanes={lanes})")
     return total
 
 
@@ -1386,8 +1496,470 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
               f"{e.count / steps:6.0f} launches/step  {e.key[:90]}")
 
 
-PHASES = ("kernels", "model", "dense", "paged", "invariance", "sampled",
-          "overlap")
+# --------------------------------------------------------------- recsys
+def eb_hold(out, ref, dtype, label):
+    """B5 against its plain version: NaN exactly where the plain version has
+    NaN (out-of-range ids), within TOL elsewhere."""
+    nan_out, nan_ref = torch.isnan(out), torch.isnan(ref)
+    check(torch.equal(nan_out, nan_ref), f"embedding_bag {label} {dtype}: "
+                                         "NaN outputs differ from the plain "
+                                         "version's")
+    return hold("embedding_bag", out.masked_fill(nan_out, 0),
+                ref.masked_fill(nan_ref, 0), dtype, label)
+
+
+def embedding_bag_phase(gen):
+    """B5 against its plain version in f32 and bf16 at the shapes of
+    tests/test_kernels.py:66-67, at D = 1, and on a stacked table with
+    masked slots and negative and out-of-range ids (NaN bags)."""
+    from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
+                                                       embedding_bag_ref)
+    for dtype in (torch.float32, torch.bfloat16):
+        for V, D, N, L in EB_SWEEP + [(300, 1, 64, 4)]:
+            t = randn(gen, (V, D), dtype, scale=1.0)
+            ids = torch.randint(0, V, (N, L), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            m = torch.rand((N, L), generator=gen, device="cuda") > 0.3
+            w = torch.rand((N, L), generator=gen, device="cuda")
+            eb_hold(embedding_bag_fused(t, ids, m, w),
+                    embedding_bag_ref(t, ids, w * m), dtype, (V, D, N, L))
+        F, V, D = 3, 50, 8
+        t = randn(gen, (F, V, D), dtype, scale=1.0)
+        ids = torch.randint(-V - 4, V + 4, (64, F, 4), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        m = torch.rand((64, F, 4), generator=gen, device="cuda") > 0.3
+        out = embedding_bag_fused(t, ids, m)
+        ref = embedding_bag_ref(t, ids, m.float())
+        n_nan = int(torch.isnan(ref).any(-1).sum().item())
+        check(0 < n_nan < 64 * F, f"id case: {n_nan} NaN bags")
+        eb_hold(out, ref, dtype, f"stacked {(F, V, D)}, ids in [-{V + 4}, "
+                                 f"{V + 4}), masked slots: {n_nan} of "
+                                 f"{64 * F} bags NaN")
+
+
+def time_calls(fn, n, warmup=2):
+    """Median ms of ``n`` calls fn(i), each between its own pair of CUDA
+    events (no host wait between calls)."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for i, (a, b) in enumerate(ev):
+        a.record()
+        fn(i)
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def to_cuda(batch):
+    return {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in
+            batch.items()}
+
+
+def mlp64(p, x, final_act):
+    n = sum(1 for k in p if k.startswith("w"))
+    for i in range(n):
+        x = x @ p[f"w{i}"].double() + p[f"b{i}"].double()
+        if i < n - 1 or final_act:
+            x = x.clamp_min(0)
+    return x
+
+
+def wide_deep64(params, ids, mask, dense):
+    """Wide & Deep's forward in float64 on the card, written out: each
+    field's rows gathered and summed under the mask, the deep MLP, the head,
+    the wide sum and the dense linear part."""
+    B, F, L = ids.shape
+    f = torch.arange(F, device=ids.device)[None, :, None]
+    m = mask.double()[..., None]
+    emb = (params["tables"][f, ids.long()].double() * m).sum(2)
+    wide = (params["wide_tables"][f, ids.long()].double() * m).sum((1, 2, 3))
+    x = mlp64(params["deep"], torch.cat([emb.reshape(B, -1), dense.double()],
+                                        -1), True)
+    return ((x @ params["head"].double())[:, 0] + wide
+            + dense.double() @ params["wide_dense"].double()
+            + params["bias"].double()[0])
+
+
+def tower64(tables, mlp_p, ids):
+    B, F = ids.shape
+    emb = tables[torch.arange(F, device=ids.device)[None], ids.long()]
+    x = mlp64(mlp_p, emb.double().reshape(B, -1), False)
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+
+
+def encode64(params, ids, n_blocks, n_heads, causal, pad_mask):
+    """The sequence encoder in float64, written out (RMSNorm, attention with
+    masked scores at -1e30 before the softmax, tanh GELU)."""
+    B, S = ids.shape
+    d = params["item_emb"].shape[1]
+    dh = d // n_heads
+
+    def rms(x, g):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) \
+            * g.double()
+
+    h = (params["item_emb"][ids.long()].double()
+         + params["pos_emb"][:S].double()[None])
+    mask = pad_mask.bool()[:, None, :].expand(B, S, S)
+    if causal:
+        mask = mask & torch.ones(S, S, dtype=torch.bool,
+                                 device=ids.device).tril()
+    for b in range(n_blocks):
+        p = {k: v.double() for k, v in params[f"blk{b}"].items()}
+        hn = rms(h, p["ln1"])
+        q, k, v = ((hn @ p[w]).view(B, S, n_heads, dh)
+                   for w in ("wq", "wk", "wv"))
+        sc = torch.einsum("bthd,bshd->bhts", q, k) * dh ** -0.5
+        sc = sc.masked_fill(~mask[:, None], -1e30)
+        a = torch.einsum("bhts,bshd->bthd", torch.softmax(sc, -1), v)
+        h = h + a.reshape(B, S, d) @ p["wo"]
+        h = h + torch.nn.functional.gelu(rms(h, p["ln2"]) @ p["w1"],
+                                         approximate="tanh") @ p["w2"]
+    return rms(h, params["ln_f"])
+
+
+def seq_serve64(cfg, params, causal, ids, pad_mask, cand_ids=None):
+    h = encode64(params, ids, cfg.n_blocks, cfg.n_heads, causal, pad_mask)
+    B, S = pad_mask.shape
+    last = pad_mask.long().sum(1) - 1
+    hl = h[torch.arange(B, device=h.device), torch.where(last < 0, last + S,
+                                                         last)]
+    if cand_ids is None:
+        return hl @ params["item_emb"].double().T
+    return torch.einsum("bd,bcd->bc", hl,
+                        params["item_emb"][cand_ids.long()].double())
+
+
+def hold_scores(label, got, ref):
+    """Scores against the float64 recomputation within RECSYS_TOL."""
+    err = (got.double() - ref).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got.double(), ref, **RECSYS_TOL)
+    print(f"  {label}: max|err| vs float64 {err:.3e} (max|ref| "
+          f"{ref.abs().max().item():.3e}) {'ok' if ok else 'FAIL'} "
+          f"({RECSYS_TOL})")
+    check(ok, f"{label}: scores disagree with the float64 recomputation "
+              f"(max abs err {err})")
+
+
+def cell_line(arch, shape, ms, rows, what="contexts"):
+    print(f"  {arch} {shape}: median {ms:.4f} ms per call, "
+          f"{rows / ms * 1e3:.4g} {what}/s")
+
+
+def device_ms(fn, calls, match=None):
+    """Device time per call of fn(i) over ``calls`` calls, from
+    torch.profiler: the kernels whose name holds ``match``, or every kernel
+    the calls launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (match is None or match in e.key)]
+    check(bool(kernels), f"the profiler saw no device time ({match})")
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+
+
+def profile_cell(label, fn, calls=5, top=3):
+    """Where a serve cell's time goes: a torch.profiler window over
+    ``calls`` calls of fn(i) — wall time, device busy time and idle share,
+    launches per call, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    n = sum(e.count for e in kernels)
+    print(f"    profile {label}: wall {wall / calls:.4f} ms/call, device busy "
+          f"{busy / calls:.4f} ms/call, idle share {1 - busy / wall:.3f}, "
+          f"{n / calls:.0f} launches/call")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"      {e.self_device_time_total / 1e3 / calls:8.4f} ms/call "
+              f"{e.count / calls:5.0f}/call  {e.key[:80]}")
+
+
+def recsys_phase(gen):
+    """Recommender scoring at full width on the card, f32 (TF32 off): each
+    arch's serve cells through its config's serve function, inputs from the
+    port's batch generators and parameters made on the card from seed 0,
+    one arch at a time.  Each cell is timed (median ms per call) with the
+    fused EmbeddingBag kernel's launches counted (2 per Wide & Deep
+    forward, none elsewhere) and its scores are held against the same
+    function in float64; then B5 is held against its plain version at Wide
+    & Deep's bag shapes in f32 and bf16 and timed beside it,
+    F.embedding_bag and its bound.  Returns (B5's max error, its timing row,
+    its launches on the scoring path)."""
+    from repro_torch.configs import (bert4rec, sasrec, two_tower_retrieval,
+                                     wide_deep)
+    from repro_torch.configs.recsys_common import BATCHES
+    from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
+                                                       embedding_bag_ref)
+    from repro_torch.models.recsys import two_tower as tt_model
+    from repro_torch.training import data
+    launches = 0
+
+    def counted(fn, n_calls):
+        nonlocal launches
+        torch.cuda.synchronize()
+        embedding_bag_fused.launches = 0
+        ms = time_calls(fn, n_calls)
+        torch.cuda.synchronize()
+        launches += embedding_bag_fused.launches
+        return ms, embedding_bag_fused.launches, n_calls + 2
+
+    # ---- Wide & Deep: serve_p99 and serve_bulk
+    cfg = wide_deep.full_config()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = wide_deep.model.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"  wide-deep: {cfg.n_params() / 1e9:.3f} B params made on the card "
+          f"in {time.perf_counter() - t0:.2f} s")
+    fn = wide_deep.serve_cell("serve_p99").fn
+    F, Vr, L = cfg.n_sparse, cfg.rows_per_table, cfg.multi_hot
+
+    def wd_inputs(B, seed):
+        b = to_cuda(data.wide_deep_batch(np.random.RandomState(seed), B, F,
+                                         Vr, L, cfg.n_dense))
+        return b["sparse_ids"], b["sparse_mask"], b["dense"]
+
+    p99 = [wd_inputs(BATCHES["serve_p99"], 100 + i) for i in range(N_ID_SETS)]
+    bulk = wd_inputs(BATCHES["serve_bulk"], 200)
+    ms, n_l, n_calls = counted(lambda i: fn(cfg, params, *p99[i % N_ID_SETS]),
+                               20)
+    check(n_l == 2 * n_calls, f"wide-deep serve_p99: {n_l} embedding_bag "
+                              f"launches for {n_calls} forwards")
+    cell_line("wide-deep", "serve_p99 (B 512)", ms, 512)
+    profile_cell("wide-deep serve_p99",
+                 lambda i: fn(cfg, params, *p99[i % N_ID_SETS]))
+    ms_b, n_l, n_calls = counted(lambda i: fn(cfg, params, *bulk), 5)
+    check(n_l == 2 * n_calls, f"wide-deep serve_bulk: {n_l} embedding_bag "
+                              f"launches for {n_calls} forwards")
+    cell_line("wide-deep", "serve_bulk (B 262,144)", ms_b, 262144)
+    profile_cell("wide-deep serve_bulk", lambda i: fn(cfg, params, *bulk))
+    print(f"  wide-deep: embedding_bag launched {launches} times, 2 per "
+          "forward")
+    hold_scores("wide-deep serve_p99 logits", fn(cfg, params, *p99[0]),
+                wide_deep64(params, *p99[0]))
+    n = RECSYS_BULK_CHECK_ROWS
+    got = fn(cfg, params, *bulk)
+    check(got.shape == (262144,), f"serve_bulk logits {tuple(got.shape)}")
+    hold_scores(f"wide-deep serve_bulk logits (first {n} of 262,144)",
+                got[:n], wide_deep64(params, *(x[:n] for x in bulk)))
+    del got
+
+    # ---- B5 at Wide & Deep's bag shapes: f32 and bf16 against the plain
+    # version, then timed (f32, the model's dtype)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tabs = {"deep": params["tables"].to(dtype),
+                "wide": params["wide_tables"].to(dtype)}
+        for shape, (ids, mask, _) in (("serve_p99", p99[0]),
+                                      ("serve_bulk", bulk)):
+            for part, t in tabs.items():
+                out = embedding_bag_fused(t, ids, mask)
+                e = eb_hold(out, embedding_bag_ref(t, ids, mask.float()),
+                            dtype, f"wide-deep {part} tables "
+                                   f"{tuple(t.shape)}, {shape} ids "
+                                   f"{tuple(ids.shape)}")
+                if dtype == torch.float32 and part == "deep" \
+                        and shape == "serve_p99":
+                    err = e
+                del out
+        del tabs
+    torch.cuda.empty_cache()
+
+    def eb_row(t, sets, plain_iters):
+        """B5 (sets rotated), its plain version, F.embedding_bag on the
+        same bags (ids pre-offset into the flattened table) and the bound.
+        ms, plain_ms and library_ms are device time per call from
+        torch.profiler (B5: its kernel alone): at serve_p99 one call is
+        microseconds of device work, under the host's dispatch time, so
+        CUDA events around a loop of calls would time the host; those
+        event times stay beside them as *_call_ms."""
+        Fv, V, D = t.shape
+        es = t.element_size()
+        ws = [m.float() for _, m, _ in sets]
+        flat = [(ids.long() + V * torch.arange(Fv, device="cuda")[:, None]
+                 ).reshape(-1, ids.shape[-1]) for ids, _, _ in sets]
+        tf = t.reshape(Fv * V, D)
+        k = len(sets)
+        n = 20 if k > 1 else 10
+
+        def kern(i):
+            return embedding_bag_fused(t, sets[i % k][0], weights=ws[i % k])
+
+        def plain_fn(i):
+            return embedding_bag_ref(t, sets[i % k][0], ws[i % k])
+
+        def lib_fn(i):
+            return torch.nn.functional.embedding_bag(
+                flat[i % k], tf, mode="sum",
+                per_sample_weights=ws[i % k].reshape(flat[i % k].shape))
+
+        calls = dict(call_ms=time_ms(kern, iters=n, warmup=2),
+                     plain_call_ms=time_ms(plain_fn, iters=plain_iters,
+                                           warmup=1),
+                     library_call_ms=time_ms(lib_fn, iters=n, warmup=2))
+        ms = device_ms(kern, n, "embedding_bag_kernel")
+        plain = device_ms(plain_fn, plain_iters)
+        lib = device_ms(lib_fn, n)
+        ids = sets[0][0]
+        n_rows = int(torch.unique(flat[0]).numel())
+        nbytes = n_rows * D * es + ids.numel() * 8 \
+            + ids.numel() // ids.shape[-1] * D * es
+        flops = 2.0 * ids.numel() * D
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                    bound_by=b_by, shape=list(t.shape),
+                    ids=list(ids.shape), unique_rows=n_rows, **calls)
+
+    rows = {}
+    for part, key in (("deep", "tables"), ("wide", "wide_tables")):
+        for shape, sets, it in (("serve_p99", p99, 10), ("serve_bulk",
+                                                         [bulk], 3)):
+            r = eb_row(params[key], sets, it)
+            rows[f"{part}_{shape}"] = r
+            print(f"  embedding_bag f32 {part} tables {tuple(r['shape'])}, "
+                  f"{shape} ids {tuple(r['ids'])}, device ms per call: "
+                  f"kernel {r['ms']:.5f}, plain {r['plain_ms']:.5f}, "
+                  f"F.embedding_bag {r['library_ms']:.5f}, bound "
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}: "
+                  f"{r['unique_rows']} distinct rows); event-timed calls: "
+                  f"kernel {r['call_ms']:.4f}, plain "
+                  f"{r['plain_call_ms']:.4f}, F.embedding_bag "
+                  f"{r['library_call_ms']:.4f}")
+    row = dict(rows.pop("deep_serve_p99"), **rows)
+    del params, p99, bulk
+    torch.cuda.empty_cache()
+    print(f"  wide-deep peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # ---- Two-Tower: serve_p99 (paired user·item) and retrieval_cand
+    cfg = two_tower_retrieval.full_config()
+    torch.cuda.reset_peak_memory_stats()
+    params = two_tower_retrieval.model.init_params(cfg, seed=0)
+    nu, ni, Vr = cfg.n_user_fields, cfg.n_item_fields, cfg.rows_per_table
+    sets = [to_cuda(data.two_tower_batch(np.random.RandomState(300 + i), 512,
+                                         nu, ni, Vr))
+            for i in range(N_ID_SETS)]
+    fn = two_tower_retrieval.serve_cell("serve_p99").fn
+    ms, n_l, _ = counted(lambda i: fn(cfg, params, sets[i % N_ID_SETS][
+        "user_ids"], sets[i % N_ID_SETS]["item_ids"]), 20)
+    check(n_l == 0, f"two-tower serve_p99 launched embedding_bag {n_l} times")
+    cell_line("two-tower", "serve_p99 (B 512, paired)", ms, 512)
+    profile_cell("two-tower serve_p99", lambda i: fn(
+        cfg, params, sets[i % N_ID_SETS]["user_ids"],
+        sets[i % N_ID_SETS]["item_ids"]))
+    u, it = sets[0]["user_ids"], sets[0]["item_ids"]
+    hold_scores("two-tower serve_p99 scores", fn(cfg, params, u, it),
+                (tower64(params["user_tables"], params["user_mlp"], u)
+                 * tower64(params["item_tables"], params["item_mlp"], it)
+                 ).sum(-1))
+    cat = data.two_tower_batch(np.random.RandomState(301), two_tower_retrieval
+                               .N_CAND, nu, ni, Vr)["item_ids"]
+    cand = torch.cat([tt_model.item_embed(cfg, params, torch.from_numpy(
+        cat[i:i + 2**18]).cuda()) for i in range(0, len(cat), 2**18)])
+    user = to_cuda(data.two_tower_batch(np.random.RandomState(302), 1, nu,
+                                        ni, Vr))["user_ids"]
+    fn = two_tower_retrieval.serve_cell("retrieval_cand").fn
+    ms, n_l, _ = counted(lambda i: fn(cfg, params, user, cand), 10)
+    check(n_l == 0, f"two-tower retrieval launched embedding_bag {n_l} times")
+    cell_line("two-tower", "retrieval_cand (1 user, 10^6 candidates, top "
+              f"{two_tower_retrieval.TOP_K})", ms, two_tower_retrieval.N_CAND,
+              "candidates")
+    profile_cell("two-tower retrieval_cand", lambda i: fn(cfg, params, user,
+                                                          cand))
+    vals, idx = fn(cfg, params, user, cand)
+    s64 = cand.double() @ tower64(params["user_tables"], params["user_mlp"],
+                                  user)[0]
+    hold_scores("two-tower retrieval_cand top scores", vals, s64[idx])
+    k = two_tower_retrieval.TOP_K
+    v64, i64 = torch.sort(s64, descending=True, stable=True)
+    gap = (v64[:k] - v64[1:k + 1]).abs()
+    tol = RECSYS_TOL["atol"] + RECSYS_TOL["rtol"] * v64[:k + 1].abs()
+    clear = (gap > tol[:k]) & torch.cat([torch.ones(1, dtype=torch.bool,
+                                                    device="cuda"),
+                                         gap[:-1] > tol[:k - 1]])
+    bad = int(((idx != i64[:k]) & clear).sum().item())
+    print(f"  two-tower top-{k} indices: {int(clear.sum())} positions whose "
+          f"float64 neighbours lie further apart than the tolerance; "
+          f"{bad} of them differ from the float64 ranking")
+    check(bad == 0, f"two-tower top-{k}: {bad} indices differ")
+    del params, sets, cand, s64, v64, i64
+    torch.cuda.empty_cache()
+    print(f"  two-tower peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # ---- SASRec and BERT4Rec: serve_p99 (512 candidates) and retrieval_cand
+    for mod, causal in ((sasrec, True), (bert4rec, False)):
+        cfg = mod.full_config()
+        torch.cuda.reset_peak_memory_stats()
+        params = mod.model.init_params(cfg, seed=0)
+        S, n_items = cfg.seq_len, cfg.n_items
+
+        def seq_inputs(B, seed, cands):
+            rng = np.random.RandomState(seed)
+            b = to_cuda(data.seq_rec_batch(rng, B, S, n_items, causal))
+            ins = (b["ids"], b["pad_mask"])
+            if cands:
+                ins += (torch.from_numpy(rng.randint(
+                    2, n_items, (B, mod.N_CAND)).astype(np.int32)).cuda(),)
+            return ins
+
+        sets = [seq_inputs(512, 400 + i, True) for i in range(N_ID_SETS)]
+        # a left-padded and a fully padded row (its index -1 wraps)
+        sets[0][1][1, :3] = False
+        sets[0][1][2] = False
+        fn = mod.serve_cell("serve_p99").fn
+        ms, n_l, _ = counted(lambda i: fn(cfg, params, *sets[i % N_ID_SETS]),
+                             10)
+        check(n_l == 0, f"{cfg.name} launched embedding_bag {n_l} times")
+        cell_line(cfg.name, f"serve_p99 (B 512, {mod.N_CAND} candidates)", ms,
+                  512)
+        profile_cell(f"{cfg.name} serve_p99",
+                     lambda i: fn(cfg, params, *sets[i % N_ID_SETS]))
+        hold_scores(f"{cfg.name} serve_p99 scores", fn(cfg, params, *sets[0]),
+                    seq_serve64(cfg, params, causal, *sets[0]))
+        one = seq_inputs(1, 500, False)
+        fn = mod.serve_cell("retrieval_cand").fn
+        ms, n_l, _ = counted(lambda i: fn(cfg, params, *one), 10)
+        check(n_l == 0, f"{cfg.name} launched embedding_bag {n_l} times")
+        cell_line(cfg.name, "retrieval_cand (B 1, full catalog)", ms, n_items,
+                  "items")
+        profile_cell(f"{cfg.name} retrieval_cand",
+                     lambda i: fn(cfg, params, *one))
+        got = fn(cfg, params, *one)
+        check(got.shape == (1, n_items), f"{cfg.name} retrieval scores "
+                                         f"{tuple(got.shape)}")
+        hold_scores(f"{cfg.name} retrieval_cand scores", got,
+                    seq_serve64(cfg, params, causal, *one))
+        del params, sets, one, got
+        torch.cuda.empty_cache()
+        print(f"  {cfg.name} peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return err, row, launches
+
+
+PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
+          "sampled", "overlap")
 
 
 def main(argv=None) -> int:
@@ -1447,11 +2019,17 @@ def main(argv=None) -> int:
         (errs["flash_prefill_tri"], rows["flash_prefill_tri"],
          launches["flash_prefill_tri"]) = tri_phase(gen)
         errs["gumbel_argmax"], rows["gumbel_argmax"] = gumbel_phase(gen)
+        embedding_bag_phase(gen)
         phase_done("kernels")
     if "model" in phases:
         print("model, full width, 2 layers:")
         model_phase()
         phase_done("model")
+    if "recsys" in phases:
+        print("recsys scoring, full width, f32:")
+        (errs["embedding_bag"], rows["embedding_bag"],
+         launches["embedding_bag"]) = recsys_phase(gen)
+        phase_done("recsys")
     cfg = params = prompts = outs = None
     if set(phases) & {"dense", "paged", "invariance", "sampled", "overlap"}:
         cfg, params = path_model()
@@ -1466,8 +2044,8 @@ def main(argv=None) -> int:
         launches["paged_tree_attention"] = paged["paged_tree_attention"]
         phase_done("paged")
     if "invariance" in phases:
-        print("batch-shape invariance of the logits (a finding, not a "
-              "check):")
+        print("batch-shape invariance of the logits (findings) and of the "
+              "suffix prefill (a check):")
         invariance_phase(cfg, params)
         phase_done("invariance")
     if "sampled" in phases:
@@ -1495,7 +2073,10 @@ def main(argv=None) -> int:
                "src/repro/kernels/flash_prefill/flash_prefill.py:110"),
            "gumbel_argmax": (
                "src/repro_torch/kernels/gumbel_argmax/csrc/gumbel_argmax.cu",
-               "src/repro/serving/sampler.py:82")}
+               "src/repro/serving/sampler.py:82"),
+           "embedding_bag": (
+               "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+               "src/repro/kernels/embedding_bag/embedding_bag.py:20")}
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if phases != list(PHASES):
         print(f"partial run ({', '.join(phases)}): no result line")

@@ -32,6 +32,7 @@ SOURCES: Dict[str, Path] = {
     "flash_prefill_tri": (_PKG / "flash_prefill" / "csrc"
                           / "flash_prefill_tri.cu"),
     "gumbel_argmax": _PKG / "gumbel_argmax" / "csrc" / "gumbel_argmax.cu",
+    "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -49,6 +50,7 @@ _ENTRY = {
     "flash_prefill_tri": ("flash_prefill_tri_launch",
                           [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "gumbel_argmax": ("gumbel_argmax_launch", [_P] * 8 + [_I] * 5 + [_P]),
+    "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
 # further C entry points of a library: name -> argtypes
 _EXTRA = {"gumbel_argmax": {"gumbel_noise_launch": [_P] * 4 + [_I] * 2

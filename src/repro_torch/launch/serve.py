@@ -221,6 +221,10 @@ def main(argv=None) -> None:
         adaptive=args.adaptive_draft).validate()
     mod = cfgreg.get_arch(args.arch)
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
+    if not hasattr(cfg, "n_layers"):
+        raise SystemExit(f"{args.arch} is not an LM arch; serving loop is "
+                         "for autoregressive decoders (see DESIGN.md "
+                         "§Arch-applicability)")
     if args.smoke:
         cfg = type(cfg)(**{**cfg.__dict__, "max_seq_len": 768})
     params = init_params(cfg, seed=0, device=args.device)

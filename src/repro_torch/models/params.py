@@ -29,23 +29,23 @@ def resolve_device(device: Device) -> torch.device:
     return dev
 
 
+def tree_to_torch(tree: Mapping[str, Any], dev: torch.device):
+    """A nested dict of numpy arrays (bf16 through ``ml_dtypes``) as torch
+    tensors of the same shapes and dtypes on ``dev``, keys kept."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_torch(v, dev) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: no torch.from_numpy
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
 def params_from_jax(cfg: TransformerConfig, tree: Mapping[str, Any],
                     device: Device = None) -> Params:
     """The JAX ``init_params`` pytree, as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), converted to torch tensors of
     the same shapes and dtypes on ``device``."""
-    dev = resolve_device(device)
-
-    def conv(a):
-        if isinstance(a, Mapping):
-            return {k: conv(v) for k, v in a.items()}
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":     # ml_dtypes: no torch.from_numpy
-            return torch.from_numpy(a.astype(np.float32)).to(
-                dev, torch.bfloat16)
-        return torch.from_numpy(a.copy()).to(dev)
-
-    params = conv(tree)
+    params = tree_to_torch(tree, resolve_device(device))
     if set(params["layers"]) != set(_layer_shapes(cfg)):
         raise ValueError("pytree layer keys "
                          f"{sorted(params['layers'])} do not match the "
@@ -101,4 +101,5 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     return params
 
 
-__all__ = ["init_params", "params_from_jax", "resolve_device"]
+__all__ = ["init_params", "params_from_jax", "resolve_device",
+           "tree_to_torch"]

@@ -410,7 +410,8 @@ def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
 
 def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
                               cache: Cache, slot: int, tokens: torch.Tensor,
-                              offset: torch.Tensor, lens: torch.Tensor
+                              offset: torch.Tensor, lens: torch.Tensor,
+                              prefill_len: Optional[int] = None
                               ) -> Tuple[Cache, torch.Tensor]:
     """Suffix prefill for prefix-cache hits: prefill only the uncached tail
     of one request's prompt, attending the shared prefix blocks through
@@ -418,30 +419,63 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
 
     tokens (1, Sb): the prompt suffix padded to a fixed bucket length;
     offset (1,): cached prefix length (absolute position of tokens[0]);
-    lens (1,): real (un-padded) suffix length.
+    lens (1,): real (un-padded) suffix length; prefill_len: the width the
+    uncached admission pads a prompt to (None: ``max_seq_len``).
 
     A causally masked paged tree step at cache_lens = offset: the decode
     backend scatters the suffix KV at rows offset+i through the table and
     masks attention to past or causal-within-suffix — what a full prefill
     computes for those positions.  Pad slots scatter to the NULL block
     (``slot_valid``) and are causally invisible to real queries.
+
+    The row-wise work (norms, the QKV, output and FFN products, the
+    unembedding) runs at the uncached admission's shapes, with each suffix
+    token in the row the admission gives it: row ``slot`` of a (lanes,
+    prefill_len) block at column offset+i, and the last token's hidden state
+    in row ``slot`` of a (lanes, d) block.  On the card a product's rounding
+    depends on its shape, so only this gives the tail's K/V and logits the
+    admission's bits (a sampled draw can rest on them); attention alone runs
+    on the (1, Sb) suffix slots.
     """
     B, Sb = tokens.shape
     assert B == 1, "prefill_from_offset admits one request at a time"
     slot = int(slot)
     dev = tokens.device
+    lanes = cache["block_tables"].shape[0]
+    Sp = int(prefill_len or cfg.max_seq_len)
+    n_rows = lanes * Sp
     bt_row = cache["block_tables"][slot:slot + 1]
     ar = torch.arange(Sb, device=dev)
     positions = offset.int()[:, None] + ar.int()[None, :]        # (1, Sb)
     causal = torch.ones((Sb, Sb), dtype=torch.bool,
                         device=dev).tril().expand(B, Sb, Sb)
     valid = ar[None, :] < lens.long()[:, None]
+    # suffix slot i <-> flat row slot*Sp + offset + i of the padded block;
+    # pad slots read the row of column Sp-1 (their results are discarded)
+    # and write to a spare row past the block
+    col = positions[0].long()
+    src = slot * Sp + col.clamp(max=Sp - 1)
+    dst = torch.where(valid[0], slot * Sp + col, n_rows)
+    block = torch.zeros((n_rows + 1,), dtype=tokens.dtype, device=dev)
+    block[dst] = tokens[0]
+    block_pos = torch.arange(Sp, device=dev)[None, :]    # as the admission's
     backend = attn_backends.get_backend(cfg.decode_backend)
     attend = backend.make_paged_tree_attend(cfg, bt_row, offset, causal,
                                             valid)
-    h = _tree_forward(cfg, params, cache, tokens, positions, attend)
-    h_last = h[torch.arange(B, device=dev), lens.long() - 1]
-    return cache, _unembed(cfg, params, h_last)
+
+    def attend_suffix(q, k, v, k_cache, v_cache):
+        out = attend(*(x.reshape(n_rows, *x.shape[2:])[src][None]
+                       for x in (q, k, v)), k_cache, v_cache)
+        full = out.new_zeros((n_rows + 1,) + tuple(out.shape[2:]))
+        full[dst] = out[0]
+        return full[:n_rows].view(q.shape)
+
+    h = _tree_forward(cfg, params, cache, block[:n_rows].view(lanes, Sp),
+                      block_pos.expand(lanes, Sp), attend_suffix)
+    last = slot * Sp + offset.long() + lens.long() - 1              # (1,)
+    h_last = torch.zeros((lanes, h.shape[-1]), dtype=h.dtype, device=dev)
+    h_last[slot:slot + 1] = h.reshape(n_rows, -1)[last]
+    return cache, _unembed(cfg, params, h_last)[slot:slot + 1]
 
 
 def copy_paged_block(cache: Cache, src: int, dst: int) -> Cache:

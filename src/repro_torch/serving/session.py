@@ -286,8 +286,11 @@ def _paged_fns(cfg, params, dev, put, choose, choose_last, common, *,
     def _prefill_suffix(cache, slot, tokens, offset, slen, lane_params=None):
         tokens = put(tokens, torch.int32)
         offset, slen = put(offset, torch.int32), put(slen, torch.int32)
+        # at the uncached admission's (lanes, cap) shapes: the tail's rows
+        # then round as they would with the cache off
         cache, last_logits = tx.prefill_from_offset_paged(
-            cfg, params, cache, int(slot), tokens, offset, slen)
+            cfg, params, cache, int(slot), tokens, offset, slen,
+            prefill_len=cap)
         last_tok = tokens.gather(1, (slen - 1)[:, None].long())
         return cache, choose(last_logits[:, None, :], last_tok,
                              (offset + slen - 1)[:, None], lane_params)[:, 0]

@@ -1,11 +1,13 @@
-"""Synthetic LM corpus (port-local copy of ``repro.training.data``'s
-``CorpusProfile`` / ``PROFILES`` / ``SyntheticCorpus``, numpy only): RAG-
-style prompts whose answers copy spans from the prompt and from a shared
-phrase pool — the redundancy a Lookahead trie exploits."""
+"""Synthetic data (port-local copy of ``repro.training.data``'s
+``CorpusProfile`` / ``PROFILES`` / ``SyntheticCorpus`` and its recsys batch
+generators, numpy only): RAG-style prompts whose answers copy spans from
+the prompt and from a shared phrase pool — the redundancy a Lookahead trie
+exploits — and recommender batches drawn in the reference's order of
+``RandomState`` calls, so the same seed gives the same arrays."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -73,4 +75,46 @@ class SyntheticCorpus:
         return [self.sample() for _ in range(n)]
 
 
-__all__ = ["CorpusProfile", "PROFILES", "SyntheticCorpus"]
+# ------------------------------------------------------------------- recsys
+def wide_deep_batch(rng: np.random.RandomState, batch: int, n_sparse: int,
+                    rows: int, multi_hot: int, n_dense: int
+                    ) -> Dict[str, np.ndarray]:
+    return {
+        "sparse_ids": rng.randint(0, rows, (batch, n_sparse, multi_hot)
+                                  ).astype(np.int32),
+        "sparse_mask": (rng.rand(batch, n_sparse, multi_hot) > 0.25),
+        "dense": rng.randn(batch, n_dense).astype(np.float32),
+        "labels": rng.randint(0, 2, (batch,)).astype(np.float32),
+    }
+
+
+def two_tower_batch(rng: np.random.RandomState, batch: int, n_user: int,
+                    n_item: int, rows: int) -> Dict[str, np.ndarray]:
+    return {"user_ids": rng.randint(0, rows, (batch, n_user)).astype(np.int32),
+            "item_ids": rng.randint(0, rows, (batch, n_item)).astype(np.int32)}
+
+
+def seq_rec_batch(rng: np.random.RandomState, batch: int, seq: int,
+                  n_items: int, causal: bool, n_neg: int = 64
+                  ) -> Dict[str, np.ndarray]:
+    ids = rng.randint(2, n_items, (batch, seq)).astype(np.int32)
+    pad = np.ones((batch, seq), bool)
+    negatives = rng.randint(2, n_items, (n_neg,)).astype(np.int32)
+    if causal:   # sasrec: next-item labels + shared negatives
+        labels = np.concatenate([ids[:, 1:], -np.ones((batch, 1), np.int32)],
+                                axis=1).astype(np.int32)
+        return {"ids": ids, "labels": labels, "negatives": negatives,
+                "pad_mask": pad}
+    # bert4rec: cloze — fixed count of masked slots per row
+    M = max(seq // 5, 1)
+    mpos = np.stack([rng.choice(seq, M, replace=False)
+                     for _ in range(batch)]).astype(np.int32)
+    mlab = np.take_along_axis(ids, mpos, axis=1).astype(np.int32)
+    ids_masked = ids.copy()
+    np.put_along_axis(ids_masked, mpos, 1, axis=1)   # [MASK]=1
+    return {"ids": ids_masked, "masked_pos": mpos, "masked_labels": mlab,
+            "negatives": negatives, "pad_mask": pad}
+
+
+__all__ = ["CorpusProfile", "PROFILES", "SyntheticCorpus", "wide_deep_batch",
+           "two_tower_batch", "seq_rec_batch"]

@@ -13,12 +13,16 @@ ulp (2^-7 relative); rtol is two ulps and atol covers f32 sum-order noise
 near zero, while typical |outputs| here are 1e-2 to 1e-1.  The
 Gumbel-argmax kernel's raw bits equal the plain generator's, its Gumbel
 values agree to 2e-6 (two logf calls), and its choices equal the plain
-version's wherever the plain top-two gap of z + g exceeds 1e-5.
+version's wherever the plain top-two gap of z + g exceeds 1e-5.  The fused
+EmbeddingBag kernel gives NaN exactly where its plain version does (ids out
+of range) and is within the same tolerance elsewhere.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
+                                                   embedding_bag_ref)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.gumbel_argmax import ref as gref
 from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax, gumbel_noise
@@ -247,3 +251,52 @@ def test_gumbel_argmax_refuses_what_it_does_not_take(cuda):
         gumbel_argmax(logits, pos[:, :2], *lane)
     with pytest.raises(ValueError, match="temp"):
         gumbel_argmax(logits, pos, lane[0].cpu(), *lane[1:])
+
+
+# (F, V, D, N, L): tests/test_kernels.py:66-67's (V, D, N, L) on plain
+# tables (F = 0), Wide & Deep's deep and wide bags on stacked tables at a
+# cut row count, and D = 1
+EB_SHAPES = [(0, 100, 128, 16, 4), (0, 500, 256, 8, 7), (0, 64, 128, 32, 3),
+             (0, 1000, 128, 4, 1), (0, 300, 1, 64, 4), (40, 1000, 32, 512, 4),
+             (40, 1000, 1, 512, 4), (3, 50, 8, 64, 4)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("F,V,D,N,L", EB_SHAPES)
+def test_embedding_bag_kernel_matches_plain(cuda, F, V, D, N, L, dtype):
+    """Masked slots, weights, and (on the small stacked table) negative and
+    out-of-range ids: NaN bags where the plain version has them."""
+    rng = np.random.RandomState(F + V + D)
+    shape = (F, V, D) if F else (V, D)
+    t = _t(rng.randn(*shape), dtype, cuda)
+    ids_shape = (N, F, L) if F else (N, L)
+    lo, hi = (-V - 4, V + 4) if F == 3 else (0, V)
+    ids = torch.from_numpy(rng.randint(lo, hi, ids_shape)).to(cuda)
+    m = torch.from_numpy(rng.rand(*ids_shape) > 0.3).to(cuda)
+    w = torch.from_numpy(rng.rand(*ids_shape).astype(np.float32)).to(cuda)
+    n0 = embedding_bag_fused.launches
+    out = embedding_bag_fused(t, ids, m, w)
+    torch.cuda.synchronize()
+    assert embedding_bag_fused.launches == n0 + 1
+    ref = embedding_bag_ref(t, ids, w * m)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    if F == 3:
+        assert torch.isnan(ref).any()
+    np.testing.assert_allclose(out.float().nan_to_num().cpu().numpy(),
+                               ref.float().nan_to_num().cpu().numpy(),
+                               **_tol(dtype))
+
+
+def test_embedding_bag_refuses_what_it_does_not_take(cuda):
+    t = torch.zeros(10, 4, device=cuda)
+    ids = torch.zeros(3, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        embedding_bag_fused(t.half(), ids)
+    with pytest.raises(ValueError, match="ids on cpu"):
+        embedding_bag_fused(t, ids.cpu())
+    with pytest.raises(ValueError, match="need"):
+        embedding_bag_fused(t, ids[0])                 # ids without L
+    with pytest.raises(ValueError, match="need"):
+        embedding_bag_fused(t.view(2, 5, 4), ids[:, None].expand(3, 3, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_fused(torch.zeros(4, 10, device=cuda).t(), ids)

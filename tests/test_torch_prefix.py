@@ -243,3 +243,91 @@ def test_namespace_isolation_and_backpressure_eviction(small_model):
     on, eng = _serve(small_model, prompts, prefix_cache=True, n_blocks=11)
     assert on == off
     assert eng.stats.prefix_evicted_blocks > 0
+
+
+# ------------------------------------- suffix prefill at the admission shape
+def test_suffix_prefill_rows_match_padded_admission(small_model):
+    """The suffix prefill's last-token logits and the tail's K/V rows in
+    every layer equal the uncached admission's (the request in row ``slot``
+    of a (lanes, prefill_len) batch) — on the card bit for bit
+    (chip_smoke.py), here within f32 sum-order noise, because the two
+    attention paths sum over other key counts on the CPU.  A 40-token head
+    (mid-block) and a 23-token tail in a 32-slot bucket: the bucket's pad
+    slots reach past prefill_len 64."""
+    _, _, tcfg, tp = small_model
+    rng = np.random.RandomState(9)
+    head, tail, slot, plen = 40, 23, 1, 64
+    prompt = rng.randint(1, 128, size=head + tail)
+    bt = np.zeros((2, 16), np.int32)
+    bt[0, :3] = [7, 8, 9]
+    bt[1, :4] = [6, 2, 11, 3]
+
+    def admit(n):
+        cache = ttx.init_paged_cache(tcfg, 2, n_blocks=12)
+        cache["block_tables"] = torch.from_numpy(bt)
+        toks = np.zeros((2, plen), np.int32)
+        toks[slot, :n] = prompt[:n]
+        lens = np.asarray([1, 1], np.int32)
+        lens[slot] = n
+        return ttx.prefill_into_slot_paged(tcfg, tp, cache, slot,
+                                           torch.from_numpy(toks),
+                                           torch.from_numpy(lens))
+
+    full_cache, full_logits = admit(head + tail)
+    cache, _ = admit(head)
+    toks = np.zeros((1, 32), np.int32)
+    toks[0, :tail] = prompt[head:]
+    cache, logits = ttx.prefill_from_offset_paged(
+        tcfg, tp, cache, slot, torch.from_numpy(toks),
+        torch.tensor([head], dtype=torch.int32),
+        torch.tensor([tail], dtype=torch.int32), prefill_len=plen)
+    np.testing.assert_allclose(logits.numpy(), full_logits.numpy(),
+                               **LOGIT_TOL)
+    rows = ttx.paged_row_index(torch.from_numpy(bt[slot:slot + 1]),
+                               torch.arange(head, head + tail)[None], BS)[0]
+    for name in ("k", "v"):
+        got = cache[name].flatten(1, 2)[:, rows]
+        want = full_cache[name].flatten(1, 2)[:, rows]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LOGIT_TOL)
+        # the head's rows are the head-only admission's, untouched
+        head_rows = ttx.paged_row_index(torch.from_numpy(bt[slot:slot + 1]),
+                                        torch.arange(head)[None], BS)[0]
+        assert torch.equal(cache[name].flatten(1, 2)[:, head_rows],
+                           full_cache[name].flatten(1, 2)[:, head_rows])
+
+
+@pytest.mark.parametrize("lanes", [2, 3])
+def test_sampled_shared_prefix_cache_on_equals_off_and_reference(
+        small_model, lanes):
+    """Sampled requests (temperature 0.8, distinct seeds, unguided) that
+    share a 40-token head: with the prefix cache on they draw the tokens
+    they draw with it off, and those of ``reference_decode`` at the serving
+    batch shape; the suffix prefill sees one input shape per bucket
+    touched."""
+    _, _, tcfg, tp = small_model
+    rng = np.random.RandomState(10)
+    shared = rng.randint(1, 128, size=40).tolist()
+    tails = [12, 3, 9, 20, 5, 14, 7, 16]
+    prompts = [shared + rng.randint(1, 128, size=t).tolist() for t in tails]
+    sps = [SamplingParams(max_new_tokens=10, sample=True, temperature=0.8,
+                          seed=300 + i) for i in range(len(prompts))]
+    outs = {}
+    for on in (False, True):
+        ecfg = dataclasses.replace(_ecfg(tapi, prefix_cache=on), lanes=lanes)
+        eng = tapi.build_engine(ecfg, tcfg, tp, device="cpu")
+        hs = [eng.submit(Request(prompt=p, params=sp))
+              for p, sp in zip(prompts, sps)]
+        eng.run()
+        outs[on] = [h.result().tokens for h in hs]
+    assert outs[True] == outs[False]
+    st, fns = eng.stats, eng.fns
+    assert st.prefix_hits >= 3
+    for p, sp, o in zip(prompts, sps, outs[True]):
+        assert o == reference_decode(fns, p, params=sp, lanes=lanes)
+    touched = set()
+    for r in eng.scheduler.results.values():
+        n_cached = r.stats.cached_prompt_tokens
+        if n_cached:
+            n = len(prompts[r.rid]) - n_cached
+            touched.add(next(b for b in fns.suffix_buckets if b >= n))
+    assert fns.prefill_suffix._cache_size() == len(touched) >= 1
