@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 
 1. the card: its name and power limit from ``nvidia-smi``;
 2. the build: the six CUDA kernels compiled from this checkout's sources,
-   one ``nvcc`` each, in parallel;
+   one ``nvcc`` each, in parallel; each attention kernel's registers and
+   spills from ptxas, and a check of the SASS (``cuobjdump``) of every bf16
+   tree-attention kernel: tensor-core products (HMMA), asynchronous copies
+   (LDGSTS), no spills;
 3. the kernels: each held against its plain PyTorch version on the card in
    f32 and bf16 — at the serving path's shapes and at the shapes of
    ``tests/test_kernels.py`` / ``tests/test_paged_cache.py`` — the paged
@@ -21,7 +24,9 @@ Phases, in order; any failure exits non-zero:
    beside its plain version, the one PyTorch library call that computes the
    same function where there is one (timed here only, never called by the
    port) and its bound (bytes over 3.35 TB/s or operations over the peak
-   rate for the input type, whichever is larger);
+   rate for the input type, whichever is larger) — by CUDA events around a
+   loop of calls (host dispatch included) and by device time from
+   torch.profiler (``device_ms``, ``library_device_ms``);
 4. the model: Qwen2-1.5B at full width with 2 layers, the cuda backend's
    logits against the dense backend's in f32 on both KV layouts (and the
    suffix prefill), and in bf16 both against the f32 path, with a limit
@@ -70,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,23 +145,6 @@ def randn(gen, shape, dtype, scale=0.3):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def tree_mask_path(B, T, S, seed=0):
-    """Serving-like (B, T, S) mask: a committed prefix per lane plus the
-    ancestor closure of a random draft tree at rows [len, len+T)."""
-    rng = np.random.RandomState(seed)
-    mask = np.zeros((B, T, S), bool)
-    for b in range(B):
-        n = int(rng.randint(96, S - T - MAX_NEW))
-        parent = [-1] + [int(rng.randint(0, i)) for i in range(1, T)]
-        for i in range(T):
-            j = i
-            while j >= 0:
-                mask[b, i, n + j] = True
-                j = parent[j]
-        mask[b, :, :n] = True
-    return torch.from_numpy(mask).cuda()
-
-
 def tree_mask_tests(B, T, S, kind):
     """The masks of tests/test_kernels.py: prefix + tril block ("sweep") or
     random with key 0 always visible ("random")."""
@@ -210,9 +199,10 @@ def paged_kernel_cases(gen, dtype):
     decode path (fully allocated, and with NULL tails), every suffix bucket
     at the shared-prefix offset, and the shapes of tests/test_paged_cache.py
     (dh 8/16, blocks of 8 to 32 rows, NULL entries, blocks out of order)."""
+    from repro_torch.kernels.timing import path_mask
     B, T, H, K, dh, bs, bpl = PATH_PAGED
     S = bs * bpl
-    mask = tree_mask_path(B, T, S)
+    mask = path_mask(B, T, S, max_new=MAX_NEW)
     yield ("decode", *paged_case(gen, B, T, H, K, dh, bs, bpl, dtype, mask))
     last = (torch.arange(S, device="cuda") * mask).amax(dim=(1, 2))
     n_used = [int(x) // bs + 1 for x in last.tolist()]
@@ -267,8 +257,90 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# --------------------------------------------------------------- phase 2
+ATTN_LIBS = ("tree_attention", "paged_tree_attention", "flash_prefill",
+             "flash_prefill_tri")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from an
+    nvcc -Xptxas -v log."""
+    out, cur, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *spills)
+    return out
+
+
+def attn_label(mangled: str) -> tuple:
+    """('bf16 ND', 8) / ('f32 NC', 4) for an attention kernel's mangled
+    name: its arithmetic and its dh template argument."""
+    m = re.search(r"mma_attention_kernelILi(\d+)E", mangled)
+    if m:
+        return "bf16 ND", int(m.group(1))
+    m = re.search(r"attention_kernelIfLi(\d+)E", mangled)
+    return ("f32 NC", int(m.group(1))) if m else (mangled[:60], 0)
+
+
+def sass_phase(_build):
+    """Registers and spills of every attention kernel from ptxas, and the
+    SASS of the bf16 tree-attention kernels (B1, B2): every instantiation
+    must hold tensor-core products (HMMA or HGMMA) and asynchronous copies
+    (LDGSTS or UTMALDG), and spill nothing."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in ATTN_LIBS:
+        lib = _build.library_path(name)
+        report = ptxas_report(lib.with_suffix(".log").read_text())
+        check(bool(report), f"{name}: no ptxas report in the build log")
+        line = ", ".join(
+            "%s=%d %d regs" % (*attn_label(k), r)
+            + (f" SPILL {st}/{ld} B" if st or ld else "")
+            for k, (r, st, ld) in sorted(report.items(),
+                                         key=lambda kv: attn_label(kv[0])))
+        print(f"  [{name}] {line}")
+        if name not in ("tree_attention", "paged_tree_attention"):
+            continue
+        mma = {k: v for k, v in report.items() if "mma_attention" in k}
+        check(bool(mma) and all(st == ld == 0 for _, st, ld in mma.values()),
+              f"{name}: bf16 kernels missing or spilling: {mma}")
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {}
+        for part in sass.split("Function : ")[1:]:
+            fn, _, body = part.partition("\n")
+            funcs[fn.strip()] = body
+        bf16 = {fn: body for fn, body in funcs.items()
+                if "mma_attention_kernel" in fn}
+        check(len(bf16) == len(mma), f"{name}: {len(bf16)} bf16 kernels in "
+                                     f"the SASS, {len(mma)} in ptxas's log")
+        for fn, body in bf16.items():
+            n_mma = len(re.findall(r"\b(?:HMMA|HGMMA)\b", body))
+            n_cp = len(re.findall(r"\b(?:LDGSTS|UTMALDG)\b", body))
+            check(n_mma > 0 and n_cp > 0,
+                  f"{name} {attn_label(fn)}: {n_mma} tensor-core and {n_cp} "
+                  "asynchronous-copy instructions in its SASS")
+        nd8 = next(b for f, b in bf16.items()
+                   if attn_label(f) == ("bf16 ND", 8))
+        print(f"  [{name}] SASS: all {len(bf16)} bf16 kernels hold "
+              f"HMMA/HGMMA and LDGSTS/UTMALDG (dh 128: "
+              f"{len(re.findall(r'HMMA', nd8))} HMMA, "
+              f"{len(re.findall(r'LDGSTS', nd8))} LDGSTS); no spills")
+
+
 # --------------------------------------------------------------- phase 3
 def kernel_phase(gen):
+    from repro_torch.kernels.timing import device_ms, path_mask
     from repro_torch.kernels.flash_prefill.ops import (flash_prefill,
                                                        flash_prefill_ref)
     from repro_torch.kernels.tree_attention.ops import (
@@ -293,7 +365,7 @@ def kernel_phase(gen):
             q = randn(gen, (B, T, H, dh), dtype)
             k = randn(gen, (B, S, K, dh), dtype)
             v = randn(gen, (B, S, K, dh), dtype)
-            mask = (tree_mask_path(B, T, S) if kind == "path"
+            mask = (path_mask(B, T, S, max_new=MAX_NEW) if kind == "path"
                     else tree_mask_tests(B, T, S, kind))
             out = tree_attention(q, k, v, mask)
             torch.cuda.synchronize()
@@ -345,17 +417,22 @@ def kernel_phase(gen):
     q = randn(gen, (N_LAYERS, B, T, H, dh), dt)
     kc = randn(gen, (N_LAYERS, B, S, K, dh), dt)
     vc = randn(gen, (N_LAYERS, B, S, K, dh), dt)
-    mask = tree_mask_path(B, T, S, seed=1)
+    mask = path_mask(B, T, S, seed=1, max_new=MAX_NEW)
     L = N_LAYERS
     ms = time_ms(lambda i: tree_attention(q[i % L], kc[i % L], vc[i % L],
                                           mask))
     plain = time_ms(lambda i: tree_attention_reference(
         q[i % L], kc[i % L], vc[i % L], mask), iters=10)
     m4 = mask[:, None]
-    lib = time_ms(lambda i: sdpa(q[i % L].transpose(1, 2),
-                                 kc[i % L].transpose(1, 2),
-                                 vc[i % L].transpose(1, 2), attn_mask=m4,
-                                 enable_gqa=True))
+
+    def b1_lib(i):
+        return sdpa(q[i % L].transpose(1, 2), kc[i % L].transpose(1, 2),
+                    vc[i % L].transpose(1, 2), attn_mask=m4, enable_gqa=True)
+
+    lib = time_ms(b1_lib)
+    dev = device_ms(lambda i: tree_attention(q[i % L], kc[i % L], vc[i % L],
+                                             mask), L)
+    lib_dev = device_ms(b1_lib, L)
     # what this mask needs: each lane's K/V rows up to its last visible key,
     # q and the output, the mask; products over the visible (t, s) pairs
     last = torch.arange(S, device="cuda")[None, None] * mask
@@ -366,10 +443,12 @@ def kernel_phase(gen):
     flops = 4.0 * mask.sum().item() * H * dh
     b_ms, b_by = bound(nbytes, flops, dt)
     rows["tree_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b_ms, bound_by=b_by)
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  device_ms=dev, library_device_ms=lib_dev)
     print(f"  tree_attention bf16 {PATH_TREE}: kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP)")
+          f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device "
+          f"time: kernel {dev:.4f} ms, sdpa {lib_dev:.4f} ms")
 
     # B2 at the paged decode shape, each call on one of 28 layer pools
     # (60 MiB of K/V), beside its plain version, the library's nearest
@@ -377,7 +456,7 @@ def kernel_phase(gen):
     # paged K/V) and B1 on the gathered caches
     B, T, H, K, dh, bs, bpl = PATH_PAGED
     S = bs * bpl
-    mask = tree_mask_path(B, T, S, seed=1)
+    mask = path_mask(B, T, S, seed=1, max_new=MAX_NEW)
     bt = shuffled_tables([bpl] * B, bpl, seed=2)
     nb = 1 + B * bpl
     q = randn(gen, (N_LAYERS, B, T, H, dh), dt)
@@ -388,11 +467,17 @@ def kernel_phase(gen):
     plain = time_ms(lambda i: paged_tree_attention_reference(
         q[i % L], kp[i % L], vp[i % L], bt, mask), iters=10)
     m4 = mask[:, None]
-    gather_sdpa = time_ms(lambda i: sdpa(
-        q[i % L].transpose(1, 2),
-        paged_gather(kp[i % L], bt).transpose(1, 2),
-        paged_gather(vp[i % L], bt).transpose(1, 2), attn_mask=m4,
-        enable_gqa=True))
+
+    def b2_lib(i):
+        return sdpa(q[i % L].transpose(1, 2),
+                    paged_gather(kp[i % L], bt).transpose(1, 2),
+                    paged_gather(vp[i % L], bt).transpose(1, 2),
+                    attn_mask=m4, enable_gqa=True)
+
+    gather_sdpa = time_ms(b2_lib)
+    dev = device_ms(lambda i: paged_tree_attention(q[i % L], kp[i % L],
+                                                   vp[i % L], bt, mask), L)
+    lib_dev = device_ms(b2_lib, L)
     kd = torch.stack([paged_gather(kp[i], bt) for i in range(L)])
     vd = torch.stack([paged_gather(vp[i], bt) for i in range(L)])
     dense_ms = time_ms(lambda i: tree_attention(q[i % L], kd[i % L],
@@ -406,12 +491,14 @@ def kernel_phase(gen):
     b_ms, b_by = bound(nbytes, flops, dt)
     rows["paged_tree_attention"] = dict(
         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        device_ms=dev, library_device_ms=lib_dev,
         gather_sdpa_ms=gather_sdpa, tree_attention_ms=dense_ms)
     print(f"  paged_tree_attention bf16 {PATH_PAGED}: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, gather+sdpa (3 calls: two gathers, one "
           f"sdpa) {gather_sdpa:.4f} ms, tree_attention on the gathered "
           f"caches {dense_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-          f"{nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP)")
+          f"{nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device time: "
+          f"kernel {dev:.4f} ms, gather+sdpa {lib_dev:.4f} ms")
 
     B, S, H, K, dh = PATH_PREFILL[0]
     q = randn(gen, (N_LAYERS, B, S, H, dh), dt)
@@ -420,18 +507,24 @@ def kernel_phase(gen):
     ms = time_ms(lambda i: flash_prefill(q[i % L], k[i % L], v[i % L]))
     plain = time_ms(lambda i: flash_prefill_ref(q[i % L], k[i % L],
                                                 v[i % L]), iters=10)
-    lib = time_ms(lambda i: sdpa(q[i % L].transpose(1, 2),
-                                 k[i % L].transpose(1, 2),
-                                 v[i % L].transpose(1, 2), is_causal=True,
-                                 enable_gqa=True))
+
+    def b3_lib(i):
+        return sdpa(q[i % L].transpose(1, 2), k[i % L].transpose(1, 2),
+                    v[i % L].transpose(1, 2), is_causal=True, enable_gqa=True)
+
+    lib = time_ms(b3_lib)
+    dev = device_ms(lambda i: flash_prefill(q[i % L], k[i % L], v[i % L]), L)
+    lib_dev = device_ms(b3_lib, L)
     nbytes = (2 * q[0].numel() + 2 * k[0].numel()) * 2
     flops = 4.0 * B * H * dh * S * (S + 1) / 2
     b_ms, b_by = bound(nbytes, flops, dt)
     rows["flash_prefill"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=b_ms, bound_by=b_by)
+                                 bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                                 library_device_ms=lib_dev)
     print(f"  flash_prefill bf16 {PATH_PREFILL[0]}: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP)")
+          f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device "
+          f"time: kernel {dev:.4f} ms, sdpa {lib_dev:.4f} ms")
     return errs, rows
 
 
@@ -455,6 +548,7 @@ def tri_phase(gen):
     per shape, counted); then timed in bf16 beside B3, the plain version and
     scaled_dot_product_attention at both path shapes."""
     import repro_torch.kernels.flash_prefill as fp_pkg
+    from repro_torch.kernels.timing import device_ms
     from repro_torch.kernels.flash_prefill.ops import (flash_prefill,
                                                        flash_prefill_ref)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -505,22 +599,33 @@ def tri_phase(gen):
         plain = time_ms(lambda i: flash_prefill_ref(q[i % L], k[i % L],
                                                     v[i % L]),
                         iters=5 if S > 1024 else 10, warmup=2)
-        lib = time_ms(lambda i: sdpa(q[i % L].transpose(1, 2),
-                                     k[i % L].transpose(1, 2),
-                                     v[i % L].transpose(1, 2), is_causal=True,
-                                     enable_gqa=True))
+
+        def lib_fn(i):
+            return sdpa(q[i % L].transpose(1, 2), k[i % L].transpose(1, 2),
+                        v[i % L].transpose(1, 2), is_causal=True,
+                        enable_gqa=True)
+
+        lib = time_ms(lib_fn)
+        dev = {tri: device_ms(lambda i: flash_prefill(
+            q[i % L], k[i % L], v[i % L], triangular=tri), L)
+            for tri in (True, False)}
+        lib_dev = device_ms(lib_fn, L)
         nbytes = (2 * q[0].numel() + 2 * k[0].numel()) * 2
         flops = 4.0 * B * H * dh * S * (S + 1) / 2
         b_ms, b_by = bound(nbytes, flops, dt)
         rows.append(dict(shape=[B, S, H, K, dh], ms=ms, flash_prefill_ms=b3,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by))
+                         bound_by=b_by, device_ms=dev[True],
+                         flash_prefill_device_ms=dev[False],
+                         library_device_ms=lib_dev))
         print(f"  flash_prefill_tri bf16 {(B, S, H, K, dh)}: kernel {ms:.4f} "
               f"ms (in turns {turns[True][0]:.4f}, {turns[True][1]:.4f}), "
               f"flash_prefill {b3:.4f} ms ({turns[False][0]:.4f}, "
               f"{turns[False][1]:.4f}), plain {plain:.4f} ms, sdpa "
               f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-              f"{nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP)")
+              f"{nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device time: "
+              f"kernel {dev[True]:.4f} ms, flash_prefill {dev[False]:.4f} "
+              f"ms, sdpa {lib_dev:.4f} ms")
         del q, k, v
     row = dict(rows[0], long_prompt=rows[1])
     return err, row, launches
@@ -549,6 +654,7 @@ def gumbel_phase(gen):
                                                        random_bits32,
                                                        random_key)
     from repro_torch.serving.sampler import choose_tokens_lanes
+    from repro_torch.kernels.timing import device_ms
     B, T, V = GUMBEL_SHAPE
     lp = lane_vectors([True, False, True, False], [1.0, 0.7, 1.0, 1.3],
                       [5, 0, 6, 2**32 - 1])
@@ -602,6 +708,7 @@ def gumbel_phase(gen):
         .to(torch.bfloat16) for _ in range(L - 1)])
     args = (pos, lp["temp"], lp["seed"], lp["greedy"])
     ms = time_ms(lambda i: gumbel_argmax(lg[i % L], *args))
+    dev = device_ms(lambda i: gumbel_argmax(lg[i % L], *args), L)
     plain = time_ms(lambda i: gumbel_argmax_ref(lg[i % L], *args), iters=5,
                     warmup=2)
     n_rows = int((~greedy).sum().item())
@@ -614,10 +721,12 @@ def gumbel_phase(gen):
     print(f"  gumbel_argmax bf16 {GUMBEL_SHAPE}, {n_rows} sampled rows: "
           f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}: {n_rows * V * OPS_PER_DRAW / 1e9:.3f} G ALU ops at "
-          f"{ALU_OPS_PER_S / 1e12:.0f} T/s, {nbytes / 1e6:.3f} MB)")
+          f"{ALU_OPS_PER_S / 1e12:.0f} T/s, {nbytes / 1e6:.3f} MB); "
+          f"device time {dev:.4f} ms")
     del lg
     return g_err, dict(ms=ms, plain_ms=plain, library_ms=None,
-                       bound_ms=b_ms, bound_by=b_by)
+                       bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                       library_device_ms=None)
 
 
 # --------------------------------------------------------------- phase 4
@@ -1494,6 +1603,13 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
     for e in top[:8] + [e for e in top[8:] if "gumbel" in e.key]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count / steps:6.0f} launches/step  {e.key[:90]}")
+    # B1 / B2 (no prefill runs in this window, so every attention kernel is
+    # tree attention)
+    attn = [e for e in kernels if "attention_kernel" in e.key]
+    print(f"    tree attention (B1/B2): "
+          f"{sum(e.self_device_time_total for e in attn) / 1e3 / steps:.3f} "
+          f"ms/step over {sum(e.count for e in attn) / steps:.0f} "
+          f"launches/step")
 
 
 # --------------------------------------------------------------- recsys
@@ -1650,25 +1766,6 @@ def cell_line(arch, shape, ms, rows, what="contexts"):
           f"{rows / ms * 1e3:.4g} {what}/s")
 
 
-def device_ms(fn, calls, match=None):
-    """Device time per call of fn(i) over ``calls`` calls, from
-    torch.profiler: the kernels whose name holds ``match``, or every kernel
-    the calls launch."""
-    from torch.profiler import ProfilerActivity, profile
-    fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and (match is None or match in e.key)]
-    check(bool(kernels), f"the profiler saw no device time ({match})")
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-
-
 def profile_cell(label, fn, calls=5, top=3):
     """Where a serve cell's time goes: a torch.profiler window over
     ``calls`` calls of fn(i) — wall time, device busy time and idle share,
@@ -1711,6 +1808,7 @@ def recsys_phase(gen):
     from repro_torch.configs.recsys_common import BATCHES
     from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
                                                        embedding_bag_ref)
+    from repro_torch.kernels.timing import device_ms
     from repro_torch.models.recsys import two_tower as tt_model
     from repro_torch.training import data
     launches = 0
@@ -1828,7 +1926,8 @@ def recsys_phase(gen):
         flops = 2.0 * ids.numel() * D
         b_ms, b_by = bound(nbytes, flops, torch.float32)
         return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by, shape=list(t.shape),
+                    bound_by=b_by, device_ms=ms, library_device_ms=lib,
+                    shape=list(t.shape),
                     ids=list(ids.shape), unique_rows=n_rows, **calls)
 
     rows = {}
@@ -1995,13 +2094,10 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(_build.SOURCES))})")
-    for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  [{name}] {line.strip()}")
+    sass_phase(_build)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -1,19 +1,29 @@
-"""Check that the attention kernels give the same bits when built from
-another checkout of the repository — for a change to the shared tile body
-that must not move them.
+"""Hold the attention kernels of this checkout against another checkout's
+build of them: their bits, and their device time.
 
-    PYTHONPATH=src python -m repro_torch.kernels.compare_builds OTHER_ROOT
+    PYTHONPATH=src python -m repro_torch.kernels.compare_builds OTHER_ROOT \
+        [--dtypes float32,bfloat16] [--time]
 
 builds the tree-attention (dense and paged) and flash-prefill kernels from
 this checkout and from ``OTHER_ROOT`` (each with its own ``_build``, in its
-own ``build/kernels``), runs both builds on the same inputs on the card —
+own ``build/kernels``) and runs both builds on the same inputs on the card:
 the serving path's shapes and the shapes of ``tests/test_kernels.py`` /
-``tests/test_paged_cache.py``, in f32 and bf16 — and exits non-zero unless
-every output pair is equal bit for bit.  The triangular-schedule prefill
-kernel is held against the other checkout's own build of it where that
-checkout has one, else against its plain flash-prefill kernel (same C
-interface, same function, same bits).  The C interfaces must be the same in
-both checkouts.  Needs a card and ``nvcc``.
+``tests/test_paged_cache.py``, in each dtype of ``--dtypes``.  Every output
+pair is reported as bit-equal or by its largest absolute difference, and the
+exit code is non-zero unless every pair compared is bit-equal — so
+``--dtypes float32`` checks a change that must not move the f32 bits, while
+bf16 pairs differ by design after a change to the bf16 arithmetic.  The
+triangular-schedule prefill kernel is held against the other checkout's own
+build of it where that checkout has one, else against its plain
+flash-prefill kernel (same C interface, same function, same bits).
+
+``--time`` then prints each build's device time per call (torch.profiler)
+of every kernel at the serving path's shapes in bf16, taken in turns (other,
+this, this, other) in one process on one card, each call on one of 28
+layer-sized buffers (8 for the long prompt) as the decode layers see them.
+
+The C interfaces must be the same in both checkouts.  Needs a card and
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -23,9 +33,11 @@ import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from . import _build
+from .timing import device_ms, path_mask
 
 NAMES = ("tree_attention", "paged_tree_attention", "flash_prefill",
          "flash_prefill_tri")
@@ -39,6 +51,8 @@ TREE = [(4, 33, 12, 2, 128, 512), (1, 1, 4, 4, 64, 128),
 PREFILL = [(4, 128, 12, 2, 128), (1, 128, 12, 2, 128), (2, 256, 4, 2, 64),
            (1, 512, 8, 8, 96), (2, 256, 6, 2, 128), (1, 128, 2, 1, 80),
            (1, 4096, 12, 2, 128)]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+N_LAYERS = 28
 
 
 def other_libraries(root: str) -> dict:
@@ -76,11 +90,75 @@ def run(fn, dtype, *tensors_and_sizes, n_out):
     return out
 
 
+def timing_cases(gen):
+    """(label, kernel name, n calls, args(i)) at the serving path's shapes in
+    bf16: each call i on buffer i % n of n layer-sized buffers."""
+    dt = torch.bfloat16
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.3).to(dt)
+
+    L = N_LAYERS
+    B, T, H, K, dh, S = TREE[0]
+    q, k, v = rnd(L, B, T, H, dh), rnd(L, B, S, K, dh), rnd(L, B, S, K, dh)
+    mask = path_mask(B, T, S, seed=1)
+    yield ("tree_attention", "tree_attention", L,
+           lambda i, B=B, T=T, H=H, K=K, dh=dh, S=S: (
+               q[i % L], k[i % L], v[i % L], mask, B, T, S, H, K, dh))
+    B, T, H, K, dh, bs, bpl = PAGED[0]
+    nb = 1 + B * bpl
+    qp, kp, vp = (rnd(L, B, T, H, dh), rnd(L, nb, bs, K, dh),
+                  rnd(L, nb, bs, K, dh))
+    bt = (torch.randperm(nb - 1, generator=gen, device="cuda")[:B * bpl]
+          + 1).reshape(B, bpl).int()
+    pmask = path_mask(B, T, bs * bpl, seed=1)
+    yield ("paged_tree_attention", "paged_tree_attention", L,
+           lambda i, B=B, T=T, H=H, K=K, dh=dh: (
+               qp[i % L], kp[i % L], vp[i % L], bt, pmask, B, T, nb, bs, bpl,
+               H, K, dh))
+    for (B, S, H, K, dh), n in (((4, 128, 12, 2, 128), L),
+                                ((1, 4096, 12, 2, 128), 8)):
+        qf, kf, vf = (rnd(n, B, S, H, dh), rnd(n, B, S, K, dh),
+                      rnd(n, B, S, K, dh))
+        names = (("flash_prefill", "flash_prefill_tri") if S == 128
+                 else ("flash_prefill_tri",))
+        for name in names:
+            yield (f"{name} {(B, S)}", name, n,
+                   lambda i, qf=qf, kf=kf, vf=vf, B=B, S=S, H=H, K=K,
+                   dh=dh, n=n: (qf[i % n], kf[i % n], vf[i % n], B, S, H, K,
+                                dh))
+
+
+def time_builds(builds: dict, gen) -> None:
+    """Device ms per call of each kernel in each build, in turns: the
+    builds in order, then in reverse."""
+    order = list(builds) + list(builds)[::-1]
+    for label, name, n, args in timing_cases(gen):
+        n_in = {"paged_tree_attention": 5, "tree_attention": 4}.get(name, 3)
+        times = {b: [] for b in builds if name in builds[b]}
+        for b in order:
+            if b in times:
+                fn = builds[b][name]
+                times[b].append(device_ms(
+                    lambda i: run(fn, torch.bfloat16, *args(i), n_out=n_in),
+                    n))
+        print(f"time {label} bf16, device ms per call: " + "; ".join(
+            f"{b} {np.mean(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+            for b, t in times.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.kernels."
                                  "compare_builds")
     ap.add_argument("other_root", help="root of the other checkout")
+    ap.add_argument("--dtypes", default="float32,bfloat16",
+                    help="comma-separated dtypes to compare (float32, "
+                         "bfloat16)")
+    ap.add_argument("--time", action="store_true",
+                    help="also time both builds at the path's shapes")
     args = ap.parse_args(argv)
+    dtypes = [DTYPES[d] for d in args.dtypes.split(",") if d]
     if not torch.cuda.is_available():
         print("compare_builds: needs a CUDA card", file=sys.stderr)
         return 1
@@ -99,12 +177,13 @@ def main(argv=None) -> int:
         outs = [run(fn[name], dtype, *args, n_out=n_in)
                 for fn in (mine, theirs)]
         same = torch.equal(*outs)
+        diff = (outs[0].float() - outs[1].float()).abs().max().item()
         n_equal += same
         n_cases += 1
         print(f"{name} {str(dtype)[6:]} {shape}: "
-              f"{'bit-equal' if same else 'DIFFERENT'}")
+              f"{'bit-equal' if same else f'differs, max|diff| {diff:.3e}'}")
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         def rnd(*shape):
             return (torch.randn(shape, generator=gen, device="cuda")
                     * 0.3).to(dtype)
@@ -133,8 +212,12 @@ def main(argv=None) -> int:
                 compare(name, dtype, (B, S, H, K, dh), q, k, v, B, S, H, K,
                         dh, n_in=3)
     torch.cuda.synchronize()
-    print(f"compare_builds: {n_equal}/{n_cases} outputs bit-equal to "
+    print(f"compare_builds: {n_equal}/{n_cases} outputs "
+          f"({', '.join(str(d)[6:] for d in dtypes)}) bit-equal to "
           f"{args.other_root}'s build")
+    if args.time:
+        print(f"card: {torch.cuda.get_device_name(0)}")
+        time_builds({"other": theirs, "this": mine}, gen)
     return 0 if n_equal == n_cases else 1
 
 

@@ -15,11 +15,18 @@
 // about 0.2 us at 989 TFLOP/s; q and the output are 3.1 MB and K+V 0.5 MB,
 // about 1.1 us at 3.35 TB/s — so the call is bound by bytes.
 //
-// What this simple design leaves on the table: f32 CUDA-core products (no
-// mma/wgmma), K/V re-read from L2 by every block of 16 grouped rows (with
-// G = 6 a block covers under three query positions), two shared-memory
-// operands per FMA in the score loop, and no cp.async/TMA prefetch of the
-// next tile.
+// Arithmetic: the shared body of attention_tile.cuh — in bf16 the
+// tensor-core body of the tree kernels (2 key groups over 64-key tiles
+// through a cp.async ring, mma.sync products, the softmax on the
+// fragments), which is what gives the prefix cache's suffix prefill (the
+// paged tree kernel) this kernel's bits; in f32 the CUDA-core body.  The
+// schedule is unchanged: a 3-D grid of (row tile, KV head, lane) blocks of
+// 64 grouped rows (16 in f32), each stopping at the diagonal of its last
+// row (a warp skips the tiles past its own).
+//
+// What it still leaves: its own schedule — for a long prompt the work is
+// operations-bound, where wgmma from TMA-staged tiles and a persistent grid
+// would pay — and K/V re-read from L2 by every row tile of a (lane, KV head).
 #include "attention_tile.cuh"
 
 extern "C" int flash_prefill_launch(const void* q, const void* k,

@@ -11,7 +11,7 @@
 // scratch.  Here a block owns a whole row tile and runs its key loop up to
 // the diagonal (attention_tile.cuh, as flash_prefill.cu does), so no tile
 // above the diagonal exists in either kernel; what this kernel changes is
-// the schedule.  Its work items — (lane, KV head, row tile of 16 grouped
+// the schedule.  Its work items — (lane, KV head, row tile of grouped
 // rows), the row tiles' costs growing linearly along the diagonal — go out
 // on a 1-D grid longest first, so the blocks still running at the launch's
 // end are the shortest.  The tile body and the key tiles are the same, so
@@ -25,11 +25,13 @@
 // long prompt, (1,4096,12,2,128): 51.5 GFLOP (52 us) against 29.4 MB (8.8
 // us) — bound by operations.
 //
-// What this simple design leaves on the table: everything flash_prefill.cu
-// leaves (f32 CUDA-core products instead of wgmma, K/V re-read from L2 by
-// every row tile, no cp.async/TMA prefetch); and the order is fixed at
-// launch, where a persistent grid with an atomic work counter would also
-// balance blocks that run at uneven speeds.
+// Arithmetic: the shared body of attention_tile.cuh, as flash_prefill.cu's
+// (bf16 on the tensor cores, f32 on the CUDA cores); its row tiles are 64
+// grouped rows in bf16 and 16 in f32.
+//
+// What it still leaves: everything flash_prefill.cu leaves; and the order is
+// fixed at launch, where a persistent grid with an atomic work counter would
+// also balance blocks that run at uneven speeds.
 #include "attention_tile.cuh"
 
 extern "C" int flash_prefill_tri_launch(const void* q, const void* k,

@@ -9,13 +9,15 @@
 // point at the NULL block 0, whose keys are read like any other and masked.
 // The TPU version walks a lane's logical blocks as a sequential grid axis
 // and scalar-prefetches the table into the DMA index map; here each block
-// stages its lane's table row in shared memory and computes every key's
-// address from it (attention_tile.cuh, kPaged), so any block size works and
-// key tiles stay on logical positions — the output is the dense kernel's
-// (tree_attention.cu) bit for bit on the same logical K/V.  The T axis is
-// tiled by the grid's row tiles, so the prefix cache's suffix prefill
-// (T up to prefill_len, 768 grouped rows at T = 128) runs on the same kernel
-// as decode (T = 33).
+// stages its lane's table row in shared memory and takes the address of
+// every 16-byte chunk its cp.async copies from it (attention_tile.cuh,
+// kPaged), where the dense kernel takes row b*S + s: the staged tile, the
+// key tiles on logical positions and the arithmetic are the same, so the
+// output is the dense kernel's (tree_attention.cu) bit for bit on the same
+// logical K/V, and any block size works.  The T axis is tiled by the grid's
+// row tiles, so the prefix cache's suffix prefill (T up to prefill_len, 768
+// grouped rows at T = 128) runs on the same kernel as decode (T = 33), and
+// its rows are the causal prefill kernel's bits (the same bf16 body).
 //
 // Bound at the serving path's decode shape, (B,T,H,K,dh) = (4,33,12,2,128),
 // bpl*bs = 8*64 = 512 logical keys a lane, bf16, per call: the K and V rows
@@ -24,11 +26,13 @@
 // the keys a run actually sees (tiles that no row of a block sees are
 // skipped without being read).
 //
-// What this simple design leaves on the table: everything B1 leaves (f32
-// CUDA-core products, no mma/wgmma; K/V re-read from L2 by every row tile;
-// two shared-memory operands per FMA; no cp.async/TMA prefetch of the next
-// tile), plus a gather whose addresses are computed per 16-byte vector
-// instead of once per block (a TMA gather of whole blocks would do it).
+// Design: the dense kernel's (tree_attention.cu) body and arithmetic, with
+// 4 row warps a block (64 grouped rows; measured faster here than 2), the
+// block's table row in shared memory and each key's block found by a
+// reciprocal-based divide.  What it
+// still leaves: what the dense kernel leaves, plus a gather whose addresses
+// are computed per 16-byte chunk instead of once per block of the pool (a
+// TMA gather of whole blocks would do it).
 #include "attention_tile.cuh"
 
 extern "C" int paged_tree_attention_launch(

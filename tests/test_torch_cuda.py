@@ -162,6 +162,114 @@ def test_paged_kernel_equals_dense_kernel_bitwise(cuda, B, T, H, K, dh, bs,
     assert torch.equal(paged, dense)
 
 
+# The properties of the bf16 tile body the serving path relies on, bit for
+# bit: a row's output does not depend on the other rows of its call.
+def _tree_case(rng, B, T, H, K, dh, S, dev):
+    q = _t(rng.randn(B, T, H, dh) * 0.3, "bfloat16", dev)
+    k = _t(rng.randn(B, S, K, dh) * 0.3, "bfloat16", dev)
+    v = _t(rng.randn(B, S, K, dh) * 0.3, "bfloat16", dev)
+    mask = np.zeros((B, T, S), bool)
+    for b in range(B):
+        n = int(rng.randint(1, S - T))
+        parent = [-1] + [int(rng.randint(0, i)) for i in range(1, T)]
+        mask[b, :, :n] = True
+        for i in range(T):
+            j = i
+            while j >= 0:
+                mask[b, i, n + j] = True
+                j = parent[j]
+    return q, k, v, torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("B,T,H,K,dh,S", [(4, 33, 12, 2, 128, 512),
+                                          (3, 17, 8, 2, 64, 300)])
+def test_tree_kernel_lane_rows_same_alone_and_in_batch(cuda, B, T, H, K, dh,
+                                                       S):
+    """A lane's B1 rows in a (1, T) call equal its rows inside the (B, T)
+    call, bit for bit."""
+    q, k, v, mask = _tree_case(np.random.RandomState(5), B, T, H, K, dh, S,
+                               cuda)
+    full = tree_attention(q, k, v, mask)
+    for b in range(B):
+        one = tree_attention(q[b:b + 1].clone(), k[b:b + 1].clone(),
+                             v[b:b + 1].clone(), mask[b:b + 1].clone())
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], full[b]), f"lane {b}"
+
+
+@pytest.mark.parametrize("B,T,H,K,dh,S", [(4, 33, 12, 2, 128, 512),
+                                          (2, 33, 4, 4, 96, 200)])
+def test_tree_kernel_row_same_at_width_1_and_33(cuda, B, T, H, K, dh, S):
+    """A row's output at tree width 1 equals its output inside a width-33
+    call when it sees the same keys."""
+    q, k, v, mask = _tree_case(np.random.RandomState(6), B, T, H, K, dh, S,
+                               cuda)
+    full = tree_attention(q, k, v, mask)
+    for i in (0, 1, T // 2, T - 1):
+        one = tree_attention(q[:, i:i + 1].clone(), k, v,
+                             mask[:, i:i + 1].clone())
+        torch.cuda.synchronize()
+        assert torch.equal(one[:, 0], full[:, i]), f"row {i}"
+
+
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_suffix_prefill_rows_equal_causal_prefill_rows(cuda, T):
+    """B2 at (1, T) under the suffix prefill's mask (an 80-token cached
+    prefix, causal within the suffix) gives B3's rows 80 ... of the same
+    lane at (4, 128), on the same K/V — the rows B3 has (80 + i < 128)."""
+    from repro_torch.models.attention import build_full_tree_mask
+    B, S, H, K, dh, bs, bpl, off, lane = 4, 128, 12, 2, 128, 64, 8, 80, 2
+    rng = np.random.RandomState(T)
+    q, k, v = (_t(rng.randn(B, S, n, dh) * 0.3, "bfloat16", cuda)
+               for n in (H, K, K))
+    b3 = flash_prefill(q, k, v)
+    # the lane's K/V in a pool, logical blocks shuffled, the rest random
+    nb = 1 + bpl
+    pool_k = _t(rng.randn(nb, bs, K, dh) * 0.3, "bfloat16", cuda)
+    pool_v = _t(rng.randn(nb, bs, K, dh) * 0.3, "bfloat16", cuda)
+    ids = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    for j in range(S // bs):
+        pool_k[ids[j]] = k[lane, j * bs:(j + 1) * bs]
+        pool_v[ids[j]] = v[lane, j * bs:(j + 1) * bs]
+    bt = torch.from_numpy(ids[None]).to(cuda)
+    qs = _t(rng.randn(1, T, H, dh) * 0.3, "bfloat16", cuda)
+    n = min(T, S - off)
+    qs[0, :n] = q[lane, off:off + n]
+    tril = torch.ones((1, T, T), dtype=torch.bool, device=cuda).tril()
+    mask = build_full_tree_mask(torch.tensor([off], device=cuda), tril,
+                                bs * bpl).contiguous()
+    b2 = paged_tree_attention(qs, pool_k, pool_v, bt, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(b2[0, :n], b3[lane, off:off + n])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dh,S,bs", [(16, 77, 7), (64, 200, 8), (80, 333, 37),
+                                     (96, 130, 10), (128, 455, 65)])
+def test_tree_kernels_match_plain_across_dh_ragged_s(cuda, dh, S, bs, dtype):
+    """B1 and B2 against their plain versions at dh 16 to 128, S not a
+    multiple of the key tile (B2: S = bpl * bs with odd block sizes)."""
+    rng = np.random.RandomState(dh + S)
+    B, T, H, K = 3, 9, 6, 2
+    q = _t(rng.randn(B, T, H, dh) * 0.3, dtype, cuda)
+    k = _t(rng.randn(B, S, K, dh) * 0.3, dtype, cuda)
+    v = _t(rng.randn(B, S, K, dh) * 0.3, dtype, cuda)
+    mask = torch.from_numpy(rng.rand(B, T, S) > 0.3).to(cuda)
+    out = tree_attention(q, k, v, mask)
+    ref = tree_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), **_tol(dtype))
+    bpl = -(-S // bs)
+    q2, kp, vp, bt, m2 = _paged_inputs(B, T, H, K, dh, bs, bpl, dtype, cuda,
+                                       seed=dh)
+    out = paged_tree_attention(q2, kp, vp, bt, m2)
+    ref = paged_tree_attention(q2.cpu(), kp.cpu(), vp.cpu(), bt.cpu(),
+                               m2.cpu())
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), **_tol(dtype))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 4, 16, device=cuda)
     k = torch.zeros(1, 8, 2, 16, device=cuda)

@@ -119,3 +119,23 @@ def test_wrappers_refuse_non_cuda_devices():
         tree_attention(*meta)
     with pytest.raises(ValueError, match="CUDA"):
         flash_prefill(meta[1], meta[1], meta[2])
+
+
+@pytest.mark.parametrize("B,T,S", [(4, 33, 512), (1, 8, 256)])
+def test_path_mask_is_a_prefix_plus_an_ancestor_closed_tree(B, T, S):
+    """The timing mask of the on-card checks: each lane sees a committed
+    prefix of at least 96 keys, each tree row sees itself, and a row that
+    sees a tree key sees everything that key's row sees (ancestor-closed),
+    with room for 48 new keys after the tree."""
+    from repro_torch.kernels.timing import path_mask
+    mask = path_mask(B, T, S, seed=1, device="cpu").numpy()
+    assert mask.shape == (B, T, S) and mask.dtype == bool
+    for b in range(B):
+        n = int(mask[b, 0].argmin()) - 1      # row 0 sees the prefix, itself
+        assert 96 <= n <= S - T - 48
+        assert mask[b, :, :n].all() and not mask[b, :, n + T:].any()
+        tree = mask[b, :, n:n + T]
+        assert tree.diagonal().all()
+        for i in range(T):
+            for j in np.flatnonzero(tree[i]):
+                assert (tree[j] <= tree[i]).all()
