@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. the build: the six CUDA kernels compiled from this checkout's sources,
    one ``nvcc`` each, in parallel; each attention kernel's registers and
    spills from ptxas, and a check of the SASS (``cuobjdump``) of every bf16
-   tree-attention kernel: tensor-core products (HMMA), asynchronous copies
-   (LDGSTS), no spills;
+   attention kernel (tree and causal): tensor-core products (HMMA),
+   asynchronous copies (LDGSTS), no spills;
 3. the kernels: each held against its plain PyTorch version on the card in
    f32 and bf16 — at the serving path's shapes and at the shapes of
    ``tests/test_kernels.py`` / ``tests/test_paged_cache.py`` — the paged
@@ -64,7 +64,12 @@ Phases, in order; any failure exits non-zero:
    choices, one sync per decode step, and no sampled member may sync the
    host;
 8. overlap: the guided dense path with ``overlap_drafts`` equals the serial
-   run, with no sync inside the dispatch.
+   run, with no sync inside the dispatch;
+9. the long prompt: the dense main path at ``prefill_len`` 4096 with two
+   requests of about 4,000 tokens; outputs equal ``reference_decode``, B3
+   launches once a layer per prefill, one pull per decode step; the
+   prefill's device time and B3's share of it, and a decode step's tree
+   attention over ~4,000 keys.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -101,6 +106,12 @@ PATH_PREFILL = [(4, 128, 12, 2, 128), (1, 128, 12, 2, 128)]  # (B,S,H,K,dh)
 # (B, T, H, K, dh, bs, bpl) of the paged fused_step: a 33-block pool
 PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
 SUFFIX_BUCKETS = (8, 16, 32, 64, 128)  # the suffix prefill's T (B = 1)
+# the long-prompt cell: 2 lanes, prompts of ~4,000 tokens (a RAG service's
+# retrieved context), a dense cache of 4,224 rows (0.24 GB at full width)
+LONG_LANES, LONG_REQUESTS, LONG_PROMPT = 2, 2, 4000
+LONG_PREFILL, LONG_MAX_SEQ = 4096, 4224
+# (B, S, H, K, dh) of B3 in that cell's prefill, at Qwen2-1.5B's heads
+LONG_ATTN = (LONG_LANES, LONG_PREFILL, 12, 2, 128)
 SHARED_HEAD, SHARED_TAIL, N_SHARED = 80, 16, 16   # shared-prefix workload
 BF16_LOGIT_RATIO = 1.25                # cuda vs dense, each against f32
 N_LAYERS = 28                          # timing rotates over 28 layer caches
@@ -283,19 +294,23 @@ def ptxas_report(log: str) -> dict:
 
 
 def attn_label(mangled: str) -> tuple:
-    """('bf16 ND', 8) / ('f32 NC', 4) for an attention kernel's mangled
-    name: its arithmetic and its dh template argument."""
+    """('bf16 ND', 8) / ('bf16 ND seq', 8) / ('f32 NC', 4) for an attention
+    kernel's mangled name: its arithmetic (and, for the causal bf16 kernel
+    of its own, that its key groups run in sequence, at ND 8) and its dh
+    template argument."""
     m = re.search(r"mma_attention_kernelILi(\d+)E", mangled)
     if m:
         return "bf16 ND", int(m.group(1))
+    if re.search(r"prefill_kernelILb[01]E", mangled):
+        return "bf16 ND seq", 8
     m = re.search(r"attention_kernelIfLi(\d+)E", mangled)
     return ("f32 NC", int(m.group(1))) if m else (mangled[:60], 0)
 
 
 def sass_phase(_build):
     """Registers and spills of every attention kernel from ptxas, and the
-    SASS of the bf16 tree-attention kernels (B1, B2): every instantiation
-    must hold tensor-core products (HMMA or HGMMA) and asynchronous copies
+    SASS of the bf16 attention kernels (B1-B4): every instantiation must
+    hold tensor-core products (HMMA or HGMMA) and asynchronous copies
     (LDGSTS or UTMALDG), and spill nothing."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     for name in ATTN_LIBS:
@@ -308,9 +323,8 @@ def sass_phase(_build):
             for k, (r, st, ld) in sorted(report.items(),
                                          key=lambda kv: attn_label(kv[0])))
         print(f"  [{name}] {line}")
-        if name not in ("tree_attention", "paged_tree_attention"):
-            continue
-        mma = {k: v for k, v in report.items() if "mma_attention" in k}
+        mma = {k: v for k, v in report.items() if attn_label(k)[0]
+               .startswith("bf16")}
         check(bool(mma) and all(st == ld == 0 for _, st, ld in mma.values()),
               f"{name}: bf16 kernels missing or spilling: {mma}")
         sass = subprocess.run([cuobjdump, "-sass", str(lib)],
@@ -321,7 +335,7 @@ def sass_phase(_build):
             fn, _, body = part.partition("\n")
             funcs[fn.strip()] = body
         bf16 = {fn: body for fn, body in funcs.items()
-                if "mma_attention_kernel" in fn}
+                if attn_label(fn)[0].startswith("bf16")}
         check(len(bf16) == len(mma), f"{name}: {len(bf16)} bf16 kernels in "
                                      f"the SASS, {len(mma)} in ptxas's log")
         for fn, body in bf16.items():
@@ -330,12 +344,15 @@ def sass_phase(_build):
             check(n_mma > 0 and n_cp > 0,
                   f"{name} {attn_label(fn)}: {n_mma} tensor-core and {n_cp} "
                   "asynchronous-copy instructions in its SASS")
-        nd8 = next(b for f, b in bf16.items()
-                   if attn_label(f) == ("bf16 ND", 8))
+        ops = {op: re.compile(r"\b%s\b" % op)
+               for op in ("HMMA", "HGMMA", "LDGSTS", "UTMALDG")}
+        at128 = "; ".join(
+            f"{attn_label(f)[0]}: " + ", ".join(
+                f"{len(pat.findall(body))} {op}" for op, pat in ops.items())
+            for f, body in sorted(bf16.items()) if attn_label(f)[1] == 8)
         print(f"  [{name}] SASS: all {len(bf16)} bf16 kernels hold "
-              f"HMMA/HGMMA and LDGSTS/UTMALDG (dh 128: "
-              f"{len(re.findall(r'HMMA', nd8))} HMMA, "
-              f"{len(re.findall(r'LDGSTS', nd8))} LDGSTS); no spills")
+              f"HMMA/HGMMA and LDGSTS/UTMALDG (dh 128: {at128}); no "
+              "spills")
 
 
 # --------------------------------------------------------------- phase 3
@@ -375,9 +392,10 @@ def kernel_phase(gen):
             if kind == "path" and dtype == torch.bfloat16:
                 errs["tree_attention"] = e
         for (B, S, H, K, dh) in PATH_PREFILL + [
-                (2, 256, 4, 2, 64), (1, 512, 8, 8, 96), (2, 256, 6, 2, 128),
-                (1, 128, 2, 1, 80), (2, 320, 4, 2, 64), (1, 300, 6, 3, 80),
-                (1, 256, 4, 2, 64), (2, 512, 4, 4, 128), (1, 384, 6, 2, 96)]:
+                LONG_ATTN, (2, 256, 4, 2, 64), (1, 512, 8, 8, 96),
+                (2, 256, 6, 2, 128), (1, 128, 2, 1, 80), (2, 320, 4, 2, 64),
+                (1, 300, 6, 3, 80), (1, 256, 4, 2, 64), (2, 512, 4, 4, 128),
+                (1, 384, 6, 2, 96)]:
             q = randn(gen, (B, S, H, dh), dtype)
             k = randn(gen, (B, S, K, dh), dtype)
             v = randn(gen, (B, S, K, dh), dtype)
@@ -553,8 +571,9 @@ def tri_phase(gen):
                                                        flash_prefill_ref)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     err = 0.0
+    cases = PATH_TRI + [LONG_ATTN] + TEST_TRI
     for dtype in (torch.float32, torch.bfloat16):
-        for (B, S, H, K, dh) in PATH_TRI + TEST_TRI:
+        for (B, S, H, K, dh) in cases:
             q = randn(gen, (B, S, H, dh), dtype)
             k = randn(gen, (B, S, K, dh), dtype)
             v = randn(gen, (B, S, K, dh), dtype)
@@ -567,7 +586,7 @@ def tri_phase(gen):
                   f"flash_prefill_tri {(B, S, H, K, dh)} {dtype}: not "
                   "bit-equal to flash_prefill")
     print(f"  flash_prefill_tri: bit-equal to flash_prefill at all "
-          f"{2 * len(PATH_TRI + TEST_TRI)} cases")
+          f"{2 * len(cases)} cases")
 
     # the op's own path: the entry point a user calls, once per shape
     ins = [tuple(randn(gen, shp, torch.bfloat16) for shp in
@@ -1566,6 +1585,117 @@ def overlap_phase(cfg, params, prompts, dense_outs):
           "synced the host")
 
 
+def long_prompt_phase(cfg, params):
+    """The dense main path at a long prompt: Qwen2-1.5B at full width in
+    bf16, guided, ``prefill_len`` LONG_PREFILL and ``max_seq_len``
+    LONG_MAX_SEQ through ``build_engine``, LONG_LANES lanes, LONG_REQUESTS
+    requests of about 4,000 tokens, drafted by copying from their own
+    prompts (the shared trie's insertion of such a prompt takes minutes of
+    host time: ROADMAP §C).  Checks: every output equals
+    ``reference_decode`` at the serving batch shape, B3 launches once a
+    layer per prefill, one packed pull per decode step, and no step function
+    syncs the host.  Findings: the prefill's device time and B3's share of
+    it (torch.profiler), tokens/s, and a decode step's tree attention (B1)
+    over a cache of ~4,000 keys.  Returns B3's launches in the served run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import reference_decode
+    from repro_torch.core.draft_sources import DraftPolicy
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.serving.api import (EngineConfig, ServingEngine,
+                                         build_engine)
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    cfg = dataclasses.replace(cfg, max_seq_len=LONG_MAX_SEQ)
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    ecfg = EngineConfig(lanes=LONG_LANES, prefill_len=LONG_PREFILL,
+                        default_params=sp,
+                        draft_policy=DraftPolicy(sources=("prompt_copy",)))
+    transform = guided_transform(cfg.vocab_size)
+    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=3)
+    prompts = []
+    for i in range(LONG_REQUESTS):
+        p = []
+        while len(p) < LONG_PROMPT - 40 * i:
+            p += corpus.sample()[0]
+        prompts.append(p[:LONG_PROMPT - 40 * i])
+    fns = build_engine(ecfg, cfg, params, logits_transform=transform,
+                       device="cuda").fns
+    calls = {}
+
+    def watched(name):
+        member = no_sync(getattr(fns, name))
+
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return member(*args, **kwargs)
+        return call
+
+    names = ("prefill", "prefill_into_slot", "fused_step")
+    engine = ServingEngine(dataclasses.replace(
+        fns, **{n: watched(n) for n in names}), ecfg)
+    outs, launches, wall, tps, edl, fused = serve_counted(
+        engine, prompts, sp, {"flash_prefill": flash_prefill})
+    st = engine.stats
+    n_prefill = calls.get("prefill", 0) + calls.get("prefill_into_slot", 0)
+    print(f"  {LONG_REQUESTS} requests of {[len(p) for p in prompts]} "
+          f"tokens, {LONG_LANES} lanes, prefill_len {LONG_PREFILL}: "
+          f"{sum(map(len, outs))} tokens in {wall:.3f} s -> {tps:.1f} "
+          f"tokens/s; EDL {edl:.3f}; {st.decode_steps} decode steps, median "
+          f"fused_step {fused:.3f} ms; {n_prefill} prefills, B3 launches "
+          f"{launches['flash_prefill']}; no step function synced the host "
+          f"(calls {calls})")
+    check(n_prefill > 0 and launches["flash_prefill"]
+          == cfg.n_layers * n_prefill,
+          f"B3 launched {launches['flash_prefill']} times for {n_prefill} "
+          f"prefills x {cfg.n_layers} layers")
+    check(st.decode_syncs == st.decode_steps,
+          f"{st.decode_syncs} decode syncs for {st.decode_steps} steps")
+    check(all(len(o) == MAX_NEW for o in outs), "short outputs")
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        ref = reference_decode(fns, list(p), params=sp, lanes=LONG_LANES)
+        check(o == ref, f"long prompt {i}: served output differs from "
+                        f"reference_decode (first difference at token "
+                        f"{first_difference(o, ref)})")
+    print(f"  all {LONG_REQUESTS} outputs equal reference_decode at the "
+          "serving batch shape")
+
+    # the cohort prefill's device time, and B3's share of it
+    toks = np.zeros((LONG_LANES, LONG_PREFILL), np.int32)
+    lens = np.zeros((LONG_LANES,), np.int32)
+    for b, p in enumerate(prompts[:LONG_LANES]):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    fns.prefill(toks, lens)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fns.prefill(toks, lens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fns.prefill(toks, lens)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    b3 = [e for e in kernels if "prefill_kernel" in e.key]
+    b3_ms = sum(e.self_device_time_total for e in b3) / 1e3
+    print(f"  cohort prefill ({LONG_LANES}, {LONG_PREFILL}): median "
+          f"{float(np.median(walls)):.3f} ms (synchronized), device busy "
+          f"{busy:.3f} ms over {sum(e.count for e in kernels)} launches; "
+          f"B3 {b3_ms:.3f} ms over {sum(e.count for e in b3)} launches, "
+          f"share {b3_ms / busy:.3f}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in top[:5]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d} launches  {e.key[:90]}")
+    del engine, fns
+    profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=3)
+    return launches["flash_prefill"]
+
+
 def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
     """Where a decode step's time goes: a torch.profiler window over
     ``steps`` scheduler iterations that are pure decode (all lanes busy, no
@@ -2058,7 +2188,7 @@ def recsys_phase(gen):
 
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
-          "sampled", "overlap")
+          "sampled", "overlap", "long_prompt")
 
 
 def main(argv=None) -> int:
@@ -2114,6 +2244,14 @@ def main(argv=None) -> int:
         errs, rows = kernel_phase(gen)
         (errs["flash_prefill_tri"], rows["flash_prefill_tri"],
          launches["flash_prefill_tri"]) = tri_phase(gen)
+        # B3 at the long prompt, timed in turns with B4 there
+        lp = rows["flash_prefill_tri"]["long_prompt"]
+        rows["flash_prefill"]["long_prompt"] = dict(
+            shape=lp["shape"], ms=lp["flash_prefill_ms"],
+            device_ms=lp["flash_prefill_device_ms"], plain_ms=lp["plain_ms"],
+            library_ms=lp["library_ms"],
+            library_device_ms=lp["library_device_ms"],
+            bound_ms=lp["bound_ms"], bound_by=lp["bound_by"])
         errs["gumbel_argmax"], rows["gumbel_argmax"] = gumbel_phase(gen)
         embedding_bag_phase(gen)
         phase_done("kernels")
@@ -2127,7 +2265,8 @@ def main(argv=None) -> int:
          launches["embedding_bag"]) = recsys_phase(gen)
         phase_done("recsys")
     cfg = params = prompts = outs = None
-    if set(phases) & {"dense", "paged", "invariance", "sampled", "overlap"}:
+    if set(phases) & {"dense", "paged", "invariance", "sampled", "overlap",
+                      "long_prompt"}:
         cfg, params = path_model()
     if set(phases) & {"dense", "paged", "overlap"}:
         print("main path, dense layout:")
@@ -2152,6 +2291,10 @@ def main(argv=None) -> int:
         print("overlap_drafts on the guided dense path:")
         overlap_phase(cfg, params, prompts, outs)
         phase_done("overlap")
+    if "long_prompt" in phases:
+        print(f"long prompt, dense layout, prefill_len {LONG_PREFILL}:")
+        long_prompt_phase(cfg, params)
+        phase_done("long_prompt")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

@@ -298,7 +298,10 @@ def reference_decode(fns: StepFns, prompt: Sequence[int],
     serving gives it.  On the card a matrix product may round a row
     differently at another batch shape, and a sampled (or unguided greedy)
     choice can rest on those last bits; at the serving shapes the row sees
-    the same kernels and the same bits."""
+    the same kernels and the same bits.  With nothing drafted, the request's
+    draft source is its own prompt copy rather than the shared trie, whose
+    insertion of a long prompt costs time quadratic in its length (it
+    prunes the whole trie at each n-gram once past its capacity)."""
     if lanes is None:
         cfg = LookaheadConfig(strategy="none", decoding_length=0)
         engine = LookaheadEngine(fns, cfg, eos_id=eos_id)
@@ -308,7 +311,8 @@ def reference_decode(fns: StepFns, prompt: Sequence[int],
     sched = ContinuousScheduler(
         fns, LookaheadConfig(decoding_length=fns.slots - 1), lanes=lanes,
         eos_id=eos_id, prefill_len=fns.prefill_len or len(prompt),
-        draft_policy=DraftPolicy(), draft_budget_caps={"": 0})
+        draft_policy=DraftPolicy(sources=("prompt_copy",)),
+        draft_budget_caps={"": 0})
     handle = sched.submit_request(Request(
         prompt=list(prompt), params=dataclasses.replace(sp, draft=None)))
     sched.run()

@@ -48,7 +48,7 @@ _ENTRY = {
     "paged_tree_attention": ("paged_tree_attention_launch",
                              [_P] * 6 + [_I] * 9 + [_P]),
     "flash_prefill_tri": ("flash_prefill_tri_launch",
-                          [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+                          [_P] * 5 + [_I] * 6 + [_P]),
     "gumbel_argmax": ("gumbel_argmax_launch", [_P] * 8 + [_I] * 5 + [_P]),
     "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }

@@ -22,8 +22,12 @@ of every kernel at the serving path's shapes in bf16, taken in turns (other,
 this, this, other) in one process on one card, each call on one of 28
 layer-sized buffers (8 for the long prompt) as the decode layers see them.
 
-The C interfaces must be the same in both checkouts.  Needs a card and
-``nvcc``.
+The C interfaces must be the same in both checkouts, but for one: a
+triangular-schedule kernel without the work-counter argument (a build from
+before the persistent grid) is bound as the plain prefill kernel is.  That
+binding (``n_args`` below) serves comparisons against such builds only, and
+goes once no build worth comparing against lacks the counter.  Needs a card
+and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -50,42 +55,58 @@ TREE = [(4, 33, 12, 2, 128, 512), (1, 1, 4, 4, 64, 128),
         (2, 65, 12, 2, 128, 1024), (1, 33, 16, 16, 128, 384)]
 PREFILL = [(4, 128, 12, 2, 128), (1, 128, 12, 2, 128), (2, 256, 4, 2, 64),
            (1, 512, 8, 8, 96), (2, 256, 6, 2, 128), (1, 128, 2, 1, 80),
-           (1, 4096, 12, 2, 128)]
+           (1, 4096, 12, 2, 128), (2, 4096, 12, 2, 128),
+           (2, 1000, 12, 2, 128), (1, 2333, 8, 1, 64),
+           (1, 4000, 6, 6, 96), (1, 1500, 4, 2, 256)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 N_LAYERS = 28
 
 
 def other_libraries(root: str) -> dict:
     """Build the kernels of ``NAMES`` that ``root`` has with its own build
-    module, in a subprocess, and return their library paths."""
+    module, in a subprocess, and return each one's library path and the
+    number of arguments of its C entry point."""
     code = ("import json, sys\n"
             f"sys.path.insert(0, {root + '/src'!r})\n"
             "from repro_torch.kernels import _build\n"
             f"names = [n for n in {list(NAMES)!r} if n in _build.SOURCES]\n"
             "_build.build(names)\n"
-            "print(json.dumps({n: str(_build.library_path(n)) for n in "
-            "names}))\n")
+            "print(json.dumps({n: [str(_build.library_path(n)), "
+            "len(_build._ENTRY[n][1])] for n in names}))\n")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, cwd=root).stdout
     return json.loads(out.strip().splitlines()[-1])
 
 
-def launcher(path: str, name: str):
+def launcher(path: str, name: str, n_args: Optional[int] = None):
+    """fn(pointers, sizes, dtype code, stream) of the kernel ``name`` in the
+    library at ``path`` whose entry point takes ``n_args`` arguments (this
+    checkout's count by default); a triangular kernel gets a work counter,
+    device scratch that each launch zeroes."""
     lib = ctypes.CDLL(path)
     fn_name, argtypes = _build._ENTRY[name]
+    if n_args is not None and n_args != len(argtypes):
+        argtypes = _build._ENTRY["flash_prefill"][1]   # no work counter
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn
+    counter = []
+    if argtypes == _build._ENTRY["flash_prefill_tri"][1]:
+        counter = [torch.empty(1, dtype=torch.int32, device="cuda")]
+
+    def call(ptrs, sizes, code, stream):
+        return fn(*ptrs, *(c.data_ptr() for c in counter), *sizes, code,
+                  stream)
+    return call
 
 
 def run(fn, dtype, *tensors_and_sizes, n_out):
     stream = torch.cuda.current_stream().cuda_stream
     tensors = tensors_and_sizes[:n_out]
     out = torch.empty_like(tensors[0])
-    ptrs = [t.data_ptr() for t in tensors]
-    rc = fn(*ptrs, out.data_ptr(), *tensors_and_sizes[n_out:],
-            _build.DTYPE_CODE[dtype], stream)
+    ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()]
+    rc = fn(ptrs, tensors_and_sizes[n_out:], _build.DTYPE_CODE[dtype],
+            stream)
     _build.check_status("compare_builds", rc)
     return out
 
@@ -121,9 +142,7 @@ def timing_cases(gen):
                                 ((1, 4096, 12, 2, 128), 8)):
         qf, kf, vf = (rnd(n, B, S, H, dh), rnd(n, B, S, K, dh),
                       rnd(n, B, S, K, dh))
-        names = (("flash_prefill", "flash_prefill_tri") if S == 128
-                 else ("flash_prefill_tri",))
-        for name in names:
+        for name in ("flash_prefill", "flash_prefill_tri"):
             yield (f"{name} {(B, S)}", name, n,
                    lambda i, qf=qf, kf=kf, vf=vf, B=B, S=S, H=H, K=K,
                    dh=dh, n=n: (qf[i % n], kf[i % n], vf[i % n], B, S, H, K,
@@ -164,8 +183,8 @@ def main(argv=None) -> int:
         return 1
     _build.build(list(NAMES))
     mine = {n: launcher(str(_build.library_path(n)), n) for n in NAMES}
-    theirs = {n: launcher(p, n)
-              for n, p in other_libraries(args.other_root).items()}
+    theirs = {n: launcher(p, n, n_args)
+              for n, (p, n_args) in other_libraries(args.other_root).items()}
     if "flash_prefill_tri" not in theirs:
         theirs["flash_prefill_tri"] = theirs["flash_prefill"]
     gen = torch.Generator(device="cuda")

@@ -8,6 +8,9 @@ A tensor on the card launches the kernel, after the checks of
 raises.  A tensor on the CPU takes the plain version (``ref.py``), which
 computes the same function for both.  ``flash_prefill.launches`` and
 ``flash_prefill.tri_launches`` count kernel launches only.
+
+The triangular kernel's persistent blocks take their work from an int32
+counter: a fresh one per call, which the launch zeroes on the stream.
 """
 from __future__ import annotations
 
@@ -39,9 +42,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     name = "flash_prefill_tri" if triangular else "flash_prefill"
     launch = getattr(_build.load(name), f"{name}_launch")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     with torch.cuda.device(q.device):
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, H, K, dh, _build.DTYPE_CODE[q.dtype], stream)
+        if triangular:
+            counter = torch.empty(1, dtype=torch.int32, device=q.device)
+            ptrs.append(counter.data_ptr())
+        rc = launch(*ptrs, B, S, H, K, dh, _build.DTYPE_CODE[q.dtype],
+                    stream)
     _build.check_status(name, rc)
     if triangular:
         flash_prefill.tri_launches += 1

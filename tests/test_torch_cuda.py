@@ -212,14 +212,20 @@ def test_tree_kernel_row_same_at_width_1_and_33(cuda, B, T, H, K, dh, S):
         assert torch.equal(one[:, 0], full[:, i]), f"row {i}"
 
 
-@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
-def test_suffix_prefill_rows_equal_causal_prefill_rows(cuda, T):
-    """B2 at (1, T) under the suffix prefill's mask (an 80-token cached
-    prefix, causal within the suffix) gives B3's rows 80 ... of the same
-    lane at (4, 128), on the same K/V — the rows B3 has (80 + i < 128)."""
+@pytest.mark.parametrize("T,S,off", [(8, 128, 80), (16, 128, 80),
+                                     (32, 128, 80), (64, 128, 80),
+                                     (128, 128, 80), (100, 4096, 1000),
+                                     (128, 4096, 2000), (77, 1000, 900)])
+def test_suffix_prefill_rows_equal_causal_prefill_rows(cuda, T, S, off):
+    """B2 at (1, T) under the suffix prefill's mask (an ``off``-token cached
+    prefix, causal within the suffix) gives B3's rows off ... of the same
+    lane at (4, S), on the same K/V — the rows B3 has (off + i < S).  The
+    long prompts run B3 with its key groups in sequence, and their suffixes
+    cross 64-key tiles and B3's 128-row tiles."""
     from repro_torch.models.attention import build_full_tree_mask
-    B, S, H, K, dh, bs, bpl, off, lane = 4, 128, 12, 2, 128, 64, 8, 80, 2
-    rng = np.random.RandomState(T)
+    B, H, K, dh, bs, lane = 4, 12, 2, 128, 64, 2
+    bpl = -(-S // bs)
+    rng = np.random.RandomState(T + S)
     q, k, v = (_t(rng.randn(B, S, n, dh) * 0.3, "bfloat16", cuda)
                for n in (H, K, K))
     b3 = flash_prefill(q, k, v)
@@ -228,9 +234,10 @@ def test_suffix_prefill_rows_equal_causal_prefill_rows(cuda, T):
     pool_k = _t(rng.randn(nb, bs, K, dh) * 0.3, "bfloat16", cuda)
     pool_v = _t(rng.randn(nb, bs, K, dh) * 0.3, "bfloat16", cuda)
     ids = rng.permutation(np.arange(1, nb)).astype(np.int32)
-    for j in range(S // bs):
-        pool_k[ids[j]] = k[lane, j * bs:(j + 1) * bs]
-        pool_v[ids[j]] = v[lane, j * bs:(j + 1) * bs]
+    for j in range(bpl):
+        n_j = min(bs, S - j * bs)
+        pool_k[ids[j], :n_j] = k[lane, j * bs:j * bs + n_j]
+        pool_v[ids[j], :n_j] = v[lane, j * bs:j * bs + n_j]
     bt = torch.from_numpy(ids[None]).to(cuda)
     qs = _t(rng.randn(1, T, H, dh) * 0.3, "bfloat16", cuda)
     n = min(T, S - off)
@@ -317,6 +324,93 @@ def test_triangular_prefill_kernel_matches_plain_and_b3_bitwise(
     ref = flash_prefill(q.cpu(), k.cpu(), v.cpu(), triangular=True)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().numpy(), **_tol(dtype))
+
+
+# (B, S, H, K, dh) at the causal kernels' edges: S ragged against the
+# 64-key tile and the 64- and 128-row tiles, G 1, 6 and 8, dh 64 to 256, S
+# up to 4096; both kernels (the key groups in sequence at dh 128 where the
+# 128-row blocks fill the card: the first four, G 6, 8 and 1)
+CAUSAL_EDGES = [(1, 4096, 12, 2, 128), (2, 1000, 12, 2, 128),
+                (1, 2333, 8, 1, 128), (4, 1100, 4, 4, 128),
+                (1, 4001, 8, 1, 64), (2, 3000, 4, 4, 96),
+                (1, 1500, 16, 2, 96), (1, 1337, 8, 1, 256),
+                (3, 333, 6, 1, 64), (1, 70, 8, 8, 128), (2, 190, 12, 2, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh", CAUSAL_EDGES)
+def test_causal_prefill_bf16_edges_match_plain_and_b4_equals_b3(cuda, B, S,
+                                                                H, K, dh):
+    """B3 and B4 in bf16 against the plain version (on the card), and B4
+    against B3 bit for bit."""
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    rng = np.random.RandomState(S + dh)
+    q, k, v = (_t(rng.randn(B, S, n, dh) * 0.3, "bfloat16", cuda)
+               for n in (H, K, K))
+    b3 = flash_prefill(q, k, v)
+    b4 = flash_prefill(q, k, v, triangular=True)
+    ref = flash_prefill_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(b3, b4)
+    np.testing.assert_allclose(b3.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **_tol("bfloat16"))
+
+
+@pytest.fixture(scope="module")
+def wgmma_probe():
+    """tests/csrc/wgmma_probe.cu built with the kernels' flags into the
+    kernels' build directory; its C entry point."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the probe builds and runs only "
+                    "there")
+    src = Path(__file__).resolve().parent / "csrc" / "wgmma_probe.cu"
+    out = _build.BUILD_DIR / "wgmma_probe.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.HEADERS), "-o", str(out), str(src)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).wgmma_probe_launch
+    fn.argtypes = [ctypes.c_void_p] * 10
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_wgmma_gives_mma_sync_bits(cuda, wgmma_probe, seed):
+    """Hopper's warpgroup product (wgmma.m64nNk16, A from registers, B from
+    shared memory) against mma.sync.m16n8k16, through the causal kernel's
+    own functions: S = Q.K^T into a zeroed accumulator, and C + P.V with P
+    as bf16 hi + lo into a nonzero f32 C, on random operands.  The kernel
+    may run a product on wgmma only where both give the same f32 bits.
+    Both sides are also held against a float64 product (rtol 1e-3), so a
+    fault of layout would show as such."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (_t(rng.randn(64, 128) * 0.5, "bfloat16", cuda)
+               for _ in range(3))
+    p = 2.0 ** (-rng.rand(64, 64) * 12) * (rng.rand(64, 64) > 0.2)
+    p = torch.from_numpy(p.astype(np.float32)).to(cuda)
+    c = rng.randn(64, 128) * 10.0 ** rng.uniform(-3, 1, (64, 128))
+    c = torch.from_numpy(c.astype(np.float32)).to(cuda)
+    outs = [torch.empty(64, n, device=cuda) for n in (64, 64, 128, 128)]
+    rc = wgmma_probe(*(t.data_ptr() for t in (q, k, v, p, c, *outs)),
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    s_mma, s_wg, o_mma, o_wg = outs
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+    s_ref = q.double() @ k.double().T
+    o_ref = c.double() + (hi.double() + lo.double()) @ v.double()
+    for got, ref in ((s_mma, s_ref), (s_wg, s_ref), (o_mma, o_ref),
+                     (o_wg, o_ref)):
+        assert (got.double() - ref).abs().max() <= 1e-3 * ref.abs().max()
+    for a, b in ((s_mma, s_wg), (o_mma, o_wg)):
+        n = int((a != b).sum())
+        assert n == 0, (f"{n} of {a.numel()} f32 results differ, max "
+                        f"{(a - b).abs().max().item():.3e}")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -28,8 +28,11 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 TREE_SHAPES = [(1, 1, 4, 4, 64, 128), (2, 5, 8, 4, 64, 256),
                (1, 9, 4, 1, 96, 512), (2, 65, 12, 2, 128, 1024),
                (1, 33, 16, 16, 128, 384)]
+# the shapes of tests/test_kernels.py, and long ragged prompts (S not a
+# multiple of the key tile nor of the CUDA kernels' row tiles)
 PREFILL_SHAPES = [(2, 256, 4, 2, 64), (1, 512, 8, 8, 96),
-                  (2, 256, 6, 2, 128), (1, 128, 2, 1, 80)]
+                  (2, 256, 6, 2, 128), (1, 128, 2, 1, 80),
+                  (1, 1000, 12, 2, 128), (2, 333, 6, 1, 64)]
 
 
 def _tol(dtype):

@@ -118,6 +118,31 @@ def test_engine_lossless_and_matches_jax_engine(model):
         assert sum(map(len, outs)) > st.decode_steps + len(prompts)
 
 
+def test_engine_matches_jax_engine_on_long_prompts():
+    """Prompts of 250 to 316 tokens at ``prefill_len`` 320 on qwen2-1.5b's
+    smoke config, guided: the prefill attention spans several row and key
+    tiles.  The JAX engine prefills through its Pallas kernel (interpret
+    mode) and the port through its CUDA backend (the plain version on the
+    CPU); the same converted weights give the same tokens, and the port's
+    equal its ``reference_decode``."""
+    from repro.configs.qwen2_1_5b import smoke_config
+    jcfg = dataclasses.replace(smoke_config(), max_seq_len=384,
+                               prefill_backend="pallas")
+    tcfg, jp, tp = _pair(jcfg, seed=6)
+    j_bias, t_bias = _guides(jcfg.vocab_size)
+    prompts = _prompts(3, jcfg.vocab_size, seed=7, lo=250, hi=317)
+    ecfg = dict(ECFG, prefill_len=320,
+                default_params=SamplingParams(max_new_tokens=12))
+    t_eng = tapi.build_engine(tapi.EngineConfig(**ecfg), tcfg, tp,
+                              logits_transform=t_bias, device="cpu")
+    j_eng = japi.build_engine(japi.EngineConfig(**ecfg), jcfg, jp,
+                              logits_transform=j_bias)
+    outs = _serve(t_eng, prompts, 12)
+    assert outs == _serve(j_eng, prompts, 12)
+    for p, o in zip(prompts, outs):
+        assert o == reference_decode(t_eng.fns, p, 12)
+
+
 def test_fused_path_one_sync_per_step_and_fixed_shapes():
     jcfg = jtx.TransformerConfig(n_layers=1, d_model=32, n_heads=4,
                                  n_kv_heads=2, d_ff=64, vocab_size=128,
