@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
    one ``nvcc`` each, in parallel; each attention kernel's registers and
    spills from ptxas, and a check of the SASS (``cuobjdump``) of every bf16
    attention kernel (tree and causal): tensor-core products (HMMA),
-   asynchronous copies (LDGSTS), no spills;
+   asynchronous copies (LDGSTS), no spills; B5's eight instantiations'
+   registers, no spills;
 3. the kernels: each held against its plain PyTorch version on the card in
    f32 and bf16 — at the serving path's shapes and at the shapes of
    ``tests/test_kernels.py`` / ``tests/test_paged_cache.py`` — the paged
@@ -19,14 +20,18 @@ Phases, in order; any failure exits non-zero:
    against the plain prefill kernel (B3), bit for bit; the Gumbel-argmax
    kernel's raw bits against the plain threefry2x32 bit for bit, its Gumbel
    values within 2e-6 and its choices against the plain version's wherever
-   the top-two gap of z + g exceeds 1e-5; the fused EmbeddingBag (B5) with
-   masked slots and negative and out-of-range ids too; then each timed
+   the top-two gap of z + g exceeds 1e-5; the fused EmbeddingBag (B5) bit
+   for bit, on both of its slices (16-byte and scalar), with masked slots
+   and negative and out-of-range ids too; then each timed
    beside its plain version, the one PyTorch library call that computes the
    same function where there is one (timed here only, never called by the
    port) and its bound (bytes over 3.35 TB/s or operations over the peak
-   rate for the input type, whichever is larger) — by CUDA events around a
-   loop of calls (host dispatch included) and by device time from
-   torch.profiler (``device_ms``, ``library_device_ms``);
+   rate for the input type, whichever is larger; the Gumbel kernel's
+   operations are the SASS instructions of its loop per drawn entry over
+   the SMs' issue rate at their maximum clock, an issue-rate bound of its
+   SASS, with the function's own operation count beside it) — by CUDA
+   events around a loop of calls (host dispatch included) and by device
+   time from torch.profiler (``device_ms``, ``library_device_ms``);
 4. the model: Qwen2-1.5B at full width with 2 layers, the cuda backend's
    logits against the dense backend's in f32 on both KV layouts (and the
    suffix prefill), and in bf16 both against the f32 path, with a limit
@@ -39,8 +44,10 @@ Phases, in order; any failure exits non-zero:
    forward and never elsewhere, and the scores held against the same
    function computed in float64 on the card (Two-Tower's top-128 indices
    against the float64 ranking wherever neighbours are further apart than
-   the tolerance); B5 held against its plain version at Wide & Deep's bag
-   shapes in f32 and bf16 and timed there;
+   the tolerance); B5 held against its plain version bit for bit at Wide &
+   Deep's bag shapes in f32 and bf16 and timed there on the model's call
+   (ids and mask), with a second bound that counts the distinct 32-byte
+   sectors that the distinct rows read lie in;
 5. the main path: Qwen2-1.5B at full width in bf16 with random weights from
    a seed, served through ``build_engine`` with the serve CLI's defaults and
    a guided logits transform (drafts verify, and token choice never rests on
@@ -122,11 +129,24 @@ PATH_TRI = [(4, 128, 12, 2, 128), (1, 4096, 12, 2, 128)]
 TEST_TRI = [(1, 256, 4, 2, 64), (2, 512, 4, 4, 128), (1, 384, 6, 2, 96)]
 # the Gumbel-argmax kernel at the fused step's token choice
 GUMBEL_SHAPE = (4, 33, 151936)
-# 32-bit ALU operations per drawn entry: threefry2x32's 20 add/rotate/xor
-# rounds and 5 key injections (~72), the bits, the uniform (~4), two logs,
-# the division, the add and the compare
-OPS_PER_DRAW = 82
-ALU_OPS_PER_S = 67e12                  # H100 SXM non-tensor f32 rate
+# its bound counts issue slots: the SASS instructions of gumbel_partial's
+# loop per drawn entry (threefry2x32's integer adds, rotates and xors, the
+# uniform, two logf, the IEEE division, the compare), read from the built
+# library, over what the SMs issue: 4 warp instructions (128 lanes) a
+# clock on each SM, at the SM clock nvidia-smi reports as its maximum.
+# That is an issue-rate bound of the kernel's current SASS; beside it, the
+# lane operations the function itself needs per drawn entry, counted from
+# its definition (csrc/gumbel_argmax.cu::draw and libdevice's logf):
+GUMBEL_OPS_NEEDED = {
+    "threefry2x32": 2 + 20 * 3 + 5 * 2,  # key adds, 20 add/rotate/xor
+                                         # rounds, 5 key injections
+    "uniform": 4,                        # xor of the words, shift, or, -1
+    "two logf": 2 * 23,                  # range reduction, 10 FMAs, the
+                                         # special-case checks, each
+    "ieee division": 8,                  # check, reciprocal, 4 FMAs, fixup
+    "load, add, compare": 6,             # bf16 to f32, + g, max with index
+}
+LANES_PER_SM_CLOCK = 128
 GUMBEL_GAP = 1e-5                      # token agreement below this gap of z+g
 GUMBEL_ATOL = 2e-6                     # Gumbel values: two logf calls
 SAMPLED_TEMP = 0.8
@@ -268,6 +288,19 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def distinct_sectors(table: torch.Tensor, rows: torch.Tensor) -> int:
+    """How many distinct 32-byte sectors of ``table``'s storage hold the
+    rows ``rows`` (sorted distinct indices of its flattened rows): each
+    row's span of sectors, less what it shares with the row before it (the
+    spans come in address order, so a sector is shared only with that
+    one)."""
+    row_bytes = table.shape[-1] * table.element_size()
+    start = table.data_ptr() + rows.long() * row_bytes
+    first, last = start // 32, (start + row_bytes - 1) // 32
+    shared = (last[:-1] - first[1:] + 1).clamp_min(0)
+    return int((last - first + 1).sum().item() - shared.sum().item())
+
+
 # --------------------------------------------------------------- phase 2
 ATTN_LIBS = ("tree_attention", "paged_tree_attention", "flash_prefill",
              "flash_prefill_tri")
@@ -311,8 +344,8 @@ def sass_phase(_build):
     """Registers and spills of every attention kernel from ptxas, and the
     SASS of the bf16 attention kernels (B1-B4): every instantiation must
     hold tensor-core products (HMMA or HGMMA) and asynchronous copies
-    (LDGSTS or UTMALDG), and spill nothing."""
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    (LDGSTS or UTMALDG), and spill nothing; then B5's registers, no
+    spills."""
     for name in ATTN_LIBS:
         lib = _build.library_path(name)
         report = ptxas_report(lib.with_suffix(".log").read_text())
@@ -327,13 +360,7 @@ def sass_phase(_build):
                .startswith("bf16")}
         check(bool(mma) and all(st == ld == 0 for _, st, ld in mma.values()),
               f"{name}: bf16 kernels missing or spilling: {mma}")
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        funcs = {}
-        for part in sass.split("Function : ")[1:]:
-            fn, _, body = part.partition("\n")
-            funcs[fn.strip()] = body
+        funcs = sass_functions(lib)
         bf16 = {fn: body for fn, body in funcs.items()
                 if attn_label(fn)[0].startswith("bf16")}
         check(len(bf16) == len(mma), f"{name}: {len(bf16)} bf16 kernels in "
@@ -353,6 +380,63 @@ def sass_phase(_build):
         print(f"  [{name}] SASS: all {len(bf16)} bf16 kernels hold "
               f"HMMA/HGMMA and LDGSTS/UTMALDG (dh 128: {at128}); no "
               "spills")
+    b5_build_report(_build)
+
+
+def sass_functions(lib) -> dict:
+    """{mangled name: SASS text} of a built library (cuobjdump -sass)."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        fn, _, body = part.partition("\n")
+        funcs[fn.strip()] = body
+    return funcs
+
+
+def loop_per_load(body: str) -> tuple:
+    """(instructions, global loads) of the loop in a function's SASS that
+    holds the most global loads (a loop is the span from a backward
+    branch's target to the branch; NOPs left out): with one load an entry,
+    instructions / loads is what the loop issues per entry."""
+    ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body)]
+    best = (0, 0)
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        span = [t for a, t in ins if int(m.group(1), 16) <= a <= addr
+                and not t.startswith("NOP")]
+        loads = sum(1 for t in span if re.search(r"\bLDG\b", t))
+        if loads > best[1] or (loads == best[1] and len(span) < best[0]):
+            best = (len(span), loads)
+    return best
+
+
+def b5_label(mangled: str) -> str:
+    """'f32 x4 L4' for B5's mangled name: dtype, elements a lane slice
+    holds, and whether the bag size is 4 (vector slot loads) or any."""
+    m = re.search(r"embedding_bag_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                  mangled)
+    if not m:
+        return mangled[:60]
+    return (f"{'f32' if m.group(1) == 'f' else 'bf16'} x{m.group(2)} "
+            f"{'L4' if m.group(3) == '1' else 'any L'}")
+
+
+def b5_build_report(_build):
+    """B5's instantiations from ptxas: registers, no spills."""
+    report = ptxas_report(_build.library_path("embedding_bag")
+                          .with_suffix(".log").read_text())
+    check(len(report) == 8 and all(st == ld == 0
+                                   for _, st, ld in report.values()),
+          f"embedding_bag: 8 spill-free instantiations expected: {report}")
+    print("  [embedding_bag] " + ", ".join(
+        f"{b5_label(k)} {r} regs" for k, (r, _, _) in sorted(
+            report.items(), key=lambda kv: b5_label(kv[0]))) + "; no spills")
 
 
 # --------------------------------------------------------------- phase 3
@@ -733,19 +817,43 @@ def gumbel_phase(gen):
     n_rows = int((~greedy).sum().item())
     nbytes = n_rows * V * 2 + pos.numel() * 4 + B * (4 + 8 + 1) \
         + B * T * 4
-    t_ops = n_rows * V * OPS_PER_DRAW / ALU_OPS_PER_S * 1e3
+    from repro_torch.kernels import _build
+    fn, body = next((f, b) for f, b in sass_functions(
+        _build.library_path("gumbel_argmax")).items()
+        if "gumbel_partialI13__nv_bfloat16E" in f)
+    n_ins, n_ld = loop_per_load(body)
+    check(n_ld > 0, f"gumbel_partial: no loop with a global load in {fn}")
+    per_entry = n_ins / n_ld
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].split(",")
+    sm_hz = float(clocks[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lanes_per_s = n_sm * LANES_PER_SM_CLOCK * sm_hz
+    t_ops = n_rows * V * per_entry / lanes_per_s * 1e3
+    needed = sum(GUMBEL_OPS_NEEDED.values())
+    t_needed = n_rows * V * needed / lanes_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                   else (t_ops, "operations"))
     print(f"  gumbel_argmax bf16 {GUMBEL_SHAPE}, {n_rows} sampled rows: "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}: {n_rows * V * OPS_PER_DRAW / 1e9:.3f} G ALU ops at "
-          f"{ALU_OPS_PER_S / 1e12:.0f} T/s, {nbytes / 1e6:.3f} MB); "
-          f"device time {dev:.4f} ms")
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, issue-rate bound of "
+          f"the SASS {b_ms:.5f} ms ({b_by}: {n_ins} SASS instructions a "
+          f"loop of {n_ld} entries, {per_entry:.2f} an entry, x "
+          f"{n_rows * V} entries over {n_sm} SMs x {LANES_PER_SM_CLOCK} "
+          f"lanes a clock at the maximum SM clock {clocks[0].strip()} MHz "
+          f"(now {clocks[1].strip()} MHz); {nbytes / 1e6:.3f} MB); device "
+          f"time {dev:.4f} ms: the bound is {b_ms / dev:.3f} of it; the "
+          f"function's own {needed} operations an entry "
+          f"({GUMBEL_OPS_NEEDED}) give {t_needed:.5f} ms, "
+          f"{t_needed / dev:.3f} of it")
     del lg
     return g_err, dict(ms=ms, plain_ms=plain, library_ms=None,
                        bound_ms=b_ms, bound_by=b_by, device_ms=dev,
-                       library_device_ms=None)
+                       library_device_ms=None, sass_per_entry=per_entry,
+                       ops_needed_per_entry=needed,
+                       ops_needed_bound_ms=t_needed)
 
 
 # --------------------------------------------------------------- phase 4
@@ -1744,24 +1852,37 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
 
 # --------------------------------------------------------------- recsys
 def eb_hold(out, ref, dtype, label):
-    """B5 against its plain version: NaN exactly where the plain version has
-    NaN (out-of-range ids), within TOL elsewhere."""
-    nan_out, nan_ref = torch.isnan(out), torch.isnan(ref)
-    check(torch.equal(nan_out, nan_ref), f"embedding_bag {label} {dtype}: "
-                                         "NaN outputs differ from the plain "
-                                         "version's")
-    return hold("embedding_bag", out.masked_fill(nan_out, 0),
-                ref.masked_fill(nan_ref, 0), dtype, label)
+    """B5 against its plain version bit for bit: NaN exactly where the
+    plain version has NaN (out-of-range ids), the same bits elsewhere (both
+    add the rounded f32 products in l order from 0 and round once).
+    Returns the largest absolute difference, 0 when the check passes."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(out)
+    check(torch.equal(nan, torch.isnan(ref)), f"embedding_bag {label} "
+                                              f"{dtype}: NaN outputs differ "
+                                              "from the plain version's")
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    a, b = out.masked_fill(nan, 0), ref.masked_fill(nan, 0)
+    same = torch.equal(a.view(ints), b.view(ints))
+    err = (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+    print(f"  embedding_bag {str(dtype)[6:]:8s} {label}: "
+          f"{'bit-equal' if same else 'FAIL'} to the plain version, "
+          f"{int(nan.sum())} NaN outputs, max|err| {err:.3e}")
+    check(same, f"embedding_bag differs from its plain version at {label} "
+                f"{dtype}: max abs err {err}")
+    return err
 
 
 def embedding_bag_phase(gen):
-    """B5 against its plain version in f32 and bf16 at the shapes of
-    tests/test_kernels.py:66-67, at D = 1, and on a stacked table with
-    masked slots and negative and out-of-range ids (NaN bags)."""
+    """B5 against its plain version bit for bit in f32 and bf16 at the
+    shapes of tests/test_kernels.py:66-67 (16-byte slices, bags of 1 to 7),
+    at D = 1 and D = 33 (the scalar slice, bags of 4 and of 7), and on a
+    stacked table with masked slots and negative and out-of-range ids (NaN
+    bags); the mask and the weights go to the kernel as they are."""
     from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
                                                        embedding_bag_ref)
     for dtype in (torch.float32, torch.bfloat16):
-        for V, D, N, L in EB_SWEEP + [(300, 1, 64, 4)]:
+        for V, D, N, L in EB_SWEEP + [(300, 1, 64, 4), (300, 33, 64, 7)]:
             t = randn(gen, (V, D), dtype, scale=1.0)
             ids = torch.randint(0, V, (N, L), generator=gen, device="cuda",
                                 dtype=torch.int32)
@@ -2015,13 +2136,19 @@ def recsys_phase(gen):
     torch.cuda.empty_cache()
 
     def eb_row(t, sets, plain_iters):
-        """B5 (sets rotated), its plain version, F.embedding_bag on the
-        same bags (ids pre-offset into the flattened table) and the bound.
-        ms, plain_ms and library_ms are device time per call from
-        torch.profiler (B5: its kernel alone): at serve_p99 one call is
-        microseconds of device work, under the host's dispatch time, so
-        CUDA events around a loop of calls would time the host; those
-        event times stay beside them as *_call_ms."""
+        """B5 on the model's call (ids and the bool mask, sets rotated),
+        its plain version, F.embedding_bag on the same bags (ids pre-offset
+        into the flattened table, the mask as f32 per-sample weights) and
+        two bounds: the guide's (each input byte once: the distinct rows,
+        the ids, the mask bytes, the output) and one that counts a 32-byte
+        sector for each distinct sector that the distinct rows lie in, as
+        a read moves whole sectors (they differ only where a row is not a
+        whole number of sectors: the wide tables' 4-byte rows, eight to a
+        sector, where neighbouring rows share theirs).  ms, plain_ms and library_ms are device
+        time per call from torch.profiler (B5: its kernel alone): at
+        serve_p99 one call is microseconds of device work, under the host's
+        dispatch time, so CUDA events around a loop of calls would time the
+        host; those event times stay beside them as *_call_ms."""
         Fv, V, D = t.shape
         es = t.element_size()
         ws = [m.float() for _, m, _ in sets]
@@ -2032,7 +2159,7 @@ def recsys_phase(gen):
         n = 20 if k > 1 else 10
 
         def kern(i):
-            return embedding_bag_fused(t, sets[i % k][0], weights=ws[i % k])
+            return embedding_bag_fused(t, sets[i % k][0], sets[i % k][1])
 
         def plain_fn(i):
             return embedding_bag_ref(t, sets[i % k][0], ws[i % k])
@@ -2050,15 +2177,18 @@ def recsys_phase(gen):
         plain = device_ms(plain_fn, plain_iters)
         lib = device_ms(lib_fn, n)
         ids = sets[0][0]
-        n_rows = int(torch.unique(flat[0]).numel())
-        nbytes = n_rows * D * es + ids.numel() * 8 \
-            + ids.numel() // ids.shape[-1] * D * es
+        rows = torch.unique(flat[0])
+        n_rows = int(rows.numel())
+        n_sectors = distinct_sectors(t, rows)
+        rest = ids.numel() * (4 + 1) + ids.numel() // ids.shape[-1] * D * es
         flops = 2.0 * ids.numel() * D
-        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        b_ms, b_by = bound(n_rows * D * es + rest, flops, torch.float32)
         return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                    bound_by=b_by, device_ms=ms, library_device_ms=lib,
-                    shape=list(t.shape),
-                    ids=list(ids.shape), unique_rows=n_rows, **calls)
+                    bound_by=b_by, sector_bound_ms=bound(
+                        n_sectors * 32 + rest, flops, torch.float32)[0],
+                    device_ms=ms, library_device_ms=lib,
+                    shape=list(t.shape), ids=list(ids.shape),
+                    unique_rows=n_rows, unique_sectors=n_sectors, **calls)
 
     rows = {}
     for part, key in (("deep", "tables"), ("wide", "wide_tables")):
@@ -2071,8 +2201,10 @@ def recsys_phase(gen):
                   f"kernel {r['ms']:.5f}, plain {r['plain_ms']:.5f}, "
                   f"F.embedding_bag {r['library_ms']:.5f}, bound "
                   f"{r['bound_ms']:.5f} ({r['bound_by']}: "
-                  f"{r['unique_rows']} distinct rows); event-timed calls: "
-                  f"kernel {r['call_ms']:.4f}, plain "
+                  f"{r['unique_rows']} distinct rows), bound counting "
+                  f"their {r['unique_sectors']} distinct 32-byte sectors "
+                  f"{r['sector_bound_ms']:.5f}; "
+                  f"event-timed calls: kernel {r['call_ms']:.4f}, plain "
                   f"{r['plain_call_ms']:.4f}, F.embedding_bag "
                   f"{r['library_call_ms']:.4f}")
     row = dict(rows.pop("deep_serve_p99"), **rows)

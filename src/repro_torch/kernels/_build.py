@@ -50,7 +50,7 @@ _ENTRY = {
     "flash_prefill_tri": ("flash_prefill_tri_launch",
                           [_P] * 5 + [_I] * 6 + [_P]),
     "gumbel_argmax": ("gumbel_argmax_launch", [_P] * 8 + [_I] * 5 + [_P]),
-    "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 6 + [_P]),
+    "embedding_bag": ("embedding_bag_launch", [_P] * 5 + [_I] * 6 + [_P]),
 }
 # further C entry points of a library: name -> argtypes
 _EXTRA = {"gumbel_argmax": {"gumbel_noise_launch": [_P] * 4 + [_I] * 2
@@ -128,10 +128,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda(kernel: str, *tensors: torch.Tensor) -> None:
+def check_cuda(kernel: str, *tensors: torch.Tensor,
+               aligned: bool = True) -> None:
     """Reject what the kernels do not take: tensors off the card or on
-    different cards, non-contiguous or misaligned storage (the kernels read
-    16-byte vectors), and dtypes other than one shared float32/bfloat16."""
+    different cards, non-contiguous storage, storage that is not 16-byte
+    aligned (the kernels read 16-byte vectors; ``aligned=False`` for a
+    kernel that takes any alignment), and dtypes other than one shared
+    float32/bfloat16."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: expected CUDA tensors, got {dev}")
@@ -140,7 +143,7 @@ def check_cuda(kernel: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: tensors must be contiguous")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{kernel}: tensor storage is not 16-byte "
                              "aligned")
     dt = tensors[0].dtype

@@ -36,9 +36,16 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
     """table (V, D), ids (..., L), weights (..., L) f32 -> (..., D); or
     table (F, V, D), ids (..., F, L) -> (..., F, D): the weighted sum of
-    each bag's rows in f32, rounded once to the table's dtype."""
+    each bag's rows in f32, slot by slot in l order from 0 (each product
+    rounded, then added: the kernel's order, so the two agree bit for bit),
+    rounded once to the table's dtype."""
     emb = take_rows(table, ids).float()
-    return (emb * weights.float()[..., None]).sum(-2).to(table.dtype)
+    w = weights.float()
+    acc = torch.zeros(emb.shape[:-2] + emb.shape[-1:], dtype=torch.float32,
+                      device=emb.device)
+    for l in range(emb.shape[-2]):
+        acc = acc + emb[..., l, :] * w[..., l, None]
+    return acc.to(table.dtype)
 
 
 __all__ = ["embedding_bag_ref", "take_rows"]

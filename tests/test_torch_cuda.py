@@ -14,8 +14,9 @@ near zero, while typical |outputs| here are 1e-2 to 1e-1.  The
 Gumbel-argmax kernel's raw bits equal the plain generator's, its Gumbel
 values agree to 2e-6 (two logf calls), and its choices equal the plain
 version's wherever the plain top-two gap of z + g exceeds 1e-5.  The fused
-EmbeddingBag kernel gives NaN exactly where its plain version does (ids out
-of range) and is within the same tolerance elsewhere.
+EmbeddingBag kernel equals its plain version bit for bit, NaN in the same
+places (ids out of range, Inf or NaN rows): both add the rounded f32
+products in l order from 0 and round once.
 """
 import numpy as np
 import pytest
@@ -481,12 +482,132 @@ def test_embedding_bag_kernel_matches_plain(cuda, F, V, D, N, L, dtype):
     torch.cuda.synchronize()
     assert embedding_bag_fused.launches == n0 + 1
     ref = embedding_bag_ref(t, ids, w * m)
-    assert torch.equal(torch.isnan(out), torch.isnan(ref))
     if F == 3:
         assert torch.isnan(ref).any()
-    np.testing.assert_allclose(out.float().nan_to_num().cpu().numpy(),
-                               ref.float().nan_to_num().cpu().numpy(),
-                               **_tol(dtype))
+    _assert_same_bits(out, ref)
+
+
+def _assert_same_bits(out, ref):
+    """Equal bits, NaN in the same places (any NaN payload)."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    nan = torch.isnan(out)
+    assert torch.equal(nan, torch.isnan(ref))
+    ints = torch.int32 if out.dtype == torch.float32 else torch.int16
+    assert torch.equal(out.masked_fill(nan, 0).view(ints),
+                       ref.masked_fill(nan, 0).view(ints))
+
+
+# (dtype, F, V, D, N, L, inputs): the kernel's paths — 16-byte slices (D a
+# multiple of 4 f32 / 8 bf16) and the scalar slice (D = 1, 3, 33), bags of
+# 4 read as vectors and other L in chunks of 8 rows (9 crosses a chunk),
+# mask and weights given or not, 40 stacked tables, bag counts that are
+# not a multiple of the bags a warp takes, tables walked a tile of fields
+# at a time (4 MB fields: tiles of 4, the last one ragged; 16 MB fields:
+# one field a tile); "special" puts negative weights
+# under masked slots (-0.0), Inf and NaN rows under zero weights, and
+# negative and out-of-range ids in one batch
+EB_CASES = [("float32", 0, 97, 1, 37, 4, "both"),
+            ("float32", 0, 97, 3, 37, 4, "mask"),
+            ("float32", 0, 97, 8, 37, 3, "weights"),
+            ("float32", 0, 97, 32, 37, 4, "neither"),
+            ("float32", 0, 97, 33, 37, 7, "both"),
+            ("float32", 0, 97, 256, 13, 9, "both"),
+            ("bfloat16", 0, 97, 8, 37, 4, "both"),
+            ("float32", 0, 97, 32, 37, 1, "mask"),
+            ("float32", 0, 97, 32, 37, 7, "weights"),
+            ("float32", 0, 97, 32, 37, 9, "both"),
+            ("float32", 0, 97, 1, 37, 9, "mask"),
+            ("float32", 40, 61, 32, 29, 4, "mask"),
+            ("float32", 40, 61, 1, 29, 4, "mask"),
+            ("bfloat16", 40, 61, 32, 29, 4, "both"),
+            ("float32", 3, 50, 8, 33, 4, "special"),
+            ("bfloat16", 3, 50, 1, 33, 4, "special"),
+            ("float32", 6, 1 << 20, 1, 100, 4, "both"),
+            ("float32", 3, 1 << 18, 16, 50, 7, "mask")]
+
+
+@pytest.mark.parametrize("dtype,F,V,D,N,L,inputs", EB_CASES)
+def test_embedding_bag_kernel_cases_equal_plain_bitwise(cuda, dtype, F, V, D,
+                                                        N, L, inputs):
+    rng = np.random.RandomState(V + D + N + L)
+    shape = (F, V, D) if F else (V, D)
+    table = rng.randn(*shape).astype(np.float32)
+    ids_shape = (N, F, L) if F else (N, L)
+    ids = rng.randint(0, V, ids_shape)
+    m = rng.rand(*ids_shape) > 0.3
+    w = rng.randn(*ids_shape).astype(np.float32)
+    if inputs == "special":
+        ids = rng.randint(-V - 3, V + 3, ids_shape)
+        table[:, 5], table[:, 7, 0] = np.inf, np.nan
+        ids[:8, :, 0] = 5                   # an Inf row under weight 0
+        ids[8:16, :, 1] = 7                 # a NaN element under weight 0
+        m[:16, :, :2] = False
+        w[:16, :, :2] = -np.abs(w[:16, :, :2])  # -w * 0 = -0.0
+    t = _t(table, dtype, cuda)
+    ids_t = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    m_t = torch.from_numpy(m).to(cuda)
+    w_t = torch.from_numpy(w).to(cuda)
+    mask = m_t if inputs in ("mask", "both", "special") else None
+    weights = w_t if inputs in ("weights", "both", "special") else None
+    n0 = embedding_bag_fused.launches
+    out = embedding_bag_fused(t, ids_t, mask, weights)
+    torch.cuda.synchronize()
+    assert embedding_bag_fused.launches == n0 + 1
+    w_ref = torch.ones_like(w_t)
+    if weights is not None:
+        w_ref = w_ref * w_t
+    if mask is not None:
+        w_ref = w_ref * m_t.float()
+    ref = embedding_bag_ref(t, ids_t, w_ref)
+    if inputs == "special":
+        assert torch.isnan(ref).any() and not torch.isnan(ref).all()
+    _assert_same_bits(out, ref)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_embedding_bag_misaligned_table_takes_the_scalar_slice(cuda, dtype):
+    """A table view whose data pointer is not 16-byte aligned (a storage
+    offset of one element) is taken, through the scalar slice, with the
+    plain version's bits."""
+    rng = np.random.RandomState(5)
+    V, D, N, L = 64, 32, 37, 4
+    flat = _t(rng.randn(V * D + 1), dtype, cuda)
+    t = flat[1:].view(V, D)
+    assert t.data_ptr() % 16 and t.is_contiguous()
+    ids = torch.from_numpy(rng.randint(-V, V, (N, L))).to(cuda)
+    m = torch.from_numpy(rng.rand(N, L) > 0.3).to(cuda)
+    n0 = embedding_bag_fused.launches
+    out = embedding_bag_fused(t, ids, m)
+    torch.cuda.synchronize()
+    assert embedding_bag_fused.launches == n0 + 1
+    _assert_same_bits(out, embedding_bag_ref(t, ids, m.float()))
+
+
+def test_embedding_bag_refuses_mask_or_weights_of_another_shape(cuda):
+    t = torch.zeros(10, 4, device=cuda)
+    ids = torch.zeros(3, 2, dtype=torch.int32, device=cuda)
+    ones = torch.ones(3, 2, dtype=torch.bool, device=cuda)
+    for bad in (ones[:, :1], ones[0], ones[None]):
+        with pytest.raises(ValueError, match="ids' shape"):
+            embedding_bag_fused(t, ids, bad)
+        with pytest.raises(ValueError, match="ids' shape"):
+            embedding_bag_fused(t, ids, ones, bad.float())
+    assert embedding_bag_fused(t, ids, ones, ones.float()).shape == (3, 4)
+
+
+def test_embedding_bag_mask_of_another_dtype_folds_into_the_weights(cuda):
+    """A mask that is neither bool nor uint8 is folded into the weights by
+    the wrapper: the same bits as the bool mask, in one launch."""
+    rng = np.random.RandomState(9)
+    t = _t(rng.randn(40, 8), "float32", cuda)
+    ids = torch.from_numpy(rng.randint(0, 40, (21, 4))).to(cuda)
+    m = torch.from_numpy(rng.rand(21, 4) > 0.3).to(cuda)
+    w = torch.from_numpy(rng.randn(21, 4).astype(np.float32)).to(cuda)
+    want = embedding_bag_fused(t, ids, m, w)
+    n0 = embedding_bag_fused.launches
+    for mask in (m.float(), m.to(torch.int64)):
+        _assert_same_bits(embedding_bag_fused(t, ids, mask, w), want)
+    assert embedding_bag_fused.launches == n0 + 2
 
 
 def test_embedding_bag_refuses_what_it_does_not_take(cuda):

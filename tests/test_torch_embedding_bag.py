@@ -143,3 +143,44 @@ def test_weights_and_mask_fold_into_f32_weights():
     ref = embedding_bag_ref(t, ids, (w * m).float())
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     assert torch.equal(embedding_bag_fused(t, ids[:0]), torch.zeros(0, 6))
+
+
+def _round_bf16(x):
+    """float32 -> the nearest bfloat16 (ties to even), as float32 (no NaN)."""
+    u = x.view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_sums_in_l_order_bit_for_bit(dtype):
+    """The plain version, which the CUDA kernel is held to bit for bit on
+    the card, equals a numpy loop that adds each slot's rounded f32 product
+    in l order from 0 and rounds once to the table's dtype.  Rows and
+    weights span eight decades and some bags cancel, so another order of
+    the adds moves bits, in bf16 too."""
+    F, V, D, N, L = 3, 40, 8, 50, 9
+    rng = np.random.RandomState(11)
+    scale = 10.0 ** rng.uniform(-4, 4, (F, V, 1))
+    tt = torch.from_numpy((rng.randn(F, V, D) * scale).astype(np.float32)
+                          ).to(DTYPES[dtype][1])
+    tab = tt.float().numpy()
+    ids = rng.randint(-V, V, (N, F, L)).astype(np.int32)  # negatives wrap
+    w = (rng.randn(N, F, L) * 10.0 ** rng.uniform(-3, 3, (N, F, L))
+         * (rng.rand(N, F, L) > 0.2)).astype(np.float32)
+    # cancellation in the first bags: slot 2 takes back slot 0's product,
+    # so what is left of slot 1 depends on the order of the adds
+    ids[:20, :, 2] = ids[:20, :, 0]
+    w[:20, :, :3] = [1e6, 1.0, -1e6]
+    want = np.zeros((N, F, D), np.float32)
+    for n in range(N):
+        for f in range(F):
+            for l in range(L):
+                want[n, f] = want[n, f] + tab[f, ids[n, f, l] % V] * w[n, f, l]
+    if dtype == "bfloat16":
+        want = _round_bf16(want)
+    got = embedding_bag_fused(tt, torch.from_numpy(ids),
+                              weights=torch.from_numpy(w))
+    assert got.dtype == tt.dtype
+    np.testing.assert_array_equal(got.float().numpy().view(np.uint32),
+                                  want.view(np.uint32))
