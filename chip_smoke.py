@@ -49,7 +49,9 @@ Phases, in order; any failure exits non-zero:
    (ids and mask), with a second bound that counts the distinct 32-byte
    sectors that the distinct rows read lie in;
 5. the main path: Qwen2-1.5B at full width in bf16 with random weights from
-   a seed, served through ``build_engine`` with the serve CLI's defaults and
+   a seed, served through ``build_engine`` (its members captured CUDA
+   graphs, replayed; launch counts add the captured launches on every
+   replay) with the serve CLI's defaults and
    a guided logits transform (drafts verify, and token choice never rests on
    a near tie), first on the dense KV layout, then on the paged layout —
    the same requests, and a shared-prefix workload with the prefix cache on
@@ -72,6 +74,18 @@ Phases, in order; any failure exits non-zero:
    host;
 8. overlap: the guided dense path with ``overlap_drafts`` equals the serial
    run, with no sync inside the dispatch;
+8b. graphs: every serving phase runs its step functions as captured CUDA
+   graphs (the session's default on the card); this phase holds them
+   against the eager twin (``cuda_graphs=False``) on the guided dense and
+   paged cells and the mixed sampled cell — every member call (cohort
+   prefill, fused steps, the padded admission in each lane, each suffix
+   bucket) gives the same outputs, step logits and K/V rows below each
+   lane's length — serves each cell in turns (captured, eager, eager,
+   captured) with equal outputs, and prints the median fused_step,
+   tokens/s, EDL, a profile of decode steps each way (device busy, idle
+   share, device kernels and host launch calls a step), each member's
+   capture time and graph pool memory, and the prefill's device time with
+   the prefix cache on and off;
 9. the long prompt: the dense main path at ``prefill_len`` 4096 with two
    requests of about 4,000 tokens; outputs equal ``reference_decode``, B3
    launches once a layer per prefill, one pull per decode step; the
@@ -1037,6 +1051,13 @@ def path_model():
     return cfg, params
 
 
+def path_prompts(vocab):
+    """The guided cells' N_REQUESTS prompts of 96 tokens."""
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    corpus = SyntheticCorpus(PROFILES["antrag"], vocab, seed=0)
+    return [corpus.sample()[0][:96] for _ in range(N_REQUESTS)]
+
+
 def path_phase(cfg, params):
     """The dense-layout main path; returns its kernel launches, prompts and
     outputs."""
@@ -1046,18 +1067,20 @@ def path_phase(cfg, params):
     from repro_torch.kernels.tree_attention.ops import tree_attention
     from repro_torch.serving.api import (EngineConfig, ServingEngine,
                                          build_engine)
-    from repro_torch.training.data import PROFILES, SyntheticCorpus
 
     ecfg = EngineConfig(default_params=SamplingParams(max_new_tokens=MAX_NEW))
     transform = guided_transform(cfg.vocab_size)
-    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=0)
-    prompts = [corpus.sample()[0][:96] for _ in range(N_REQUESTS)]
+    prompts = path_prompts(cfg.vocab_size)
     sp = SamplingParams(max_new_tokens=MAX_NEW)
 
     # warm-up engine (allocator, cuBLAS handles) whose step functions run
     # with torch's sync check set to "error": a member that made the host
     # wait for the card would raise here (the scheduler's own _pull runs
-    # outside them); then a fresh engine for the measured run
+    # outside them); then a fresh engine for the measured run.  The members
+    # are captured CUDA graphs: each key's first call (eager), its capture
+    # and its replays all run inside the check — no member syncs, capture
+    # included (the session captures on a side stream after a wait_stream,
+    # not under torch.cuda.graph, whose entry synchronises the device)
     warm = build_engine(ecfg, cfg, params, logits_transform=transform,
                         device="cuda")
     fns = warm.fns
@@ -1111,25 +1134,27 @@ def path_phase(cfg, params):
         toks[b, :len(p)] = p
         lens[b] = len(p)
     pre, slot = [], []
-    cache = None
     for _ in range(5):
         t0 = time.perf_counter()
         cache, chosen = fns.prefill(toks, lens)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
+    for _ in range(5):           # one cache: its first call eager, then
+        t0 = time.perf_counter()  # a capture, then replays
         cache, chosen = fns.prefill_into_slot(cache, 1, toks[1:2], lens[1:2])
         torch.cuda.synchronize()
         slot.append((time.perf_counter() - t0) * 1e3)
     print(f"  median prefill (4, 128): {float(np.median(pre)):.3f} ms; "
-          f"prefill_into_slot (1, 128): {float(np.median(slot)):.3f} ms")
+          f"prefill_into_slot (1, 128): {float(np.median(slot)):.3f} ms "
+          "(synchronized, captured)")
     profile_decode(ecfg, cfg, params, transform, prompts, sp)
     return launches, prompts, outs
 
 
 def serve_counted(engine, prompts, sp, counters):
     """Serve ``prompts`` to the end with every kernel counter in
-    ``counters`` set to 0 just before and read just after; returns
+    ``counters`` set to 0 just before and read just after; ``sp`` is one
+    SamplingParams for every request or a list, one per request.  Returns
     (outputs, launches, wall s, tokens/s, EDL, median fused_step ms)."""
     from repro_torch.core.request import Request
     engine.scheduler.record_breakdown = True
@@ -1137,8 +1162,9 @@ def serve_counted(engine, prompts, sp, counters):
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    handles = [engine.submit(Request(prompt=list(p), params=sp))
-               for p in prompts]
+    sps = sp if isinstance(sp, list) else [sp] * len(prompts)
+    handles = [engine.submit(Request(prompt=list(p), params=q))
+               for p, q in zip(prompts, sps)]
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1804,22 +1830,30 @@ def long_prompt_phase(cfg, params):
     return launches["flash_prefill"]
 
 
-def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
+HOST_LAUNCH_APIS = ("Launch", "Memcpy", "Memset")   # runtime API names
+
+
+def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5,
+                   cuda_graphs=True, label=""):
     """Where a decode step's time goes: a torch.profiler window over
     ``steps`` scheduler iterations that are pure decode (all lanes busy, no
-    admission): wall time, device busy time and idle share, kernel launches
-    per step, and the kernels that take the most device time (and the
-    Gumbel-argmax kernel's).  ``sp`` is one SamplingParams for every lane
-    or a list, one per lane."""
+    admission), after three (the cohort prefill and a step run eagerly, a
+    step captures): wall time, device busy time and idle share, kernels
+    a step on the device, the host's CUDA runtime calls that launch work (a
+    kernel, a graph, a copy or a memset) a step, and the kernels that take
+    the most device time (and the Gumbel-argmax kernel's).  ``sp`` is one
+    SamplingParams for every lane or a list, one per lane.  Returns those
+    numbers per step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import build_engine
     from repro_torch.core.request import Request
     engine = build_engine(ecfg, cfg, params, logits_transform=transform,
-                          device="cuda")
+                          device="cuda", cuda_graphs=cuda_graphs)
     sps = sp if isinstance(sp, list) else [sp] * ecfg.lanes
     for p, q in zip(prompts[:ecfg.lanes], sps):
         engine.submit(Request(prompt=list(p), params=q))
-    engine.step()                       # cohort prefill + first decode step
+    for _ in range(3):
+        engine.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -1828,15 +1862,23 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
             engine.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    api = {e.key: e.count for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("cu")
+           and any(w in e.key for w in HOST_LAUNCH_APIS)}
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
-    print(f"  profile of {steps} decode steps ({ecfg.kv_layout} layout, "
-          f"{ecfg.lanes} lanes, T={ecfg.slots}): wall "
-          f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
-          f"{1 - busy / wall:.3f}, {n_launch / steps:.0f} kernel launches "
-          f"per step")
+    n_api = sum(api.values())
+    print(f"  profile of {steps} decode steps ({label or ''}"
+          f"{ecfg.kv_layout} layout, {ecfg.lanes} lanes, T={ecfg.slots}, "
+          f"{'captured' if cuda_graphs else 'eager'}): wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{n_launch / steps:.0f} device kernels and {n_api / steps:.1f} "
+          f"host launch calls per step "
+          f"({', '.join(f'{k} {v / steps:.1f}' for k, v in sorted(api.items()))})")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in top[:8] + [e for e in top[8:] if "gumbel" in e.key]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
@@ -1848,6 +1890,336 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5):
           f"{sum(e.self_device_time_total for e in attn) / 1e3 / steps:.3f} "
           f"ms/step over {sum(e.count for e in attn) / steps:.0f} "
           f"launches/step")
+    return dict(wall=wall / steps, busy=busy / steps, idle=1 - busy / wall,
+                kernels=n_launch / steps, host_launches=n_api / steps)
+
+
+# --------------------------------------------------------------- graphs
+def logits_recorder(transform):
+    """A logits transform that copies each call's step logits (before
+    ``transform``) into a buffer of their shape, so that the logits of a
+    member call can be read after it, captured or eager: captured, the copy
+    is a node of the graph and fills the same buffer on every replay.  A
+    shape's buffer is made on its first call, which runs eagerly (a key's
+    first call always does)."""
+    sinks = {}
+
+    def fn(logits, tokens, positions):
+        buf = sinks.get(tuple(logits.shape))
+        if buf is None:
+            buf = sinks[tuple(logits.shape)] = torch.empty_like(logits)
+        buf.copy_(logits)
+        return logits if transform is None else transform(logits, tokens,
+                                                          positions)
+    return fn, sinks
+
+
+def kv_rows(cache, lane, lo, hi, bs):
+    """Lane ``lane``'s K and V rows at positions [lo, hi), every layer."""
+    if "block_tables" not in cache:
+        return [cache[n][:, lane, lo:hi] for n in ("k", "v")]
+    from repro_torch.models import transformer as tx
+    pos = torch.arange(lo, hi, device=cache["k"].device)[None]
+    rows = tx.paged_row_index(cache["block_tables"][lane:lane + 1], pos,
+                              bs)[0]
+    return [cache[n].flatten(1, 2)[:, rows] for n in ("k", "v")]
+
+
+def random_drafts(rng, lens, T, vocab):
+    """A random draft tree per lane (root at the lane's next position):
+    tokens, positions, ancestor-closure mask, parents, live slots."""
+    B = len(lens)
+    tok = rng.randint(2, vocab, (B, T)).astype(np.int32)
+    mask = np.zeros((B, T, T), bool)
+    parent = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        for i in range(1, T):
+            parent[b, i] = rng.randint(0, i)
+        for i in range(T):
+            j = i
+            while j >= 0:
+                mask[b, i, j] = True
+                j = parent[b, j]
+    pos = (lens[:, None] + mask.sum(-1) - 1).astype(np.int32)
+    return tok, pos, mask, parent, np.full((B,), T, np.int32)
+
+
+def member_bits(label, ecfg, cfg, params, transform, prompts, sps):
+    """Every member of a captured session against its eager twin on the
+    same inputs, each call made three or more times (a key's first call
+    runs eagerly, the second captures, later ones replay): the cohort
+    prefill, fused steps, tree steps and commits, the padded admission in
+    every lane (lane 0 twice), then, paged, three calls at each suffix
+    bucket, three block copies and three block scrubs, or, dense, three
+    lane scrubs.  Each call's outputs (chosen tokens, the packed step
+    result, the new lengths) and step logits must be equal, and so must
+    every K/V row the lanes hold below their length (after a copy or a
+    scrub: the whole cache, the paged NULL block excepted, where duplicate
+    garbage writes land in any order).  Returns (calls compared, the
+    captured session)."""
+    from repro_torch.serving.api import build_session_fns
+    paged = ecfg.kv_layout == "paged"
+    B, S, T = ecfg.lanes, ecfg.prefill_len, ecfg.slots
+    sessions = []
+    for graphs in (True, False):
+        fn, sinks = logits_recorder(transform)
+        sessions.append((build_session_fns(ecfg, cfg, params,
+                                           logits_transform=fn,
+                                           device="cuda",
+                                           cuda_graphs=graphs), sinks))
+    lp_all = {"greedy": np.asarray([not q.sample for q in sps[:B]]),
+              "temp": np.asarray([q.temperature for q in sps[:B]],
+                                 np.float32),
+              "seed": np.asarray([q.seed for q in sps[:B]], np.uint32)}
+
+    def lp(lanes):
+        return {"lane_params": {k: v[lanes] for k, v in lp_all.items()}}
+
+    toks = np.zeros((B, S), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for b, p in enumerate(prompts[:B]):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    bpl = -(-cfg.max_seq_len // ecfg.block_size)
+    tables = shuffled_tables([bpl] * B, bpl, seed=5).cpu().numpy()
+    caches = [None, None]
+    n_calls = 0
+
+    def call(what, fn_name, rows, *args, **kw):
+        """Run ``fn_name`` on both sessions (after the cache, if it takes
+        one); compare outputs, logits and the K/V rows [lo, hi) of each
+        (lane, lo, hi) that ``rows(result)`` lists, or the whole cache."""
+        nonlocal n_calls
+        outs = []
+        for i, (fns, sinks) in enumerate(sessions):
+            a = args if fn_name == "prefill" else (caches[i],) + args
+            res = getattr(fns, fn_name)(*a, **kw)
+            caches[i] = res[0] if isinstance(res, tuple) else res
+            outs.append((res, {k: v.clone() for k, v in sinks.items()}))
+        (rg, sg), (re_, se) = outs
+        if isinstance(rg, tuple):
+            for x, y in zip(rg[1:], re_[1:]):
+                check(torch.equal(x, y), f"{label}, {what}: output differs "
+                                         "captured vs eager")
+        for k in se:
+            check(torch.equal(sg[k], se[k]), f"{label}, {what}: logits "
+                                             f"{k} differ captured vs eager")
+        if rows is None:
+            for name in ("k", "v"):
+                x, y = caches[0][name], caches[1][name]
+                if paged:
+                    x, y = x[:, 1:], y[:, 1:]
+                check(torch.equal(x, y), f"{label}, {what}: {name} cache "
+                                         "differs captured vs eager")
+        else:
+            for lane, lo, hi in rows(rg):
+                for x, y in zip(*(kv_rows(c, lane, lo, hi, ecfg.block_size)
+                                  for c in caches)):
+                    check(torch.equal(x, y), f"{label}, {what}: lane {lane} "
+                                             f"K/V rows [{lo}, {hi}) differ")
+        n_calls += 1
+        return rg
+
+    def below(extra):
+        return lambda res: [(b, 0, int(lens[b] + extra(res)[b]))
+                            for b in range(B)]
+
+    for i in range(3):
+        args = (toks, lens, tables) if paged else (toks, lens)
+        call(f"cohort prefill {i}", "prefill", below(lambda r: [0] * B),
+             *args, **lp(slice(0, B)))
+    rng = np.random.RandomState(7)
+    for i in range(3):
+        res = call(f"fused step {i}", "fused_step",
+                   below(lambda r: r[1][:, 0].cpu().numpy()), lens,
+                   *random_drafts(rng, lens, T, cfg.vocab_size),
+                   **lp(slice(0, B)))
+        lens = lens + res[1][:, 0].cpu().numpy().astype(np.int32)
+    n_acc = np.asarray([1, 2, 3, 0][:B] + [1] * (B - 4), np.int32)
+    gather = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    for i in range(3):
+        tok, pos, mask, _, _ = random_drafts(rng, lens, T, cfg.vocab_size)
+        call(f"tree step {i}", "tree_step", below(lambda r: [T] * B), lens,
+             tok, pos, mask, **lp(slice(0, B)))
+        res = call(f"commit {i}", "commit", below(lambda r: n_acc), lens,
+                   gather, n_acc)
+        lens = res[1].cpu().numpy().astype(np.int32)
+    for lane in list(range(B)) + [0]:
+        n = len(prompts[lane])
+        call(f"admission in lane {lane}", "prefill_into_slot",
+             lambda res, lane=lane, n=n: [(lane, 0, n)], lane,
+             toks[lane:lane + 1], np.asarray([n], np.int32),
+             **lp(slice(lane, lane + 1)))
+        lens[lane] = n
+    if paged:
+        src = prompts[1]
+        for bucket in sessions[0][0].suffix_buckets:
+            n = bucket - 3
+            offset = S - bucket
+            tail = np.asarray([(src * 2)[offset:offset + n]], np.int32)
+            for i in range(3):
+                call(f"suffix bucket {bucket} ({i})", "prefill_suffix",
+                     lambda res, o=offset, n=n: [(1, o, o + n)], 1, tail,
+                     offset, **lp(slice(1, 2)))
+        for i in range(3):
+            call(f"block copy {i}", "copy_block", None,
+                 int(tables[0, i]), int(tables[B - 1, bpl - 1 - i]))
+        for i in range(3):
+            ids = np.zeros((bpl,), np.int32)
+            ids[:2] = tables[B - 1, bpl - 1 - i], tables[B - 1, bpl - 4 - i]
+            call(f"block scrub {i}", "reset_blocks", None, ids)
+    else:
+        for lane in (B - 1, B - 2, B - 1):
+            call(f"lane scrub {lane}", "reset_slot", None, lane)
+    torch.cuda.synchronize()
+    return n_calls, sessions[0][0]
+
+
+def profiled_ms(fn, calls=6):
+    """Device time a call of ``fn(i)`` in one torch.profiler window of
+    ``calls`` calls after a warm one: every device event (kernels and
+    copies), and the events a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / calls,
+            sum(e.count for e in ev) / calls)
+
+
+def serve_turns(label, ecfg, cfg, params, transform, prompts, sps):
+    """One cell served by the captured session and its eager twin in
+    turns: a warm-up run each, then captured, eager, eager, captured.
+    Every run must give the same outputs and one decode sync a step.
+    Returns (captured, eager) lists of (median fused_step ms, tokens/s,
+    EDL), and the captured session."""
+    from repro_torch.serving.api import ServingEngine, build_session_fns
+    fns = {g: build_session_fns(ecfg, cfg, params, logits_transform=transform,
+                                device="cuda", cuda_graphs=g)
+           for g in (True, False)}
+    first, runs = None, {True: [], False: []}
+    for i, graphs in enumerate((True, False, True, False, False, True)):
+        engine = ServingEngine(fns[graphs], ecfg)
+        outs, _, _, tps, edl, fused = serve_counted(engine, prompts, sps, {})
+        first = outs if first is None else first
+        check(outs == first, f"{label}: outputs differ between the captured "
+                             "and the eager session's runs")
+        st = engine.stats
+        check(st.decode_syncs == st.decode_steps,
+              f"{label}: {st.decode_syncs} decode syncs for "
+              f"{st.decode_steps} steps")
+        if i >= 2:                          # the two warm-up runs excluded
+            runs[graphs].append((fused, tps, edl))
+    return runs[True], runs[False], fns[True]
+
+
+def graphs_phase(cfg, params):
+    """Captured members against the eager twin (``cuda_graphs=False``) on
+    the guided dense and paged cells and the mixed sampled cell: member
+    bits (``member_bits``), serving in turns (``serve_turns``: outputs
+    equal; median fused_step, tokens/s, EDL), a profile of decode steps
+    each way (device busy, idle share, device kernels and host launch calls
+    a step), each captured member's capture time and graph pool memory,
+    and the prefill's device time with the prefix cache on (suffix
+    prefill) and off (padded admission) beside the cohort prefill's."""
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.serving.api import EngineConfig
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    guided = guided_transform(cfg.vocab_size)
+    prompts = path_prompts(cfg.vocab_size)
+    mixed_prompts, mixed_sps = sampled_requests(cfg.vocab_size, N_REQUESTS,
+                                                4, True)
+    paged = dict(kv_layout="paged", block_size=PATH_PAGED[5])
+    cells = (("guided dense", EngineConfig(default_params=sp), guided,
+              prompts, [sp] * len(prompts)),
+             ("guided paged", EngineConfig(default_params=sp, **paged),
+              guided, prompts, [sp] * len(prompts)),
+             ("mixed sampled paged", EngineConfig(**paged), None,
+              mixed_prompts, mixed_sps))
+    for label, ecfg, transform, ps, sps in cells:
+        n, bits_fns = member_bits(label, ecfg, cfg, params, transform, ps,
+                                  sps)
+        print(f"  {label}: {n} member calls bit-equal captured vs eager "
+              "(outputs, step logits, K/V rows below each lane's length; "
+              "the whole cache after copies and scrubs)")
+        captured, eager, fns = serve_turns(label, ecfg, cfg, params,
+                                           transform, ps, sps)
+        prof = {g: profile_decode(ecfg, cfg, params, transform, ps,
+                                  sps[:ecfg.lanes], cuda_graphs=g,
+                                  label=f"{label}, ")
+                for g in (True, False)}
+        med = {g: float(np.median([r[0] for r in runs]))
+               for g, runs in ((True, captured), (False, eager))}
+        for g, runs in ((True, captured), (False, eager)):
+            print(f"  {label}, {'captured' if g else 'eager'} in turns: "
+                  f"median fused_step {med[g]:.3f} ms (runs "
+                  f"{', '.join(f'{r[0]:.3f}' for r in runs)}), tokens/s "
+                  f"{', '.join(f'{r[1]:.1f}' for r in runs)}, EDL "
+                  f"{runs[0][2]:.3f}; profile: busy {prof[g]['busy']:.3f} "
+                  f"ms, idle {prof[g]['idle']:.3f}, "
+                  f"{prof[g]['kernels']:.0f} device kernels and "
+                  f"{prof[g]['host_launches']:.1f} host launch calls a step")
+        print(f"  {label}: captured / eager median fused_step "
+              f"{med[True] / med[False]:.3f}")
+        for name in ("prefill", "prefill_into_slot", "fused_step",
+                     "tree_step", "commit", "prefill_suffix", "copy_block",
+                     "reset_blocks", "reset_slot"):
+            caps = []
+            for f in (bits_fns, fns):
+                m = getattr(f, name, None)
+                caps += getattr(getattr(m, "member", m), "captures", [])
+            if caps:
+                s = [c[0] * 1e3 for c in caps]
+                mb = [c[1] / 2**20 for c in caps]
+                print(f"    {name}: {len(s)} captures, capture ms median "
+                      f"{float(np.median(s)):.1f} (max {max(s):.1f}), graph "
+                      f"pool MB median {float(np.median(mb)):.1f} (max "
+                      f"{max(mb):.1f})")
+        del bits_fns, fns
+
+    # the prefill's device time with the prefix cache off (the padded
+    # admission, (4, 128)) and on (the suffix prefill of a 16-token tail
+    # after an 80-token hit, bucket 16), beside the cohort prefill
+    from repro_torch.serving.api import build_session_fns
+    ecfg = cells[1][1]
+    B, S = ecfg.lanes, ecfg.prefill_len
+    toks = np.zeros((B, S), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for b, p in enumerate(prompts[:B]):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    bpl = -(-cfg.max_seq_len // ecfg.block_size)
+    tables = shuffled_tables([bpl] * B, bpl, seed=6).cpu().numpy()
+    tail = np.asarray([list(prompts[1][SHARED_HEAD:SHARED_HEAD
+                                        + SHARED_TAIL])], np.int32)
+    for graphs in (True, False):
+        fns = build_session_fns(ecfg, cfg, params, logits_transform=guided,
+                                device="cuda", cuda_graphs=graphs)
+        for _ in range(2):       # eager, then captured: outside the windows
+            cache, _ = fns.prefill(toks, lens, tables)
+        for _ in range(2):
+            fns.prefill_into_slot(cache, 1, toks[1:2], lens[1:2])
+            fns.prefill_suffix(cache, 1, tail, SHARED_HEAD)
+        ms = dict(
+            cohort=profiled_ms(lambda i: fns.prefill(toks, lens, tables)),
+            off=profiled_ms(lambda i: fns.prefill_into_slot(
+                cache, 1, toks[1:2], lens[1:2])),
+            on=profiled_ms(lambda i: fns.prefill_suffix(
+                cache, 1, tail, SHARED_HEAD)))
+        print(f"  prefill device time, {'captured' if graphs else 'eager'} "
+              f"(guided paged): cohort ({B}, {S}) {ms['cohort'][0]:.3f} ms "
+              f"({ms['cohort'][1]:.0f} device events); admission with the "
+              f"prefix cache off (padded ({B}, {S})) {ms['off'][0]:.3f} ms "
+              f"({ms['off'][1]:.0f}), on (suffix of {SHARED_TAIL} after "
+              f"{SHARED_HEAD} cached, bucket 16) {ms['on'][0]:.3f} ms "
+              f"({ms['on'][1]:.0f})")
+        del fns, cache
 
 
 # --------------------------------------------------------------- recsys
@@ -2320,7 +2692,7 @@ def recsys_phase(gen):
 
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
-          "sampled", "overlap", "long_prompt")
+          "sampled", "overlap", "graphs", "long_prompt")
 
 
 def main(argv=None) -> int:
@@ -2398,7 +2770,7 @@ def main(argv=None) -> int:
         phase_done("recsys")
     cfg = params = prompts = outs = None
     if set(phases) & {"dense", "paged", "invariance", "sampled", "overlap",
-                      "long_prompt"}:
+                      "graphs", "long_prompt"}:
         cfg, params = path_model()
     if set(phases) & {"dense", "paged", "overlap"}:
         print("main path, dense layout:")
@@ -2423,6 +2795,10 @@ def main(argv=None) -> int:
         print("overlap_drafts on the guided dense path:")
         overlap_phase(cfg, params, prompts, outs)
         phase_done("overlap")
+    if "graphs" in phases:
+        print("CUDA graphs: captured members against their eager twin:")
+        graphs_phase(cfg, params)
+        phase_done("graphs")
     if "long_prompt" in phases:
         print(f"long prompt, dense layout, prefill_len {LONG_PREFILL}:")
         long_prompt_phase(cfg, params)

@@ -1510,6 +1510,14 @@ inline cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, int B,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Under CUDA-graph capture (the serving session captures each step): the
+// tensor maps are encoded on the host from the K/V addresses at capture and
+// passed by value, so every replay reads those addresses again -- valid
+// only because a captured graph's buffers are static (the session copies
+// each call's inputs into them).  cudaFuncSetAttribute, the entry-point
+// query and the device queries are host calls that capture permits; the
+// work counter's cudaMemsetAsync is a stream operation, captured with the
+// launch, so each replay zeroes it again.
 template <bool kPersistent>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            void* out, int B, int S, int H, int K, int n_items,

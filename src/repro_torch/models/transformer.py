@@ -27,7 +27,7 @@ every function that writes it also returns it, as the reference does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -37,6 +37,7 @@ from repro_torch.models.layers import (ACTS, apply_rope, rms_norm,
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
+Index = Union[int, torch.Tensor]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -237,10 +238,21 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     return cache, logits
 
 
+def lane_index(index: Index, device: torch.device) -> torch.Tensor:
+    """A lane or block index as a (1,) int64 device tensor: a Python int,
+    or a (1,) integer tensor already holding it (a runtime input, as the
+    reference's traced scalar is, so one captured step serves every
+    lane)."""
+    if isinstance(index, torch.Tensor):
+        return index.to(device=device, dtype=torch.long).reshape(1)
+    return torch.tensor([int(index)], dtype=torch.long, device=device)
+
+
 def prefill_into_slot(cfg: TransformerConfig, params: Params, cache: Cache,
-                      slot: int, tokens: torch.Tensor, lens: torch.Tensor
+                      slot: Index, tokens: torch.Tensor, lens: torch.Tensor
                       ) -> Tuple[Cache, torch.Tensor]:
-    """Prefill ONE request into batch lane ``slot`` of an existing cache.
+    """Prefill ONE request into batch lane ``slot`` (an int or a (1,) int
+    tensor) of an existing cache.
 
     tokens (1, S) padded prompt; lens (1,) — or (B, S) / (B,) holding the
     request in row ``slot`` and padding in the other rows, computed
@@ -249,23 +261,24 @@ def prefill_into_slot(cfg: TransformerConfig, params: Params, cache: Cache,
     [0, S) of that lane only (other lanes untouched).  Returns (cache,
     last_logits (1, V))."""
     B, S = tokens.shape
-    slot = int(slot)
-    row = 0 if B == 1 else slot
+    slot = lane_index(slot, tokens.device)
+    row = slot if B > 1 else torch.zeros_like(slot)
 
     def write_kv(i, k, v):
-        cache["k"][i, slot, :S] = k[row]
-        cache["v"][i, slot, :S] = v[row]
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name][i, :, :S]
+            buf.index_copy_(0, slot, new.index_select(0, row).to(buf.dtype))
 
     logits = _self_forward(cfg, params, tokens, lens, write_kv)
-    return cache, logits[row:row + 1]
+    return cache, logits.index_select(0, row)
 
 
-def reset_slot(cache: Cache, slot: int) -> Cache:
-    """Zero one batch lane of the KV cache in place.  Hygiene only:
-    correctness never depends on it (rows >= cache_len are never
-    attended)."""
+def reset_slot(cache: Cache, slot: Index) -> Cache:
+    """Zero one batch lane (an int or a (1,) int tensor) of the KV cache in
+    place.  Hygiene only: correctness never depends on it (rows >=
+    cache_len are never attended)."""
     for buf in cache.values():
-        buf[:, int(slot)].zero_()
+        buf.index_fill_(1, lane_index(slot, buf.device), 0)
     return cache
 
 
@@ -388,7 +401,7 @@ def prefill_paged(cfg: TransformerConfig, params: Params,
 
 
 def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
-                            cache: Cache, slot: int, tokens: torch.Tensor,
+                            cache: Cache, slot: Index, tokens: torch.Tensor,
                             lens: torch.Tensor
                             ) -> Tuple[Cache, torch.Tensor]:
     """Paged twin of ``prefill_into_slot`` (the same (1, S) or padded
@@ -396,20 +409,21 @@ def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
     table; every other lane's blocks are untouched (block ownership is
     exclusive)."""
     B, S = tokens.shape
-    slot = int(slot)
-    row = 0 if B == 1 else slot
-    bt_row = cache["block_tables"][slot:slot + 1]
+    slot = lane_index(slot, tokens.device)
+    row = slot if B > 1 else torch.zeros_like(slot)
+    bt_row = cache["block_tables"].index_select(0, slot)
     positions = torch.arange(S, device=tokens.device)[None, :]
     rows = paged_row_index(bt_row, positions, cfg.kv_block_size)
     logits = _self_forward(
         cfg, params, tokens, lens,
-        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k[row:row + 1],
-                                            v[row:row + 1]))
-    return cache, logits[row:row + 1]
+        lambda i, k, v: _scatter_paged_rows(cache, i, rows,
+                                            k.index_select(0, row),
+                                            v.index_select(0, row)))
+    return cache, logits.index_select(0, row)
 
 
 def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
-                              cache: Cache, slot: int, tokens: torch.Tensor,
+                              cache: Cache, slot: Index, tokens: torch.Tensor,
                               offset: torch.Tensor, lens: torch.Tensor,
                               prefill_len: Optional[int] = None
                               ) -> Tuple[Cache, torch.Tensor]:
@@ -439,12 +453,12 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
     """
     B, Sb = tokens.shape
     assert B == 1, "prefill_from_offset admits one request at a time"
-    slot = int(slot)
     dev = tokens.device
+    slot = lane_index(slot, dev)
     lanes = cache["block_tables"].shape[0]
     Sp = int(prefill_len or cfg.max_seq_len)
     n_rows = lanes * Sp
-    bt_row = cache["block_tables"][slot:slot + 1]
+    bt_row = cache["block_tables"].index_select(0, slot)
     ar = torch.arange(Sb, device=dev)
     positions = offset.int()[:, None] + ar.int()[None, :]        # (1, Sb)
     causal = torch.ones((Sb, Sb), dtype=torch.bool,
@@ -474,18 +488,20 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
                       block_pos.expand(lanes, Sp), attend_suffix)
     last = slot * Sp + offset.long() + lens.long() - 1              # (1,)
     h_last = torch.zeros((lanes, h.shape[-1]), dtype=h.dtype, device=dev)
-    h_last[slot:slot + 1] = h.reshape(n_rows, -1)[last]
-    return cache, _unembed(cfg, params, h_last)[slot:slot + 1]
+    h_last.index_copy_(0, slot, h.reshape(n_rows, -1)[last])
+    return cache, _unembed(cfg, params, h_last).index_select(0, slot)
 
 
-def copy_paged_block(cache: Cache, src: int, dst: int) -> Cache:
+def copy_paged_block(cache: Cache, src: Index, dst: Index) -> Cache:
     """Device copy of one physical block (all layers, K and V), in place —
     the copy-on-write fork of a partially filled boundary block that a
-    prefix-cache hit must extend.  Rows past the valid prefix are garbage
-    in ``src`` and stay garbage in ``dst`` until the suffix prefill
-    overwrites them."""
+    prefix-cache hit must extend.  ``src`` / ``dst`` are ints or (1,) int
+    tensors.  Rows past the valid prefix are garbage in ``src`` and stay
+    garbage in ``dst`` until the suffix prefill overwrites them."""
     for name in ("k", "v"):
-        cache[name][:, int(dst)] = cache[name][:, int(src)]
+        buf = cache[name]
+        buf.index_copy_(1, lane_index(dst, buf.device),
+                        buf.index_select(1, lane_index(src, buf.device)))
     return cache
 
 
@@ -595,7 +611,7 @@ def pack_step_result(n_acc: torch.Tensor, acc_tokens: torch.Tensor,
                       kv_slots.int()], dim=1)
 
 
-__all__ = ["TransformerConfig", "Params", "init_cache", "prefill",
+__all__ = ["TransformerConfig", "Params", "lane_index", "init_cache", "prefill",
            "prefill_into_slot", "reset_slot", "tree_step", "commit_cache",
            "verify_accept_device", "pack_step_result", "blocks_per_lane",
            "init_paged_cache", "paged_row_index", "prefill_paged",

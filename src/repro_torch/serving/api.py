@@ -179,9 +179,10 @@ class EngineConfig:
 
 def build_session_fns(cfg: EngineConfig, model_cfg, params, *,
                       logits_transform: Optional[Callable] = None,
-                      device=None) -> StepFns:
+                      device=None, cuda_graphs: bool = True) -> StepFns:
     """Build the ``StepFns`` an ``EngineConfig`` describes, on ``device``
-    (None = CUDA; raises when CUDA is missing)."""
+    (None = CUDA; raises when CUDA is missing); ``cuda_graphs=False``
+    builds the eager twin (``make_session_fns``)."""
     cfg.validate()
     if cfg.prefill_len is not None \
             and cfg.prefill_len + cfg.slots > model_cfg.max_seq_len:
@@ -199,7 +200,7 @@ def build_session_fns(cfg: EngineConfig, model_cfg, params, *,
         prefill_backend=cfg.prefill_backend,
         decode_backend=cfg.decode_backend, kv_layout=cfg.kv_layout,
         block_size=cfg.block_size if cfg.kv_layout == "paged" else None,
-        n_blocks=cfg.n_blocks, device=device)
+        n_blocks=cfg.n_blocks, device=device, cuda_graphs=cuda_graphs)
 
 
 # --------------------------------------------------------------- RequestHandle
@@ -375,12 +376,16 @@ class ServingEngine:
 
 def build_engine(cfg: EngineConfig, model_cfg, params, *,
                  logits_transform: Optional[Callable] = None,
-                 trie=None, device=None) -> ServingEngine:
+                 trie=None, device=None,
+                 cuda_graphs: bool = True) -> ServingEngine:
     """THE entry point: build a session for ``(model_cfg, params)`` under
     ``cfg`` on ``device`` (None = CUDA; raises when CUDA is missing) and
-    wrap it in a ``ServingEngine``."""
+    wrap it in a ``ServingEngine``.  On the card its step functions replay
+    captured CUDA graphs; ``cuda_graphs=False`` builds the eager twin that
+    the on-card checks hold them against."""
     fns = build_session_fns(cfg, model_cfg, params,
-                            logits_transform=logits_transform, device=device)
+                            logits_transform=logits_transform, device=device,
+                            cuda_graphs=cuda_graphs)
     return ServingEngine(fns, cfg, trie=trie)
 
 

@@ -1,8 +1,8 @@
 """Build the ``StepFns`` driving a Lookahead engine for a transformer LM
 (PyTorch port of ``repro.serving.session``, dense and paged KV layouts).
 
-Each member takes the host's numpy inputs, moves them to the device through
-pinned staging buffers without waiting, runs the step with torch ops (and
+Each member turns the host's numpy inputs into device tensors without
+waiting (through pinned staging buffers), runs the step with torch ops (and
 the port's CUDA kernels) and returns device tensors: no member syncs the
 host — the serving loop pulls one packed result per decode step through
 its own ``_pull``.  The KV cache dict is updated in place (the port's
@@ -17,29 +17,44 @@ like every other input, so one session serves a lane pool that mixes greedy
 and sampled requests at distinct temperatures and seeds.  Call sites that
 omit it get the session's default params.
 
-PyTorch runs eagerly, so there is nothing to compile; every member still
-exposes ``_cache_size()`` — the number of distinct input-shape signatures
-it has seen — so the compile-once checks of the serving loop (each member
-sees one shape per engine, I2) read the same surface as on JAX.  The paged
-layout's suffix prefill pads the prompt tail to a doubling bucket ladder
-(8, 16, ..., prefill_len), so its ``_cache_size()`` counts the buckets
-touched.
+CUDA graphs, the port's ``jax.jit``.  On a CUDA session every member but
+``init_cache`` is one CUDA graph per input-shape signature and KV cache,
+replayed over static input buffers (``_Member``); the lane, block and
+offset indices are runtime inputs, as traced scalars are in the
+reference, so one graph serves every lane.  The first call for a signature
+and cache runs eagerly (it loads the kernels and sets up cuBLAS), the
+second captures, every later one copies its inputs into the static
+buffers and replays: a decode step is one ``cudaGraphLaunch``.
+``make_session_fns(cuda_graphs=False)`` builds the eager twin (the
+counterpart of ``jax.disable_jit``); CPU sessions always run eagerly.
+
+Every member exposes ``_cache_size()`` — the number of distinct input-shape
+signatures it has seen (the reference's compiled executables) — so the
+compile-once checks of the serving loop (each member sees one shape per
+engine, I2) read the same surface as on JAX.  The paged layout's suffix
+prefill pads the prompt tail to a doubling bucket ladder (8, 16, ...,
+prefill_len), so its ``_cache_size()`` counts the buckets touched.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.request import SamplingParams, StepFns
 from repro_torch.models import attention as attn_backends
 from repro_torch.models import transformer as tx
 from repro_torch.models.params import resolve_device
 from repro_torch.serving.sampler import (choose_tokens_lanes, greedy_choice,
                                          seed_from_key)
+
+MAX_GRAPHS = 4        # graphs a member keeps (least recently used dropped)
+_SEEN = object()      # a key's first call ran eagerly; the next captures
 
 
 def _signature(x: Any):
@@ -54,19 +69,161 @@ def _signature(x: Any):
     return type(x).__name__
 
 
-class _Member:
-    """A step function plus the compile-once introspection surface."""
+def _host(x, dtype: torch.dtype) -> torch.Tensor:
+    """A call argument as a tensor of ``dtype``: a tensor stays on its
+    device, host data become a CPU tensor."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t.to(dtype)
 
-    def __init__(self, fn: Callable):
-        self._fn = fn
+
+def _index(i) -> torch.Tensor:
+    """A lane or block index as a (1,) int32 input."""
+    return torch.tensor([int(i)], dtype=torch.int32)
+
+
+def _fresh(x, view, cache):
+    """A captured call's outputs for its caller: the cache the graph
+    updated in place is the caller's own dict; every other tensor is a
+    copy of the graph's static output, which the next replay overwrites."""
+    if view is not None and x is view:
+        return cache
+    if isinstance(x, dict):
+        return {k: _fresh(v, view, cache) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_fresh(v, view, cache) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return x
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured call: the graph, the static buffers it reads (inputs,
+    and the paged block table), its static outputs (``view`` is the cache
+    dict the body was given) and the kernel launches it replays."""
+    graph: Any
+    inputs: Tuple[torch.Tensor, ...]
+    table: Optional[torch.Tensor]
+    view: Optional[dict]
+    out: Any
+    launches: Dict[str, int]
+
+
+class _Member:
+    """A step function plus the compile-once introspection surface and, on
+    a CUDA session, its graph cache.
+
+    ``stage(*args, **kwargs) -> (cache, inputs)`` splits a call into the KV
+    cache it updates (None for the cohort prefill, which makes one) and a
+    tuple of tensors (host data as CPU tensors); ``body(cache, *inputs)``
+    runs the step on device tensors alone.  Eager, the inputs are uploaded
+    (``put``) and the body runs.  With ``stream`` (the capture stream of a
+    CUDA session) a member keeps one ``_Graph`` per key — the inputs'
+    shapes and dtypes, the cache's signature and the storage of the cache
+    tensors the body writes — at most ``MAX_GRAPHS``, the least recently
+    used dropped.  A key's first call runs eagerly, its second captures,
+    and every call copies its inputs into the graph's static buffers (host
+    data through pinned memory, without waiting) and replays.  The paged
+    block table is not keyed: the scheduler replaces the tensor whenever
+    a table changes, so each replay first copies the current one into the
+    graph's own, on the stream, after its upload.  A body that cannot be
+    captured (it syncs, or calls what capture forbids) raises; nothing
+    falls back to eager on the card.  A graph holds the cache tensors it
+    writes (``_Graph.view``), so their storage, part of its key, cannot be
+    reused by another tensor while the graph lives.
+
+    Capture does not sync the host: it runs on ``stream`` after a
+    stream-ordered ``wait_stream``, not under ``torch.cuda.graph``, whose
+    entry synchronises the device to free memory, so a capture may happen
+    inside the serving loop's no-sync window.  Kernel launch counters are set back
+    after a capture (nothing ran) and advanced by the captured launches on
+    every replay (``repro_torch.kernels.add``)."""
+
+    def __init__(self, name: str, body: Callable,
+                 stage: Optional[Callable] = None,
+                 put: Optional[Callable] = None, stream=None):
+        self.name = name
+        self._body, self._stage, self._put = body, stage, put
+        self._stream = stream
         self._sigs = set()
+        self._graphs: Dict[Any, Any] = {}
+        self.captures = []        # (capture s, pool bytes) of every capture
 
     def __call__(self, *args, **kwargs):
         self._sigs.add(_signature(args))
-        return self._fn(*args, **kwargs)
+        if self._stage is None:
+            return self._body(*args, **kwargs)
+        cache, inputs = self._stage(*args, **kwargs)
+        if self._stream is None:
+            return self._body(cache, *(self._put(x) for x in inputs))
+        return self._captured(cache, inputs)
 
     def _cache_size(self) -> int:
         return len(self._sigs)
+
+    def _n_graphs(self) -> int:
+        return sum(isinstance(g, _Graph) for g in self._graphs.values())
+
+    def _captured(self, cache, inputs):
+        key = (tuple((tuple(x.shape), x.dtype) for x in inputs),
+               _signature(cache),
+               None if cache is None else tuple(
+                   t.data_ptr() for n, t in sorted(cache.items())
+                   if n != "block_tables"))
+        g = self._graphs.pop(key, None)
+        self._graphs[key] = _SEEN if g is None else g     # most recent last
+        while len(self._graphs) > MAX_GRAPHS:
+            del self._graphs[next(iter(self._graphs))]
+        if g is None:
+            return self._body(cache, *(self._put(x) for x in inputs))
+        if g is _SEEN:          # a capture that fails raises on every call
+            g = self._graphs[key] = self._capture(cache, inputs)
+        return self._replay(g, cache, inputs)
+
+    def _capture(self, cache, inputs) -> _Graph:
+        dev = self._stream.device
+        reserved = torch.cuda.memory_reserved(dev)
+        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in inputs)
+        view = table = None
+        if cache is not None:
+            view = dict(cache)
+            if "block_tables" in cache:
+                table = view["block_tables"] = torch.empty_like(
+                    cache["block_tables"])
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.snapshot()
+        t0 = time.perf_counter()
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin()
+                try:
+                    out = self._body(view, *static)
+                finally:
+                    graph.capture_end()
+        except Exception as exc:
+            kernels.add(kernels.diff(kernels.snapshot(), before), -1)
+            raise RuntimeError(f"session member {self.name!r} cannot be "
+                               f"captured as a CUDA graph: {exc}") from exc
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        launches = kernels.diff(kernels.snapshot(), before)
+        kernels.add(launches, -1)
+        self.captures.append((time.perf_counter() - t0,
+                              torch.cuda.memory_reserved(dev) - reserved))
+        return _Graph(graph, static, table, view, out, launches)
+
+    def _replay(self, g: _Graph, cache, inputs):
+        for buf, x in zip(g.inputs, inputs):
+            if x.device.type == "cpu":
+                x = x.pin_memory()
+            buf.copy_(x, non_blocking=True)
+        if g.table is not None:
+            g.table.copy_(cache["block_tables"], non_blocking=True)
+        g.graph.replay()
+        kernels.add(g.launches)
+        return _fresh(g.out, g.view, cache)
 
 
 def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
@@ -83,7 +240,7 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
                      kv_layout: Optional[str] = None,
                      block_size: Optional[int] = None,
                      n_blocks: Optional[int] = None,
-                     device=None) -> StepFns:
+                     device=None, cuda_graphs: bool = True) -> StepFns:
     """Step functions over ``params`` on ``device`` (None = CUDA; raises when
     CUDA is missing).  ``params`` are moved there if they live elsewhere.
 
@@ -91,7 +248,8 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     every draft to; ``prefill_len`` fixes the prompt pad length.
     ``logits_transform(logits, tokens, positions)`` optionally rewrites the
     step logits before token choice (the guided bench model) — it must stay
-    a pure function of (token, position) to preserve losslessness.
+    a pure function of (token, position) to preserve losslessness, and on
+    the card it runs inside the captured graph.
     ``backend`` overrides both attention phases at once, ``prefill_backend``
     / ``decode_backend`` one phase ("dense" | "cuda"; bad names fail here).
 
@@ -108,6 +266,10 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     KV-cache layout; for the paged layout ``n_blocks`` sizes the shared
     block pool (None = lanes * ceil(max_seq_len / block_size) + 1 NULL
     block).
+
+    ``cuda_graphs`` (CUDA only): replay each member as a captured CUDA
+    graph (the default); False builds the eager twin, the counterpart of
+    ``jax.disable_jit``, for holding the graphs against it.
     """
     overrides = {}
     if backend is not None:
@@ -141,48 +303,56 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     params = _to_device(params, dev)
     defaults = SamplingParams(sample=sample, temperature=float(temperature),
                               seed=int(seed)).validate()
+    stream = (torch.cuda.Stream(dev)
+              if cuda_graphs and dev.type == "cuda" else None)
 
-    def put(x, dtype=None):
-        """Host input -> device tensor, staged through pinned memory so the
-        copy neither blocks the host nor races a later host write."""
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(x))
-        if dtype is not None:
-            t = t.to(dtype)
+    def put(t: torch.Tensor) -> torch.Tensor:
+        """Input -> device tensor, host data staged through pinned memory
+        so the copy neither blocks the host nor races a later host
+        write."""
         if t.device == dev:
             return t
         if dev.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory()
         return t.to(dev, non_blocking=True)
 
-    def lane_vectors(lane_params, n):
-        """The (n,) per-lane vectors on the device: the caller's, or the
-        session defaults."""
+    def member(name, body, stage=None):
+        return _Member(name, body, stage, put, stream)
+
+    def lane_inputs(lane_params, n) -> Tuple[torch.Tensor, ...]:
+        """The (n,) per-lane vectors (greedy, temp, seed): the caller's, or
+        the session defaults; none for an argmax-only session."""
+        if sampling == "greedy":
+            return ()
         if lane_params is None:
             lane_params = {"greedy": np.full((n,), not defaults.sample),
                            "temp": np.full((n,), defaults.temperature,
                                            np.float32),
                            "seed": np.full((n,), defaults.seed, np.uint32)}
-        return {"greedy": put(np.asarray(lane_params["greedy"], np.bool_)),
-                "temp": put(np.asarray(lane_params["temp"], np.float32)),
-                "seed": put(np.asarray(lane_params["seed"], np.uint32)
-                            .astype(np.int64))}
+        return (_host(np.asarray(lane_params["greedy"], np.bool_),
+                      torch.bool),
+                _host(np.asarray(lane_params["temp"], np.float32),
+                      torch.float32),
+                _host(np.asarray(lane_params["seed"], np.uint32)
+                      .astype(np.int64), torch.int64))
 
-    def choose(logits, tokens, pos, lane_params):
+    def choose(logits, tokens, pos, lanes):
         """Token choice for the slots at positions ``pos``: each predicts
         output position pos + 1."""
         if logits_transform is not None:
             logits = logits_transform(logits, tokens, pos)
-        if sampling == "greedy":
+        if not lanes:
             return greedy_choice(logits)
-        return choose_tokens_lanes(logits, pos + 1,
-                                   lane_vectors(lane_params, pos.shape[0]))
+        greedy, temp, seed_ = lanes
+        return choose_tokens_lanes(logits, pos + 1, {
+            "greedy": greedy, "temp": temp, "seed": seed_})
 
-    def choose_last(tokens, lens, last_logits, lane_params):
+    def choose_last(tokens, lens, last_logits, lanes):
         last_tok = tokens.gather(1, (lens - 1)[:, None].long())
         return choose(last_logits[:, None, :], last_tok,
-                      (lens - 1)[:, None], lane_params)[:, 0]
+                      (lens - 1)[:, None], lanes)[:, 0]
 
+    i32 = functools.partial(_host, dtype=torch.int32)
     paged = cfg.kv_layout == "paged"
     if paged:
         tree_fn, slot_fn = tx.tree_step_paged, tx.prefill_into_slot_paged
@@ -191,7 +361,7 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         tree_fn, slot_fn = tx.tree_step, tx.prefill_into_slot
         commit_fn = tx.commit_cache
 
-    def _prefill_into_slot(cache, slot, tokens, lens, lane_params=None):
+    def stage_slot(cache, slot, tokens, lens, lane_params=None):
         # the request runs in row ``slot`` of a batch padded to the cache's
         # lane count: the cohort prefill's shape, so on the card its rows
         # round as they would in a cohort (and as reference_decode's do)
@@ -199,121 +369,149 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         lanes = (cache["block_tables"].shape[0] if paged
                  else cache["k"].shape[1])
         tokens = np.asarray(tokens, np.int32)
-        lens = np.asarray(lens, np.int32)
         padded = np.full((lanes, tokens.shape[1]), pad_id, np.int32)
         padded[slot] = tokens[0]
         plens = np.ones((lanes,), np.int32)
-        plens[slot] = lens[0]
-        tokens, lens = put(padded, torch.int32), put(plens, torch.int32)
+        plens[slot] = np.asarray(lens, np.int32)[0]
+        return cache, (_index(slot), i32(padded), i32(plens),
+                       *lane_inputs(lane_params, 1))
+
+    def prefill_into_slot(cache, slot, tokens, lens, *lanes):
         cache, last_logits = slot_fn(cfg, params, cache, slot, tokens, lens)
-        return cache, choose_last(tokens[slot:slot + 1], lens[slot:slot + 1],
-                                  last_logits, lane_params)
+        row = slot.long()
+        return cache, choose_last(tokens.index_select(0, row),
+                                  lens.index_select(0, row), last_logits,
+                                  lanes)
 
-    def _forward(cache, cache_lens, tokens, pos, mask, lane_params):
-        cache_lens = put(cache_lens, torch.int32)
-        tokens, pos = put(tokens, torch.int32), put(pos, torch.int32)
+    def stage_tree(cache, cache_lens, tokens, pos, mask, *rest,
+                   lane_params=None):
+        pos = i32(pos)
+        return cache, (i32(cache_lens), i32(tokens), pos,
+                       _host(mask, torch.bool), *(i32(x) for x in rest),
+                       *lane_inputs(lane_params, pos.shape[0]))
+
+    def tree_step(cache, cache_lens, tokens, pos, mask, *lanes):
         cache, logits = tree_fn(cfg, params, cache, cache_lens, tokens, pos,
-                                put(mask, torch.bool))
-        return cache, cache_lens, tokens, choose(logits, tokens, pos,
-                                                 lane_params)
+                                mask)
+        return cache, choose(logits, tokens, pos, lanes)
 
-    def _tree_step(cache, cache_lens, tokens, pos, mask, lane_params=None):
-        cache, _, _, chosen = _forward(cache, cache_lens, tokens, pos, mask,
-                                       lane_params)
-        return cache, chosen
-
-    def _commit(cache, cache_lens, gather_idx, n_accept):
-        return commit_fn(cache, put(cache_lens, torch.int32),
-                         put(gather_idx, torch.int32),
-                         put(n_accept, torch.int32))
-
-    def _fused_step(cache, cache_lens, tokens, pos, mask, parent, n_live,
-                    lane_params=None):
-        cache, cache_lens, tokens, chosen = _forward(
-            cache, cache_lens, tokens, pos, mask, lane_params)
+    def fused_step(cache, cache_lens, tokens, pos, mask, parent, n_live,
+                   *lanes):
+        cache, logits = tree_fn(cfg, params, cache, cache_lens, tokens, pos,
+                                mask)
+        chosen = choose(logits, tokens, pos, lanes)
         n_acc, acc_tok, kv_slots = tx.verify_accept_device(
-            tokens, put(parent, torch.int32), put(n_live, torch.int32),
-            chosen)
+            tokens, parent, n_live, chosen)
         cache, _ = commit_fn(cache, cache_lens, kv_slots, n_acc)
         return cache, tx.pack_step_result(n_acc, acc_tok, kv_slots)
 
-    common = dict(tree_step=_Member(_tree_step),
-                  fused_step=_Member(_fused_step), commit=_Member(_commit),
-                  prefill_into_slot=_Member(_prefill_into_slot), slots=slots,
-                  max_seq_len=cfg.max_seq_len, pad_id=pad_id,
-                  prefill_len=prefill_len, per_lane_params=True,
-                  session_defaults=defaults, sampling=sampling)
-    if paged:
-        return _paged_fns(cfg, params, dev, put, choose, choose_last, common,
-                          n_blocks=n_blocks)
+    def stage_commit(cache, cache_lens, gather_idx, n_accept):
+        return cache, (i32(cache_lens), i32(gather_idx), i32(n_accept))
 
-    def _prefill(tokens, lens, lane_params=None):
-        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
+    def stage_fused(cache, cache_lens, tokens, pos, mask, parent, n_live,
+                    lane_params=None):
+        return stage_tree(cache, cache_lens, tokens, pos, mask, parent,
+                          n_live, lane_params=lane_params)
+
+    def stage_tree_step(cache, cache_lens, tokens, pos, mask,
+                        lane_params=None):
+        return stage_tree(cache, cache_lens, tokens, pos, mask,
+                          lane_params=lane_params)
+
+    common = dict(
+        tree_step=member("tree_step", tree_step, stage_tree_step),
+        fused_step=member("fused_step", fused_step, stage_fused),
+        commit=member("commit", commit_fn, stage_commit),
+        prefill_into_slot=member("prefill_into_slot", prefill_into_slot,
+                                 stage_slot),
+        slots=slots, max_seq_len=cfg.max_seq_len, pad_id=pad_id,
+        prefill_len=prefill_len, per_lane_params=True,
+        session_defaults=defaults, sampling=sampling)
+    if paged:
+        return _paged_fns(cfg, params, dev, member, lane_inputs, choose,
+                          choose_last, common, n_blocks=n_blocks)
+
+    def stage_prefill(tokens, lens, lane_params=None):
+        lens = i32(lens)
+        return None, (i32(tokens), lens,
+                      *lane_inputs(lane_params, lens.shape[0]))
+
+    def prefill(_, tokens, lens, *lanes):
+        # the cache is made inside the body: captured, it lives in the
+        # graph's pool and every call returns a fresh copy of it
         cache = tx.init_cache(cfg, tokens.shape[0], device=dev)
         cache, last_logits = tx.prefill(cfg, params, tokens, lens, cache)
-        return cache, choose_last(tokens, lens, last_logits, lane_params)
+        return cache, choose_last(tokens, lens, last_logits, lanes)
 
-    def _reset_slot(cache, slot):
-        return tx.reset_slot(cache, int(slot))
+    def stage_reset_slot(cache, slot):
+        return cache, (_index(slot),)
 
-    def _init_cache(lanes: int):
+    def init_cache(lanes: int):
         return tx.init_cache(cfg, lanes, device=dev)
 
-    return StepFns(prefill=_Member(_prefill),
-                   init_cache=_Member(_init_cache),
-                   reset_slot=_Member(_reset_slot), **common)
+    return StepFns(prefill=member("prefill", prefill, stage_prefill),
+                   init_cache=member("init_cache", init_cache),
+                   reset_slot=member("reset_slot", tx.reset_slot,
+                                     stage_reset_slot), **common)
 
 
-def _paged_fns(cfg, params, dev, put, choose, choose_last, common, *,
-               n_blocks) -> StepFns:
+def _paged_fns(cfg, params, dev, member, lane_inputs, choose, choose_last,
+               common, *, n_blocks) -> StepFns:
     """The paged layout's own members: the cohort prefill (which takes the
     block tables: the cache does not exist yet), the block scrub, and the
     prefix cache's suffix prefill and block copy; ``common`` holds the
     members both layouts share."""
+    i32 = functools.partial(_host, dtype=torch.int32)
 
-    def _prefill(tokens, lens, block_tables, lane_params=None):
-        tokens, lens = put(tokens, torch.int32), put(lens, torch.int32)
+    def stage_prefill(tokens, lens, block_tables, lane_params=None):
+        lens = i32(lens)
+        return None, (i32(tokens), lens, i32(block_tables),
+                      *lane_inputs(lane_params, lens.shape[0]))
+
+    def prefill(_, tokens, lens, block_tables, *lanes):
         cache = tx.init_paged_cache(cfg, tokens.shape[0], n_blocks,
                                     device=dev)
-        cache["block_tables"] = put(block_tables, torch.int32)
+        cache["block_tables"] = block_tables
         cache, last_logits = tx.prefill_paged(cfg, params, tokens, lens,
                                               cache)
-        return cache, choose_last(tokens, lens, last_logits, lane_params)
+        return cache, choose_last(tokens, lens, last_logits, lanes)
 
-    def _reset_blocks(cache, block_ids):
-        return tx.reset_blocks(cache, put(block_ids, torch.int32))
+    def stage_reset_blocks(cache, block_ids):
+        return cache, (i32(block_ids),)
 
-    def _prefill_suffix(cache, slot, tokens, offset, slen, lane_params=None):
-        tokens = put(tokens, torch.int32)
-        offset, slen = put(offset, torch.int32), put(slen, torch.int32)
+    def stage_suffix(cache, slot, tokens, offset, slen, lane_params=None):
+        return cache, (_index(slot), i32(tokens), i32(offset), i32(slen),
+                       *lane_inputs(lane_params, 1))
+
+    def suffix(cache, slot, tokens, offset, slen, *lanes):
         # at the uncached admission's (lanes, cap) shapes: the tail's rows
         # then round as they would with the cache off
         cache, last_logits = tx.prefill_from_offset_paged(
-            cfg, params, cache, int(slot), tokens, offset, slen,
-            prefill_len=cap)
+            cfg, params, cache, slot, tokens, offset, slen, prefill_len=cap)
         last_tok = tokens.gather(1, (slen - 1)[:, None].long())
         return cache, choose(last_logits[:, None, :], last_tok,
-                             (offset + slen - 1)[:, None], lane_params)[:, 0]
+                             (offset + slen - 1)[:, None], lanes)[:, 0]
 
-    def _copy_block(cache, src, dst):
-        return tx.copy_paged_block(cache, int(src), int(dst))
+    def stage_copy(cache, src, dst):
+        return cache, (_index(src), _index(dst))
 
     # the suffix prefill pads the uncached prompt tail to the smallest of a
     # doubling ladder of buckets, so its input shapes (the reference's
-    # compiled executables) are the buckets touched, never the requests
+    # compiled executables, the port's graphs) are the buckets touched,
+    # never the requests
     cap = common["prefill_len"] or cfg.max_seq_len
     suffix_buckets, b = [], 8
     while b < cap:
         suffix_buckets.append(b)
         b *= 2
     suffix_buckets = tuple(suffix_buckets + [cap])
-    # preallocated host scratch: ``put`` copies it into fresh pinned memory
+    # preallocated host scratch: staging copies it into fresh pinned memory
     # before the asynchronous upload, so reusing it across calls is safe
     pad_id = common["pad_id"]
     pad_bufs = {b: np.full((1, b), pad_id, np.int32) for b in suffix_buckets}
     off_buf = np.zeros((1,), np.int32)
     len_buf = np.zeros((1,), np.int32)
-    suffix_member = _Member(_prefill_suffix)
+    suffix_member = member("prefill_suffix", suffix, stage_suffix)
 
     def prefill_suffix(cache, slot, tokens, offset, lane_params=None):
         """tokens (1, n): the UN-padded prompt suffix; offset: the cached
@@ -330,16 +528,20 @@ def _paged_fns(cfg, params, dev, put, choose, choose_last, common, *,
                              lane_params=lane_params)
 
     prefill_suffix._cache_size = suffix_member._cache_size
+    prefill_suffix.member = suffix_member
 
-    def _init_cache(lanes: int):
+    def init_cache(lanes: int):
         return tx.init_paged_cache(cfg, lanes, n_blocks, device=dev)
 
-    return StepFns(prefill=_Member(_prefill),
-                   init_cache=_Member(_init_cache), reset_slot=None,
-                   kv_layout="paged", block_size=cfg.kv_block_size,
-                   n_blocks=n_blocks, reset_blocks=_Member(_reset_blocks),
+    return StepFns(prefill=member("prefill", prefill, stage_prefill),
+                   init_cache=member("init_cache", init_cache),
+                   reset_slot=None, kv_layout="paged",
+                   block_size=cfg.kv_block_size, n_blocks=n_blocks,
+                   reset_blocks=member("reset_blocks", tx.reset_blocks,
+                                       stage_reset_blocks),
                    prefill_suffix=prefill_suffix,
-                   copy_block=_Member(_copy_block),
+                   copy_block=member("copy_block", tx.copy_paged_block,
+                                     stage_copy),
                    suffix_buckets=suffix_buckets, **common)
 
 
@@ -349,4 +551,4 @@ def _to_device(params, dev: torch.device):
     return params.to(dev)
 
 
-__all__ = ["make_session_fns"]
+__all__ = ["make_session_fns", "MAX_GRAPHS"]

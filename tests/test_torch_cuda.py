@@ -623,3 +623,283 @@ def test_embedding_bag_refuses_what_it_does_not_take(cuda):
         embedding_bag_fused(t.view(2, 5, 4), ids[:, None].expand(3, 3, 2))
     with pytest.raises(ValueError, match="contiguous"):
         embedding_bag_fused(torch.zeros(4, 10, device=cuda).t(), ids)
+
+
+# ------------------------------------------------------------ CUDA graphs
+# The session's members captured as CUDA graphs against the eager twin
+# (make_session_fns(cuda_graphs=False)) on a small bf16 model: the same
+# inputs must give the same bits, call after call (a key's first call runs
+# eagerly, its second captures, later ones replay).  Whole caches are
+# compared, the paged NULL block excepted (duplicate garbage writes land
+# there in any order).
+GRAPH_LANES, GRAPH_S, GRAPH_T, GRAPH_V, GRAPH_BS = 4, 64, 9, 1024, 16
+
+
+@pytest.fixture(scope="module")
+def graph_lm():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs capture only there")
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig(vocab_size=GRAPH_V, d_model=256, n_layers=2,
+                            n_heads=4, n_kv_heads=2, d_ff=512,
+                            max_seq_len=256, dtype="bfloat16",
+                            param_dtype="bfloat16", kv_block_size=GRAPH_BS)
+    return cfg, init_params(cfg, seed=3, device="cuda")
+
+
+def _graph_fns(graph_lm, layout, sampling, graphs):
+    from repro_torch.serving.session import make_session_fns
+    cfg, params = graph_lm
+    return make_session_fns(cfg, params, slots=GRAPH_T,
+                            prefill_len=GRAPH_S, sampling=sampling,
+                            kv_layout=layout, device="cuda",
+                            cuda_graphs=graphs)
+
+
+def _lane_params(mixed, lanes=None):
+    if not mixed:
+        return {}
+    lp = {"greedy": np.asarray([True, False, True, False]),
+          "temp": np.asarray([1.0, 0.7, 1.0, 1.3], np.float32),
+          "seed": np.asarray([11, 12, 13, 2**32 - 1], np.uint32)}
+    if lanes is not None:
+        lp = {k: v[lanes] for k, v in lp.items()}
+    return {"lane_params": lp}
+
+
+def _draft(rng, cache_lens):
+    """A random draft tree a lane: tokens, positions (length + depth), the
+    ancestor-closure mask, parents; lane 3 idle (n_live 0)."""
+    B, T = len(cache_lens), GRAPH_T
+    tok = rng.randint(2, GRAPH_V, (B, T)).astype(np.int32)
+    mask = np.zeros((B, T, T), bool)
+    parent = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        for i in range(1, T):
+            parent[b, i] = rng.randint(0, i)
+        for i in range(T):
+            j = i
+            while j >= 0:
+                mask[b, i, j] = True
+                j = parent[b, j]
+    pos = (cache_lens[:, None] + mask.sum(-1) - 1).astype(np.int32)
+    n_live = np.asarray([T, T, 5, 0], np.int32)
+    return tok, pos, mask, parent, n_live
+
+
+def _snap(out, label, cache, *xs):
+    state = {k: v.clone() for k, v in cache.items()}
+    if "block_tables" in cache:
+        state = {k: (v[:, 1:] if k in ("k", "v") else v)
+                 for k, v in state.items()}
+    out.append((label, state, [x.clone() for x in xs]))
+
+
+def _member_script(fns, paged, mixed):
+    """Every member three or more times on inputs from a numpy seed;
+    returns (label, cache, outputs) after each call."""
+    rng = np.random.RandomState(0)
+    B, S = GRAPH_LANES, GRAPH_S
+    out, kw = [], _lane_params(mixed)
+    toks = rng.randint(2, GRAPH_V, (B, S)).astype(np.int32)
+    lens = rng.randint(S // 2, S + 1, (B,)).astype(np.int32)
+    bpl = 256 // GRAPH_BS
+    tables = (1 + rng.permutation(B * bpl)).reshape(B, bpl).astype(np.int32)
+    for i in range(3):
+        args = (toks, lens, tables) if paged else (toks, lens)
+        cache, chosen = fns.prefill(*args, **kw)
+        _snap(out, f"prefill {i}", cache, chosen)
+    cache_lens = lens.copy()
+    for i in range(3):
+        cache, packed = fns.fused_step(cache, cache_lens,
+                                       *_draft(rng, cache_lens), **kw)
+        _snap(out, f"fused_step {i}", cache, packed)
+        cache_lens = cache_lens + packed[:, 0].cpu().numpy().astype(np.int32)
+    for i in range(3):
+        tok, pos, mask, _, _ = _draft(rng, cache_lens)
+        cache, chosen = fns.tree_step(cache, cache_lens, tok, pos, mask, **kw)
+        _snap(out, f"tree_step {i}", cache, chosen)
+        gather = np.tile(np.arange(GRAPH_T, dtype=np.int32), (B, 1))
+        n_acc = np.asarray([1, 3, 2, 0], np.int32)
+        cache, new_lens = fns.commit(cache, cache_lens, gather, n_acc)
+        _snap(out, f"commit {i}", cache, new_lens)
+        cache_lens = new_lens.cpu().numpy().astype(np.int32)
+    for lane in (0, 1, 2, 3, 0):
+        cache, chosen = fns.prefill_into_slot(
+            cache, lane, toks[lane:lane + 1], lens[lane:lane + 1],
+            **_lane_params(mixed, slice(lane, lane + 1)))
+        _snap(out, f"prefill_into_slot {lane}", cache, chosen)
+    if paged:
+        for n in (5, 5, 5, 12, 12, 12):          # buckets 8 and 16
+            cache, chosen = fns.prefill_suffix(
+                cache, 1, toks[1:2, 20:20 + n], 20,
+                **_lane_params(mixed, slice(1, 2)))
+            _snap(out, f"prefill_suffix {n}", cache, chosen)
+        for src, dst in ((3, 60), (4, 61), (5, 62)):
+            cache = fns.copy_block(cache, src, dst)
+            _snap(out, f"copy_block {src}", cache)
+        for first in (60, 61, 62):
+            ids = np.zeros((bpl,), np.int32)
+            ids[:2] = (first, first - 30)
+            cache = fns.reset_blocks(cache, ids)
+            _snap(out, f"reset_blocks {first}", cache)
+    else:
+        for lane in (0, 2, 3):
+            cache = fns.reset_slot(cache, lane)
+            _snap(out, f"reset_slot {lane}", cache)
+    torch.cuda.synchronize()
+    return out
+
+
+def _same_bits(got, want):
+    assert [g[0] for g in got] == [w[0] for w in want]
+    for (label, gc, gx), (_, wc, wx) in zip(got, want):
+        for k in wc:
+            assert torch.equal(gc[k], wc[k]), f"{label}: cache {k}"
+        for i, (a, b) in enumerate(zip(gx, wx)):
+            assert torch.equal(a, b), f"{label}: output {i}"
+
+
+@pytest.mark.parametrize("sampling", ["greedy", "mixed"])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_captured_members_equal_eager_bitwise(graph_lm, layout, sampling):
+    paged, mixed = layout == "paged", sampling == "mixed"
+    fns = _graph_fns(graph_lm, layout, sampling, True)
+    got = _member_script(fns, paged, mixed)
+    want = _member_script(_graph_fns(graph_lm, layout, sampling, False),
+                          paged, mixed)
+    _same_bits(got, want)
+    names = ["prefill", "fused_step", "tree_step", "commit",
+             "prefill_into_slot"]
+    names += ["copy_block", "reset_blocks"] if paged else ["reset_slot"]
+    for n in names:
+        assert getattr(fns, n)._n_graphs() >= 1, n
+    if paged:
+        assert fns.prefill_suffix.member._n_graphs() == 2   # two buckets
+    assert fns.fused_step._cache_size() == 1
+    assert not fns.init_cache._graphs
+
+
+def test_two_interleaved_caches_on_one_fns(graph_lm):
+    """Two live caches on one session, stepped in turn: each key captures
+    its own graph, and each cache gets the eager twin's bits."""
+    runs = []
+    for graphs in (True, False):
+        fns = _graph_fns(graph_lm, "dense", "mixed", graphs)
+        rng = np.random.RandomState(1)
+        out, caches = [], []
+        for _ in range(2):
+            toks = rng.randint(2, GRAPH_V, (GRAPH_LANES, GRAPH_S)).astype(
+                np.int32)
+            lens = rng.randint(20, GRAPH_S, (GRAPH_LANES,)).astype(np.int32)
+            cache, _ = fns.prefill(toks, lens, **_lane_params(True))
+            caches.append([cache, lens])
+        for i in range(4):
+            for j, entry in enumerate(caches):
+                cache, lens = entry
+                cache, packed = fns.fused_step(cache, lens, *_draft(rng, lens),
+                                               **_lane_params(True))
+                _snap(out, f"cache {j} step {i}", cache, packed)
+                entry[1] = lens + packed[:, 0].cpu().numpy().astype(np.int32)
+        if graphs:
+            assert fns.fused_step._n_graphs() == 2
+            assert caches[0][0]["k"].data_ptr() != caches[1][0]["k"].data_ptr()
+        runs.append(out)
+    _same_bits(*runs)
+
+
+def test_block_table_edit_reaches_the_next_replay(graph_lm):
+    """The scheduler replaces cache["block_tables"] when a table changes;
+    a replay must read the new table (lane 0's blocks moved to free
+    ones between replays)."""
+    runs = []
+    for graphs in (True, False):
+        fns = _graph_fns(graph_lm, "paged", "greedy", graphs)
+        rng = np.random.RandomState(2)
+        bpl = 256 // GRAPH_BS
+        tables = np.arange(1, 1 + GRAPH_LANES * bpl, dtype=np.int32).reshape(
+            GRAPH_LANES, bpl)
+        toks = rng.randint(2, GRAPH_V, (GRAPH_LANES, GRAPH_S)).astype(np.int32)
+        lens = np.full((GRAPH_LANES,), 40, np.int32)
+        cache, _ = fns.prefill(toks, lens, tables)
+        out = []
+        for i in range(5):
+            if i == 3:                   # lane 0's first 4 blocks move
+                tables = tables.copy()
+                tables[0, :4] = tables[3, 12:16]
+                cache["block_tables"] = torch.from_numpy(tables).cuda()
+            cache, packed = fns.fused_step(cache, lens, *_draft(rng, lens))
+            _snap(out, f"step {i}", cache, packed)
+        runs.append(out)
+    _same_bits(*runs)
+
+
+def test_counters_after_replays_equal_captured_launches(graph_lm):
+    from repro_torch import kernels
+    cfg, _ = graph_lm
+    fns = _graph_fns(graph_lm, "dense", "mixed", True)
+    rng = np.random.RandomState(4)
+    toks = rng.randint(2, GRAPH_V, (GRAPH_LANES, GRAPH_S)).astype(np.int32)
+    lens = np.full((GRAPH_LANES,), 30, np.int32)
+    cache, _ = fns.prefill(toks, lens, **_lane_params(True))
+    before = kernels.snapshot()
+    n = 6
+    for _ in range(n):
+        cache, _ = fns.fused_step(cache, lens, *_draft(rng, lens),
+                                  **_lane_params(True))
+    torch.cuda.synchronize()
+    ran = kernels.diff(kernels.snapshot(), before)
+    assert ran == {"tree_attention": n * cfg.n_layers, "gumbel_argmax": n}
+    from repro_torch.serving.session import _Graph
+    (g,) = [g for g in fns.fused_step._graphs.values()
+            if isinstance(g, _Graph)]
+    assert g.launches == {"tree_attention": cfg.n_layers, "gumbel_argmax": 1}
+    assert fns.fused_step.captures and fns.fused_step.captures[0][1] >= 0
+
+
+def test_b4_persistent_launch_captured_and_replayed_equals_eager(cuda):
+    """B4's persistent grid zeroes its work counter with cudaMemsetAsync on
+    the stream: captured, the memset replays with the launch, so two
+    replays both give the eager bits."""
+    rng = np.random.RandomState(5)
+    q, k, v = (_t(rng.randn(1, 4096, n, 128) * 0.3, "bfloat16", cuda)
+               for n in (12, 2, 2))
+    eager = flash_prefill(q, k, v, triangular=True)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        out = flash_prefill(q, k, v, triangular=True)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_member_that_syncs_raises_at_capture(cuda):
+    """A body that makes the host wait cannot be captured: the member
+    raises on the capturing call and every one after it, and never runs
+    it eagerly on the card again."""
+    from repro_torch.serving.session import _Member
+    ran = []
+
+    def body(cache, x):
+        ran.append(torch.cuda.is_current_stream_capturing())
+        return x * int(x.sum().item())
+
+    def stage(x):
+        return None, (torch.from_numpy(np.asarray(x, np.int32)),)
+
+    m = _Member("syncs", body, stage, put=lambda t: t.cuda(),
+                stream=torch.cuda.Stream())
+    assert m(np.ones(4)).sum().item() == 16
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            m(np.ones(4))
+    assert ran == [False, True, True]    # eager once, then captures only
+    assert torch.ones(3, device=cuda).sum().item() == 3
