@@ -90,7 +90,25 @@ Phases, in order; any failure exits non-zero:
    requests of about 4,000 tokens; outputs equal ``reference_decode``, B3
    launches once a layer per prefill, one pull per decode step; the
    prefill's device time and B3's share of it, and a decode step's tree
-   attention over ~4,000 keys.
+   attention over ~4,000 keys;
+10. the other archs: AntGLM-10B, Phi-3-mini and Phi-3-medium at full width
+   in bf16 (weights from seed 0, each freed before the next; parameter
+   count and peak memory printed), each served guided on the dense and the
+   paged layout (6 requests on 4 lanes, so two are admitted into a lane
+   mid-flight; the serve CLI's defaults, captured members): outputs equal
+   ``reference_decode`` at the serving batch shape and each other, B1
+   (dense) or B2 (paged) once a layer a decode step and the other never,
+   B3 once a layer a prefill, one pull a decode step, no member syncs; a
+   profile of decode steps and the cohort prefill's device time with B3's
+   share.  AntGLM-10B (the paper's model) also runs the default Lookahead
+   config, LLMA's single branch and step by step on the same requests and
+   two primers whose prompts hold the walk their partners generate, so
+   that LLMA's drafts verify (outputs equal; median fused_step, EDL and
+   tokens/s of each), and a sampled paged cell at temperatures 0.6 to 1.5
+   through the Gumbel kernel, which runs once a decode step and a prefill.
+   The kernels phase holds B1, B2 and B3 (and B4 against B3) at these
+   archs' shapes too and times them, and holds the Gumbel kernel at the
+   sampled arch's vocabulary.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -126,6 +144,8 @@ PATH_TREE = (4, 33, 12, 2, 128, 512)   # (B, T, H, K, dh, S) of fused_step
 PATH_PREFILL = [(4, 128, 12, 2, 128), (1, 128, 12, 2, 128)]  # (B,S,H,K,dh)
 # (B, T, H, K, dh, bs, bpl) of the paged fused_step: a 33-block pool
 PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
+# the reference's other dense LMs, served at full width by the archs phase
+OTHER_ARCHS = ("antglm-10b", "phi3-mini-3.8b", "phi3-medium-14b")
 SUFFIX_BUCKETS = (8, 16, 32, 64, 128)  # the suffix prefill's T (B = 1)
 # the long-prompt cell: 2 lanes, prompts of ~4,000 tokens (a RAG service's
 # retrieved context), a dense cache of 4,224 rows (0.24 GB at full width)
@@ -143,6 +163,7 @@ PATH_TRI = [(4, 128, 12, 2, 128), (1, 4096, 12, 2, 128)]
 TEST_TRI = [(1, 256, 4, 2, 64), (2, 512, 4, 4, 128), (1, 384, 6, 2, 96)]
 # the Gumbel-argmax kernel at the fused step's token choice
 GUMBEL_SHAPE = (4, 33, 151936)
+SAMPLED_ARCHS = ("antglm-10b",)        # the archs phase's sampled cells
 # its bound counts issue slots: the SASS instructions of gumbel_partial's
 # loop per drawn entry (threefry2x32's integer adds, rotates and xors, the
 # uniform, two logf, the IEEE division, the compare), read from the built
@@ -454,8 +475,23 @@ def b5_build_report(_build):
 
 
 # --------------------------------------------------------------- phase 3
+def arch_kernel_shapes():
+    """arch -> the (B1, B2, B3) shapes its serving path gives the kernels:
+    its heads at the main path's lanes, tree width, cache length, blocks
+    and prompt pad length."""
+    from repro_torch.configs import get_arch
+    B, T, _, _, _, S = PATH_TREE
+    shapes = {}
+    for name in OTHER_ARCHS:
+        cfg = get_arch(name).full_config()
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.dh)
+        shapes[name] = ((B, T, *heads, S), (B, T, *heads, *PATH_PAGED[5:]),
+                        (*PATH_PREFILL[0][:2], *heads))
+    return shapes
+
+
 def kernel_phase(gen):
-    from repro_torch.kernels.timing import device_ms, path_mask
+    from repro_torch.kernels.timing import path_mask
     from repro_torch.kernels.flash_prefill.ops import (flash_prefill,
                                                        flash_prefill_ref)
     from repro_torch.kernels.tree_attention.ops import (
@@ -463,10 +499,10 @@ def kernel_phase(gen):
     from repro_torch.kernels.tree_attention.paged import (
         paged_tree_attention, paged_tree_attention_reference)
     from repro_torch.kernels.tree_attention.ref import paged_gather
-    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     errs = {"tree_attention": 0.0, "flash_prefill": 0.0,
             "paged_tree_attention": 0.0}
+    arch_errs = {kern: {} for kern in errs}
     tree_cases = ([(PATH_TREE, "path")]
                   + [(s, "sweep") for s in [
                       (1, 1, 4, 4, 64, 128), (2, 5, 8, 4, 64, 256),
@@ -524,17 +560,68 @@ def kernel_phase(gen):
                 n_bits += 1
         print(f"  paged_tree_attention {str(dtype)[6:]}: bit-equal to "
               f"tree_attention on the same logical K/V in {n_bits} cases")
+        # each other arch's heads on the path: B1 on a serving-like mask,
+        # B2 on a shuffled pool (and bit for bit against B1), B3 causal
+        for name, (tree, paged, prefill) in arch_kernel_shapes().items():
+            B, T, H, K, dh, S = tree
+            q, k, v = (randn(gen, shp, dtype) for shp in
+                       ((B, T, H, dh), (B, S, K, dh), (B, S, K, dh)))
+            mask = path_mask(B, T, S, max_new=MAX_NEW)
+            e1 = hold("tree_attention", tree_attention(q, k, v, mask),
+                      tree_attention_reference(q, k, v, mask), dtype,
+                      f"{name} {tree}")
+            B, T, H, K, dh, bs, bpl = paged
+            q, kp, vp, bt, mask = paged_case(gen, B, T, H, K, dh, bs, bpl,
+                                             dtype, mask)
+            out = paged_tree_attention(q, kp, vp, bt, mask)
+            e2 = hold("paged_tree_attention", out,
+                      paged_tree_attention_reference(q, kp, vp, bt, mask),
+                      dtype, f"{name} {paged}")
+            check(torch.equal(out, tree_attention(
+                q, paged_gather(kp, bt).contiguous(),
+                paged_gather(vp, bt).contiguous(), mask)),
+                f"paged_tree_attention {name} {dtype}: not bit-equal to "
+                "tree_attention on the same logical K/V")
+            B, S, H, K, dh = prefill
+            q, k, v = (randn(gen, shp, dtype) for shp in
+                       ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+            e3 = hold("flash_prefill", flash_prefill(q, k, v),
+                      flash_prefill_ref(q, k, v), dtype, f"{name} {prefill}")
+            if dtype == torch.bfloat16:
+                for kern, e in (("tree_attention", e1),
+                                ("paged_tree_attention", e2),
+                                ("flash_prefill", e3)):
+                    arch_errs[kern][name] = e
 
-    # ---- timing at the path's shapes in bf16, rotating over 28 layer-sized
-    # caches (56 MiB of K/V: more than L2, as the 28 decode layers see it)
-    dt = torch.bfloat16
-    rows = {}
-    B, T, H, K, dh, S = PATH_TREE
-    q = randn(gen, (N_LAYERS, B, T, H, dh), dt)
-    kc = randn(gen, (N_LAYERS, B, S, K, dh), dt)
-    vc = randn(gen, (N_LAYERS, B, S, K, dh), dt)
+    # ---- timing at the path's shapes in bf16, each call on one of 28
+    # layer-sized caches (more K/V than L2 holds, as the decode layers see
+    # it): Qwen2-1.5B's, then each other arch's
+    rows = {"tree_attention": time_tree(gen, PATH_TREE),
+            "paged_tree_attention": time_paged(gen, PATH_PAGED),
+            "flash_prefill": time_prefill(gen, PATH_PREFILL[0])}
+    for name, (tree, paged, prefill) in arch_kernel_shapes().items():
+        for kern, row in (("tree_attention", time_tree(gen, tree)),
+                          ("paged_tree_attention", time_paged(gen, paged)),
+                          ("flash_prefill", time_prefill(gen, prefill))):
+            rows[kern].setdefault("archs", {})[name] = dict(
+                row, max_abs_err=arch_errs[kern][name])
+    return errs, rows
+
+
+def time_tree(gen, shape):
+    """B1 in bf16 at ``shape`` (B, T, H, K, dh, S) on a serving-like mask,
+    beside its plain version and sdpa (event and device time), and its
+    bound; the row of the kernel table."""
+    from repro_torch.kernels.timing import device_ms, path_mask
+    from repro_torch.kernels.tree_attention.ops import (
+        tree_attention, tree_attention_reference)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt, L = torch.bfloat16, N_LAYERS
+    B, T, H, K, dh, S = shape
+    q = randn(gen, (L, B, T, H, dh), dt)
+    kc = randn(gen, (L, B, S, K, dh), dt)
+    vc = randn(gen, (L, B, S, K, dh), dt)
     mask = path_mask(B, T, S, seed=1, max_new=MAX_NEW)
-    L = N_LAYERS
     ms = time_ms(lambda i: tree_attention(q[i % L], kc[i % L], vc[i % L],
                                           mask))
     plain = time_ms(lambda i: tree_attention_reference(
@@ -558,26 +645,34 @@ def kernel_phase(gen):
               + 2 * n_keys * K * dh * es)
     flops = 4.0 * mask.sum().item() * H * dh
     b_ms, b_by = bound(nbytes, flops, dt)
-    rows["tree_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  device_ms=dev, library_device_ms=lib_dev)
-    print(f"  tree_attention bf16 {PATH_TREE}: kernel {ms:.4f} ms, plain "
+    print(f"  tree_attention bf16 {shape}: kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device "
           f"time: kernel {dev:.4f} ms, sdpa {lib_dev:.4f} ms")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, device_ms=dev, library_device_ms=lib_dev)
 
-    # B2 at the paged decode shape, each call on one of 28 layer pools
-    # (60 MiB of K/V), beside its plain version, the library's nearest
-    # (a gather of each lane's blocks, then sdpa: no one PyTorch call reads
-    # paged K/V) and B1 on the gathered caches
-    B, T, H, K, dh, bs, bpl = PATH_PAGED
+
+def time_paged(gen, shape):
+    """B2 in bf16 at ``shape`` (B, T, H, K, dh, bs, bpl), every lane's
+    blocks allocated in a shuffled pool, beside its plain version, the
+    library's nearest (a gather of each lane's blocks, then sdpa: no one
+    PyTorch call reads paged K/V) and B1 on the gathered caches."""
+    from repro_torch.kernels.timing import device_ms, path_mask
+    from repro_torch.kernels.tree_attention.ops import tree_attention
+    from repro_torch.kernels.tree_attention.paged import (
+        paged_tree_attention, paged_tree_attention_reference)
+    from repro_torch.kernels.tree_attention.ref import paged_gather
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt, L = torch.bfloat16, N_LAYERS
+    B, T, H, K, dh, bs, bpl = shape
     S = bs * bpl
     mask = path_mask(B, T, S, seed=1, max_new=MAX_NEW)
     bt = shuffled_tables([bpl] * B, bpl, seed=2)
     nb = 1 + B * bpl
-    q = randn(gen, (N_LAYERS, B, T, H, dh), dt)
-    kp = randn(gen, (N_LAYERS, nb, bs, K, dh), dt)
-    vp = randn(gen, (N_LAYERS, nb, bs, K, dh), dt)
+    q = randn(gen, (L, B, T, H, dh), dt)
+    kp = randn(gen, (L, nb, bs, K, dh), dt)
+    vp = randn(gen, (L, nb, bs, K, dh), dt)
     ms = time_ms(lambda i: paged_tree_attention(q[i % L], kp[i % L],
                                                 vp[i % L], bt, mask))
     plain = time_ms(lambda i: paged_tree_attention_reference(
@@ -601,25 +696,34 @@ def kernel_phase(gen):
     del kd, vd
     last = torch.arange(S, device="cuda")[None, None] * mask
     n_keys = (last.amax(dim=(1, 2)) + 1).sum().item()
+    es = 2
     nbytes = (2 * q[0].numel() * es + mask.numel() + bt.numel() * 4
               + 2 * n_keys * K * dh * es)
     flops = 4.0 * mask.sum().item() * H * dh
     b_ms, b_by = bound(nbytes, flops, dt)
-    rows["paged_tree_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        device_ms=dev, library_device_ms=lib_dev,
-        gather_sdpa_ms=gather_sdpa, tree_attention_ms=dense_ms)
-    print(f"  paged_tree_attention bf16 {PATH_PAGED}: kernel {ms:.4f} ms, "
+    print(f"  paged_tree_attention bf16 {shape}: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, gather+sdpa (3 calls: two gathers, one "
           f"sdpa) {gather_sdpa:.4f} ms, tree_attention on the gathered "
           f"caches {dense_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
           f"{nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device time: "
           f"kernel {dev:.4f} ms, gather+sdpa {lib_dev:.4f} ms")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, device_ms=dev, library_device_ms=lib_dev,
+                gather_sdpa_ms=gather_sdpa, tree_attention_ms=dense_ms)
 
-    B, S, H, K, dh = PATH_PREFILL[0]
-    q = randn(gen, (N_LAYERS, B, S, H, dh), dt)
-    k = randn(gen, (N_LAYERS, B, S, K, dh), dt)
-    v = randn(gen, (N_LAYERS, B, S, K, dh), dt)
+
+def time_prefill(gen, shape):
+    """B3 in bf16 at ``shape`` (B, S, H, K, dh), causal, beside its plain
+    version and sdpa, and its bound."""
+    from repro_torch.kernels.timing import device_ms
+    from repro_torch.kernels.flash_prefill.ops import (flash_prefill,
+                                                       flash_prefill_ref)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt, L = torch.bfloat16, N_LAYERS
+    B, S, H, K, dh = shape
+    q = randn(gen, (L, B, S, H, dh), dt)
+    k = randn(gen, (L, B, S, K, dh), dt)
+    v = randn(gen, (L, B, S, K, dh), dt)
     ms = time_ms(lambda i: flash_prefill(q[i % L], k[i % L], v[i % L]))
     plain = time_ms(lambda i: flash_prefill_ref(q[i % L], k[i % L],
                                                 v[i % L]), iters=10)
@@ -634,14 +738,12 @@ def kernel_phase(gen):
     nbytes = (2 * q[0].numel() + 2 * k[0].numel()) * 2
     flops = 4.0 * B * H * dh * S * (S + 1) / 2
     b_ms, b_by = bound(nbytes, flops, dt)
-    rows["flash_prefill"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=b_ms, bound_by=b_by, device_ms=dev,
-                                 library_device_ms=lib_dev)
-    print(f"  flash_prefill bf16 {PATH_PREFILL[0]}: kernel {ms:.4f} ms, "
+    print(f"  flash_prefill bf16 {shape}: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}: {nbytes/1e6:.3f} MB, {flops/1e9:.3f} GFLOP); device "
           f"time: kernel {dev:.4f} ms, sdpa {lib_dev:.4f} ms")
-    return errs, rows
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, device_ms=dev, library_device_ms=lib_dev)
 
 
 def hold(name, out, ref, dtype, shape):
@@ -669,7 +771,8 @@ def tri_phase(gen):
                                                        flash_prefill_ref)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     err = 0.0
-    cases = PATH_TRI + [LONG_ATTN] + TEST_TRI
+    cases = (PATH_TRI + [LONG_ATTN] + TEST_TRI
+             + [p for _, _, p in arch_kernel_shapes().values()])
     for dtype in (torch.float32, torch.bfloat16):
         for (B, S, H, K, dh) in cases:
             q = randn(gen, (B, S, H, dh), dtype)
@@ -756,23 +859,30 @@ def lane_vectors(greedy, temp, seed):
             "seed": torch.tensor(seed, dtype=torch.int64, device="cuda")}
 
 
-def gumbel_phase(gen):
-    """The Gumbel-argmax kernel at the fused step's shape, bf16 logits, two
-    greedy and two sampled lanes (temperatures 0.7 and 1.3, seeds 0 and
-    2^32 - 1), positions up to max_seq_len: its generator's raw bits equal
-    the plain version's bit for bit and its Gumbel values agree to
-    GUMBEL_ATOL; its choices (through choose_tokens_lanes) equal the plain
-    version's wherever the plain top-two gap of z + g exceeds GUMBEL_GAP;
-    then timed beside the plain version."""
-    from repro_torch.kernels.gumbel_argmax.ops import (gumbel_argmax,
-                                                       gumbel_noise)
+def gumbel_shapes():
+    """The fused step's (lanes, tree width) at the Qwen path's vocabulary
+    (GUMBEL_SHAPE) and at each vocabulary of SAMPLED_ARCHS."""
+    from repro_torch.configs import get_arch
+    B, T, _ = GUMBEL_SHAPE
+    return [GUMBEL_SHAPE] + [(B, T, get_arch(a).full_config().vocab_size)
+                             for a in SAMPLED_ARCHS]
+
+
+def gumbel_hold(gen, shape):
+    """The Gumbel-argmax kernel at ``shape``, bf16 logits, two greedy and
+    two sampled lanes (temperatures 0.7 and 1.3, seeds 0 and 2^32 - 1),
+    positions up to max_seq_len: its generator's raw bits equal the plain
+    version's bit for bit and its Gumbel values agree to GUMBEL_ATOL; its
+    choices (through choose_tokens_lanes) equal the plain version's
+    wherever the plain top-two gap of z + g exceeds GUMBEL_GAP.  Returns
+    (max Gumbel error, logits, positions, lane vectors, greedy rows)."""
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_noise
     from repro_torch.kernels.gumbel_argmax.ref import (fold_in, gumbel,
                                                        gumbel_argmax_ref,
                                                        random_bits32,
                                                        random_key)
     from repro_torch.serving.sampler import choose_tokens_lanes
-    from repro_torch.kernels.timing import device_ms
-    B, T, V = GUMBEL_SHAPE
+    B, T, V = shape
     lp = lane_vectors([True, False, True, False], [1.0, 0.7, 1.0, 1.3],
                       [5, 0, 6, 2**32 - 1])
     logits = (torch.randn((B, T, V), generator=gen, device="cuda")
@@ -787,15 +897,18 @@ def gumbel_phase(gen):
     ref_bits = random_bits32(key, V)
     ref_g = gumbel(key, V)
     torch.cuda.synchronize()
-    check(torch.equal(bits, ref_bits), "gumbel_argmax: raw bits differ from "
-                                       "the plain threefry2x32")
+    check(torch.equal(bits, ref_bits), f"gumbel_argmax at {shape}: raw "
+                                       "bits differ from the plain "
+                                       "threefry2x32")
     g_err = (g - ref_g).abs().max().item()
     n_diff = int((g != ref_g).sum().item())
-    print(f"  gumbel_argmax generator {B * T} rows x {V}: raw bits (and so "
+    print(f"  gumbel_argmax generator {B * T} rows x {V} ({V // 4096} "
+          f"chunks of 4096 and a tail of {V % 4096}): raw bits (and so "
           f"the uniforms) equal bit for bit; Gumbel values max|err| "
           f"{g_err:.3e} ({n_diff} of {B * T * V} differ; atol "
           f"{GUMBEL_ATOL})")
-    check(g_err <= GUMBEL_ATOL, f"Gumbel values differ by {g_err}")
+    check(g_err <= GUMBEL_ATOL, f"Gumbel values at {shape} differ by "
+                                f"{g_err}")
     del bits, g, ref_bits
 
     # the choice, through the serving entry point, against the plain one
@@ -810,13 +923,25 @@ def gumbel_phase(gen):
     torch.cuda.synchronize()
     near = (~greedy) & (gap <= GUMBEL_GAP)
     bad = (got != plain) & ~near
-    print(f"  gumbel_argmax choices at {GUMBEL_SHAPE} bf16: "
+    print(f"  gumbel_argmax choices at {shape} bf16: "
           f"{int((got == plain).sum())}/{B * T} equal the plain version; "
           f"{int(near.sum())} sampled rows have a top-two gap of z + g "
           f"under {GUMBEL_GAP} (smallest gap {gap[~greedy].min().item():.3e})")
-    check(not bool(bad.any()), f"gumbel_argmax: {int(bad.sum())} choices "
-                               "differ above the gap")
-    del ref_g, z, top2
+    check(not bool(bad.any()), f"gumbel_argmax at {shape}: "
+                               f"{int(bad.sum())} choices differ above the "
+                               "gap")
+    return g_err, logits, pos, lp, greedy
+
+
+def gumbel_phase(gen):
+    """The Gumbel-argmax kernel held against its plain version
+    (``gumbel_hold``) at the fused step's shape, then timed beside it
+    there, then held at each sampled arch's vocabulary."""
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
+    from repro_torch.kernels.gumbel_argmax.ref import gumbel_argmax_ref
+    from repro_torch.kernels.timing import device_ms
+    B, T, V = GUMBEL_SHAPE
+    g_err, logits, pos, lp, greedy = gumbel_hold(gen, GUMBEL_SHAPE)
 
     # timing, each call on one of 8 logits buffers (320 MB: beyond L2)
     L = 8
@@ -862,7 +987,9 @@ def gumbel_phase(gen):
           f"function's own {needed} operations an entry "
           f"({GUMBEL_OPS_NEEDED}) give {t_needed:.5f} ms, "
           f"{t_needed / dev:.3f} of it")
-    del lg
+    del lg, logits
+    for shape in gumbel_shapes()[1:]:
+        g_err = max(g_err, gumbel_hold(gen, shape)[0])
     return g_err, dict(ms=ms, plain_ms=plain, library_ms=None,
                        bound_ms=b_ms, bound_by=b_by, device_ms=dev,
                        library_device_ms=None, sass_per_entry=per_entry,
@@ -1059,72 +1186,18 @@ def path_prompts(vocab):
 
 
 def path_phase(cfg, params):
-    """The dense-layout main path; returns its kernel launches, prompts and
-    outputs."""
-    from repro_torch.core import reference_decode
+    """The dense-layout main path (``guided_cell``, reference_decode at
+    B = 1); returns its kernel launches, prompts and outputs."""
     from repro_torch.core.request import SamplingParams
-    from repro_torch.kernels.flash_prefill.ops import flash_prefill
-    from repro_torch.kernels.tree_attention.ops import tree_attention
-    from repro_torch.serving.api import (EngineConfig, ServingEngine,
-                                         build_engine)
+    from repro_torch.serving.api import EngineConfig
 
     ecfg = EngineConfig(default_params=SamplingParams(max_new_tokens=MAX_NEW))
     transform = guided_transform(cfg.vocab_size)
     prompts = path_prompts(cfg.vocab_size)
     sp = SamplingParams(max_new_tokens=MAX_NEW)
-
-    # warm-up engine (allocator, cuBLAS handles) whose step functions run
-    # with torch's sync check set to "error": a member that made the host
-    # wait for the card would raise here (the scheduler's own _pull runs
-    # outside them); then a fresh engine for the measured run.  The members
-    # are captured CUDA graphs: each key's first call (eager), its capture
-    # and its replays all run inside the check — no member syncs, capture
-    # included (the session captures on a side stream after a wait_stream,
-    # not under torch.cuda.graph, whose entry synchronises the device)
-    warm = build_engine(ecfg, cfg, params, logits_transform=transform,
-                        device="cuda")
-    fns = warm.fns
-    warm = ServingEngine(dataclasses.replace(
-        fns, prefill=no_sync(fns.prefill),
-        prefill_into_slot=no_sync(fns.prefill_into_slot),
-        fused_step=no_sync(fns.fused_step)), ecfg)
-    for p in prompts[:ecfg.lanes + 2]:
-        warm.submit(p, max_new_tokens=8)
-    warm.run()
-    check(warm.stats.admitted == ecfg.lanes + 2, "warm-up admissions")
-    print(f"  no step function synced the host ({warm.stats.decode_steps} "
-          "decode steps, cohort and lane admissions under "
-          "torch.cuda.set_sync_debug_mode('error'))")
-    del warm, fns
-
-    engine = build_engine(ecfg, cfg, params, logits_transform=transform,
-                          device="cuda")
-    outs, launches, wall, tps, edl, fused = serve_counted(
-        engine, prompts, sp, {"tree_attention": tree_attention,
-                              "flash_prefill": flash_prefill})
-    st = engine.stats
-    print(f"  served {N_REQUESTS} requests: {sum(map(len, outs))} tokens in "
-          f"{wall:.3f} s -> {tps:.1f} tokens/s; EDL {edl:.3f}; "
-          f"{st.decode_steps} decode steps, median fused_step {fused:.3f} ms "
-          f"(dispatch to packed pull); launches {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel never launched on the main path: {launches}")
-    check(launches["tree_attention"] == cfg.n_layers * st.decode_steps,
-          f"tree_attention launched {launches['tree_attention']} times for "
-          f"{st.decode_steps} steps x {cfg.n_layers} layers")
-    check(st.decode_syncs == st.decode_steps,
-          f"{st.decode_syncs} decode syncs for {st.decode_steps} steps")
-    check(engine.fns.fused_step._cache_size() == 1
-          and engine.fns.prefill._cache_size() == 1
-          and engine.fns.prefill_into_slot._cache_size() <= 1,
-          "a step function saw more than one input shape")
-    check(all(len(o) == MAX_NEW for o in outs), "short outputs")
-
-    for i, (p, o) in enumerate(zip(prompts, outs)):
-        ref = reference_decode(engine.fns, list(p), params=sp)
-        check(o == ref, f"request {i}: served output ({len(o)} tokens) "
-                        f"differs from reference_decode ({len(ref)})")
-    print(f"  all {N_REQUESTS} outputs equal reference_decode")
+    outs, launches, _, engine = guided_cell("qwen2-1.5b", ecfg, cfg, params,
+                                            transform, prompts, sp)
+    launches = {k: launches[k] for k in ("tree_attention", "flash_prefill")}
 
     # prefill times (cohort (4, 128) and one lane (1, 128)), synchronized
     fns = engine.fns
@@ -1151,21 +1224,23 @@ def path_phase(cfg, params):
     return launches, prompts, outs
 
 
-def serve_counted(engine, prompts, sp, counters):
-    """Serve ``prompts`` to the end with every kernel counter in
-    ``counters`` set to 0 just before and read just after; ``sp`` is one
-    SamplingParams for every request or a list, one per request.  Returns
-    (outputs, launches, wall s, tokens/s, EDL, median fused_step ms)."""
+def serve_counted(sched, prompts, sp, counters):
+    """Serve ``prompts`` to the end on the ContinuousScheduler ``sched``
+    (an engine's ``.scheduler``, or one built from any LookaheadConfig)
+    with every kernel counter in ``counters`` set to 0 just before and
+    read just after; ``sp`` is one SamplingParams for every request or a
+    list, one per request.  Returns (outputs, launches, wall s, tokens/s,
+    EDL, median fused_step ms)."""
     from repro_torch.core.request import Request
-    engine.scheduler.record_breakdown = True
+    sched.record_breakdown = True
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
     sps = sp if isinstance(sp, list) else [sp] * len(prompts)
-    handles = [engine.submit(Request(prompt=list(p), params=q))
+    handles = [sched.submit_request(Request(prompt=list(p), params=q))
                for p, q in zip(prompts, sps)]
-    engine.run()
+    sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in counters.items()}
@@ -1173,8 +1248,114 @@ def serve_counted(engine, prompts, sp, counters):
     n_tok = sum(len(o) for o in outs)
     n_steps = sum(h.result().stats.steps for h in handles)
     fused = float(np.median([b["device_step_ms"]
-                             for b in engine.scheduler.step_breakdown]))
+                             for b in sched.step_breakdown]))
     return outs, launches, wall, n_tok / wall, n_tok / max(n_steps, 1), fused
+
+
+def counted_calls(fns, names):
+    """``fns`` with each member in ``names`` wrapped to count its calls,
+    and the dict of counts."""
+    calls = dict.fromkeys(names, 0)
+
+    def counted(name):
+        member = getattr(fns, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return member(*args, **kwargs)
+        return call
+    return dataclasses.replace(fns, **{n: counted(n) for n in names}), calls
+
+
+def guided_cell(label, ecfg, cfg, params, transform, prompts, sp,
+                ref_lanes=None):
+    """The guided cell on ``ecfg``'s layout.  A warm-up engine whose
+    members run under torch's sync check set to "error" serves
+    lanes + 2 of ``prompts`` (cohort, lane admissions, fused steps) — a
+    member that made the host wait for the card would raise (the
+    scheduler's own _pull runs outside them).  The members are captured
+    CUDA graphs: each key's first call (eager), its capture and its
+    replays all run inside the check (the session captures on a side
+    stream after a wait_stream, not under torch.cuda.graph, whose entry
+    synchronises the device).  Then a fresh engine serves ``prompts``
+    (more than the lanes: some are admitted into a lane mid-flight) with
+    every kernel counter and its prefill calls counted.  Each decode step
+    must launch the layout's tree kernel (B1 dense, B2 paged) once a layer
+    and the other never, each prefill B3 once a layer; one pull a decode
+    step; one input shape a step function; every output must equal
+    reference_decode (at the serving batch shape with ``ref_lanes``).
+    Returns (outputs, launches, numbers, engine)."""
+    from repro_torch.core import reference_decode
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.tree_attention.ops import tree_attention
+    from repro_torch.kernels.tree_attention.paged import paged_tree_attention
+    from repro_torch.serving.api import ServingEngine, build_session_fns
+    L, layout, lanes = cfg.n_layers, ecfg.kv_layout, ecfg.lanes
+    check(len(prompts) > lanes, f"{label}: {len(prompts)} requests do not "
+                                f"outnumber the {lanes} lanes")
+    fns = build_session_fns(ecfg, cfg, params, logits_transform=transform,
+                            device="cuda")
+    warm = ServingEngine(dataclasses.replace(
+        fns, prefill=no_sync(fns.prefill),
+        prefill_into_slot=no_sync(fns.prefill_into_slot),
+        fused_step=no_sync(fns.fused_step)), ecfg)
+    for p in prompts[:lanes + 2]:
+        warm.submit(p, max_new_tokens=8)
+    warm.run()
+    check(warm.stats.admitted == lanes + 2, f"{label}: warm-up admissions")
+    del warm, fns
+
+    fns = build_session_fns(ecfg, cfg, params, logits_transform=transform,
+                            device="cuda")
+    counting, calls = counted_calls(fns, ("prefill", "prefill_into_slot"))
+    engine = ServingEngine(counting, ecfg)
+    outs, launches, wall, tps, edl, fused = serve_counted(
+        engine.scheduler, prompts, sp,
+        {"tree_attention": tree_attention,
+         "paged_tree_attention": paged_tree_attention,
+         "flash_prefill": flash_prefill})
+    st = engine.stats
+    n_prefill = sum(calls.values())
+    print(f"  {label}, guided {layout}: {len(prompts)} requests, "
+          f"{sum(map(len, outs))} tokens in {wall:.3f} s -> {tps:.1f} "
+          f"tokens/s; EDL {edl:.3f}; {st.decode_steps} decode steps, "
+          f"median fused_step {fused:.3f} ms (dispatch to packed pull); "
+          f"{n_prefill} prefill calls ({calls}); launches {launches}")
+    tree, other = (("paged_tree_attention", "tree_attention")
+                   if layout == "paged" else
+                   ("tree_attention", "paged_tree_attention"))
+    check(launches[tree] == L * st.decode_steps > 0,
+          f"{label} {layout}: {tree} launched {launches[tree]} times for "
+          f"{st.decode_steps} steps x {L} layers")
+    check(launches[other] == 0,
+          f"{label} {layout}: {other} launched {launches[other]} times")
+    check(calls["prefill_into_slot"] > 0,
+          f"{label} {layout}: no request was admitted into a lane ({calls})")
+    check(launches["flash_prefill"] == L * n_prefill,
+          f"{label} {layout}: flash_prefill launched "
+          f"{launches['flash_prefill']} times for {n_prefill} prefills x {L}")
+    check(st.decode_syncs == st.decode_steps,
+          f"{label} {layout}: {st.decode_syncs} decode syncs for "
+          f"{st.decode_steps} steps")
+    check(fns.fused_step._cache_size() == 1
+          and fns.prefill._cache_size() == 1
+          and fns.prefill_into_slot._cache_size() == 1,
+          f"{label} {layout}: a step function saw more than one input shape")
+    check(all(len(o) == MAX_NEW for o in outs), f"{label}: short outputs")
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        ref = reference_decode(fns, list(p), params=sp, lanes=ref_lanes)
+        check(o == ref, f"{label} {layout}, request {i}: served output "
+                        "differs from reference_decode (first difference "
+                        f"at token {first_difference(o, ref)})")
+    print(f"  {label}, guided {layout}: all {len(prompts)} outputs equal "
+          f"reference_decode(..., lanes={ref_lanes}); no member synced the "
+          f"host (warm-up: {lanes + 2} admissions under "
+          "torch.cuda.set_sync_debug_mode('error'))")
+    return outs, launches, dict(
+        fused_ms=fused, tokens_per_s=tps, edl=edl,
+        decode_steps=st.decode_steps, launches=launches,
+        prefills=n_prefill, lane_admissions=calls["prefill_into_slot"]), \
+        engine
 
 
 def paged_phase(cfg, params, prompts, dense_outs):
@@ -1217,20 +1398,11 @@ def paged_phase(cfg, params, prompts, dense_outs):
     wcfg = dataclasses.replace(ecfg, prefix_cache=True, scrub_freed=True)
     fns = build_engine(wcfg, cfg, params, logits_transform=transform,
                        device="cuda").fns
-    calls = {}
-
-    def watched(name):
-        member = no_sync(getattr(fns, name))
-
-        def call(*args, **kwargs):
-            calls[name] = calls.get(name, 0) + 1
-            return member(*args, **kwargs)
-        return call
-
     names = ("prefill", "prefill_into_slot", "fused_step", "prefill_suffix",
              "copy_block", "reset_blocks")
-    warm = ServingEngine(dataclasses.replace(
-        fns, **{n: watched(n) for n in names}), wcfg)
+    watched, calls = counted_calls(dataclasses.replace(
+        fns, **{n: no_sync(getattr(fns, n)) for n in names}), names)
+    warm = ServingEngine(watched, wcfg)
     for p in shared[:ecfg.lanes] + [prompts[0]] + shared[4:6]:
         warm.submit(p, max_new_tokens=8)
     warm.run()
@@ -1241,30 +1413,12 @@ def paged_phase(cfg, params, prompts, dense_outs):
     del warm, fns
 
     # 1. the dense path's requests on the paged layout
-    engine = build_engine(ecfg, cfg, params, logits_transform=transform,
-                          device="cuda")
-    outs, launches, wall, tps, edl, fused = serve_counted(
-        engine, prompts, sp, counters)
-    st = engine.stats
+    outs, launches, _, engine = guided_cell("qwen2-1.5b", ecfg, cfg, params,
+                                            transform, prompts, sp)
     total = dict(launches)
-    print(f"  paged, {len(prompts)} requests: {tps:.1f} tokens/s "
-          f"({wall:.3f} s), EDL {edl:.3f}; {st.decode_steps} decode steps, "
-          f"median fused_step {fused:.3f} ms; launches {launches}")
-    check(launches["paged_tree_attention"] == L * st.decode_steps,
-          f"paged_tree_attention launched {launches['paged_tree_attention']}"
-          f" times for {st.decode_steps} steps x {L} layers")
-    check(launches["tree_attention"] == 0 and launches["flash_prefill"] > 0,
-          f"paged run launches {launches}")
-    check(st.decode_syncs == st.decode_steps,
-          f"{st.decode_syncs} decode syncs for {st.decode_steps} steps")
-    check(engine.fns.fused_step._cache_size() == 1,
-          "paged fused_step saw more than one input shape")
     check(outs == dense_outs, "paged outputs differ from the dense path's")
-    for i, (p, o) in enumerate(zip(prompts, outs)):
-        check(o == reference_decode(engine.fns, list(p), params=sp),
-              f"paged request {i} differs from reference_decode")
-    print(f"  all {len(prompts)} paged outputs equal the dense path's and "
-          "reference_decode")
+    print(f"  all {len(prompts)} paged outputs equal the dense path's")
+    del engine
 
     # 2. shared-prefix workload, prefix cache on, then off
     runs = {}
@@ -1273,7 +1427,7 @@ def paged_phase(cfg, params, prompts, dense_outs):
                               cfg, params, logits_transform=transform,
                               device="cuda")
         outs, launches, wall, tps, edl, fused = serve_counted(
-            engine, shared, sp, counters)
+            engine.scheduler, shared, sp, counters)
         st = engine.stats
         for n, c in launches.items():
             total[n] += c
@@ -1353,7 +1507,8 @@ def paged_phase(cfg, params, prompts, dense_outs):
         engine = build_engine(dataclasses.replace(ecfg, kv_layout=layout),
                               cfg, params, logits_transform=transform,
                               device="cuda")
-        outs, _, _, tps, _, fused = serve_counted(engine, prompts, sp, {})
+        outs, _, _, tps, _, fused = serve_counted(engine.scheduler, prompts,
+                                                  sp, {})
         check(outs == dense_outs, f"{layout} outputs changed between runs")
         paired[layout].append((fused, tps))
     for layout, runs in paired.items():
@@ -1706,7 +1861,8 @@ def overlap_phase(cfg, params, prompts, dense_outs):
         fns, prefill=no_sync(fns.prefill),
         prefill_into_slot=no_sync(fns.prefill_into_slot),
         fused_step=no_sync(fns.fused_step)), ecfg)
-    outs, _, wall, tps, edl, fused = serve_counted(engine, prompts, sp, {})
+    outs, _, wall, tps, edl, fused = serve_counted(engine.scheduler, prompts,
+                                                   sp, {})
     st = engine.stats
     print(f"  overlap_drafts, {len(prompts)} requests: {tps:.1f} tokens/s "
           f"({wall:.3f} s), EDL {edl:.3f}; {st.decode_steps} decode steps, "
@@ -1768,7 +1924,7 @@ def long_prompt_phase(cfg, params):
     engine = ServingEngine(dataclasses.replace(
         fns, **{n: watched(n) for n in names}), ecfg)
     outs, launches, wall, tps, edl, fused = serve_counted(
-        engine, prompts, sp, {"flash_prefill": flash_prefill})
+        engine.scheduler, prompts, sp, {"flash_prefill": flash_prefill})
     st = engine.stats
     n_prefill = calls.get("prefill", 0) + calls.get("prefill_into_slot", 0)
     print(f"  {LONG_REQUESTS} requests of {[len(p) for p in prompts]} "
@@ -1886,12 +2042,12 @@ def profile_decode(ecfg, cfg, params, transform, prompts, sp, steps=5,
     # B1 / B2 (no prefill runs in this window, so every attention kernel is
     # tree attention)
     attn = [e for e in kernels if "attention_kernel" in e.key]
-    print(f"    tree attention (B1/B2): "
-          f"{sum(e.self_device_time_total for e in attn) / 1e3 / steps:.3f} "
-          f"ms/step over {sum(e.count for e in attn) / steps:.0f} "
-          f"launches/step")
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
+    print(f"    tree attention (B1/B2): {attn_ms:.3f} ms/step over "
+          f"{sum(e.count for e in attn) / steps:.0f} launches/step")
     return dict(wall=wall / steps, busy=busy / steps, idle=1 - busy / wall,
-                kernels=n_launch / steps, host_launches=n_api / steps)
+                kernels=n_launch / steps, host_launches=n_api / steps,
+                attention=attn_ms)
 
 
 # --------------------------------------------------------------- graphs
@@ -2075,10 +2231,14 @@ def member_bits(label, ecfg, cfg, params, transform, prompts, sps):
     return n_calls, sessions[0][0]
 
 
+ATTENTION_KERNELS = ("attention_kernel", "prefill_kernel")  # B1-B4's names
+
+
 def profiled_ms(fn, calls=6):
     """Device time a call of ``fn(i)`` in one torch.profiler window of
     ``calls`` calls after a warm one: every device event (kernels and
-    copies), and the events a call."""
+    copies), the events a call, and the attention kernels' device time a
+    call."""
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
@@ -2089,8 +2249,10 @@ def profiled_ms(fn, calls=6):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA]
+    attn = [e for e in ev if any(n in e.key for n in ATTENTION_KERNELS)]
     return (sum(e.self_device_time_total for e in ev) / 1e3 / calls,
-            sum(e.count for e in ev) / calls)
+            sum(e.count for e in ev) / calls,
+            sum(e.self_device_time_total for e in attn) / 1e3 / calls)
 
 
 def serve_turns(label, ecfg, cfg, params, transform, prompts, sps):
@@ -2106,7 +2268,8 @@ def serve_turns(label, ecfg, cfg, params, transform, prompts, sps):
     first, runs = None, {True: [], False: []}
     for i, graphs in enumerate((True, False, True, False, False, True)):
         engine = ServingEngine(fns[graphs], ecfg)
-        outs, _, _, tps, edl, fused = serve_counted(engine, prompts, sps, {})
+        outs, _, _, tps, edl, fused = serve_counted(engine.scheduler,
+                                                    prompts, sps, {})
         first = outs if first is None else first
         check(outs == first, f"{label}: outputs differ between the captured "
                              "and the eager session's runs")
@@ -2220,6 +2383,232 @@ def graphs_phase(cfg, params):
               f"{SHARED_HEAD} cached, bucket 16) {ms['on'][0]:.3f} ms "
               f"({ms['on'][1]:.0f})")
         del fns, cache
+
+
+# --------------------------------------------------------------- archs
+ARCH_TEMPS = (0.6, 0.78, 0.96, 1.14, 1.32, 1.5)   # AntGLM's sampled cell
+N_PRIMED = 2            # strategies cell: requests served beside a primer
+
+
+def archs_phase():
+    """The reference's other dense LMs (AntGLM-10B, Phi-3-mini, Phi-3-
+    medium), one after another, at full width in bf16 with weights drawn
+    from seed 0 on the card, each freed before the next.  Returns each
+    arch's numbers."""
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"  {base / 1e9:.2f} GB allocated and "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved before the "
+          "first arch")
+    rows = {}
+    for name in OTHER_ARCHS:
+        t0 = time.perf_counter()
+        rows[name] = serve_arch(name)
+        left = torch.cuda.memory_allocated() - base
+        torch.cuda.empty_cache()
+        print(f"  [{name}: {time.perf_counter() - t0:.1f} s; "
+              f"{left / 1e9:.3f} GB still allocated after it; "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved]")
+        check(left < 1e9, f"{name}: {left / 1e9:.2f} GB not freed")
+    return rows
+
+
+def serve_arch(name):
+    """One arch: (a) the guided dense cell, (b) the same requests paged
+    (``guided_cell``, reference_decode at the serving batch shape), each
+    with a profile of decode steps, and the cohort prefill's device time;
+    for AntGLM-10B (the paper's model) also (c) the default Lookahead
+    config, LLMA's single branch and step by step on (a)'s requests and
+    (d) a sampled paged cell, unguided."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.api import EngineConfig
+    cfg = dataclasses.replace(get_arch(name).full_config(), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in [*params["layers"].values(),
+                                *(v for k, v in params.items()
+                                  if k != "layers")])
+    print(f"  {name} full width bf16: {n / 1e9:.3f} B params "
+          f"({2 * n / 1e9:.2f} GB) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory while drawing "
+          f"them {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(n == cfg.n_params(), f"{name}: {n} parameters drawn, the config "
+                               f"counts {cfg.n_params()}")
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    transform = guided_transform(cfg.vocab_size)
+    dense = EngineConfig(default_params=sp)
+    prompts = path_prompts(cfg.vocab_size)[:dense.lanes + 2]
+    row = {"params": n}
+    for ecfg in (dense, dataclasses.replace(dense, kv_layout="paged",
+                                            block_size=PATH_PAGED[5])):
+        got, _, row[ecfg.kv_layout], engine = guided_cell(
+            name, ecfg, cfg, params, transform, prompts, sp,
+            ref_lanes=ecfg.lanes)
+        del engine
+        row[ecfg.kv_layout].update(profile_decode(
+            ecfg, cfg, params, transform, prompts, sp, label=f"{name}, "))
+        if ecfg is dense:
+            outs = got
+    check(got == outs, f"{name}: paged outputs differ from dense")
+    print(f"  {name}: paged outputs equal the dense layout's")
+    row["prefill"] = arch_prefill(name, dense, cfg, params, transform,
+                                  prompts)
+    if name in SAMPLED_ARCHS:
+        row["strategies"] = strategies_cell(name, cfg, params, transform,
+                                            prompts, sp, outs)
+        row["sampled"] = arch_sampled_cell(name, cfg, params)
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {name}: peak memory {row['peak_gb']:.2f} GB")
+    return row
+
+
+def arch_prefill(name, ecfg, cfg, params, transform, prompts):
+    """The cohort prefill at (lanes, prefill_len), captured: its device
+    time and B3's share of it."""
+    from repro_torch.serving.api import build_session_fns
+    B, S = ecfg.lanes, ecfg.prefill_len
+    toks = np.zeros((B, S), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for b, p in enumerate(prompts[:B]):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    fns = build_session_fns(ecfg, cfg, params, logits_transform=transform,
+                            device="cuda")
+    for _ in range(2):           # eager, then captured: outside the window
+        fns.prefill(toks, lens)
+    ms, events, b3 = profiled_ms(lambda i: fns.prefill(toks, lens))
+    print(f"  {name}: cohort prefill ({B}, {S}) device time {ms:.3f} ms "
+          f"({events:.0f} device events), B3 {b3:.3f} ms (share "
+          f"{b3 / ms:.3f}), captured")
+    return dict(device_ms=ms, events=events, b3_ms=b3)
+
+
+def strategies_cell(name, cfg, params, transform, prompts, sp, outs):
+    """(a)'s requests, the first N_PRIMED of them each after a primer: a
+    request whose prompt is that request's prompt followed by the start of
+    its output (a), cut to the prompt pad length.  Served under the
+    default Lookahead config (the serve CLI's: hierarchical, decoding
+    length 32), LLMA's single branch (``llma_config``: branches from the
+    prompts alone, 16 a step) and step by step (``baseline_config``),
+    each on a session of its own tree width, twice (the first run
+    captures).  While a primer is live its prompt holds the walk its
+    partner is generating, so LLMA's prompt-only drafts can verify: LLMA
+    must accept some (EDL above 1).  The outputs must equal across the
+    three; (a)'s requests must give (a)'s outputs, which equal
+    reference_decode, and the primers' must equal reference_decode."""
+    from repro_torch.core import baseline_config, llma_config
+    from repro_torch.core import reference_decode
+    from repro_torch.serving.api import EngineConfig, build_session_fns
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    base = EngineConfig(default_params=sp)
+    requests, primers = [], []
+    for i, p in enumerate(prompts):
+        if i < N_PRIMED:
+            primers.append(len(requests))
+            requests.append((list(p) + outs[i])[:base.prefill_len])
+        requests.append(list(p))
+    rows, first, ref_fns = {}, None, None
+    for label, la in (("lookahead", base.lookahead()),
+                      ("llma", llma_config()),
+                      ("step by step", baseline_config())):
+        ecfg = dataclasses.replace(
+            base, strategy=la.strategy, decoding_length=la.decoding_length,
+            branch_length=la.branch_length)
+        fns = build_session_fns(ecfg, cfg, params,
+                                logits_transform=transform, device="cuda")
+        for _ in range(2):
+            sched = ContinuousScheduler(fns, la, lanes=ecfg.lanes,
+                                        prefill_len=ecfg.prefill_len,
+                                        default_params=sp)
+            got, _, _, tps, edl, fused = serve_counted(sched, requests, sp,
+                                                       {})
+        first = got if first is None else first
+        check(got == first, f"{name}, {label}: outputs differ from the "
+                            "default config's")
+        check([o for i, o in enumerate(got) if i not in primers] == outs,
+              f"{name}, {label}: (a)'s requests differ from (a)'s outputs")
+        st = sched.stats
+        check(st.decode_syncs == st.decode_steps,
+              f"{name}, {label}: {st.decode_syncs} decode syncs for "
+              f"{st.decode_steps} steps")
+        rows[label] = dict(fused_ms=fused, edl=edl, tokens_per_s=tps,
+                           width=ecfg.slots, decode_steps=st.decode_steps)
+        print(f"  {name}, {label} ({la.strategy}, tree width {ecfg.slots}, "
+              f"{len(requests)} requests, {len(primers)} of them primers): "
+              f"median fused_step {fused:.3f} ms, EDL {edl:.3f}, "
+              f"{tps:.1f} tokens/s ({st.decode_steps} decode steps; guided "
+              "model: acceptance is not a real model's)")
+        if label == "llma":
+            check(edl > 1.0, f"{name}: LLMA accepted no draft token")
+        ref_fns = ref_fns or fns        # the default config's session
+        del fns, sched
+    for i in primers:
+        ref = reference_decode(ref_fns, requests[i], params=sp,
+                               lanes=base.lanes)
+        check(first[i] == ref, f"{name}: primer {i} differs from "
+                               "reference_decode (first difference at token "
+                               f"{first_difference(first[i], ref)})")
+    print(f"  {name}: the three strategies' outputs equal each other; (a)'s "
+          f"requests give (a)'s outputs and the {len(primers)} primers "
+          "equal reference_decode")
+    return rows
+
+
+def arch_sampled_cell(name, cfg, params):
+    """Paged, 4 lanes, unguided: 6 requests sampled at temperatures 0.6 to
+    1.5 with their own seeds (two admitted into a lane mid-flight).  Every
+    output must equal reference_decode at the serving batch shape, and
+    the Gumbel-argmax kernel (at this vocabulary, a tail chunk) must run
+    once in each decode step and each prefill, and nowhere else."""
+    from repro_torch.core import reference_decode
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
+    from repro_torch.serving.api import (EngineConfig, ServingEngine,
+                                         build_session_fns)
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=7)
+    prompts = [corpus.sample()[0][:96] for _ in ARCH_TEMPS]
+    sps = [SamplingParams(max_new_tokens=MAX_NEW, sample=True,
+                          temperature=t, seed=300 + i)
+           for i, t in enumerate(ARCH_TEMPS)]
+    ecfg = EngineConfig(kv_layout="paged", block_size=PATH_PAGED[5])
+    fns = build_session_fns(ecfg, cfg, params, device="cuda")
+    counting, calls = counted_calls(fns, ("prefill", "prefill_into_slot"))
+    engine = ServingEngine(counting, ecfg)
+    outs, launches, wall, tps, edl, fused = serve_counted(
+        engine.scheduler, prompts, sps, {"gumbel_argmax": gumbel_argmax})
+    st = engine.stats
+    n_prefill = sum(calls.values())
+    print(f"  {name}, sampled paged (temperatures {ARCH_TEMPS}): "
+          f"{sum(map(len, outs))} tokens in {wall:.3f} s -> {tps:.1f} "
+          f"tokens/s; EDL {edl:.3f}; {st.decode_steps} decode steps, "
+          f"median fused_step {fused:.3f} ms; prefill calls {calls}; "
+          f"launches {launches}")
+    check(calls["prefill_into_slot"] > 0,
+          f"{name} sampled: no request was admitted into a lane ({calls})")
+    check(launches["gumbel_argmax"] == st.decode_steps + n_prefill,
+          f"{name} sampled: gumbel_argmax launched "
+          f"{launches['gumbel_argmax']} times for {st.decode_steps} steps "
+          f"and {n_prefill} prefills")
+    check(st.decode_syncs == st.decode_steps,
+          f"{name} sampled: {st.decode_syncs} decode syncs for "
+          f"{st.decode_steps} steps")
+    check(all(len(o) == MAX_NEW for o in outs), f"{name}: short outputs")
+    for i, (p, sp, o) in enumerate(zip(prompts, sps, outs)):
+        ref = reference_decode(fns, list(p), params=sp, lanes=ecfg.lanes)
+        check(o == ref, f"{name} sampled, request {i}: served output "
+                        "differs from reference_decode at the serving shapes"
+                        f" (first difference at token "
+                        f"{first_difference(o, ref)})")
+    print(f"  {name} sampled: all {len(prompts)} outputs equal "
+          f"reference_decode(..., lanes={ecfg.lanes})")
+    return dict(fused_ms=fused, tokens_per_s=tps, edl=edl,
+                decode_steps=st.decode_steps, launches=launches)
 
 
 # --------------------------------------------------------------- recsys
@@ -2692,7 +3081,7 @@ def recsys_phase(gen):
 
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
-          "sampled", "overlap", "graphs", "long_prompt")
+          "sampled", "overlap", "graphs", "long_prompt", "archs")
 
 
 def main(argv=None) -> int:
@@ -2732,6 +3121,12 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(_build.SOURCES))})")
     sass_phase(_build)
+    # torch.profiler's first window in a process leaves a reference cycle
+    # that holds its caller's frames: open it here, not under a phase whose
+    # sessions it would keep on the card until the cycle collector runs
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2803,6 +3198,21 @@ def main(argv=None) -> int:
         print(f"long prompt, dense layout, prefill_len {LONG_PREFILL}:")
         long_prompt_phase(cfg, params)
         phase_done("long_prompt")
+    if "archs" in phases:
+        print("the other dense LMs at full width, bf16:")
+        del cfg, params
+        for name, arch in archs_phase().items():
+            for kern, n in (
+                    ("tree_attention", arch["dense"]["launches"]
+                     ["tree_attention"]),
+                    ("paged_tree_attention", arch["paged"]["launches"]
+                     ["paged_tree_attention"]),
+                    ("flash_prefill",
+                     arch["dense"]["launches"]["flash_prefill"]
+                     + arch["paged"]["launches"]["flash_prefill"])):
+                if name in rows.get(kern, {}).get("archs", {}):
+                    rows[kern]["archs"][name]["launches"] = n
+        phase_done("archs")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

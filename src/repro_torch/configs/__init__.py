@@ -1,19 +1,29 @@
-"""Architecture configs the port runs, by name (``get_arch``): the LM the
-serving path decodes and the four recommender archs it scores."""
+"""Architecture configs the port runs, by name (``get_arch``): the dense
+LMs the serving path decodes and the four recommender archs it scores.
+The reference's other archs raise, naming the ROADMAP item that ports
+them."""
 from __future__ import annotations
 
 import importlib
 
-ARCHS = {"qwen2-1.5b": "qwen2_1_5b", "wide-deep": "wide_deep",
+ARCHS = {"qwen2-1.5b": "qwen2_1_5b", "antglm-10b": "antglm_10b",
+         "phi3-mini-3.8b": "phi3_mini_3_8b",
+         "phi3-medium-14b": "phi3_medium_14b", "wide-deep": "wide_deep",
          "two-tower-retrieval": "two_tower_retrieval", "sasrec": "sasrec",
          "bert4rec": "bert4rec"}
+NOT_YET_PORTED = {"qwen3-moe-30b-a3b": "A15, the MoE FFN",
+                  "moonshot-v1-16b-a3b": "A15, the MoE FFN",
+                  "equiformer-v2": "A18, the GNN"}
 
 
 def get_arch(name: str):
-    mod = ARCHS.get(name.replace("_", "-"))
+    key = name.replace("_", "-")
+    mod = ARCHS.get(key)
     if mod is None:
-        raise KeyError(f"arch {name!r} is not yet ported; have "
-                       f"{sorted(ARCHS)}")
+        item = NOT_YET_PORTED.get(key)
+        raise KeyError(f"arch {name!r} is not yet ported"
+                       + (f" (ROADMAP {item})" if item else "")
+                       + f"; have {sorted(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -11,6 +11,7 @@ from .request import (GenStats, Request, RequestResult, RequestState,
                       SamplingParams, StepFns, build_draft_tree,
                       cache_token_limit, idle_tree, trie_admit, trie_retire,
                       trie_stream)
+from .single_branch import baseline_config, llma_config
 from .strategies import LookaheadConfig
 from .trie import TrieForest, TrieTree
 from .verify import verify_accept, verify_accept_batch
@@ -20,7 +21,8 @@ __all__ = [
     "build_single", "repad", "GenStats", "LookaheadEngine", "Request",
     "RequestResult", "RequestState", "SamplingParams", "StepFns",
     "build_draft_tree", "cache_token_limit", "idle_tree", "trie_admit",
-    "trie_retire", "trie_stream", "reference_decode", "LookaheadConfig", "TrieTree", "TrieForest",
+    "trie_retire", "trie_stream", "reference_decode", "baseline_config",
+    "llma_config", "LookaheadConfig", "TrieTree", "TrieForest",
     "verify_accept", "verify_accept_batch",
     "AdaptiveBudget", "DraftPolicy", "DraftSource", "NgramSource",
     "PromptCopySource", "TrieSource", "available_sources",

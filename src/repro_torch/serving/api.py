@@ -229,13 +229,10 @@ class RequestHandle:
         self.rid = state.rid
         self._tokens: List[int] = []
         self._result: Optional[RequestResult] = None
-        self._callbacks: List[Callable[[List[int]], None]] = []
 
-    # ---- scheduler-side plumbing
+    # ---- scheduler-side plumbing (the scheduler fires the callbacks)
     def _push(self, delta: List[int]) -> None:
         self._tokens.extend(delta)
-        for cb in self._callbacks:
-            cb(list(delta))
 
     def _finalize(self, result: RequestResult) -> None:
         self._result = result
@@ -259,7 +256,9 @@ class RequestHandle:
         replayed immediately so late registration never drops output."""
         if self._tokens:
             callback(list(self._tokens))
-        self._callbacks.append(callback)
+        if self._result is None:
+            self._scheduler.callbacks.setdefault(self.rid, []).append(
+                callback)
 
     def _pump(self) -> None:
         if self._scheduler.idle:

@@ -64,8 +64,10 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from collections import deque
-from typing import TYPE_CHECKING, Deque, Dict, List, Optional, Sequence
+from typing import (TYPE_CHECKING, Callable, Deque, Dict, List,
+                    MutableMapping, Optional, Sequence)
 
 import numpy as np
 import torch
@@ -340,7 +342,14 @@ class ContinuousScheduler:
         self.lens = np.zeros((self.lanes,), dtype=np.int32)
         self.states: List[Optional[RequestState]] = [None] * self.lanes
         self.results: Dict[int, RequestResult] = {}
-        self.handles: Dict[int, "RequestHandle"] = {}
+        # a live request's handle is held weakly, so that a caller who drops
+        # it (or the whole engine) with the request in flight leaves no
+        # cycle (handle -> scheduler -> handle) that keeps the session, its
+        # KV cache and graphs on the card until the cycle collector runs;
+        # its on_token callbacks are held here and fire all the same
+        self.handles: MutableMapping[int, "RequestHandle"] = \
+            weakref.WeakValueDictionary()
+        self.callbacks: Dict[int, List[Callable[[List[int]], None]]] = {}
         self._order: List[int] = []
         self.next_rid = int(rid_start)
         self.stats = SchedulerStats(self.lanes)
@@ -1133,6 +1142,8 @@ class ContinuousScheduler:
         h = self.handles.get(rs.rid)
         if h is not None:
             h._push(list(delta))
+        for cb in self.callbacks.get(rs.rid, ()):
+            cb(list(delta))
 
     # ----------------------------------------------------------------- cancel
     def cancel(self, rid: int) -> bool:
@@ -1157,6 +1168,7 @@ class ContinuousScheduler:
                     self.results[rid] = res
                     nst = self.stats.ns(rs.draft.namespace)
                     nst.cancelled += 1
+                    self.callbacks.pop(rid, None)
                     h = self.handles.pop(rid, None)
                     if h is not None:
                         h._finalize(res)
@@ -1314,6 +1326,7 @@ class ContinuousScheduler:
             self.autotuner.observe(rs.draft.namespace,
                                    rs.stats.source_drafted,
                                    rs.stats.source_accepted)
+        self.callbacks.pop(rs.rid, None)
         h = self.handles.pop(rs.rid, None)   # pop: a long-running server
         if h is not None:                    # must not accrete dead handles
             h._finalize(res)

@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +56,7 @@ from repro_torch.serving.sampler import (choose_tokens_lanes, greedy_choice,
 
 MAX_GRAPHS = 4        # graphs a member keeps (least recently used dropped)
 _SEEN = object()      # a key's first call ran eagerly; the next captures
+_CACHE = object()     # where a captured body returned the caller's cache
 
 
 def _signature(x: Any):
@@ -82,16 +84,28 @@ def _index(i) -> torch.Tensor:
     return torch.tensor([int(i)], dtype=torch.int32)
 
 
-def _fresh(x, view, cache):
+def _unview(x, view):
+    """A captured body's outputs with the cache dict it was given replaced
+    by ``_CACHE``: the graph keeps no reference to the caller's cache."""
+    if view is not None and x is view:
+        return _CACHE
+    if isinstance(x, dict):
+        return {k: _unview(v, view) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_unview(v, view) for v in x)
+    return x
+
+
+def _fresh(x, cache):
     """A captured call's outputs for its caller: the cache the graph
     updated in place is the caller's own dict; every other tensor is a
     copy of the graph's static output, which the next replay overwrites."""
-    if view is not None and x is view:
+    if x is _CACHE:
         return cache
     if isinstance(x, dict):
-        return {k: _fresh(v, view, cache) for k, v in x.items()}
+        return {k: _fresh(v, cache) for k, v in x.items()}
     if isinstance(x, tuple):
-        return tuple(_fresh(v, view, cache) for v in x)
+        return tuple(_fresh(v, cache) for v in x)
     if isinstance(x, torch.Tensor):
         return x.clone()
     return x
@@ -100,12 +114,12 @@ def _fresh(x, view, cache):
 @dataclasses.dataclass
 class _Graph:
     """One captured call: the graph, the static buffers it reads (inputs,
-    and the paged block table), its static outputs (``view`` is the cache
-    dict the body was given) and the kernel launches it replays."""
+    and the paged block table), its static outputs (``_CACHE`` where the
+    body returned the cache dict it was given) and the kernel launches it
+    replays."""
     graph: Any
     inputs: Tuple[torch.Tensor, ...]
     table: Optional[torch.Tensor]
-    view: Optional[dict]
     out: Any
     launches: Dict[str, int]
 
@@ -129,14 +143,20 @@ class _Member:
     a table changes, so each replay first copies the current one into the
     graph's own, on the stream, after its upload.  A body that cannot be
     captured (it syncs, or calls what capture forbids) raises; nothing
-    falls back to eager on the card.  A graph holds the cache tensors it
-    writes (``_Graph.view``), so their storage, part of its key, cannot be
-    reused by another tensor while the graph lives.
+    falls back to eager on the card.  A key holds the cache tensors the
+    graph writes only weakly: once one of them is gone the key is dropped
+    at the member's next call, before its storage, part of the key, can
+    key another cache's call, and a graph never keeps a dead session's KV
+    cache in memory.
 
     Capture does not sync the host: it runs on ``stream`` after a
     stream-ordered ``wait_stream``, not under ``torch.cuda.graph``, whose
     entry synchronises the device to free memory, so a capture may happen
-    inside the serving loop's no-sync window.  Kernel launch counters are set back
+    inside the serving loop's no-sync window.  For the same reason the
+    allocator cannot hand its cached free blocks back to the card while a
+    capture is under way (``torch.cuda.graph`` empties the cache on entry):
+    a capture that runs out of memory empties the cache (outside the
+    capture) and captures once more.  Kernel launch counters are set back
     after a capture (nothing ran) and advanced by the captured launches on
     every replay (``repro_torch.kernels.add``)."""
 
@@ -163,25 +183,38 @@ class _Member:
         return len(self._sigs)
 
     def _n_graphs(self) -> int:
-        return sum(isinstance(g, _Graph) for g in self._graphs.values())
+        return sum(isinstance(g, _Graph) for _, g in self._graphs.values())
 
     def _captured(self, cache, inputs):
+        written = () if cache is None else tuple(
+            t for n, t in sorted(cache.items()) if n != "block_tables")
         key = (tuple((tuple(x.shape), x.dtype) for x in inputs),
-               _signature(cache),
-               None if cache is None else tuple(
-                   t.data_ptr() for n, t in sorted(cache.items())
-                   if n != "block_tables"))
-        g = self._graphs.pop(key, None)
-        self._graphs[key] = _SEEN if g is None else g     # most recent last
+               _signature(cache), tuple(t.data_ptr() for t in written))
+        for k in [k for k, (refs, _) in self._graphs.items()
+                  if any(r() is None for r in refs)]:
+            del self._graphs[k]       # its cache is gone
+        _, g = self._graphs.pop(key, (None, None))
+        refs = tuple(weakref.ref(t) for t in written)
+        self._graphs[key] = (refs, _SEEN if g is None else g)  # recent last
         while len(self._graphs) > MAX_GRAPHS:
             del self._graphs[next(iter(self._graphs))]
         if g is None:
             return self._body(cache, *(self._put(x) for x in inputs))
         if g is _SEEN:          # a capture that fails raises on every call
-            g = self._graphs[key] = self._capture(cache, inputs)
+            g = self._capture(cache, inputs)
+            self._graphs[key] = (refs, g)
         return self._replay(g, cache, inputs)
 
     def _capture(self, cache, inputs) -> _Graph:
+        try:
+            return self._capture_once(cache, inputs)
+        except RuntimeError as exc:
+            if not isinstance(exc.__cause__, torch.cuda.OutOfMemoryError):
+                raise
+        torch.cuda.empty_cache()
+        return self._capture_once(cache, inputs)
+
+    def _capture_once(self, cache, inputs) -> _Graph:
         dev = self._stream.device
         reserved = torch.cuda.memory_reserved(dev)
         static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev)
@@ -212,7 +245,7 @@ class _Member:
         kernels.add(launches, -1)
         self.captures.append((time.perf_counter() - t0,
                               torch.cuda.memory_reserved(dev) - reserved))
-        return _Graph(graph, static, table, view, out, launches)
+        return _Graph(graph, static, table, _unview(out, view), launches)
 
     def _replay(self, g: _Graph, cache, inputs):
         for buf, x in zip(g.inputs, inputs):
@@ -223,7 +256,7 @@ class _Member:
             g.table.copy_(cache["block_tables"], non_blocking=True)
         g.graph.replay()
         kernels.add(g.launches)
-        return _fresh(g.out, g.view, cache)
+        return _fresh(g.out, cache)
 
 
 def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,

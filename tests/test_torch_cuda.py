@@ -18,6 +18,9 @@ EmbeddingBag kernel equals its plain version bit for bit, NaN in the same
 places (ids out of range, Inf or NaN rows): both add the rounded f32
 products in l order from 0 and round once.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -852,10 +855,131 @@ def test_counters_after_replays_equal_captured_launches(graph_lm):
     ran = kernels.diff(kernels.snapshot(), before)
     assert ran == {"tree_attention": n * cfg.n_layers, "gumbel_argmax": n}
     from repro_torch.serving.session import _Graph
-    (g,) = [g for g in fns.fused_step._graphs.values()
+    (g,) = [g for _, g in fns.fused_step._graphs.values()
             if isinstance(g, _Graph)]
     assert g.launches == {"tree_attention": cfg.n_layers, "gumbel_argmax": 1}
     assert fns.fused_step.captures and fns.fused_step.captures[0][1] >= 0
+
+
+def _graph_steps(fns, seed):
+    """A cohort prefill and four fused steps on a fresh cache (the second
+    step captures); returns the cache."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(2, GRAPH_V, (GRAPH_LANES, GRAPH_S)).astype(np.int32)
+    lens = np.full((GRAPH_LANES,), 30, np.int32)
+    cache, _ = fns.prefill(toks, lens)
+    for _ in range(4):
+        cache, _ = fns.fused_step(cache, lens, *_draft(rng, lens))
+    torch.cuda.synchronize()
+    return cache
+
+
+def test_graph_frees_a_dropped_cache_without_the_cycle_collector(graph_lm):
+    """With the cycle collector off, a cache that the caller drops is freed
+    although a graph was captured on it, and the member's next call drops
+    that graph's key."""
+    fns = _graph_fns(graph_lm, "dense", "greedy", True)
+    gc.collect()
+    gc.disable()
+    try:
+        cache = _graph_steps(fns, 6)
+        assert fns.fused_step._n_graphs() == 1
+        k = weakref.ref(cache["k"])
+        held = torch.cuda.memory_allocated()
+        nbytes = sum(t.numel() * t.element_size() for t in cache.values())
+        del cache
+        assert k() is None
+        assert held - torch.cuda.memory_allocated() >= nbytes
+        _graph_steps(fns, 7)
+        assert fns.fused_step._n_graphs() == 1
+    finally:
+        gc.enable()
+
+
+def _captured_session(graph_lm, layout):
+    """A mixed session on ``layout`` that has captured a graph on a cache
+    and still holds it; returns the session."""
+    fns = _graph_fns(graph_lm, layout, "mixed", True)
+    if layout == "dense":
+        cache = _graph_steps(fns, 8)
+        assert fns.fused_step._n_graphs() == 1
+    else:
+        toks = np.ones((GRAPH_LANES, GRAPH_S), np.int32)
+        lens = np.full((GRAPH_LANES,), 30, np.int32)
+        tables = np.arange(1, 1 + GRAPH_LANES * 16, dtype=np.int32).reshape(
+            GRAPH_LANES, 16)
+        cache, _ = fns.prefill(toks, lens, tables)
+        fns.prefill(toks, lens, cache["block_tables"])
+        assert fns.prefill._n_graphs() == 1
+    del cache
+    torch.cuda.synchronize()
+    return fns
+
+
+def test_dropped_session_frees_its_graphs_without_the_cycle_collector(
+        graph_lm):
+    """With the cycle collector off, dropping a captured session and its
+    caches gives back every byte it allocated (cuBLAS's per-stream
+    workspaces aside, cleared on both sides; one session of each layout
+    runs first, for what torch and the kernels set up once a process),
+    and emptying the cache hands its graphs' pools back to the card."""
+    for layout in ("dense", "paged"):
+        _captured_session(graph_lm, layout)
+    gc.collect()
+    gc.disable()
+    try:
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        for layout in ("dense", "paged", "dense", "paged"):
+            fns = _captured_session(graph_lm, layout)
+            assert torch.cuda.memory_allocated() > base
+            del fns
+            torch._C._cuda_clearCublasWorkspaces()
+            assert torch.cuda.memory_allocated() == base, layout
+            torch.cuda.empty_cache()
+            assert torch.cuda.memory_reserved() <= reserved, layout
+    finally:
+        gc.enable()
+
+
+def test_capture_out_of_memory_empties_the_cache_and_captures_again(cuda):
+    """The allocator cannot give its cached free blocks back to the card
+    while a capture is under way: a member whose capture needs memory
+    that only the cache holds empties the cache and captures once more,
+    then replays."""
+    from repro_torch.serving.session import _Member
+    n = 2 << 30
+
+    def body(cache, x):
+        big = torch.empty(n, dtype=torch.uint8, device=x.device)
+        big.fill_(1)
+        return x + big[:4].int()
+
+    def stage(x):
+        return None, (torch.from_numpy(np.asarray(x, np.int32)),)
+
+    def hog():
+        """Leave under 1 GiB free on the card, the rest in the cache."""
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        t = torch.empty(free - (1 << 30), dtype=torch.uint8, device=cuda)
+        del t
+        assert torch.cuda.mem_get_info()[0] < n
+
+    m = _Member("big", body, stage, put=lambda t: t.cuda(),
+                stream=torch.cuda.Stream())
+    try:
+        assert m(np.arange(4)).tolist() == [1, 2, 3, 4]       # eager
+        hog()
+        assert m(np.arange(4) + 1).tolist() == [2, 3, 4, 5]   # captures
+        assert m._n_graphs() == 1
+        hog()
+        assert m(np.arange(4) + 2).tolist() == [3, 4, 5, 6]   # replays
+    finally:
+        del m
+        torch.cuda.empty_cache()
 
 
 def test_b4_persistent_launch_captured_and_replayed_equals_eager(cuda):

@@ -19,6 +19,7 @@ counter registry, and the session's graph-cache policy.
     the JAX session's on the same workload.
 """
 import dataclasses
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -247,7 +248,7 @@ class _Stub:
         if self.fail:
             raise RuntimeError("cannot capture")
         self.log.append("capture")
-        return session._Graph(None, (), None, None, None, {})
+        return session._Graph(None, (), None, None, {})
 
     def replay(self, g, cache, inputs):
         self.log.append("replay")
@@ -298,6 +299,29 @@ def test_graph_cache_keeps_at_most_max_graphs():
     assert stub.log.count("capture") == session.MAX_GRAPHS + 1
     assert m(caches[-1], 0) == "replayed"          # kept
     assert m(caches[0], 0) == "eager"              # dropped: eager again
+
+
+def test_graph_cache_holds_no_cache_and_drops_its_key_when_it_dies():
+    """A graph keeps no strong reference to the cache it writes: once the
+    caller drops that cache its tensors are freed, and the member's next
+    call drops the key, so a later cache (even at the same storage) runs
+    eagerly first and never replays a graph written for the dead one."""
+    m, ran = _member()
+    stub = _Stub(m)
+    cache = {"k": torch.zeros(4), "v": torch.zeros(4),
+             "block_tables": torch.zeros(2, dtype=torch.int32)}
+    assert [m(cache, i) for i in range(3)] == ["eager", "replayed",
+                                               "replayed"]
+    k = weakref.ref(cache["k"])
+    del cache
+    assert k() is None
+    assert m._n_graphs() == 1                 # not yet pruned
+    other = {"k": torch.zeros(4), "v": torch.zeros(4),
+             "block_tables": torch.zeros(2, dtype=torch.int32)}
+    assert m(other, 5) == "eager" and ran == [0, 5]
+    assert m._n_graphs() == 0 and len(m._graphs) == 1
+    assert m(other, 6) == "replayed" and m._n_graphs() == 1
+    assert stub.log == ["capture", "replay", "replay", "capture", "replay"]
 
 
 def test_graph_cache_failed_capture_raises_every_call():

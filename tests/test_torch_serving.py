@@ -165,6 +165,46 @@ def test_fused_path_one_sync_per_step_and_fixed_shapes():
     assert all(len(o) == 12 for o in outs)
 
 
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_engine_dropped_in_flight_is_freed_without_the_cycle_collector(
+        layout):
+    """An engine dropped with requests queued and in flight (and their
+    handles with it) is freed at once, with the cycle collector off: no
+    handle -> scheduler -> handle cycle keeps its session (on the card,
+    its KV cache and captured graphs) alive.  A callback registered on a
+    handle that its caller then drops still streams every token."""
+    import gc
+    import weakref
+    tcfg = ttx.TransformerConfig(n_layers=1, d_model=32, n_heads=4,
+                                 n_kv_heads=2, d_ff=64, vocab_size=128,
+                                 max_seq_len=160, kv_block_size=16)
+    tp = init_params(tcfg, seed=8, device="cpu")
+    ecfg = tapi.EngineConfig(**ECFG, kv_layout=layout, block_size=16)
+    prompts = _prompts(5, tcfg.vocab_size, seed=9)   # 5 requests, 2 lanes
+    gc.collect()
+    gc.disable()
+    try:
+        eng = tapi.build_engine(ecfg, tcfg, tp, device="cpu")
+        handles = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        for _ in range(3):
+            eng.step()
+        assert not eng.idle and len(eng.scheduler.handles) == 5
+        sched, cache = weakref.ref(eng.scheduler), weakref.ref(
+            eng.scheduler.cache["k"])
+        del eng, handles
+        assert sched() is None and cache() is None
+    finally:
+        gc.enable()
+    eng = tapi.build_engine(ecfg, tcfg, tp, device="cpu")
+    streamed = {}
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new_tokens=12).on_token(
+            lambda d, i=i: streamed.setdefault(i, []).extend(d))
+    results = eng.run()
+    assert [streamed[i] for i in range(5)] == [r.tokens for r in results]
+    assert not eng.scheduler.handles and not eng.scheduler.callbacks
+
+
 def test_lockstep_loop_matches_reference():
     """The legacy lock-step loop (tree_step + host verify + commit) on the
     port's step functions gives the same tokens as reference_decode."""
@@ -312,3 +352,19 @@ def test_serve_cli_smoke_on_cpu():
         assert proc.returncode == 2, flag
         name = flag.split("=")[0]
         assert f"{name}: not yet ported" in proc.stderr, flag
+
+
+@pytest.mark.parametrize("arch", ["antglm-10b", "phi3-mini-3.8b",
+                                  "phi3-medium-14b"])
+def test_serve_cli_smoke_on_cpu_other_archs(arch):
+    """The serve CLI on the reference's other dense LMs at smoke size:
+    the same tokens line and one sync a decode step."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", "--arch", arch, "--requests", "3", "--max-new",
+         "6"], capture_output=True, text=True, env=env, cwd=str(REPO),
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "continuous [cpu]: 18 tokens / 3 requests" in proc.stdout
+    assert "1.0 sync/step" in proc.stdout
