@@ -86,6 +86,25 @@ Phases, in order; any failure exits non-zero:
    share, device kernels and host launch calls a step), each member's
    capture time and graph pool memory, and the prefill's device time with
    the prefix cache on and off;
+8c. fleet: two in-process replicas behind the namespace-affinity router
+   (two namespaces, a queue depth that makes one spill, gossip every two
+   rounds) serve the guided dense cell: outputs equal one engine's and
+   ``reference_decode`` at the serving batch shape, B1 launches once a
+   layer a decode step summed over both replicas; the serve CLI with
+   ``--replicas 2 --verify-fleet --warm-state`` on the paged layout with
+   the prefix cache; its warm-state file loaded into a fresh paged engine
+   gives prefix hits on the first requests that share a persisted prefix,
+   with the outputs of an engine without it; a replica in a spawned
+   process builds its engine on the card and gives the in-process
+   replica's tokens, and closing it ends the child and frees its memory;
+   the fleet's tokens/s beside one engine's, cold and warm, with and
+   without gossip (a finding);
+8d. sanitize: the guided paged cell with the prefix cache and the mixed
+   sampled paged cell, both scrubbing freed blocks, served without and
+   with the runtime sanitizer: equal outputs, a clean idle audit, the
+   poison probe run on scrubbed blocks, and a write planted into a freed,
+   scrubbed block raising at the next admission; the median fused_step
+   each way (the sanitizer's cost, a finding);
 9. the long prompt: the dense main path at ``prefill_len`` 4096 with two
    requests of about 4,000 tokens; outputs equal ``reference_decode``, B3
    launches once a layer per prefill, one pull per decode step; the
@@ -2385,6 +2404,367 @@ def graphs_phase(cfg, params):
         del fns, cache
 
 
+# --------------------------------------------------------------- fleet
+FLEET_NS = ("docs", "code")     # homes r1 and r0 on a 2-replica ring
+FLEET_QUEUE_DEPTH = 3           # the hot namespace's home fills and spills
+FLEET_GOSSIP_EVERY = 2
+N_SUBPROCESS = 4                # requests served by the spawned replica
+
+
+def fleet_engine():
+    """The fleet phase's replica: Qwen2-1.5B at full width in bf16 with
+    weights from seed 0, guided, captured members, the serve CLI's
+    defaults.  A module-level function, so that a spawned replica can
+    unpickle it and build the engine in its own process; the device is left
+    at None (the card: it raises without one)."""
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.api import EngineConfig, build_engine
+    cfg = dataclasses.replace(full_config(), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    return build_engine(
+        EngineConfig(default_params=SamplingParams(max_new_tokens=MAX_NEW)),
+        cfg, init_params(cfg, seed=0), logits_transform=guided_transform(
+            cfg.vocab_size))
+
+
+def fleet_requests(vocab):
+    """The guided cells' 8 prompts in two namespaces, unevenly (6 and 2),
+    each request drafting from its namespace's trie."""
+    from repro_torch.core import DraftPolicy
+    from repro_torch.core.request import SamplingParams
+    ns = [FLEET_NS[0] if i % 4 else FLEET_NS[1] for i in range(N_REQUESTS)]
+    return path_prompts(vocab), [
+        SamplingParams(max_new_tokens=MAX_NEW,
+                       draft=DraftPolicy(namespace=n).validate())
+        for n in ns]
+
+
+def drive_fleet(router, gossip, prompts, sps):
+    """Submit every request at once, then step the fleet and tick gossip
+    until it is idle; returns (these requests' outputs in submission
+    order, wall s, s spent in gossip ticks)."""
+    torch.cuda.synchronize()
+    n0 = len(router.placements)
+    t_gossip = 0.0
+    t0 = time.perf_counter()
+    for p, sp in zip(prompts, sps):
+        router.submit(p, sp)
+    while not router.idle:
+        router.step_all()
+        t1 = time.perf_counter()
+        gossip.tick()
+        t_gossip += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [router.result(i)["tokens"]
+            for i in range(n0, len(router.placements))], wall, t_gossip
+
+
+def fleet_phase(cfg, params):
+    """Fleet serving (``repro_torch.fleet``) at full width, guided, on
+    captured members.  (a) Two in-process replicas behind the affinity
+    router, two namespaces, a queue depth that makes the hot namespace
+    spill, gossip every 2 rounds: every output equals one engine's and
+    reference_decode at the serving batch shape, and B1 launches 28 times
+    a decode step summed over both replicas (the counters are per
+    process).  Each side then serves the requests again, its graphs
+    captured and its tries warm, for the tokens/s finding, and a fleet
+    without gossip serves them twice.  (b) The
+    serve CLI with --replicas 2 --verify-fleet
+    --warm-state --sanitize on the paged layout with the prefix cache.
+    (c) That warm-state file loads into a fresh paged engine with the
+    prefix cache on: its first requests that share a persisted prefix hit
+    the cache, and their outputs equal an engine's without warm state.
+    (d) One
+    replica in a spawned process builds its engine on the card and serves
+    4 requests with the in-process replica's tokens; closing it ends the
+    child and frees its memory.  Tokens/s of the fleet beside one
+    engine's are a finding."""
+    from repro_torch.core import reference_decode
+    from repro_torch.core.request import Request
+    from repro_torch.fleet import (EngineReplica, FleetRouter,
+                                   GossipCoordinator, load_draft_state)
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.tree_attention.ops import tree_attention
+    from repro_torch.kernels.tree_attention.paged import paged_tree_attention
+    from repro_torch.launch import serve
+    from repro_torch.serving.api import EngineConfig, build_engine
+    from repro_torch.core.request import SamplingParams
+
+    L = cfg.n_layers
+    transform = guided_transform(cfg.vocab_size)
+    ecfg = EngineConfig(default_params=SamplingParams(max_new_tokens=MAX_NEW))
+    prompts, sps = fleet_requests(cfg.vocab_size)
+
+    def builder():
+        return build_engine(ecfg, cfg, params, logits_transform=transform,
+                            device="cuda")
+
+    # (a) one engine, then the 2-replica fleet on the same requests
+    single = builder()
+    outs, _, wall1, tps1, edl1, fused1 = serve_counted(
+        single.scheduler, prompts, sps, {})
+    print(f"  one engine, {len(prompts)} requests in 2 namespaces: "
+          f"{sum(map(len, outs))} tokens in {wall1:.3f} s -> {tps1:.1f} "
+          f"tokens/s; EDL {edl1:.3f}; {single.stats.decode_steps} decode "
+          f"steps, median fused_step {fused1:.3f} ms")
+    replicas = [EngineReplica(builder, replica_id=f"r{i}") for i in range(2)]
+    router = FleetRouter(replicas, policy="affinity",
+                         max_queue_depth=FLEET_QUEUE_DEPTH)
+    gossip = GossipCoordinator(replicas, every=FLEET_GOSSIP_EVERY)
+    for fn in (tree_attention, paged_tree_attention, flash_prefill):
+        fn.launches = 0
+    fleet_outs, wall2, t_gossip = drive_fleet(router, gossip, prompts, sps)
+    launches = {n: fn.launches for n, fn in (
+        ("tree_attention", tree_attention),
+        ("paged_tree_attention", paged_tree_attention),
+        ("flash_prefill", flash_prefill))}
+    fs = router.fleet_stats()
+    steps = [int(s["decode_steps"]) for s in fs.replicas]
+    n_tok = sum(map(len, fleet_outs))
+    print(f"  fleet, 2 in-process replicas (affinity, queue depth "
+          f"{FLEET_QUEUE_DEPTH}, gossip every {FLEET_GOSSIP_EVERY}): "
+          f"{n_tok} tokens in {wall2:.3f} s -> {n_tok / wall2:.1f} tokens/s "
+          f"({n_tok / wall2 / tps1:.3f} of one engine's); routed "
+          f"{fs.routed} ({fs.affinity_hits} at home, {fs.spills} spilled), "
+          f"{gossip.exchanges} gossip exchanges in {t_gossip * 1e3:.1f} ms; "
+          f"decode steps {steps}; "
+          f"finished {[s['finished'] for s in fs.replicas]}; trie nodes "
+          f"{[s['trie_nodes'] for s in fs.replicas]}; launches {launches}")
+    for ns, accs in sorted(fs.source_acceptance().items()):
+        print(f"    acceptance [{ns}]: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(accs.items())))
+    check(fs.spills >= 1, f"no request spilled at queue depth "
+                          f"{FLEET_QUEUE_DEPTH}: {fs.ns_routed}")
+    check(gossip.exchanges >= 1, "gossip never ran")
+    check(all(n > 0 for n in steps), f"a replica never stepped: {steps}")
+    check(launches["tree_attention"] == L * sum(steps) > 0,
+          f"tree_attention launched {launches['tree_attention']} times for "
+          f"{sum(steps)} decode steps x {L} layers over both replicas")
+    check(launches["paged_tree_attention"] == 0,
+          f"paged_tree_attention launched on the dense fleet: {launches}")
+    check(fleet_outs == outs, "fleet outputs differ from one engine's: "
+          + str([first_difference(a, b) for a, b in zip(fleet_outs, outs)]))
+    for i, (p, sp, o) in enumerate(zip(prompts, sps, outs)):
+        ref = reference_decode(single.fns, list(p), params=sp,
+                               lanes=ecfg.lanes)
+        check(o == ref, f"fleet request {i} differs from reference_decode "
+                        f"(first difference at {first_difference(o, ref)})")
+    print(f"  all {len(prompts)} fleet outputs equal one engine's and "
+          f"reference_decode(..., lanes={ecfg.lanes})")
+    # the same requests again on each side, graphs captured, tries warm
+    outs2, _, wall1, tps1, edl1, fused1 = serve_counted(
+        single.scheduler, prompts, sps, {})
+    n_ex = gossip.exchanges
+    fleet2, wall2, t_gossip = drive_fleet(router, gossip, prompts, sps)
+    check(outs2 == outs and fleet2 == outs, "a second pass changed outputs")
+    n_tok = sum(map(len, outs))
+    n_ex = gossip.exchanges - n_ex
+    steps = [int(s["decode_steps"]) - n for s, n in
+             zip(router.fleet_stats().replicas, steps)]
+    print(f"  second pass, warm: one engine {tps1:.1f} tokens/s ({wall1:.3f} "
+          f"s, EDL {edl1:.3f}, median fused_step {fused1:.3f} ms); fleet "
+          f"{n_tok / wall2:.1f} tokens/s ({wall2:.3f} s, "
+          f"{n_tok / wall2 / tps1:.3f} of one engine's, decode steps "
+          f"{steps}), {n_ex} gossip exchanges in {t_gossip * 1e3:.1f} ms "
+          f"({t_gossip * 1e3 / max(n_ex, 1):.2f} ms each)")
+    router.close()
+    # the same two passes through a fleet without gossip (ROADMAP §C:
+    # gossip during serving keeps the tries cold)
+    quiet = [EngineReplica(builder, replica_id=f"r{i}") for i in range(2)]
+    qrouter = FleetRouter(quiet, policy="affinity",
+                          max_queue_depth=FLEET_QUEUE_DEPTH)
+    qsteps = []
+    for _ in range(2):
+        before = [int(s["decode_steps"])
+                  for s in qrouter.fleet_stats().replicas]
+        q_outs, q_wall, _ = drive_fleet(
+            qrouter, GossipCoordinator(quiet, every=0), prompts, sps)
+        check(q_outs == outs, "the fleet without gossip changed outputs")
+        qsteps.append([int(s["decode_steps"]) - b for s, b in
+                       zip(qrouter.fleet_stats().replicas, before)])
+    print(f"  without gossip: decode steps {qsteps[0]} then {qsteps[1]}; "
+          f"second pass {n_tok / q_wall:.1f} tokens/s "
+          f"({n_tok / q_wall / tps1:.3f} of one engine's)")
+    qrouter.close()
+    del router, gossip, replicas, qrouter, quiet, single
+
+    # (b) the serve CLI: 2 replicas, verify, warm state saved at exit
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "fleet_warm_state.json")
+    if os.path.exists(path):
+        os.remove(path)
+    argv = ["--replicas", "2", "--routing", "affinity", "--gossip-every",
+            str(FLEET_GOSSIP_EVERY), "--fleet-queue-depth",
+            str(FLEET_QUEUE_DEPTH), "--verify-fleet", "--warm-state", path,
+            "--trie-namespace-key", "tenant", "--kv-layout", "paged",
+            "--block-size", str(PATH_PAGED[5]), "--prefix-cache",
+            "--shared-prefix", str(SHARED_HEAD), "--requests",
+            str(N_REQUESTS), "--max-new", str(MAX_NEW), "--sanitize"]
+    print(f"  serve CLI: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    serve.main(argv)
+    print(f"  serve CLI: {time.perf_counter() - t0:.1f} s")
+    payload = load_draft_state(path)
+    keys = payload.get("prefix", {})
+    check(bool(keys) and set(payload["sources"]) >= {"trie"},
+          f"the CLI's warm state holds no prefix keys or no trie: "
+          f"{sorted(payload)} {sorted(keys)}")
+
+    # (c) the file into a fresh paged engine with the prefix cache on
+    pcfg = EngineConfig(kv_layout="paged", block_size=PATH_PAGED[5],
+                        prefix_cache=True,
+                        default_params=SamplingParams(max_new_tokens=MAX_NEW))
+    from repro_torch.core import DraftPolicy
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=7)
+    warm_reqs = [(list(chains[0][:SHARED_HEAD])
+                  + corpus.sample()[0][:SHARED_TAIL],
+                  SamplingParams(max_new_tokens=MAX_NEW, draft=DraftPolicy(
+                      namespace=ns).validate()))
+                 for ns, chains in sorted(keys.items()) for _ in range(2)]
+    runs = {}
+    for warm in (True, False):
+        engine = build_engine(pcfg, cfg, params, logits_transform=transform,
+                              device="cuda")
+        if warm:
+            engine.load_draft_state(path)
+        base = engine.stats.prefix_hits
+        handles = [engine.submit(Request(prompt=p, params=sp))
+                   for p, sp in warm_reqs]
+        engine.run()
+        runs[warm] = ([h.result().tokens for h in handles],
+                      engine.stats.prefix_hits - base,
+                      engine.stats.prefix_hit_tokens)
+        print(f"  warm state {'loaded' if warm else 'absent'}: "
+              f"{len(warm_reqs)} requests sharing a persisted prefix "
+              f"({', '.join(sorted(keys))}); {runs[warm][1]} prefix hits")
+    check(runs[True][1] > 0, "the warm engine's first requests never hit a "
+                             "primed prefix")
+    check(runs[True][0] == runs[False][0], "outputs with warm state differ "
+                                           "from the engine without it")
+    print("  warm-state outputs equal the engine's without warm state")
+    del engine
+
+    # (d) one replica in a spawned process, built on the card there
+    sp_sub = sps[:N_SUBPROCESS]
+
+    def serve_twice(rep):
+        """The 4 requests twice (the second pass with graphs captured):
+        (outputs of each pass, s a pass)."""
+        outs, secs = [], []
+        for _ in range(2):
+            rids = [rep.submit(p, sp) for p, sp in zip(prompts, sp_sub)]
+            t0 = time.perf_counter()
+            rep.drain()
+            secs.append(time.perf_counter() - t0)
+            outs.append([rep.result(r)["tokens"] for r in rids])
+        return outs, secs
+
+    inproc = EngineReplica(fleet_engine, replica_id="in")
+    ref, t_in = serve_twice(inproc)
+    del inproc
+    t0 = time.perf_counter()
+    sub = EngineReplica(fleet_engine, replica_id="sub", mode="subprocess")
+    t_spawn = time.perf_counter() - t0
+    proc = sub._proc
+    try:
+        got, t_sub = serve_twice(sub)
+        free_open = torch.cuda.mem_get_info()[0]
+    finally:
+        sub.close()
+    free_closed = torch.cuda.mem_get_info()[0]
+    n_tok = sum(map(len, got[0]))
+    print(f"  subprocess replica (pid {proc.pid}): built in {t_spawn:.1f} s "
+          f"(spawn, imports, weights, engine); {N_SUBPROCESS} requests, "
+          f"{n_tok} tokens in {t_sub[0]:.3f} s (first calls capture), "
+          f"then {t_sub[1]:.3f} s, against {t_in[0]:.3f} and {t_in[1]:.3f} "
+          f"s in process; device memory free "
+          f"{free_open / 2**30:.2f} GiB before close, "
+          f"{free_closed / 2**30:.2f} GiB after")
+    check(got == ref, "the subprocess replica's tokens differ from the "
+                      "in-process replica's")
+    check(not proc.is_alive() and sub.exitcode == 0,
+          f"the subprocess replica did not exit cleanly ({sub.exitcode})")
+    check(free_closed - free_open > 2**30, "closing the subprocess replica "
+                                           "freed under 1 GiB on the card")
+    print(f"  the subprocess replica's {N_SUBPROCESS} outputs equal the "
+          "in-process replica's; the child exited and its memory is free")
+
+
+# --------------------------------------------------------------- sanitize
+def sanitize_phase(cfg, params):
+    """The runtime sanitizer on the card, captured members: the guided
+    paged cell with the prefix cache on (the shared-prefix workload) and
+    the mixed sampled paged cell, both with ``scrub_freed``, served
+    without and with ``sanitize=True``.  Outputs must be equal bit for
+    bit, the idle audit must pass (lifecycles drained, shadow ledger equal
+    to the allocator, retrace deltas within the manifest), and the poison
+    probe must have read scrubbed blocks.  Then a write planted into a
+    freed, scrubbed block on the card must raise InvariantViolation at the
+    next admission.  The sanitized median fused_step beside the
+    unsanitized one is a finding (the sanitizer's cost)."""
+    from repro_torch.analysis.sanitizer import InvariantViolation
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.serving.api import EngineConfig, build_engine
+    from repro_torch.training.data import PROFILES, SyntheticCorpus
+    corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=1)
+    head = corpus.sample()[0][:SHARED_HEAD]
+    shared = [head + corpus.sample()[0][:SHARED_TAIL]
+              for _ in range(N_SHARED)]
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    mixed, mixed_sps = sampled_requests(cfg.vocab_size, N_REQUESTS, 4, True)
+    cells = (("guided paged, prefix cache", dict(prefix_cache=True),
+              guided_transform(cfg.vocab_size), shared, sp),
+             ("mixed sampled paged", {}, None, mixed, mixed_sps))
+    for label, extra, transform, prompts, sps in cells:
+        runs = {}
+        for sanitize in (False, True):
+            ecfg = EngineConfig(kv_layout="paged", block_size=PATH_PAGED[5],
+                                scrub_freed=True, sanitize=sanitize,
+                                default_params=sp, **extra)
+            engine = build_engine(ecfg, cfg, params,
+                                  logits_transform=transform, device="cuda")
+            outs, _, wall, tps, edl, fused = serve_counted(
+                engine.scheduler, prompts, sps, {})
+            runs[sanitize] = (outs, fused, tps)
+        san = engine.scheduler.sanitizer
+        led = san.ledger
+        deltas = {n: c - san.retrace._base[n]
+                  for n, c in san.retrace._counts().items()
+                  if c > san.retrace._base[n]}
+        print(f"  {label}, {len(prompts)} requests: median fused_step "
+              f"{runs[False][1]:.3f} ms unsanitized, {runs[True][1]:.3f} ms "
+              f"sanitized; tokens/s {runs[False][2]:.1f} / "
+              f"{runs[True][2]:.1f}; audit clean: "
+              f"{len(san.lifecycle._state)} lifecycles drained, "
+              f"{led.probes} poison probes read {led.probed_blocks} "
+              f"scrubbed blocks, new signatures {deltas} within the "
+              "manifest")
+        check(runs[True][0] == runs[False][0],
+              f"{label}: sanitized outputs differ from the unsanitized run")
+        check(led.probed_blocks > 0, f"{label}: the poison probe never ran")
+    # a write planted into a freed, scrubbed block of the last engine
+    sched = engine.scheduler
+    poisoned = sorted(led.poisoned)
+    check(bool(poisoned), "no freed, scrubbed block to plant a write in")
+    b = poisoned[len(poisoned) // 2]
+    sched.cache["k"][cfg.n_layers // 2, b] = 1
+    engine.submit(mixed[0], params=mixed_sps[0])
+    try:
+        engine.step()
+    except InvariantViolation as exc:
+        check(f"block {b} has nonzero 'k'" in str(exc),
+              f"the planted write raised for another block: {exc}")
+        print(f"  a write planted into freed, scrubbed block {b} (of "
+              f"{len(poisoned)}) raised at the next admission: {exc}")
+    else:
+        raise SmokeError("a write into a freed, scrubbed block was not "
+                         "caught at the next admission")
+
+
 # --------------------------------------------------------------- archs
 ARCH_TEMPS = (0.6, 0.78, 0.96, 1.14, 1.32, 1.5)   # AntGLM's sampled cell
 N_PRIMED = 2            # strategies cell: requests served beside a primer
@@ -3081,7 +3461,8 @@ def recsys_phase(gen):
 
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
-          "sampled", "overlap", "graphs", "long_prompt", "archs")
+          "sampled", "overlap", "graphs", "fleet", "sanitize", "long_prompt",
+          "archs")
 
 
 def main(argv=None) -> int:
@@ -3165,7 +3546,7 @@ def main(argv=None) -> int:
         phase_done("recsys")
     cfg = params = prompts = outs = None
     if set(phases) & {"dense", "paged", "invariance", "sampled", "overlap",
-                      "graphs", "long_prompt"}:
+                      "graphs", "fleet", "sanitize", "long_prompt"}:
         cfg, params = path_model()
     if set(phases) & {"dense", "paged", "overlap"}:
         print("main path, dense layout:")
@@ -3194,6 +3575,14 @@ def main(argv=None) -> int:
         print("CUDA graphs: captured members against their eager twin:")
         graphs_phase(cfg, params)
         phase_done("graphs")
+    if "fleet" in phases:
+        print("fleet serving and warm draft state:")
+        fleet_phase(cfg, params)
+        phase_done("fleet")
+    if "sanitize" in phases:
+        print("the runtime sanitizer on captured members:")
+        sanitize_phase(cfg, params)
+        phase_done("sanitize")
     if "long_prompt" in phases:
         print(f"long prompt, dense layout, prefill_len {LONG_PREFILL}:")
         long_prompt_phase(cfg, params)

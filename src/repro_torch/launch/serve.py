@@ -36,13 +36,27 @@ requests carry namespaces).  ``--rate 0`` submits every request at t=0; a
 positive rate draws Poisson inter-arrival gaps and the scheduler admits
 mid-flight.
 
-The reference CLI's runtime sanitizer, checkpoint and fleet flags exit with
-"not yet ported".
+``--sanitize`` runs the runtime sanitizer (lifecycle machine, shadow block
+ledger with the device poison probe, retrace monitor) and closes with its
+audit line.  ``--replicas N`` serves through N in-process engine replicas
+behind the namespace-affinity router (``--routing``, ``--fleet-queue-depth``,
+``--gossip-every``; ``--verify-fleet`` re-runs the workload on one engine and
+requires equal outputs), and ``--warm-state PATH`` loads a draft-state file
+at start when it exists and saves one at exit:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \
+        --trie-namespace-key tenant --gossip-every 2 --verify-fleet \
+        --kv-layout paged --prefix-cache --shared-prefix 80 \
+        --warm-state warm.json
+
+The reference CLI's ``--ckpt-dir`` exits with "not yet ported" (ROADMAP
+A17, training).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List
 
@@ -58,10 +72,8 @@ from repro_torch.serving.api import EngineConfig, build_engine
 from repro_torch.serving.block_allocator import worst_case_pool_blocks
 from repro_torch.training.data import PROFILES, SyntheticCorpus
 
-# flags of repro.launch.serve that later slices bring
-NOT_PORTED = ("--sanitize", "--ckpt-dir", "--warm-state", "--replicas",
-              "--routing", "--gossip-every", "--fleet-queue-depth",
-              "--verify-fleet")
+# flags of repro.launch.serve that a later slice brings, and its ROADMAP item
+NOT_PORTED = {"--ckpt-dir": "A17, training"}
 
 
 def _pct(xs: List[float], q: float) -> float:
@@ -182,6 +194,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every request a shared system-prompt prefix "
                          "of this many tokens")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="runtime sanitizer: shadow block-ownership "
+                         "ledger with a device poison probe, per-request "
+                         "lifecycle state machine, retrace monitor; raises "
+                         "on any invariant violation, outputs unchanged")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through N in-process engine replicas behind "
+                         "the namespace-affinity router (1 = one engine)")
+    ap.add_argument("--routing", default="affinity",
+                    choices=["affinity", "round_robin"],
+                    help="fleet placement policy: consistent-hash namespace "
+                         "affinity or round-robin (the cold baseline)")
+    ap.add_argument("--gossip-every", type=int, default=0,
+                    help="fleet rounds between all-to-all draft-state "
+                         "merges (0 = gossip off)")
+    ap.add_argument("--fleet-queue-depth", type=int, default=8,
+                    help="per-replica queue depth at which affinity "
+                         "routing spills to the least-loaded replica")
+    ap.add_argument("--warm-state", default=None,
+                    help="draft-state file: loaded at start when it exists "
+                         "(warm restart), saved at exit")
+    ap.add_argument("--verify-fleet", action="store_true",
+                    help="re-run the fleet workload on one engine and "
+                         "require equal outputs")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -189,8 +225,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     for tok in unknown:
         flag = tok.split("=", 1)[0]
         if flag in NOT_PORTED:
-            ap.exit(2, f"{flag}: not yet ported to repro_torch (see "
-                       "ROADMAP.md)\n")
+            ap.exit(2, f"{flag}: not yet ported to repro_torch (ROADMAP "
+                       f"{NOT_PORTED[flag]})\n")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.prefix_cache and args.kv_layout != "paged":
@@ -209,6 +245,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--draft-sources/--adaptive-draft/--trie-namespace-key/"
                  "--autotune require --mode continuous (the lock-step loop "
                  "is the hardwired-trie baseline)")
+    if args.replicas > 1 and args.mode != "continuous":
+        ap.error("--replicas requires --mode continuous")
+    if args.replicas > 1 and args.cancel_every:
+        ap.error("--cancel-every is a single-engine exercise; drop it with "
+                 "--replicas")
     return args
 
 
@@ -249,7 +290,7 @@ def main(argv=None) -> None:
         prefix_cache=args.prefix_cache,
         prefix_cache_blocks=args.prefix_cache_blocks or None,
         lane_shares=lane_shares, draft_budget_caps=draft_caps,
-        autotune=args.autotune)
+        autotune=args.autotune, sanitize=args.sanitize)
 
     corpus = SyntheticCorpus(PROFILES["antrag"], cfg.vocab_size, seed=0)
     prompt_cap = min(96, args.prefill_len)
@@ -271,7 +312,14 @@ def main(argv=None) -> None:
             r.params = dataclasses.replace(
                 r.params,
                 draft=dataclasses.replace(draft_policy, namespace=ns))
+    if args.replicas > 1:
+        _run_fleet(args, ecfg, cfg, params, reqs)
+        return
     engine = build_engine(ecfg, cfg, params, device=args.device)
+    if args.warm_state and os.path.exists(args.warm_state):
+        engine.load_draft_state(args.warm_state)
+        print(f"warm state loaded from {args.warm_state} "
+              f"(trie={len(engine.scheduler.sources['trie'].forest)} nodes)")
 
     if args.mode == "lockstep":
         lock = LookaheadEngine(engine.fns, ecfg.lookahead(),
@@ -395,6 +443,104 @@ def main(argv=None) -> None:
                      f"{s['probes']} probes)"
                      for name, s in sorted(srcs.items())]
             print(f"autotune [{ns or '<default>'}]: {'   '.join(cells)}")
+    if sched.sanitizer is not None:
+        # reaching this line means every shadow check passed (violations
+        # raise); report the audit so smoke logs show it actually ran
+        n_tracked = len(sched.sanitizer.lifecycle._state)
+        print(f"sanitizer: clean — {n_tracked} request lifecycles "
+              "drained, block ledger and retrace manifest verified")
+    if args.warm_state:
+        engine.save_draft_state(args.warm_state)
+        print(f"warm state saved to {args.warm_state}")
+
+
+def _run_fleet(args, ecfg, cfg, params, reqs) -> None:
+    """Drive the synthetic arrival stream through an N-replica fleet
+    (``repro_torch.fleet``): in-process replicas sharing one set of
+    weights, namespace-affinity or round-robin routing, optional gossip
+    cadence, warm-state load at start / save at exit, and an optional
+    check of every output against one engine's."""
+    from repro_torch.fleet import EngineReplica, FleetRouter, GossipCoordinator
+
+    def _builder():
+        return build_engine(ecfg, cfg, params, device=args.device)
+
+    replicas = [EngineReplica(_builder, replica_id=f"r{i}")
+                for i in range(args.replicas)]
+    if args.warm_state and os.path.exists(args.warm_state):
+        for rep in replicas:
+            rep.load_draft_state(args.warm_state)
+        print(f"warm state loaded from {args.warm_state} "
+              f"(all {args.replicas} replicas)")
+    router = FleetRouter(replicas, policy=args.routing,
+                         max_queue_depth=args.fleet_queue_depth)
+    gossip = GossipCoordinator(replicas, every=args.gossip_every)
+
+    rng = np.random.RandomState(0)
+    arrivals = (np.cumsum(rng.exponential(1.0 / args.rate, size=len(reqs)))
+                if args.rate > 0 else np.zeros(len(reqs)))
+    t0 = time.time()
+    nxt = 0
+    while nxt < len(reqs) or not router.idle:
+        now = time.time() - t0
+        while nxt < len(reqs) and arrivals[nxt] <= now:
+            router.submit(reqs[nxt].prompt, reqs[nxt].params)
+            nxt += 1
+        if router.idle:
+            time.sleep(min(max(arrivals[nxt] - now, 0.0), 0.05))
+            continue
+        router.step_all()
+        gossip.tick()
+    dt = time.time() - t0
+
+    results = router.results()
+    tok = sum(len(r["tokens"]) for r in results)
+    fs = router.fleet_stats()
+    print(f"fleet [{args.replicas}x {args.routing}, {args.device}]: {tok} "
+          f"tokens / {len(results)} requests in {dt:.1f}s -> "
+          f"{tok/dt:.1f} tok/s; routed {fs.routed} ({fs.affinity_hits} "
+          f"affinity, {fs.spills} spills), {gossip.exchanges} gossip "
+          "exchanges")
+    for i, snap in enumerate(fs.replicas):
+        print(f"  replica r{i}: {snap['finished']} finished / "
+              f"{snap['admitted']} admitted, {snap['decode_steps']} device "
+              f"steps, trie={snap['trie_nodes']} nodes")
+    # per-tenant percentiles over the union of every replica's samples
+    # (never pooled across tenants, never averaged across replicas)
+    for ns, row in fs.namespace_summary().items():
+        print(f"tenant {ns or '<default>'!s:10s} "
+              f"fin {row['finished']:3d}/{row['submitted']:3d} "
+              f"occ {row['occupancy']:.2f}  "
+              f"p50 {row['p50_latency_s']*1e3:7.1f} ms  "
+              f"p99 {row['p99_latency_s']*1e3:7.1f} ms  "
+              f"ttft-p99 {row['p99_ttft_s']*1e3:7.1f} ms")
+    for ns, accs in sorted(fs.source_acceptance().items()):
+        cells = [f"{name} {rate:.0%}" for name, rate in sorted(accs.items())]
+        print(f"acceptance [{ns or '<default>'}]: {'   '.join(cells)}")
+    if args.sanitize:
+        router.drain()      # an idle replica's run() is its idle audit
+        print(f"sanitizer: clean — {len(results)} requests over "
+              f"{args.replicas} replicas, each replica's idle audit passed")
+
+    if args.verify_fleet:
+        single = _builder()
+        handles = [single.submit(Request(prompt=list(r.prompt),
+                                         params=r.params)) for r in reqs]
+        single.run()
+        bad = sum(1 for h, res in zip(handles, results)
+                  if h.result().tokens != res["tokens"])
+        if bad:
+            raise SystemExit(f"fleet outputs differ from one engine's on "
+                             f"{bad}/{len(reqs)} requests (losslessness "
+                             "violation)")
+        print(f"verify: fleet outputs equal one engine's on all "
+              f"{len(reqs)} requests")
+
+    if args.warm_state:
+        if len(replicas) > 1:
+            gossip.exchange()   # fold every replica's warmth into one file
+        replicas[0].save_draft_state(args.warm_state)
+        print(f"warm state saved to {args.warm_state}")
 
 
 if __name__ == "__main__":

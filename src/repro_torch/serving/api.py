@@ -1,8 +1,8 @@
 """Request-centric serving API (DESIGN.md §Serving API) — PyTorch port of
 ``repro.serving.api``.  The port serves greedy, sampled and mixed requests
-on the dense and the paged KV layout, with or without the prefix cache;
-``EngineConfig.validate`` refuses what is not ported yet (the runtime
-sanitizer) and names the ROADMAP item that brings it.
+on the dense and the paged KV layout, with or without the prefix cache,
+under the opt-in runtime sanitizer, and persists and merges warm draft
+state (``repro_torch.fleet``).
 
 The production surface over the continuous-batching stack:
 
@@ -106,7 +106,7 @@ class EngineConfig:
     # that never verify on a namespace get their quota driven to zero and
     # their retrieve cost skipped (core/autotune.py)
     autotune: bool = False
-    # sanitize: opt-in runtime sanitizer (not yet ported: ROADMAP A12) —
+    # sanitize: opt-in runtime sanitizer (repro_torch.analysis.sanitizer) —
     # per-request lifecycle state machine, shadow block-ownership ledger,
     # retrace monitor.  Debug/CI tool: adds host work and device probes
     # but never changes outputs; default-off costs nothing.
@@ -127,10 +127,6 @@ class EngineConfig:
             temperature=self.default_params.temperature)
 
     def validate(self) -> "EngineConfig":
-        if self.sanitize:
-            raise NotImplementedError(
-                "sanitize=True: the runtime sanitizer is not yet ported "
-                "(ROADMAP A12, analysis on torch)")
         if self.lanes < 1:
             raise ValueError(f"lanes={self.lanes}: need >= 1")
         if self.prefill_len is not None and self.prefill_len < 1:
@@ -355,9 +351,69 @@ class ServingEngine:
         for toks in corpora:
             self.scheduler.trie.insert_ngrams(toks, la.branch_length)
 
-    # warm draft-state persistence (draft_state / merge_draft_state /
-    # save_draft_state / load_draft_state) comes with the fleet slice
-    # (ROADMAP A14)
+    # ---- warm draft-state persistence (repro_torch.fleet; lazy imports
+    # keep the fleet package out of the engine's import graph until first
+    # use)
+    def draft_state(self, *, max_prefix_keys: Optional[int] = 64
+                    ) -> Dict[str, Any]:
+        """Snapshot the shared draft statistics (trie forests, n-gram
+        tables, hot prefix keys) as a plain-data payload."""
+        from repro_torch.fleet.persist import collect_draft_state
+        return collect_draft_state(self.scheduler,
+                                   max_prefix_keys=max_prefix_keys)
+
+    def merge_draft_state(self, payload: Dict[str, Any]) -> None:
+        """Gossip: freq-sum another replica's payload into this engine's
+        draft sources (capacity budgets re-enforced after the merge)."""
+        from repro_torch.fleet.persist import install_draft_state
+        install_draft_state(self.scheduler, payload, merge=True)
+
+    def save_draft_state(self, path: str, *,
+                         max_prefix_keys: Optional[int] = 64
+                         ) -> Dict[str, Any]:
+        """Persist the warm draft state to ``path`` (atomic, versioned,
+        checksummed); returns the payload written."""
+        from repro_torch.fleet.persist import save_draft_state
+        payload = self.draft_state(max_prefix_keys=max_prefix_keys)
+        save_draft_state(path, payload)
+        return payload
+
+    def load_draft_state(self, path: str, *,
+                         prime_prefix: bool = True) -> Dict[str, Any]:
+        """Resume with a donor's branch statistics (the continuous version
+        of the paper's Appendix D warmup).
+
+        Replaces the shared state of every source the file names, then —
+        when this engine runs a prefix cache and ``prime_prefix`` is set —
+        re-prefills each persisted hot prefix key as a 1-token priming
+        request so the retire-time insert repopulates the radix tree
+        through the regular machinery (KV blocks are device-resident and
+        never travel in the file).  Priming requests run through the
+        normal scheduler — on the card through its captured members, as
+        any request does — and show up in its stats.  Must be called on an
+        idle engine, before serving traffic.
+        """
+        from repro_torch.fleet.persist import (install_draft_state,
+                                               load_draft_state)
+        if not self.idle:
+            raise RuntimeError("load_draft_state needs an idle engine "
+                               "(warm state must precede traffic)")
+        payload = load_draft_state(path)
+        install_draft_state(self.scheduler, payload)
+        prefix_keys = payload.get("prefix", {})
+        if prime_prefix and self.scheduler.prefix is not None and prefix_keys:
+            plen = self.scheduler.prefill_len
+            for ns, keys in prefix_keys.items():
+                policy = dataclasses.replace(self.config.draft_policy,
+                                             namespace=str(ns))
+                params = dataclasses.replace(self.config.default_params,
+                                             max_new_tokens=1, draft=policy)
+                for toks in keys:
+                    toks = [int(t) for t in toks][:plen]
+                    if toks:
+                        self.submit(Request(prompt=toks, params=params))
+            self.run()
+        return payload
 
     # ---- state passthrough
     @property

@@ -400,9 +400,8 @@ class ContinuousScheduler:
         # costs nothing: the module is not even imported.
         self.sanitizer = None
         if sanitize:
-            raise NotImplementedError(
-                "sanitize=True: the runtime sanitizer is not yet ported "
-                "(ROADMAP A12, analysis on torch)")
+            from repro_torch.analysis.sanitizer import Sanitizer
+            self.sanitizer = Sanitizer.attach(self)
 
     # ------------------------------------------------------------------ state
     @property

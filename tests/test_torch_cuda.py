@@ -16,7 +16,10 @@ values agree to 2e-6 (two logf calls), and its choices equal the plain
 version's wherever the plain top-two gap of z + g exceeds 1e-5.  The fused
 EmbeddingBag kernel equals its plain version bit for bit, NaN in the same
 places (ids out of range, Inf or NaN rows): both add the rounded f32
-products in l order from 0 and round once.
+products in l order from 0 and round once.  The sanitizer's poison probe
+reads the paged cache on the card after captured ``reset_blocks`` replays
+(one pull a check), and a spawned fleet replica builds its engine on the
+card.
 """
 import gc
 import weakref
@@ -1027,3 +1030,102 @@ def test_member_that_syncs_raises_at_capture(cuda):
             m(np.ones(4))
     assert ran == [False, True, True]    # eager once, then captures only
     assert torch.ones(3, device=cuda).sum().item() == 3
+
+
+def _scrubbed_paged_cache(graph_lm):
+    """A paged session's cohort cache on the card with three calls of
+    ``reset_blocks`` on it — eager, captured, replayed — and the blocks
+    they scrubbed after nonzero KV rows had been written into them."""
+    fns = _graph_fns(graph_lm, "paged", "greedy", True)
+    rng = np.random.RandomState(5)
+    B, S, bpl = GRAPH_LANES, GRAPH_S, 256 // GRAPH_BS
+    toks = rng.randint(2, GRAPH_V, (B, S)).astype(np.int32)
+    lens = np.full((B,), S, np.int32)
+    tables = (1 + np.arange(B * bpl)).reshape(B, bpl).astype(np.int32)
+    cache, _ = fns.prefill(toks, lens, tables)
+    scrubbed = []
+    for first in (10, 20, 30):
+        ids = np.zeros((bpl,), np.int32)
+        ids[:3] = (first, first + 1, first + 2)
+        for name in ("k", "v"):
+            cache[name][:, ids[:3]] = 0.5
+        cache = fns.reset_blocks(cache, ids)
+        scrubbed.extend(ids[:3].tolist())
+    assert fns.reset_blocks._n_graphs() == 1     # the last two replayed
+    return fns, cache, scrubbed
+
+
+def test_device_poison_probe_sees_captured_scrub_and_planted_write(
+        graph_lm):
+    """The sanitizer's probe reads the paged KV cache on the card after
+    the captured reset_blocks replays that scrubbed its blocks: clean, it
+    passes; a write into one of them afterwards raises."""
+    from repro_torch.analysis.sanitizer import (InvariantViolation,
+                                                ShadowLedger)
+    _, cache, scrubbed = _scrubbed_paged_cache(graph_lm)
+    ledger = ShadowLedger()
+    ledger.on_scrubbed(scrubbed)
+    ledger.check_poison(cache)
+    assert ledger.probed_blocks == len(scrubbed) == 9
+    cache["v"][1, scrubbed[4], 3] = 1
+    with pytest.raises(InvariantViolation,
+                       match=f"block {scrubbed[4]} has nonzero 'v'"):
+        ledger.check_poison(cache)
+
+
+def test_device_poison_probe_makes_one_pull_a_check(graph_lm):
+    """One check over more blocks than one gather chunk makes exactly one
+    synchronizing call (its pull), where the reference pulls each block
+    and leaf."""
+    import warnings
+
+    from repro_torch.analysis.sanitizer import PROBE_CHUNK, ShadowLedger
+    _, cache, _ = _scrubbed_paged_cache(graph_lm)
+    blocks = list(range(cache["k"].shape[1]))
+    assert len(blocks) > PROBE_CHUNK
+    for name in ("k", "v"):
+        cache[name][:, blocks] = 0
+    ledger = ShadowLedger()
+    ledger.on_scrubbed(blocks)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ledger.check_poison(cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+    assert ledger.probes == 1 and ledger.probed_blocks == len(blocks)
+
+
+def test_subprocess_replica_builds_on_the_card(cuda):
+    """A spawned replica whose builder leaves the device at None builds
+    its engine on the card inside the child (its own CUDA context and
+    graphs) and gives the in-process replica's tokens; closing it ends
+    the child."""
+    import functools
+
+    from repro_torch.core import DraftPolicy, SamplingParams
+    from repro_torch.fleet import EngineReplica
+    from torch_fleet_tiny import CARD_CFG, build_tiny
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(1, CARD_CFG.vocab_size, size=12).tolist(),
+             SamplingParams(max_new_tokens=6, draft=DraftPolicy(
+                 namespace=ns).validate())) for ns in ("a", "b", "a")]
+    builder = functools.partial(build_tiny, None, CARD_CFG)
+    inproc = EngineReplica(builder, replica_id="a")
+    rids = [inproc.submit(p, sp) for p, sp in reqs]
+    inproc.drain()
+    ref = [inproc.result(r)["tokens"] for r in rids]
+    sub = EngineReplica(builder, replica_id="b", mode="subprocess")
+    proc = sub._proc
+    try:
+        rids = [sub.submit(p, sp) for p, sp in reqs]
+        sub.drain()
+        assert [sub.result(r)["tokens"] for r in rids] == ref
+    finally:
+        sub.close()
+    assert not proc.is_alive() and sub.exitcode == 0

@@ -14,9 +14,13 @@ equal the port's ``reference_decode`` through the same session, across the
 under overlap, block backpressure, draft-source mixes, the prefix cache,
 cancellation and per-namespace autotuning.  Sessions are built once per
 cell and reused; reference decodes are memoized.  Examples come from a
-drawn integer seed, as in the reference suite.  The reference suite also
-runs each scheduler under the runtime sanitizer, which the port does not
-have yet (ROADMAP A12).
+drawn integer seed, as in the reference suite.
+
+Every scheduler here runs with ``sanitize=True``, as in the reference
+suite: the port's runtime sanitizer (lifecycle machine, shadow block
+ledger with its poison probe of the KV tensors, retrace monitor on the
+session's input signatures) audits each run at idle, so a passing example
+also means no ledger, lifecycle or retrace violation.
 """
 import numpy as np
 import pytest
@@ -124,7 +128,7 @@ def test_fuzz_scheduler_matches_reference_decode(overlap, seed, n_req,
     for cell in _cells(block_size):
         sched = ContinuousScheduler(_get_fns(*cell), _LA, lanes=lanes,
                                     prefill_len=PREFILL,
-                                    overlap_drafts=overlap)
+                                    overlap_drafts=overlap, sanitize=True)
         got = _run(sched, prompts, params, order)
         for i, toks in enumerate(got):
             assert toks == _ref(cell, prompts[i], params[i]), (cell, seed, i)
@@ -149,7 +153,8 @@ def test_fuzz_paged_backpressure_lossless(seed):
         fns = _SESSIONS["small"] = make_session_fns(
             _CFG, _PARAMS, slots=SLOTS, prefill_len=PREFILL,
             kv_layout="paged", block_size=8, n_blocks=7, device="cpu")
-    sched = ContinuousScheduler(fns, _LA, lanes=2, prefill_len=PREFILL)
+    sched = ContinuousScheduler(fns, _LA, lanes=2, prefill_len=PREFILL,
+                                sanitize=True)
     for i, toks in enumerate(_run(sched, prompts, params)):
         assert toks == _ref(cell, prompts[i], params[i]), (seed, i)
 
@@ -179,7 +184,8 @@ def test_fuzz_draft_sources_lossless(seed, combo_idx, adaptive):
     lanes = int(rng.randint(1, 3))
     for cell in (("dense", "dense", 0), ("paged", "cuda", 8)):
         sched = ContinuousScheduler(_get_fns(*cell), _LA, lanes=lanes,
-                                    prefill_len=PREFILL, draft_policy=policy)
+                                    prefill_len=PREFILL, draft_policy=policy,
+                                    sanitize=True)
         for i, toks in enumerate(_run(sched, prompts, params)):
             assert toks == _ref(cell, prompts[i], params[i]), \
                 (cell, seed, sources, i)
@@ -208,7 +214,7 @@ def test_fuzz_prefix_cache_lossless(overlap, seed, bs_idx):
             sched = ContinuousScheduler(_get_fns(*cell), _LA, lanes=lanes,
                                         prefill_len=PREFILL,
                                         overlap_drafts=overlap,
-                                        prefix_cache=cached)
+                                        prefix_cache=cached, sanitize=True)
             got = _run(sched, prompts, params)
             for i, toks in enumerate(got):
                 assert toks == _ref(cell, prompts[i], params[i]), \
@@ -233,7 +239,7 @@ def test_fuzz_cancel_under_overlap_lossless(seed, n_req, bs_idx):
     for cell in (("dense", "dense", 0), ("paged", "cuda", block_size)):
         sched = ContinuousScheduler(_get_fns(*cell), _LA, lanes=lanes,
                                     prefill_len=PREFILL, overlap_drafts=True,
-                                    scrub_freed=True)
+                                    scrub_freed=True, sanitize=True)
         rid_to_idx = {sched.submit_request(Request(
             prompt=list(p), params=sp)).rid: i
             for i, (p, sp) in enumerate(zip(prompts, params))}
@@ -286,7 +292,8 @@ def test_fuzz_mixed_namespace_autotune_lossless(shares_on, seed, bs_idx):
                         if tune else False)
             sched = ContinuousScheduler(_get_fns(*cell), _LA, lanes=lanes,
                                         prefill_len=PREFILL,
-                                        lane_shares=shares, autotune=autotune)
+                                        lane_shares=shares, autotune=autotune,
+                                        sanitize=True)
             got = _run(sched, prompts, params)
             for i, toks in enumerate(got):
                 ref = _ref(cell, prompts[i],

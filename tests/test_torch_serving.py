@@ -11,8 +11,8 @@
   * isolation: importing every ``repro_torch`` module loads no JAX and no
     ``repro``;
   * refusals: CUDA by default (raises without it), and the features later
-    slices bring (the runtime sanitizer; the CLI's checkpoint, warm-state
-    and fleet flags) are refused;
+    slices bring (the MoE FFN; the CLI's checkpoint flag) are refused,
+    each naming its ROADMAP item;
   * the serve CLI on the CPU, dense and paged with the prefix cache.
 """
 import dataclasses
@@ -317,11 +317,17 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(sanitize=True), "A12"),
+    (dict(moe=True, n_experts=4, top_k=2), "A15"),
 ])
 def test_unported_features_are_refused(change, item):
+    cfg = dataclasses.replace(ttx.TransformerConfig(n_layers=1, d_model=32,
+                                                    n_heads=4, n_kv_heads=2,
+                                                    d_ff=64, vocab_size=53),
+                              **change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tapi.EngineConfig(**ECFG, **change).validate()
+        init_params(cfg, device="cpu")
+    # the sanitizer (A12) landed: its config validates
+    tapi.EngineConfig(**ECFG, sanitize=True).validate()
 
 
 def test_serve_cli_smoke_on_cpu():
@@ -344,14 +350,11 @@ def test_serve_cli_smoke_on_cpu():
     hits = re.search(r"prefix cache: (\d+)/\d+ hits", proc.stdout)
     assert hits and int(hits.group(1)) > 0, proc.stdout
     assert "1.0 sync/step" in proc.stdout
-    for flag in ("--sanitize", "--ckpt-dir=ck", "--warm-state=ws",
-                 "--replicas=2", "--routing=round_robin", "--gossip-every=2",
-                 "--fleet-queue-depth=4", "--verify-fleet"):
-        proc = subprocess.run(base + [flag], capture_output=True,
-                              text=True, env=env, cwd=str(REPO), timeout=300)
-        assert proc.returncode == 2, flag
-        name = flag.split("=")[0]
-        assert f"{name}: not yet ported" in proc.stderr, flag
+    proc = subprocess.run(base + ["--ckpt-dir=ck"], capture_output=True,
+                          text=True, env=env, cwd=str(REPO), timeout=300)
+    assert proc.returncode == 2
+    assert "--ckpt-dir: not yet ported to repro_torch (ROADMAP A17" \
+        in proc.stderr
 
 
 @pytest.mark.parametrize("arch", ["antglm-10b", "phi3-mini-3.8b",
