@@ -127,7 +127,17 @@ Phases, in order; any failure exits non-zero:
    through the Gumbel kernel, which runs once a decode step and a prefill.
    The kernels phase holds B1, B2 and B3 (and B4 against B3) at these
    archs' shapes too and times them, and holds the Gumbel kernel at the
-   sampled arch's vocabulary.
+   sampled arch's vocabulary;
+11. the MoE LMs (``--phases moe``): Qwen3-MoE-30B-A3B and Moonlight-16B-A3B
+   served as the other archs are (``archs_phase``), after two checks of
+   the MoE FFN: the draw (expert tensors a layer at a time) may exceed
+   the weights by at most 1.5 GB, and at one layer's full width on layer
+   0's weights ``moe_ref`` in bf16 agrees with a per-token f32 formula
+   (each token's top-k experts, SwiGLU in f32, the same router) and
+   ``moe_local`` without drops with ``moe_ref``, within MOE_TOL; then the
+   device time of a decode step's MoE FFNs.  The kernels phase holds and
+   times B1, B2 and B3 at their heads, (32, 4, 128) (G = 8) and
+   (16, 16, 128).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -165,6 +175,19 @@ PATH_PREFILL = [(4, 128, 12, 2, 128), (1, 128, 12, 2, 128)]  # (B,S,H,K,dh)
 PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
 # the reference's other dense LMs, served at full width by the archs phase
 OTHER_ARCHS = ("antglm-10b", "phi3-mini-3.8b", "phi3-medium-14b")
+# its MoE LMs, served at full width by the moe phase
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+# moe_ref in bf16 at one layer's full width against a per-token f32
+# formula: bf16 rounds the expert products g and u, h, each expert's
+# output, the combine weights and the output (2^-9 relative each); at
+# mean |out| 0.08-0.13 (max 0.5-1.0) that leaves errors up to ~5e-3 at
+# the largest outputs (one output ulp), while a wrong expert or weight
+# moves an output by ~2e-2.  The same limit holds moe_local (capacity
+# blocks, a bf16 combine) to moe_ref.
+MOE_TOL = dict(atol=4e-3, rtol=1.6e-2)
+MOE_DRAW_OVER = 1.5e9   # the draw's peak over the weights: the largest
+                        # tensor drawn whole in f32 (the untied head,
+                        # 1.24-1.34 GB), not the (L, E, ...) experts
 SUFFIX_BUCKETS = (8, 16, 32, 64, 128)  # the suffix prefill's T (B = 1)
 # the long-prompt cell: 2 lanes, prompts of ~4,000 tokens (a RAG service's
 # retrieved context), a dense cache of 4,224 rows (0.24 GB at full width)
@@ -501,7 +524,7 @@ def arch_kernel_shapes():
     from repro_torch.configs import get_arch
     B, T, _, _, _, S = PATH_TREE
     shapes = {}
-    for name in OTHER_ARCHS:
+    for name in OTHER_ARCHS + MOE_ARCHS:
         cfg = get_arch(name).full_config()
         heads = (cfg.n_heads, cfg.n_kv_heads, cfg.dh)
         shapes[name] = ((B, T, *heads, S), (B, T, *heads, *PATH_PAGED[5:]),
@@ -2770,18 +2793,19 @@ ARCH_TEMPS = (0.6, 0.78, 0.96, 1.14, 1.32, 1.5)   # AntGLM's sampled cell
 N_PRIMED = 2            # strategies cell: requests served beside a primer
 
 
-def archs_phase():
-    """The reference's other dense LMs (AntGLM-10B, Phi-3-mini, Phi-3-
-    medium), one after another, at full width in bf16 with weights drawn
-    from seed 0 on the card, each freed before the next.  Returns each
-    arch's numbers."""
+def archs_phase(names=OTHER_ARCHS):
+    """The reference's other LMs (``OTHER_ARCHS``: AntGLM-10B, Phi-3-mini,
+    Phi-3-medium; ``MOE_ARCHS``: Qwen3-MoE-30B-A3B, Moonlight-16B-A3B),
+    one after another, at full width in bf16 with weights drawn from seed
+    0 on the card, each freed before the next.  Returns each arch's
+    numbers."""
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     print(f"  {base / 1e9:.2f} GB allocated and "
           f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved before the "
           "first arch")
     rows = {}
-    for name in OTHER_ARCHS:
+    for name in names:
         t0 = time.perf_counter()
         rows[name] = serve_arch(name)
         left = torch.cuda.memory_allocated() - base
@@ -2799,7 +2823,8 @@ def serve_arch(name):
     with a profile of decode steps, and the cohort prefill's device time;
     for AntGLM-10B (the paper's model) also (c) the default Lookahead
     config, LLMA's single branch and step by step on (a)'s requests and
-    (d) a sampled paged cell, unguided."""
+    (d) a sampled paged cell, unguided; for an MoE arch first the MoE
+    module at one layer's full width (``moe_module``)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.request import SamplingParams
     from repro_torch.models.params import init_params
@@ -2807,6 +2832,7 @@ def serve_arch(name):
     cfg = dataclasses.replace(get_arch(name).full_config(), dtype="bfloat16",
                               param_dtype="bfloat16")
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2819,11 +2845,19 @@ def serve_arch(name):
           f"them {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     check(n == cfg.n_params(), f"{name}: {n} parameters drawn, the config "
                                f"counts {cfg.n_params()}")
+    row = {"params": n}
+    if cfg.moe:
+        over = torch.cuda.max_memory_allocated() - before - 2 * n
+        print(f"  {name}: the draw's peak exceeds the weights (and the "
+              f"{before / 1e9:.3f} GB allocated before it) by "
+              f"{over / 1e9:.3f} GB (expert tensors drawn a layer at a time)")
+        check(over < MOE_DRAW_OVER, f"{name}: the draw's peak exceeds the "
+                                    f"weights by {over / 1e9:.2f} GB")
+        row["module"] = moe_module(name, cfg, params)
     sp = SamplingParams(max_new_tokens=MAX_NEW)
     transform = guided_transform(cfg.vocab_size)
     dense = EngineConfig(default_params=sp)
     prompts = path_prompts(cfg.vocab_size)[:dense.lanes + 2]
-    row = {"params": n}
     for ecfg in (dense, dataclasses.replace(dense, kv_layout="paged",
                                             block_size=PATH_PAGED[5])):
         got, _, row[ecfg.kv_layout], engine = guided_cell(
@@ -2845,6 +2879,64 @@ def serve_arch(name):
     row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"  {name}: peak memory {row['peak_gb']:.2f} GB")
     return row
+
+
+def moe_module(name, cfg, params):
+    """The MoE FFN at one layer's full width on layer 0's weights, at a
+    decode step's rows (4 lanes x T 33 = 132), bf16: ``moe_ref`` against
+    a per-token f32 formula (each token's top-k experts gathered, their
+    SwiGLU in f32 weighted by the same f32 router's weights and summed),
+    and ``moe_local`` at a capacity factor of E / top_k (capacity >= the
+    rows, so nothing is dropped) against ``moe_ref``, within MOE_TOL.
+    Then the device time of a decode step's MoE FFNs: every layer's
+    ``_ffn`` (router, experts, shared experts) at (4, 33, d)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _ffn
+    silu = torch.nn.functional.silu
+    B, T = PATH_TREE[:2]
+    N, E, k = B * T, cfg.n_experts, cfg.top_k
+    lp = {key: a[0] for key, a in params["layers"].items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    x = randn(gen, (N, cfg.d_model), torch.bfloat16, scale=1.0)
+    args = (x, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], k)
+    out = moe.moe_ref(*args)
+    w, idx = moe.router_topk(x, lp["router"], k)
+    xf, ref = x.float(), torch.zeros((N, cfg.d_model), device="cuda")
+    for e in range(E):
+        rows, slot = (idx == e).nonzero(as_tuple=True)
+        xe = xf[rows]
+        h = silu(xe @ lp["we_gate"][e].float()) * (xe @ lp["we_up"][e].float())
+        ref.index_add_(0, rows,
+                       (h @ lp["we_down"][e].float()) * w[rows, slot, None])
+    local = moe.moe_local(*args, capacity_factor=E / k)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    err_local = (local.float() - out.float()).abs().max().item()
+    print(f"  {name}: moe_ref bf16 (N {N}, d {cfg.d_model}, E {E}, F "
+          f"{cfg.moe_d_ff}, top-{k}) against the per-token f32 formula: "
+          f"max|err| {err:.3e}, mean|ref| {ref.abs().mean().item():.3e}, "
+          f"max|ref| {ref.abs().max().item():.3e} ({MOE_TOL}); moe_local "
+          f"at capacity factor {E / k:.3f} against moe_ref: max|diff| "
+          f"{err_local:.3e}")
+    check(torch.allclose(out.float(), ref, **MOE_TOL),
+          f"{name}: moe_ref disagrees with the per-token formula: {err}")
+    check(torch.allclose(local.float(), out.float(), **MOE_TOL),
+          f"{name}: moe_local without drops disagrees with moe_ref: "
+          f"{err_local}")
+    h = randn(gen, (B, T, cfg.d_model), torch.bfloat16, scale=1.0)
+    layers = [{key: a[i] for key, a in params["layers"].items()}
+              for i in range(cfg.n_layers)]
+
+    def step_ffns(_):
+        for lp_i in layers:
+            _ffn(cfg, lp_i, h)
+    ms, events, _ = profiled_ms(step_ffns, calls=3)
+    print(f"  {name}: a decode step's MoE FFNs ({cfg.n_layers} layers at "
+          f"({B}, {T}, {cfg.d_model}), eager): device {ms:.3f} ms "
+          f"({events:.0f} device events)")
+    return dict(max_abs_err=err, local_max_abs_diff=err_local,
+                ffn_device_ms=ms)
 
 
 def arch_prefill(name, ecfg, cfg, params, transform, prompts):
@@ -3462,7 +3554,7 @@ def recsys_phase(gen):
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
           "sampled", "overlap", "graphs", "fleet", "sanitize", "long_prompt",
-          "archs")
+          "archs", "moe")
 
 
 def main(argv=None) -> int:
@@ -3587,10 +3679,14 @@ def main(argv=None) -> int:
         print(f"long prompt, dense layout, prefill_len {LONG_PREFILL}:")
         long_prompt_phase(cfg, params)
         phase_done("long_prompt")
-    if "archs" in phases:
-        print("the other dense LMs at full width, bf16:")
-        del cfg, params
-        for name, arch in archs_phase().items():
+    del cfg, params
+    for phase, names, what in (
+            ("archs", OTHER_ARCHS, "the other dense LMs"),
+            ("moe", MOE_ARCHS, "the MoE LMs")):
+        if phase not in phases:
+            continue
+        print(f"{what} at full width, bf16:")
+        for name, arch in archs_phase(names).items():
             for kern, n in (
                     ("tree_attention", arch["dense"]["launches"]
                      ["tree_attention"]),
@@ -3601,7 +3697,7 @@ def main(argv=None) -> int:
                      + arch["paged"]["launches"]["flash_prefill"])):
                 if name in rows.get(kern, {}).get("archs", {}):
                     rows[kern]["archs"][name]["launches"] = n
-        phase_done("archs")
+        phase_done(phase)
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

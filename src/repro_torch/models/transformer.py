@@ -1,5 +1,6 @@
-"""Config-driven decoder-only transformer (PyTorch port of
-``repro.models.transformer``), on the dense and the paged KV layout.
+"""Config-driven decoder-only transformer, dense FFN or MoE
+(``models/moe.py``) (PyTorch port of ``repro.models.transformer``), on
+the dense and the paged KV layout.
 
   * ``prefill`` / ``prefill_into_slot`` — causal forward that fills a KV
     cache (all lanes / one lane) and returns the logits of each sequence's
@@ -32,6 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.models import attention as attn_backends
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ACTS, apply_rope, rms_norm,
                                        rope_angles, swiglu)
 
@@ -58,7 +60,8 @@ class TransformerConfig:
     act: str = "silu"
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
-    # MoE (fields kept for config parity; the port serves dense FFNs only)
+    # MoE (models/moe.py); on one device "auto" resolves to "ref", "local"
+    # runs the capacity dispatch, "ep" waits for ROADMAP A16
     moe: bool = False
     n_experts: int = 0
     top_k: int = 0
@@ -94,10 +97,24 @@ class TransformerConfig:
         return _DTYPES[self.param_dtype]
 
     def n_params(self) -> int:
-        """Total parameter count (dense FFN)."""
+        """Total parameter count."""
+        return self._count(self.n_experts)
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed experts)."""
+        return self._count(self.top_k)
+
+    def _count(self, routed: int) -> int:
+        """Parameters with ``routed`` of the MoE's experts counted (the
+        reference's two formulas)."""
         d, dh, V = self.d_model, self.dh, self.vocab_size
         qkvo = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
-        per_layer = qkvo + 3 * d * self.d_ff + 2 * d
+        if self.moe:
+            ffn = (3 * d * self.moe_d_ff * (routed + self.n_shared_experts)
+                   + d * self.n_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = qkvo + ffn + 2 * d
         emb = V * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
@@ -119,9 +136,28 @@ def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor
 
 
 def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
-    if cfg.moe:
-        raise NotImplementedError("MoE FFN: not yet ported (ROADMAP A15)")
-    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], ACTS[cfg.act])
+    act = ACTS[cfg.act]
+    if not cfg.moe:
+        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], act)
+    B, T, d = h.shape
+    x = h.reshape(B * T, d)
+    impl = cfg.moe_impl
+    if impl == "ep":
+        raise NotImplementedError(
+            "expert-parallel MoE (moe_impl='ep'): not yet ported to "
+            "repro_torch (ROADMAP A16, multi-GPU); use 'auto', 'ref' or "
+            "'local'")
+    if impl == "local":
+        y = moe_lib.moe_local(x, lp["router"], lp["we_gate"], lp["we_up"],
+                              lp["we_down"], cfg.top_k, cfg.capacity_factor,
+                              act)
+    else:       # "auto" on one device (the port has no mesh) and "ref"
+        y = moe_lib.moe_ref(x, lp["router"], lp["we_gate"], lp["we_up"],
+                            lp["we_down"], cfg.top_k, act)
+    y = y.reshape(B, T, d)
+    if cfg.n_shared_experts:
+        y = y + swiglu(h, lp["ws_gate"], lp["ws_up"], lp["ws_down"], act)
+    return y
 
 
 def _layer_self(cfg: TransformerConfig, lp: Params, h: torch.Tensor,

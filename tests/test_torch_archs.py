@@ -1,10 +1,11 @@
-"""The port's other dense LMs — AntGLM-10B (the paper's own model),
-Phi-3-mini and Phi-3-medium — and the paper's baselines (LLMA single
-branch, step by step), held against the JAX package on the CPU.
+"""The port's other LMs — AntGLM-10B (the paper's own model), Phi-3-mini,
+Phi-3-medium and the MoE LMs Qwen3-MoE-30B-A3B and Moonlight-16B-A3B —
+and the paper's baselines (LLMA single branch, step by step), held
+against the JAX package on the CPU.
 
   * configs: ``full_config``/``smoke_config`` equal the reference's field
-    for field, and so does ``n_params``; ``get_arch`` refuses the archs
-    still to port, naming their ROADMAP item;
+    for field, and so do ``n_params`` and ``n_active_params``;
+    ``get_arch`` refuses the arch still to port, naming its ROADMAP item;
   * model functions at smoke size (and at head width 96 for the MHA
     archs): ``prefill`` and ``tree_step`` logits equal the JAX functions'
     on the same weights (``params_from_jax``), f32, atol 2e-5, rtol 1e-4
@@ -24,8 +25,10 @@ import pytest
 import torch
 
 from repro.configs import antglm_10b as j_antglm
+from repro.configs import moonshot_v1_16b_a3b as j_moonlight
 from repro.configs import phi3_medium_14b as j_phi3_medium
 from repro.configs import phi3_mini_3_8b as j_phi3_mini
+from repro.configs import qwen3_moe_30b_a3b as j_qwen3_moe
 from repro.core import LookaheadConfig as JLookaheadConfig
 from repro.core import LookaheadEngine as JLookaheadEngine
 from repro.core import baseline_config as j_baseline
@@ -34,8 +37,9 @@ from repro.models import transformer as jtx
 from repro.serving import api as japi
 from repro.serving.session import make_session_fns as j_make_session_fns
 from repro_torch import core as tcore
-from repro_torch.configs import (antglm_10b, get_arch, phi3_medium_14b,
-                                 phi3_mini_3_8b)
+from repro_torch.configs import (antglm_10b, get_arch, moonshot_v1_16b_a3b,
+                                 phi3_medium_14b, phi3_mini_3_8b,
+                                 qwen3_moe_30b_a3b)
 from repro_torch.core import LookaheadEngine, reference_decode
 from repro_torch.core.request import SamplingParams
 from repro_torch.models import transformer as ttx
@@ -48,10 +52,12 @@ pytestmark = pytest.mark.torch_port
 LOGIT_TOL = dict(atol=2e-5, rtol=1e-4)
 ARCHS = {"antglm-10b": (j_antglm, antglm_10b),
          "phi3-mini-3.8b": (j_phi3_mini, phi3_mini_3_8b),
-         "phi3-medium-14b": (j_phi3_medium, phi3_medium_14b)}
+         "phi3-medium-14b": (j_phi3_medium, phi3_medium_14b),
+         "qwen3-moe-30b-a3b": (j_qwen3_moe, qwen3_moe_30b_a3b),
+         "moonshot-v1-16b-a3b": (j_moonlight, moonshot_v1_16b_a3b)}
 # the reference's fields the port sets otherwise: its attention backends
-# ("cuda", the kernels) and the MoE dispatch it does not port (A15)
-PORT_FIELDS = {"prefill_backend", "decode_backend", "moe_impl"}
+# ("cuda", the kernels)
+PORT_FIELDS = {"prefill_backend", "decode_backend"}
 ECFG = dict(lanes=2, prefill_len=32, decoding_length=8, branch_length=4)
 
 
@@ -116,14 +122,13 @@ def test_configs_match_reference(arch):
                 assert getattr(tcfg, f.name) == getattr(jcfg, f.name), \
                     (name, f.name)
         assert tcfg.n_params() == jcfg.n_params(), name
-        assert tcfg.dh == jcfg.dh and not tcfg.moe
+        assert tcfg.n_active_params() == jcfg.n_active_params(), name
+        assert tcfg.dh == jcfg.dh
     full = t_mod.full_config()
     assert full.adtype == torch.float32 and full.pdtype == torch.float32
 
 
-@pytest.mark.parametrize("name,item", [
-    ("qwen3-moe-30b-a3b", "A15"), ("moonshot_v1_16b_a3b", "A15"),
-    ("equiformer-v2", "A18")])
+@pytest.mark.parametrize("name,item", [("equiformer-v2", "A18")])
 def test_get_arch_refuses_unported_archs(name, item):
     with pytest.raises(KeyError, match=f"not yet ported \\(ROADMAP {item}"):
         get_arch(name)
@@ -154,7 +159,8 @@ def _tree_inputs(cfg, lens, T, seed):
 
 @pytest.mark.parametrize("arch,head_dim", [
     ("antglm-10b", None), ("phi3-mini-3.8b", None),
-    ("phi3-medium-14b", None), ("antglm-10b", 96), ("phi3-mini-3.8b", 96)])
+    ("phi3-medium-14b", None), ("antglm-10b", 96), ("phi3-mini-3.8b", 96),
+    ("qwen3-moe-30b-a3b", None), ("moonshot-v1-16b-a3b", None)])
 def test_prefill_and_tree_step_logits_match_jax(arch, head_dim):
     """Smoke size; ``head_dim`` 96 (phi3-mini's own width) on the MHA archs
     puts the kernels' plain versions at dh 96 against JAX."""

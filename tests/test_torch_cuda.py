@@ -1129,3 +1129,64 @@ def test_subprocess_replica_builds_on_the_card(cuda):
     finally:
         sub.close()
     assert not proc.is_alive() and sub.exitcode == 0
+
+
+# ----------------------------------------------------------------- MoE FFN
+def test_moe_ref_on_the_card_matches_the_cpu(cuda):
+    """``moe_ref``, and ``moe_local`` at a capacity factor of E / top_k
+    (nothing dropped), in f32 with TF32 off on the card against the same
+    calls on the CPU: the same routing, outputs within atol 1e-5, rtol
+    1e-4 (f32 products of 256 and 128 terms summed in another order;
+    outputs ~1e-2)."""
+    from repro_torch.models import moe
+    rng = np.random.RandomState(0)
+    N, d, E, F, k = 132, 256, 16, 128, 4
+    cpu = [torch.from_numpy((rng.randn(*shape) * s).astype(np.float32))
+           for shape, s in (((N, d), 1.0), ((d, E), 0.1), ((E, d, F), 0.05),
+                            ((E, d, F), 0.05), ((E, F, d), 0.05))]
+    card = [t.to(cuda) for t in cpu]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, idx_cpu = moe.router_topk(cpu[0], cpu[1], k)
+        _, idx_card = moe.router_topk(card[0], card[1], k)
+        assert torch.equal(idx_card.cpu(), idx_cpu)
+        for fn in (lambda *a: moe.moe_ref(*a, k),
+                   lambda *a: moe.moe_local(*a, k, E / k)):
+            torch.testing.assert_close(fn(*card).cpu(), fn(*cpu),
+                                       atol=1e-5, rtol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_init_params_draws_experts_a_layer_at_a_time(cuda):
+    """The (L, E, ...) expert tensors are drawn one layer at a time: the
+    draw's peak exceeds the weights by one layer's f32 scratch (64 MiB
+    here), not the whole tensor's (256 MiB), and every layer gets its own
+    numbers."""
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import TransformerConfig
+    L, d, E, F = 4, 1024, 16, 1024
+    cfg = TransformerConfig(n_layers=L, d_model=d, n_heads=8, n_kv_heads=8,
+                            d_ff=0, vocab_size=256, moe=True, n_experts=E,
+                            top_k=2, moe_d_ff=F, dtype="bfloat16",
+                            param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    leaves = [*params["layers"].values(),
+              *(v for key, v in params.items() if key != "layers")]
+    assert sum(t.numel() for t in leaves) == cfg.n_params()
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    over = torch.cuda.max_memory_allocated() - base - weights
+    layer_f32 = E * d * F * 4
+    # 1 MiB for the allocator's rounding of each block to 512 bytes
+    assert over <= layer_f32 + (1 << 20), (over, layer_f32)
+    for name in ("we_gate", "we_up", "we_down"):
+        w = params["layers"][name]
+        assert all(not torch.equal(w[i], w[i + 1]) for i in range(L - 1))
+        assert abs(w.float().std().item() - 0.02) < 0.002

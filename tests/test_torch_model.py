@@ -17,6 +17,7 @@ import torch
 
 from repro.configs import antglm_10b as j_antglm
 from repro.configs import qwen2_1_5b as j_qwen
+from repro.configs import qwen3_moe_30b_a3b as j_qwen3_moe
 from repro.core import LookaheadConfig
 from repro.core.request import build_draft_tree, idle_tree
 from repro.core.trie import TrieTree
@@ -95,6 +96,71 @@ def test_init_params_matches_jax_layout(pdtype):
     assert torch.all(tp["ln_f"] == 1) and torch.all(tp["layers"]["bq"] == 0)
     w = tp["layers"]["w_up"].float()
     assert abs(w.std().item() - 0.02) < 0.002 and abs(w.mean().item()) < 1e-3
+
+
+def _moe_smoke(pdtype="float32"):
+    """Qwen3-MoE's smoke config with Moonlight's shared expert: every MoE
+    key (router, we_*, ws_*) in one pytree."""
+    return dataclasses.replace(j_qwen3_moe.smoke_config(),
+                               n_shared_experts=1, param_dtype=pdtype)
+
+
+def test_params_from_jax_round_trip_moe():
+    jcfg = _moe_smoke()
+    jp = jtx.init_params(jcfg, jax.random.key(2))
+    tp = params_from_jax(torch_config(jcfg), jax.tree.map(np.asarray, jp),
+                         "cpu")
+    flat_j = {jax.tree_util.keystr(p): l
+              for p, l in jax.tree_util.tree_leaves_with_path(jp)}
+    flat_t = {jax.tree_util.keystr(p): l
+              for p, l in jax.tree_util.tree_leaves_with_path(tp)}
+    assert flat_j.keys() == flat_t.keys()
+    assert "['layers']['we_gate']" in flat_t and \
+        "['layers']['w_gate']" not in flat_t
+    for key, leaf in flat_j.items():
+        np.testing.assert_array_equal(flat_t[key].numpy(), np.asarray(leaf),
+                                      err_msg=key)
+    # a dense pytree does not pass for the MoE config
+    dense = jtx.init_params(j_qwen.smoke_config(), jax.random.key(0))
+    with pytest.raises(ValueError, match="do not match"):
+        params_from_jax(torch_config(jcfg), jax.tree.map(np.asarray, dense),
+                        "cpu")
+
+
+@pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+def test_init_params_matches_jax_layout_moe(pdtype):
+    """The MoE keys replace the dense FFN's, with the reference's shapes
+    and dtypes; the expert tensors, drawn a layer at a time, have the
+    same distribution in every layer; the dense keys keep their bits."""
+    jcfg = _moe_smoke(pdtype)
+    jp = jtx.init_params(jcfg, jax.random.key(0))
+    tp = init_params(torch_config(jcfg), seed=3, device="cpu")
+    flat_j = {jax.tree_util.keystr(p): l
+              for p, l in jax.tree_util.tree_leaves_with_path(jp)}
+    flat_t = {jax.tree_util.keystr(p): l
+              for p, l in jax.tree_util.tree_leaves_with_path(tp)}
+    assert flat_j.keys() == flat_t.keys()
+    for key, leaf in flat_j.items():
+        t = flat_t[key]
+        assert tuple(t.shape) == leaf.shape, key
+        assert str(t.dtype).split(".")[-1] == str(leaf.dtype), key
+    for name in ("we_gate", "we_up", "we_down"):
+        w = tp["layers"][name].float()
+        std = w.flatten(1).std(dim=1)
+        assert torch.all((std - 0.02).abs() < 0.002), (name, std)
+        assert not torch.equal(w[0], w[1])
+    # a dense config's draw is what it was before MoE keys were drawn
+    dcfg = torch_config(dataclasses.replace(j_qwen.smoke_config(),
+                                            param_dtype=pdtype))
+    dp = init_params(dcfg, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        want = (torch.randn(dp["layers"][name].shape, generator=gen)
+                * 0.02).to(dcfg.pdtype)
+        assert torch.equal(dp["layers"][name], want), name
+    want = (torch.randn(dp["embed"].shape, generator=gen) * 0.02
+            ).to(dcfg.pdtype)
+    assert torch.equal(dp["embed"], want)
 
 
 # --------------------------------------------------------- model functions
@@ -267,7 +333,7 @@ def test_verify_accept_device_matches_jax_and_host(seed):
 def test_smoke_config_matches_reference_numbers():
     jcfg = j_qwen.smoke_config()
     tcfg = t_qwen.smoke_config()
-    skip = {"prefill_backend", "decode_backend", "moe_impl"}
+    skip = {"prefill_backend", "decode_backend"}
     for f in dataclasses.fields(jcfg):
         if f.name not in skip:
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name

@@ -11,8 +11,8 @@
   * isolation: importing every ``repro_torch`` module loads no JAX and no
     ``repro``;
   * refusals: CUDA by default (raises without it), and the features later
-    slices bring (the MoE FFN; the CLI's checkpoint flag) are refused,
-    each naming its ROADMAP item;
+    slices bring (expert-parallel MoE; the CLI's checkpoint flag) are
+    refused, each naming its ROADMAP item;
   * the serve CLI on the CPU, dense and paged with the prefix cache.
 """
 import dataclasses
@@ -317,15 +317,21 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(moe=True, n_experts=4, top_k=2), "A15"),
+    (dict(moe=True, n_experts=4, top_k=2, moe_d_ff=16, d_ff=0,
+          moe_impl="ep"), "A16"),
 ])
 def test_unported_features_are_refused(change, item):
+    """The MoE FFN landed (A15); its expert-parallel dispatch waits for
+    multi-GPU (A16) and is refused at the first forward."""
     cfg = dataclasses.replace(ttx.TransformerConfig(n_layers=1, d_model=32,
                                                     n_heads=4, n_kv_heads=2,
                                                     d_ff=64, vocab_size=53),
                               **change)
+    params = init_params(cfg, device="cpu")
+    toks = torch.ones((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        init_params(cfg, device="cpu")
+        ttx.prefill(cfg, params, toks, torch.tensor([8], dtype=torch.int32),
+                    ttx.init_cache(cfg, 1))
     # the sanitizer (A12) landed: its config validates
     tapi.EngineConfig(**ECFG, sanitize=True).validate()
 
@@ -358,10 +364,11 @@ def test_serve_cli_smoke_on_cpu():
 
 
 @pytest.mark.parametrize("arch", ["antglm-10b", "phi3-mini-3.8b",
-                                  "phi3-medium-14b"])
+                                  "phi3-medium-14b", "qwen3-moe-30b-a3b",
+                                  "moonshot-v1-16b-a3b"])
 def test_serve_cli_smoke_on_cpu_other_archs(arch):
-    """The serve CLI on the reference's other dense LMs at smoke size:
-    the same tokens line and one sync a decode step."""
+    """The serve CLI on the reference's other LMs, dense and MoE, at
+    smoke size: the same tokens line and one sync a decode step."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
