@@ -139,6 +139,28 @@ Phases, in order; any failure exits non-zero:
    times B1, B2 and B3 at their heads, (32, 4, 128) (G = 8) and
    (16, 16, 128).
 
+12. training (``--phases train``): Qwen2-1.5B at full width through the
+   train CLI (``launch/train.main``, its defaults: f32, batch 8, seq 128,
+   dense attention) for 20 steps with a checkpoint at the last, some of
+   whose arrays must be the trained state's bits; a second ``main``
+   resumes from it (its restore checks the sha256 of every array it reads
+   against the manifest's, taken from the saved arrays) and takes 2 more
+   steps; the CLI's step on one repeated batch must lower the loss by 0.5
+   in 10 steps (timed: median step, tokens/s, TFLOP/s from 6 N tokens,
+   peak memory); the reference's train_4k config (bf16 over f32 master
+   weights, remat, q_chunk 512, S 4096, bf16 gradients) with the global
+   batch cut from 256 to 8 in 4 microbatches, 3 timed steps after a
+   warm-up, and one microbatch's peak with remat on and off at 4 layers;
+   one smoke step on the card against the CPU in f32; ``lm_loss`` through
+   the cuda prefill with grad on must raise, naming B3; Wide & Deep's
+   train_batch at full size (B 65,536), 5 steps, B5 twice a forward, its
+   forward bit for bit against its plain version at that shape, and its
+   table gradient (the ``autograd.Function``'s plain backward) against
+   autograd of the plain version; Two-Tower, SASRec and BERT4Rec two steps
+   each at full width, the batch cut as ``RECSYS_TRAIN_CUTS`` names.  The train
+   paths launch B5 and no other kernel; its launches there join the
+   kernel line's.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
 no result line.  The script imports nothing of JAX.
@@ -3552,9 +3574,403 @@ def recsys_phase(gen):
     return err, row, launches
 
 
+# ---------------------------------------------------------------- training
+TRAIN_CLI_STEPS = 20          # the CLI run; it checkpoints at its last step
+TRAIN_RESUME_STEPS = 2        # steps the resumed CLI run takes
+# leaves of the checkpoint compared bit for bit with the trained state
+CKPT_SPOT_KEYS = ("p/embed", "p/ln_f", "p/layers/wq", "p/layers/bq", "o/0",
+                  "o/1/embed", "o/2/layers/w_down")
+OVERFIT_STEPS = 10
+OVERFIT_MARGIN = 0.5          # nats the loss must fall on one repeated batch
+                              # (the margin of the reference's
+                              # test_overfit_single_batch)
+TRAIN_4K_BATCH = 8            # the train_4k cell's global batch 256, cut
+TRAIN_4K_ACCUM = 4            # microbatches (the reference's memory build)
+TRAIN_4K_TIMED = 3            # timed steps after one warm-up
+REMAT_LAYERS = 4              # depth of the remat on/off peak comparison:
+                              # off keeps ~4 GB of attention a layer at
+                              # (2, 4096), which 28 layers would not fit
+WD_TRAIN_STEPS = 5
+# card against CPU, one smoke step in f32: loss and gradient norm to rtol
+# 1e-5 (f32 sums in another order); parameters to atol lr / 10.  Adam's
+# first update is lr * g / (|g| + eps), continuous in g, so the two
+# devices' rounding of g moves it far less than lr (1.0e-5 measured on the
+# H100); a wrong update (a missing bias correction, a halved lr) moves
+# entries by lr / 2 or more
+TRAIN_LR = 1e-3
+TRAIN_PARAM_ATOL = 1e-4
+# B5's table gradient, the autograd.Function's backward (plain index_add_)
+# against autograd of the plain version: both scatter-add with atomics in
+# no fixed order, cotangents ~1e-3
+B5_GRAD_TOL = dict(atol=1e-9, rtol=1e-5)
+# arch -> (batch, the cut): two steps each at full width, the batch cut
+# and never split (the reference's accumulation would split the shared
+# negatives too, ROADMAP C), so every row keeps the cell's work: its
+# in-batch negatives, or all 8,192 shared ones
+RECSYS_TRAIN_CUTS = {
+    "two-tower-retrieval": (
+        32768, "B 65,536 -> 32,768: the in-batch (B, B) f32 scores are "
+               "17 GB a copy at 65,536, and the negatives are the batch"),
+    "sasrec": (
+        8192, "B 65,536 -> 8,192: the (B, 50, 8,193) f32 scores are "
+              "107 GB a copy at 65,536, 13 GB at 8,192"),
+    "bert4rec": (
+        8192, "B 65,536 -> 8,192: the (B, 40, 8,193) f32 scores are "
+              "86 GB a copy at 65,536, 11 GB at 8,192"),
+}
+RECSYS_TRAIN_STEPS = 2        # the first call (cold), then a warm step
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def free_card():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def timed_steps(step, state, batches, n):
+    """``n`` steps on ``state`` = [params, opt], replaced in place, so that
+    no caller keeps an older state alive; each step timed by the host
+    clock to a synchronize, its loss pulled after it.  Returns (losses,
+    seconds)."""
+    losses, secs = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[0], state[1], m = step(*state, batches[i % len(batches)])
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def lm_rate(cfg, tokens, secs):
+    """Median step ms (first step left out), tokens/s and TFLOP/s from
+    6 * N_active * tokens."""
+    ms = float(np.median(secs[1:])) * 1e3
+    return ms, tokens / ms * 1e3, 6 * cfg.n_active_params() * tokens \
+        / ms / 1e9
+
+
+def train_cli_cell():
+    """Qwen2-1.5B at full width through ``launch/train.main`` with its
+    defaults (f32, batch 8, seq 128, dense, lr 3e-4): TRAIN_CLI_STEPS
+    steps and a checkpoint at the last, whose CKPT_SPOT_KEYS arrays must
+    be the trained state's bits; a second ``main`` resumes from it (its
+    restore checks the sha256 of every array it reads against the
+    manifest's, taken from the saved arrays) and takes TRAIN_RESUME_STEPS
+    more.
+    Then the CLI's step on one repeated batch: the loss must fall by
+    OVERFIT_MARGIN, and these steps are timed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import lm_train_batches
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        argv = ["--device", "cuda", "--ckpt-dir", ckpt, "--ckpt-every",
+                str(TRAIN_CLI_STEPS)]
+        free_card()
+        t0 = time.perf_counter()
+        first = train_cli.main(argv + ["--steps", str(TRAIN_CLI_STEPS)])
+        wall = time.perf_counter() - t0
+        losses = first["losses"]
+        check(sorted(losses) == [1, 10, 20]
+              and all(np.isfinite(v) for v in losses.values()),
+              f"train CLI losses {losses}")
+        path = os.path.join(ckpt, f"step_{TRAIN_CLI_STEPS:010d}")
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+        print(f"  train CLI: {TRAIN_CLI_STEPS} steps in {wall:.1f} s, "
+              f"peak {peak_gb():.2f} GB, loss {losses[1]:.4f} (step 1) "
+              f"{losses[20]:.4f} (step 20); checkpoint {nbytes / 1e9:.2f} "
+              f"GB: pulled in {first['pull_s']:.2f} s, written (the wait "
+              f"at exit) in {first['write_wait_s']:.2f} s")
+        # the saved arrays are the trained state's bits (the restore below
+        # verifies the sha256 of everything it reads against the manifest)
+        with np.load(os.path.join(path, "arrays.npz")) as npz:
+            state = {"p": first["params"], "o": first["opt"]}
+            for key in CKPT_SPOT_KEYS:
+                leaf = state
+                for part in key.split("/"):
+                    leaf = leaf[int(part) if part.isdigit() else part]
+                check(np.array_equal(npz[key], leaf.cpu().numpy()),
+                      f"checkpoint {key} differs from the trained state")
+        del state, first
+        free_card()
+        second = train_cli.main(
+            argv + ["--steps", str(TRAIN_CLI_STEPS + TRAIN_RESUME_STEPS)])
+        check(second["start"] == TRAIN_CLI_STEPS
+              and int(second["opt"].step) == TRAIN_CLI_STEPS
+              + TRAIN_RESUME_STEPS
+              and np.isfinite(second["losses"][TRAIN_CLI_STEPS + 1]),
+              f"resume: start {second['start']}, losses "
+              f"{second['losses']}")
+        print(f"  resumed at step {second['start']}: restored (read, "
+              f"verified, on the card) in {second['restore_s']:.2f} s, "
+              f"loss {second['losses'][TRAIN_CLI_STEPS + 1]:.4f} at step "
+              f"{TRAIN_CLI_STEPS + 1}")
+        del second
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    free_card()
+    cfg = dataclasses.replace(full_config(), prefill_backend="dense")
+    params = init_params(cfg, seed=0, device="cuda")
+    state = [params, adamw_init(params)]
+    del params
+    step = make_train_step(
+        lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"]), lr=3e-4)
+    batch = to_cuda(next(lm_train_batches(cfg.vocab_size, 8, 128, seed=0)))
+    losses, secs = timed_steps(step, state, [batch], OVERFIT_STEPS)
+    check(losses[-1] < losses[0] - OVERFIT_MARGIN,
+          f"one repeated batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    ms, tok_s, tflops = lm_rate(cfg, 8 * 128, secs)
+    print(f"  {cfg.name} f32 (the CLI's step), one batch x {OVERFIT_STEPS}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step "
+          f"{ms:.1f} ms, {tok_s:.0f} tokens/s, {tflops:.1f} TFLOP/s "
+          f"(6 N tokens), peak {peak_gb():.2f} GB")
+    profile_cell(f"{cfg.name} train step (f32, 8 x 128, eager)",
+                 lambda i: step(*state, batch), calls=2)
+
+
+def train_4k_cell():
+    """The reference's train_4k config on Qwen2-1.5B at full width (bf16
+    activations over f32 master weights, remat, q_chunk 512, S 4096, bf16
+    gradients) with the global batch cut from 256 to TRAIN_4K_BATCH in
+    TRAIN_4K_ACCUM microbatches; then the peak of one microbatch's loss and
+    gradient with remat on and off at REMAT_LAYERS layers."""
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import lm_train_batches
+    from repro_torch.training.optimizer import (adamw_init, tree_leaves,
+                                                tree_map)
+    free_card()
+    cfg = lm_common.train_4k_config(full_config())
+    S = lm_common.TRAIN_4K["seq"]
+    params = init_params(cfg, seed=0, device="cuda")
+    state = [params, adamw_init(params)]
+    del params
+    batch = to_cuda(next(lm_train_batches(cfg.vocab_size, TRAIN_4K_BATCH, S,
+                                          seed=0)))
+    step = lm_common.train_4k_step(cfg, accum_steps=TRAIN_4K_ACCUM)
+    losses, secs = timed_steps(step, state, [batch], 1 + TRAIN_4K_TIMED)
+    check(all(np.isfinite(losses)), f"train_4k losses {losses}")
+    ms, tok_s, tflops = lm_rate(cfg, TRAIN_4K_BATCH * S, secs)
+    print(f"  train_4k (batch {TRAIN_4K_BATCH} = {TRAIN_4K_ACCUM} x "
+          f"{TRAIN_4K_BATCH // TRAIN_4K_ACCUM}, S {S}, bf16, remat, q_chunk "
+          f"{cfg.q_chunk}): losses {[round(v, 4) for v in losses]}; median "
+          f"step {ms:.1f} ms, {tok_s:.0f} tokens/s, {tflops:.1f} TFLOP/s "
+          f"(6 N tokens), peak {peak_gb():.2f} GB")
+    del state
+    mb = {k: v[:TRAIN_4K_BATCH // TRAIN_4K_ACCUM] for k, v in batch.items()}
+    peaks = {}
+    for remat in (True, False):
+        free_card()
+        c = dataclasses.replace(cfg, n_layers=REMAT_LAYERS, remat=remat)
+        p = tree_map(lambda t: t.requires_grad_(True),
+                     init_params(c, seed=0, device="cuda"))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = tx.lm_loss(c, p, mb["tokens"], mb["labels"])
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del p, loss, grads
+    check(peaks[True] < peaks[False], f"remat peaks {peaks}")
+    print(f"  one microbatch ({TRAIN_4K_BATCH // TRAIN_4K_ACCUM}, {S}) at "
+          f"{REMAT_LAYERS} layers, loss and gradient: peak over the weights "
+          f"{peaks[True]:.2f} GB with remat, {peaks[False]:.2f} GB without")
+
+
+def train_card_cpu_cell():
+    """One make_train_step step of the Qwen2 smoke config in f32 (dense,
+    TF32 off) from the same parameters on the card and on the CPU."""
+    from repro_torch.configs.qwen2_1_5b import smoke_config
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import lm_train_batches
+    from repro_torch.training.optimizer import (adamw_init, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_step import make_train_step
+    cfg = dataclasses.replace(smoke_config(), prefill_backend="dense")
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(lm_train_batches(cfg.vocab_size, 4, 64, seed=0)).items()}
+    step = make_train_step(
+        lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"]),
+        lr=TRAIN_LR)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        newp, _, m = step(p, adamw_init(p),
+                          {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [t.cpu() for t in tree_leaves(newp)])
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc}
+    dp = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
+    check(all(r <= 1e-5 for r in rel.values()) and dp <= TRAIN_PARAM_ATOL,
+          f"smoke step card vs CPU: relative {rel}, params {dp}")
+    print(f"  smoke step, card vs CPU (f32): loss {mg['loss']:.6f} / "
+          f"{mc['loss']:.6f}, relative differences {rel}, parameters "
+          f"{dp:.2e} (limits rtol 1e-5, atol {TRAIN_PARAM_ATOL})")
+
+
+def train_guard_cell():
+    """``lm_loss`` with ``prefill_backend="cuda"`` and parameters that
+    require grad must raise, naming B3, and launch nothing."""
+    from repro_torch.configs.qwen2_1_5b import smoke_config
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import tree_map
+    cfg = smoke_config()
+    check(cfg.prefill_backend == "cuda", "the smoke config's backend")
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      init_params(cfg, seed=0, device="cuda"))
+    toks = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
+    n0 = flash_prefill.launches
+    try:
+        tx.lm_loss(cfg, params, toks, toks)
+    except RuntimeError as exc:
+        msg = str(exc)
+    else:
+        raise SmokeError("lm_loss through the cuda prefill with grad on "
+                         "did not raise")
+    check("flash_prefill" in msg and "no backward" in msg
+          and flash_prefill.launches == n0, f"guard: {msg}")
+    print(f"  guard: lm_loss through B3 with grad on raised: {msg}")
+
+
+def train_wide_deep_cell():
+    """Wide & Deep's train_batch cell at full size (B 65,536, 40 x 10^6 x
+    32 tables, f32, bf16 gradients): WD_TRAIN_STEPS steps with B5 counted
+    (2 launches a forward, nowhere else); then, on the first batch's ids,
+    B5's forward held bit for bit against its plain version at this
+    shape, and the tables' gradient from the autograd.Function's backward
+    (plain index_add_, which reads no forward output) against autograd of
+    the plain version.  Returns B5's launches on the train path."""
+    from repro_torch.configs import wide_deep
+    from repro_torch.configs.recsys_common import BATCHES
+    from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
+                                                       embedding_bag_ref,
+                                                       fold_weights)
+    from repro_torch.training import data
+    from repro_torch.training.optimizer import adamw_init
+    free_card()
+    cfg = wide_deep.full_config()
+    B, F, D = BATCHES["train_batch"], cfg.n_sparse, cfg.embed_dim
+    params = wide_deep.model.init_params(cfg, seed=0, device="cuda")
+    state = [params, adamw_init(params)]
+    del params
+    cell = wide_deep.train_cell(cfg)
+    batches = [to_cuda(data.wide_deep_batch(
+        np.random.RandomState(300 + i), B, F, cfg.rows_per_table,
+        cfg.multi_hot, cfg.n_dense)) for i in range(WD_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    embedding_bag_fused.launches = 0
+    losses, secs = timed_steps(cell.step, state, batches, WD_TRAIN_STEPS)
+    launches = embedding_bag_fused.launches
+    check(launches == 2 * WD_TRAIN_STEPS,
+          f"wide-deep train: {launches} B5 launches in {WD_TRAIN_STEPS} "
+          "steps")
+    check(all(np.isfinite(losses)), f"wide-deep train losses {losses}")
+    ms = float(np.median(secs[1:])) * 1e3
+    print(f"  wide-deep train_batch (B {B}): losses "
+          f"{[round(v, 4) for v in losses]}; median step {ms:.1f} ms, "
+          f"{B / ms * 1e3:.0f} contexts/s, peak {peak_gb():.2f} GB; B5 "
+          f"{launches} launches in {WD_TRAIN_STEPS} steps")
+    profile_cell("wide-deep train step (eager)",
+                 lambda i: cell.step(*state, batches[i]), calls=2)
+    params = state[0]
+    del state
+    ids, mask = batches[0]["sparse_ids"], batches[0]["sparse_mask"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    g = torch.randn((B, F, D), generator=gen, device="cuda") * 1e-3
+    table = params["tables"].detach().requires_grad_(True)
+    out_kernel = embedding_bag_fused(table, ids, mask)
+    out_plain = embedding_bag_ref(table, ids, fold_weights(ids, mask))
+    eb_hold(out_kernel.detach(), out_plain.detach(), torch.float32,
+            f"wide-deep train_batch tables {tuple(table.shape)}, ids "
+            f"{tuple(ids.shape)}")
+    d_kernel, = torch.autograd.grad(out_kernel, table, g)
+    d_plain, = torch.autograd.grad(out_plain, table, g)
+    err = float((d_kernel - d_plain).abs().max())
+    check(torch.allclose(d_kernel, d_plain, **B5_GRAD_TOL),
+          f"B5's table gradient vs the plain version's: max |diff| {err}")
+    print(f"  B5's table gradient: the autograd.Function's plain backward "
+          f"(index_add_) vs autograd of the plain version: max |diff| "
+          f"{err:.3e} over {int((d_plain != 0).sum())} nonzero entries "
+          f"({B5_GRAD_TOL})")
+    return launches
+
+
+def train_recsys_cell(name):
+    """RECSYS_TRAIN_STEPS train steps of ``name`` at full width at its cut
+    (RECSYS_TRAIN_CUTS) on one batch: finite losses, and every parameter
+    tree moves."""
+    from repro_torch import configs
+    from repro_torch.training import data
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    free_card()
+    mod = configs.get_arch(name)
+    cfg = mod.full_config()
+    batch, cut = RECSYS_TRAIN_CUTS[name]
+    rng = np.random.RandomState(400)
+    if name == "two-tower-retrieval":
+        b = data.two_tower_batch(rng, batch, cfg.n_user_fields,
+                                 cfg.n_item_fields, cfg.rows_per_table)
+    else:
+        b = data.seq_rec_batch(rng, batch, cfg.seq_len, cfg.n_items,
+                               causal=name == "sasrec", n_neg=mod.N_NEG)
+    b = to_cuda(b)
+    params = mod.model.init_params(cfg, seed=0, device="cuda")
+    cell = mod.train_cell(cfg, batch=batch)
+    state = [params, adamw_init(params)]
+    losses, secs = timed_steps(cell.step, state, [b], RECSYS_TRAIN_STEPS)
+    moved = [k for k in params if any(
+        not torch.equal(a, c) for a, c in zip(tree_leaves(state[0][k]),
+                                              tree_leaves(params[k])))]
+    check(all(np.isfinite(losses)) and moved == list(params),
+          f"{name} train: losses {losses}, moved {moved}")
+    print(f"  {name} train_batch ({cut}): losses "
+          f"{[round(v, 4) for v in losses]}; first call "
+          f"{secs[0] * 1e3:.1f} ms, warm step {secs[-1] * 1e3:.1f} ms, "
+          f"{batch / secs[-1]:.0f} rows/s warm, peak {peak_gb():.2f} GB; "
+          "every parameter tree moved")
+
+
+def train_phase():
+    """Training on the card: the LM train CLI with checkpoint and resume,
+    the train_4k config, card = CPU at smoke size, the gradient guard, and
+    the recsys train cells.  Returns B5's launches on the train path."""
+    train_cli_cell()
+    train_4k_cell()
+    train_card_cpu_cell()
+    train_guard_cell()
+    launches = train_wide_deep_cell()
+    for name in RECSYS_TRAIN_CUTS:
+        train_recsys_cell(name)
+    free_card()
+    return launches
+
+
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
           "sampled", "overlap", "graphs", "fleet", "sanitize", "long_prompt",
-          "archs", "moe")
+          "archs", "moe", "train")
 
 
 def main(argv=None) -> int:
@@ -3698,6 +4114,12 @@ def main(argv=None) -> int:
                 if name in rows.get(kern, {}).get("archs", {}):
                     rows[kern]["archs"][name]["launches"] = n
         phase_done(phase)
+
+    if "train" in phases:
+        print("training at full width:")
+        launches["embedding_bag"] = (launches.get("embedding_bag", 0)
+                                     + train_phase())
+        phase_done("train")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

@@ -2,13 +2,14 @@
 bidirectional cloze.  Encoder-only: serve = last-position scoring (the
 numbers of ``repro.configs.bert4rec``)."""
 from repro_torch.configs import recsys_common as rc
-from repro_torch.configs.recsys_common import Input, ServeCell
+from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import bert4rec as model
 
 ARCH = "bert4rec"
 SHAPES = rc.SHAPES
 N_ITEMS = 1_000_000
 N_CAND = 512            # ranking-stage candidates per user
+N_NEG = 8192            # shared sampled-softmax negatives (train_batch)
 
 
 def full_config() -> model.Bert4RecConfig:
@@ -31,3 +32,17 @@ def serve_cell(shape: str, cfg: model.Bert4RecConfig = None) -> ServeCell:
     if shape != "retrieval_cand":
         ins += (Input("cand_ids", (B, N_CAND), "int32"),)
     return ServeCell(model.serve, ins)
+
+
+def train_cell(cfg: model.Bert4RecConfig = None,
+               batch: int = rc.BATCHES["train_batch"]) -> TrainCell:
+    """``loss``: the cloze objective at seq_len // 5 masked slots a row,
+    sampled softmax against N_NEG negatives shared by the batch."""
+    cfg = cfg or full_config()
+    S, M = cfg.seq_len, cfg.seq_len // 5
+    return rc.train_cell(cfg, model.loss, (
+        Input("ids", (batch, S), "int32"),
+        Input("masked_pos", (batch, M), "int32"),
+        Input("masked_labels", (batch, M), "int32"),
+        Input("negatives", (N_NEG,), "int32"),
+        Input("pad_mask", (batch, S), "bool")))

@@ -2,13 +2,14 @@
 causal self-attention, next-item objective (the numbers of
 ``repro.configs.sasrec``)."""
 from repro_torch.configs import recsys_common as rc
-from repro_torch.configs.recsys_common import Input, ServeCell
+from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import sasrec as model
 
 ARCH = "sasrec"
 SHAPES = rc.SHAPES
 N_ITEMS = 1_000_000
 N_CAND = 512            # ranking-stage candidates per user
+N_NEG = 8192            # shared sampled-softmax negatives (train_batch)
 
 
 def full_config() -> model.SasRecConfig:
@@ -32,3 +33,16 @@ def serve_cell(shape: str, cfg: model.SasRecConfig = None) -> ServeCell:
     if shape != "retrieval_cand":
         ins += (Input("cand_ids", (B, N_CAND), "int32"),)
     return ServeCell(model.serve, ins)
+
+
+def train_cell(cfg: model.SasRecConfig = None,
+               batch: int = rc.BATCHES["train_batch"]) -> TrainCell:
+    """``loss``: next-item sampled softmax against N_NEG negatives shared
+    by the batch."""
+    cfg = cfg or full_config()
+    S = cfg.seq_len
+    return rc.train_cell(cfg, model.loss, (
+        Input("ids", (batch, S), "int32"),
+        Input("labels", (batch, S), "int32"),
+        Input("negatives", (N_NEG,), "int32"),
+        Input("pad_mask", (batch, S), "bool")))

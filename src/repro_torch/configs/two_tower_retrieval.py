@@ -5,7 +5,7 @@ candidates via a batched dot + top-k (the numbers of
 import torch
 
 from repro_torch.configs import recsys_common as rc
-from repro_torch.configs.recsys_common import Input, ServeCell
+from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import two_tower as model
 
 ARCH = "two-tower-retrieval"
@@ -50,3 +50,13 @@ def serve_cell(shape: str, cfg: model.TwoTowerConfig = None) -> ServeCell:
     return ServeCell(paired_score, (
         Input("user_ids", (B, cfg.n_user_fields), "int32"),
         Input("item_ids", (B, cfg.n_item_fields), "int32")))
+
+
+def train_cell(cfg: model.TwoTowerConfig = None,
+               batch: int = rc.BATCHES["train_batch"]) -> TrainCell:
+    """``loss``: sampled softmax over in-batch negatives, so the batch size
+    is part of the loss."""
+    cfg = cfg or full_config()
+    return rc.train_cell(cfg, model.loss, (
+        Input("user_ids", (batch, cfg.n_user_fields), "int32"),
+        Input("item_ids", (batch, cfg.n_item_fields), "int32")))

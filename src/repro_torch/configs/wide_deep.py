@@ -2,7 +2,7 @@
 MLP 1024-512-256, concat interaction.  Tables: 1M rows/field (the numbers
 of ``repro.configs.wide_deep``)."""
 from repro_torch.configs import recsys_common as rc
-from repro_torch.configs.recsys_common import Input, ServeCell
+from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import wide_deep as model
 
 ARCH = "wide-deep"
@@ -31,3 +31,17 @@ def serve_cell(shape: str, cfg: model.WideDeepConfig = None) -> ServeCell:
         Input("sparse_ids", (B, F, L), "int32"),
         Input("sparse_mask", (B, F, L), "bool"),
         Input("dense", (B, cfg.n_dense), "float32")))
+
+
+def train_cell(cfg: model.WideDeepConfig = None,
+               batch: int = rc.BATCHES["train_batch"]) -> TrainCell:
+    """``loss`` (BCE on the click labels) over a batch of contexts; the bags
+    run in B5 on the card, whose ``autograd.Function`` gives the tables
+    their gradient."""
+    cfg = cfg or full_config()
+    F, L = cfg.n_sparse, cfg.multi_hot
+    return rc.train_cell(cfg, model.loss, (
+        Input("sparse_ids", (batch, F, L), "int32"),
+        Input("sparse_mask", (batch, F, L), "bool"),
+        Input("dense", (batch, cfg.n_dense), "float32"),
+        Input("labels", (batch,), "float32")))

@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one package per
 Pallas kernel of ``repro.kernels`` (the serving path's and the recsys
-scoring path's), plus the Gumbel-argmax token choice.  Each package holds
-the CUDA source (``csrc/``), the wrapper (``ops.py``) and the plain PyTorch
-version (``ref.py``); ``_build.py`` compiles the sources with ``nvcc`` at
-first use.
+scoring and training paths'), plus the Gumbel-argmax token choice.  Each
+package holds the CUDA source (``csrc/``), the wrapper (``ops.py``) and the
+plain PyTorch version (``ref.py``); ``_build.py`` compiles the sources with
+``nvcc`` at first use.  No kernel has a backward: each refuses an input
+that requires grad while grad mode is on (``_build.check_cuda``), and the
+EmbeddingBag wrapper gives its table a gradient through an
+``autograd.Function`` whose backward is plain torch.
 
 The launch counters.  Each wrapper adds one to a plain integer attribute of
 its function where it launches its kernel, so a run can show that a path

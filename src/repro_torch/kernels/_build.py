@@ -128,13 +128,32 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# where a gradient comes from instead, per kernel: none has a backward
+_NO_BACKWARD = {
+    "tree_attention": "decode_backend='dense'",
+    "paged_tree_attention": "decode_backend='dense'",
+    "flash_prefill": "prefill_backend='dense' (the reference trains through "
+                     "it)",
+    "gumbel_argmax": "nothing: token choice has no gradient; call it under "
+                     "torch.no_grad()",
+    "embedding_bag": "embedding_bag_fused, whose autograd.Function has the "
+                     "backward",
+}
+
+
 def check_cuda(kernel: str, *tensors: torch.Tensor,
                aligned: bool = True) -> None:
-    """Reject what the kernels do not take: tensors off the card or on
-    different cards, non-contiguous storage, storage that is not 16-byte
-    aligned (the kernels read 16-byte vectors; ``aligned=False`` for a
-    kernel that takes any alignment), and dtypes other than one shared
-    float32/bfloat16."""
+    """Reject what the kernels do not take: an input that requires grad
+    while grad mode is on (no kernel has a backward, and its output would
+    silently carry no gradient), tensors off the card or on different
+    cards, non-contiguous storage, storage that is not 16-byte aligned (the
+    kernels read 16-byte vectors; ``aligned=False`` for a kernel that takes
+    any alignment), and dtypes other than one shared float32/bfloat16."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            f"backward (its output would carry no gradient); for a gradient "
+            f"use {_NO_BACKWARD[kernel]}")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: expected CUDA tensors, got {dev}")

@@ -7,6 +7,17 @@ raises.  A tensor on the CPU takes the plain version (``ref.py``) on the
 weights ``fold_weights`` makes; the kernel takes the mask and the weights
 as they are and folds them itself, to the same f32 values.
 ``embedding_bag_fused.launches`` counts kernel launches only.
+
+The gradient comes from a ``torch.autograd.Function`` around both: its
+forward is the kernel (or the plain version), its backward plain torch —
+the reference's gradient here is XLA's transpose of ``jnp.take``, not a
+Pallas kernel.  The table's gradient scatter-adds ``w[n, l] * grad[n]``
+into row ``ids[n, l]`` of its field (ids in [-V, 0) wrap as in the
+forward; ids out of range are dropped, as XLA's scatter drops them) with
+``index_add_``, which on the card adds with atomics in no fixed order: it
+matches the CPU's to a tolerance, not bit for bit.  Float ``weights`` get
+``<grad[n], table[ids[n, l]]>`` (times the mask); a bool or uint8 mask
+gets none.
 """
 from __future__ import annotations
 
@@ -51,6 +62,53 @@ def embedding_bag_fused(table: torch.Tensor, ids: torch.Tensor,
         if t is not None and t.shape != ids.shape:
             raise ValueError(f"embedding_bag: {name} {tuple(t.shape)} must "
                              f"have the ids' shape {tuple(ids.shape)}")
+    if mask is not None and mask.dtype not in (torch.bool, torch.uint8):
+        mask, weights = None, fold_weights(ids, mask, weights)
+    return _EmbeddingBag.apply(table, ids, mask, weights)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """``embedding_bag_fused`` with a gradient for the table and for float
+    weights; the mask is bool or uint8 (a float mask is folded into the
+    weights first, so its gradient flows through ``fold_weights``)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mask, weights):
+        ctx.save_for_backward(table, ids, mask, weights)
+        return _forward(table, ids, mask, weights)
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, ids, mask, weights = ctx.saved_tensors
+        g = grad.float()[..., None, :]                   # (..., 1, D)
+        w = fold_weights(ids, mask, weights)             # (..., L)
+        d_table = d_weights = None
+        if ctx.needs_input_grad[0]:
+            V, D = table.shape[-2:]
+            idx = ids.long()
+            idx = torch.where(idx < 0, idx + V, idx)
+            ok = (idx >= 0) & (idx < V)
+            if table.dim() == 3:
+                idx = idx + V * torch.arange(table.shape[0],
+                                             device=ids.device)[:, None]
+            vals = torch.where(ok[..., None], w[..., None] * g,
+                               torch.zeros((), device=g.device))
+            d_table = torch.zeros((table.numel() // D, D),
+                                  dtype=torch.float32, device=table.device)
+            d_table.index_add_(0, idx.clamp(0, d_table.shape[0] - 1
+                                             ).reshape(-1),
+                               vals.reshape(-1, D))
+            d_table = d_table.reshape(table.shape).to(table.dtype)
+        if ctx.needs_input_grad[3]:
+            dw = (take_rows(table, ids).float() * g).sum(-1)
+            if mask is not None:
+                dw = dw * mask.float()
+            d_weights = dw.to(weights.dtype)
+        return d_table, None, None, d_weights
+
+
+def _forward(table, ids, mask, weights):
+    """The forward: the kernel on the card, the plain version on the CPU."""
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, fold_weights(ids, mask, weights))
     stacked = table.dim() == 3
@@ -65,8 +123,6 @@ def embedding_bag_fused(table: torch.Tensor, ids: torch.Tensor,
             raise ValueError(f"embedding_bag: {name} on {t.device}, table on "
                              f"{table.device}")
     ids = ids.to(torch.int32).contiguous()
-    if mask is not None and mask.dtype not in (torch.bool, torch.uint8):
-        mask, weights = None, fold_weights(ids, mask, weights)
     if mask is not None:
         mask = mask.contiguous().view(torch.uint8)
     if weights is not None:

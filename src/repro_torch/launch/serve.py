@@ -49,8 +49,11 @@ at start when it exists and saves one at exit:
         --kv-layout paged --prefix-cache --shared-prefix 80 \
         --warm-state warm.json
 
-The reference CLI's ``--ckpt-dir`` exits with "not yet ported" (ROADMAP
-A17, training).
+``--ckpt-dir DIR`` serves the parameters of the latest checkpoint in DIR,
+restored as ``{"params": ...}`` as the reference's CLI does (a checkpoint
+``CheckpointManager.save(step, {"params": params})`` wrote, in either
+package).  The train CLIs save ``{"p", "o"}``, which this restore cannot
+read: a fault of the reference that the port keeps (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -67,13 +70,12 @@ from repro_torch.core import (DraftPolicy, LookaheadEngine, Request,
                               SamplingParams)
 from repro_torch.core.draft_sources import available_sources
 from repro_torch.models import attention as attn_backends
-from repro_torch.models.params import init_params
+from repro_torch.models.params import (init_params, resolve_device,
+                                       tree_to_torch)
 from repro_torch.serving.api import EngineConfig, build_engine
 from repro_torch.serving.block_allocator import worst_case_pool_blocks
+from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import PROFILES, SyntheticCorpus
-
-# flags of repro.launch.serve that a later slice brings, and its ROADMAP item
-NOT_PORTED = {"--ckpt-dir": "A17, training"}
 
 
 def _pct(xs: List[float], q: float) -> float:
@@ -218,17 +220,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--verify-fleet", action="store_true",
                     help="re-run the fleet workload on one engine and "
                          "require equal outputs")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest checkpoint's {'params'} here")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
-    args, unknown = ap.parse_known_args(argv)
-    for tok in unknown:
-        flag = tok.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            ap.exit(2, f"{flag}: not yet ported to repro_torch (ROADMAP "
-                       f"{NOT_PORTED[flag]})\n")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = ap.parse_args(argv)
     if args.prefix_cache and args.kv_layout != "paged":
         ap.error("--prefix-cache requires --kv-layout paged")
     if args.kv_layout == "paged" and args.mode == "lockstep":
@@ -269,6 +266,12 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = type(cfg)(**{**cfg.__dict__, "max_seq_len": 768})
     params = init_params(cfg, seed=0, device=args.device)
+    if args.ckpt_dir:
+        state, step = CheckpointManager(args.ckpt_dir).restore(
+            {"params": params})
+        params = tree_to_torch(state["params"],
+                               resolve_device(args.device))
+        print(f"restored checkpoint step {step}")
     n_blocks = None
     if args.kv_layout == "paged":
         # the pool the workload's worst case needs, by the formula the

@@ -38,7 +38,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.models.layers import causal_prefill_mask, gqa_attention
+from repro_torch.models.layers import (causal_prefill_mask, gqa_attention,
+                                       gqa_attention_chunked)
 
 
 # ------------------------------------------------------------ shared helpers
@@ -88,8 +89,13 @@ def build_full_tree_mask(cache_lens: torch.Tensor, tree_mask: torch.Tensor,
 def dense_prefill_attention(cfg, q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, positions: torch.Tensor,
                             len_mask: torch.Tensor) -> torch.Tensor:
-    """Reference causal prefill (every config on the serving path has
-    ``q_chunk == 0``, so the reference's chunked scan is not ported)."""
+    """Reference causal prefill: the query-chunked loop when
+    ``cfg.q_chunk`` divides S and S > q_chunk (the train config's 512),
+    else one (B, T, S) mask (the serving configs' q_chunk 0)."""
+    T = q.shape[1]
+    if cfg.q_chunk and T % cfg.q_chunk == 0 and T > cfg.q_chunk:
+        return gqa_attention_chunked(q, k, v, positions, len_mask,
+                                     cfg.q_chunk)
     return gqa_attention(q, k, v, causal_prefill_mask(positions, len_mask))
 
 

@@ -83,10 +83,35 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, T, H, dh)
 
 
+def gqa_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_positions: torch.Tensor,
+                          kv_len_mask: torch.Tensor, q_chunk: int
+                          ) -> torch.Tensor:
+    """Memory-bounded causal attention: a loop over query chunks (the
+    reference's ``lax.scan``), so the score tensor is (B, K, G, q_chunk, S)
+    instead of (B, K, G, T, S).
+
+    q_positions (B, T): absolute position of each query token; kv_len_mask
+    (B, S) bool: valid (non-pad) key positions.  A query attends to keys
+    whose buffer index is at most its own position.
+    """
+    T = q.shape[1]
+    if T % q_chunk:
+        raise ValueError(f"q_chunk {q_chunk} does not divide T={T}")
+    kpos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    outs = []
+    for c in range(0, T, q_chunk):
+        pc = q_positions[:, c:c + q_chunk]
+        m = (kpos <= pc[:, :, None]) & kv_len_mask[:, None, :]
+        outs.append(gqa_attention(q[:, c:c + q_chunk], k, v, m))
+    return torch.cat(outs, dim=1)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, act: Callable = F.silu) -> torch.Tensor:
     return (act(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 __all__ = ["rms_norm", "rope_angles", "apply_rope", "causal_prefill_mask",
-           "gqa_attention", "swiglu", "ACTS", "NEG_INF"]
+           "gqa_attention", "gqa_attention_chunked", "swiglu", "ACTS",
+           "NEG_INF"]

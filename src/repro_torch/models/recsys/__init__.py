@@ -1,6 +1,7 @@
 """Recommender models (PyTorch port of ``repro.models.recsys``): scoring
-paths and forward loss values; the Wide & Deep bags run in the fused
-EmbeddingBag kernel on the card."""
+paths and losses with their gradients; the Wide & Deep bags run in the
+fused EmbeddingBag kernel on the card, whose ``autograd.Function`` gives
+the tables their gradient."""
 from typing import Any, Mapping
 
 from repro_torch.models.params import Device, resolve_device, tree_to_torch

@@ -1,6 +1,6 @@
 """Shared recsys helpers: MLP towers, losses (PyTorch port of
-``repro.models.recsys.common``; forward values only — training is ROADMAP
-A17)."""
+``repro.models.recsys.common``), differentiable: the train cells take
+their gradients through them (``configs/*::train_cell``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence

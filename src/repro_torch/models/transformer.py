@@ -2,6 +2,8 @@
 (``models/moe.py``) (PyTorch port of ``repro.models.transformer``), on
 the dense and the paged KV layout.
 
+  * ``train_logits`` / ``lm_loss`` — the training forward (no cache,
+    ``cfg.remat`` checkpoints each layer and the loss head).
   * ``prefill`` / ``prefill_into_slot`` — causal forward that fills a KV
     cache (all lanes / one lane) and returns the logits of each sequence's
     last real token.
@@ -31,6 +33,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_backends
 from repro_torch.models import moe as moe_lib
@@ -161,9 +164,11 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_self(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
-                positions: torch.Tensor, len_mask: torch.Tensor):
-    """Self-attention layer over the full sequence (prefill).  Returns new
-    hidden states and the (k, v) tensors for cache filling."""
+                positions: torch.Tensor, len_mask: torch.Tensor,
+                want_kv: bool = True):
+    """Self-attention layer over the full sequence (train / prefill).
+    Returns new hidden states and the (k, v) tensors for cache filling
+    (None with ``want_kv=False``: training keeps no cache)."""
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, hn)
     cos, sin = rope_angles(positions, cfg.dh, cfg.rope_theta)
@@ -174,7 +179,7 @@ def _layer_self(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
     B, T, H, dh = attn.shape
     h = h + attn.reshape(B, T, H * dh) @ lp["wo"]
     h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
-    return h, (k, v)
+    return h, ((k, v) if want_kv else None)
 
 
 def _layer_tree(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
@@ -242,6 +247,67 @@ def _tree_forward(cfg: TransformerConfig, params: Params, cache: Cache,
         h = _layer_tree(cfg, _layer_params(cfg, params, i), h, positions,
                         cache["k"][i], cache["v"][i], attend)
     return h
+
+
+def _train_hidden(cfg: TransformerConfig, params: Params,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Embed and run every layer causally over (B, S) tokens, no padding,
+    no cache.  Each stacked weight is unbound once, so its gradient is one
+    stack of the layers' gradients; with ``cfg.remat`` each layer's body
+    is checkpointed (the reference's ``jax.checkpoint``) and recomputed in
+    the backward pass."""
+    B, S = tokens.shape
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    len_mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
+    names = list(params["layers"])
+    per_layer = [a.unbind(0) for a in params["layers"].values()]
+
+    def layer(h, *weights):
+        lp = {n: (w.to(cfg.adtype) if w.is_floating_point() else w)
+              for n, w in zip(names, weights)}
+        return _layer_self(cfg, lp, h, positions, len_mask,
+                           want_kv=False)[0]
+
+    for i in range(cfg.n_layers):
+        weights = [w[i] for w in per_layer]
+        if cfg.remat:       # no layer draws random numbers: no RNG state
+            h = checkpoint(layer, h, *weights, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = layer(h, *weights)
+    return h
+
+
+def train_logits(cfg: TransformerConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V); plain causal, no padding mask."""
+    return _unembed(cfg, params, _train_hidden(cfg, params, tokens))
+
+
+def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+            labels: torch.Tensor, loss_mask: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Mean next-token NLL from f32 log-softmax (over ``loss_mask``'s
+    weights when given).  The attention is ``cfg.prefill_backend``'s: train
+    through ``dense`` (the CUDA kernels have no backward and refuse inputs
+    that require grad).  With ``cfg.remat`` the loss head is checkpointed
+    too: the (B, S, V) f32 logits are recomputed in the backward pass, not
+    kept."""
+    h = _train_hidden(cfg, params, tokens)
+
+    def head(h, labels, mask):
+        logits = _unembed(cfg, params, h)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        if mask is None:
+            return nll.mean()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+    if cfg.remat:
+        return checkpoint(head, h, labels, loss_mask, use_reentrant=False,
+                          preserve_rng_state=False)
+    return head(h, labels, loss_mask)
 
 
 def init_cache(cfg: TransformerConfig, batch: int,
@@ -653,4 +719,4 @@ __all__ = ["TransformerConfig", "Params", "lane_index", "init_cache", "prefill",
            "init_paged_cache", "paged_row_index", "prefill_paged",
            "prefill_into_slot_paged", "prefill_from_offset_paged",
            "copy_paged_block", "tree_step_paged", "commit_paged_cache",
-           "reset_blocks"]
+           "reset_blocks", "train_logits", "lm_loss"]

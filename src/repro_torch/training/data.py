@@ -1,13 +1,14 @@
 """Synthetic data (port-local copy of ``repro.training.data``'s
-``CorpusProfile`` / ``PROFILES`` / ``SyntheticCorpus`` and its recsys batch
-generators, numpy only): RAG-style prompts whose answers copy spans from
-the prompt and from a shared phrase pool — the redundancy a Lookahead trie
-exploits — and recommender batches drawn in the reference's order of
-``RandomState`` calls, so the same seed gives the same arrays."""
+``CorpusProfile`` / ``PROFILES`` / ``SyntheticCorpus``, its LM training
+batches and its recsys batch generators, numpy only): RAG-style prompts
+whose answers copy spans from the prompt and from a shared phrase pool —
+the redundancy a Lookahead trie exploits — and LM and recommender batches
+drawn in the reference's order of ``RandomState`` calls, so the same seed
+gives the same arrays."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -75,6 +76,29 @@ class SyntheticCorpus:
         return [self.sample() for _ in range(n)]
 
 
+def lm_train_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+                     corpus: Optional[SyntheticCorpus] = None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """Next-token LM batches of int32 ``tokens`` / ``labels`` (B, seq):
+    uniform ids in [2, vocab), or a corpus's documents streamed end to end
+    (prompt, answer, eos 1) when one is given."""
+    rng = np.random.RandomState(seed)
+    while True:
+        if corpus is None:
+            toks = rng.randint(2, vocab, size=(batch, seq + 1))
+        else:
+            rows = []
+            for _ in range(batch):
+                doc: List[int] = []
+                while len(doc) < seq + 1:
+                    pr, ans = corpus.sample()
+                    doc += pr + ans + [1]
+                rows.append(doc[:seq + 1])
+            toks = np.asarray(rows)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+
+
 # ------------------------------------------------------------------- recsys
 def wide_deep_batch(rng: np.random.RandomState, batch: int, n_sparse: int,
                     rows: int, multi_hot: int, n_dense: int
@@ -116,5 +140,5 @@ def seq_rec_batch(rng: np.random.RandomState, batch: int, seq: int,
             "negatives": negatives, "pad_mask": pad}
 
 
-__all__ = ["CorpusProfile", "PROFILES", "SyntheticCorpus", "wide_deep_batch",
-           "two_tower_batch", "seq_rec_batch"]
+__all__ = ["CorpusProfile", "PROFILES", "SyntheticCorpus", "lm_train_batches",
+           "wide_deep_batch", "two_tower_batch", "seq_rec_batch"]

@@ -1,0 +1,130 @@
+"""AdamW + global-norm clipping on nested dicts of tensors (PyTorch port of
+``repro.training.optimizer``).
+
+Plain functions under ``torch.no_grad()``, in the reference's order of
+operations and rounding: bias corrections in f32 from an int32 step,
+``delta = mh / (sqrt(vh) + eps) + wd * p``, and ``None`` moments for a
+non-floating leaf.  Not ``torch.optim.AdamW``: the state is the reference's
+``AdamWState(step, mu, nu)``, so a checkpoint's keys (``o/0``, ``o/1/...``,
+``o/2/...``) are the reference's.
+
+The update is out of place: it returns new tensors and never writes the
+ones it was given, as the JAX step (which donates nothing) does.
+``run_with_timeout`` abandons a slow step on its thread and retries from
+the same parameters; an update in place could then be applied twice.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor          # () int32
+    mu: Any
+    nu: Any
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves in ``jax.tree.leaves`` order (dict keys sorted, ``None``
+    leaves skipped)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest``, the structure kept; ``None`` leaves of ``tree`` stay
+    ``None``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    return None if tree is None else fn(tree, *rest)
+
+
+def adamw_init(params: Any) -> AdamWState:
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32)
+                     if p.is_floating_point() else None, params)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+    return AdamWState(step=step, mu=zeros, nu=tree_map(torch.zeros_like,
+                                                       zeros))
+
+
+def _norm_and_scale(grads: Any, max_norm: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 global norm (a Python sum of per-leaf sums of squares, in
+    leaf order) and the clip factor ``min(1, max_norm / max(gn, 1e-12))``,
+    both 0-d tensors on the card (no host sync)."""
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                        for g in tree_leaves(grads)))
+    return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Any, max_norm: float
+                        ) -> Tuple[Any, torch.Tensor]:
+    """Scale every gradient by the clip factor; the result is f32, as JAX
+    promotes a bf16 gradient times the f32 factor."""
+    gn, scale = _norm_and_scale(grads, max_norm)
+    return tree_map(lambda g: g.float() * scale, grads), gn
+
+
+@torch.no_grad()
+def adamw_update(params: Any, grads: Any, state: AdamWState, *,
+                 lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
+                 eps: float = 1e-8, weight_decay: float = 0.01,
+                 max_grad_norm: Optional[float] = 1.0
+                 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step; returns (new params, new state, {"grad_norm"}).  The
+    clip factor is applied leaf by leaf inside the update (the values of
+    ``clip_by_global_norm`` without holding every clipped leaf at once)."""
+    if max_grad_norm is not None:
+        gn, scale = _norm_and_scale(grads, max_grad_norm)
+    else:
+        gn = scale = None
+    step = state.step + 1
+    bc1 = 1.0 - torch.pow(b1, step.float())
+    bc2 = 1.0 - torch.pow(b2, step.float())
+
+    def upd(p, g, m, v):
+        if g is None or m is None:
+            return p, m, v
+        g32 = g.float() if scale is None else g.float() * scale
+        m = m * b1
+        m += g32 * (1 - b1)
+        v = v * b2
+        v += torch.square(g32).mul_(1 - b2)
+        del g32
+        delta = torch.sqrt(v / bc2)
+        delta += eps
+        delta = (m / bc1).div_(delta)
+        p32 = p.float()
+        delta += p32 * weight_decay
+        delta *= lr
+        return (p32 - delta).to(p.dtype), m, v
+
+    def walk(p, g, m, v):          # -> (new p, new m, new v) subtrees
+        if isinstance(p, dict):
+            outs = {k: walk(p[k], g[k], m[k], v[k]) for k in p}
+            return tuple({k: o[i] for k, o in outs.items()}
+                         for i in range(3))
+        return upd(p, g, m, v)
+
+    new_p, new_m, new_v = walk(params, grads, state.mu, state.nu)
+    return (new_p, AdamWState(step=step, mu=new_m, nu=new_v),
+            {"grad_norm": gn if gn is not None
+             else torch.zeros((), device=step.device)})
+
+
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+           "tree_leaves", "tree_map"]

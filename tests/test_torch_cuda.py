@@ -1190,3 +1190,144 @@ def test_init_params_draws_experts_a_layer_at_a_time(cuda):
         w = params["layers"][name]
         assert all(not torch.equal(w[i], w[i + 1]) for i in range(L - 1))
         assert abs(w.float().std().item() - 0.02) < 0.002
+
+
+# ---------------------------------------------------------------- training
+def _guarded_calls(dev):
+    """Each kernel's wrapper on small card inputs: name -> (call, inputs
+    that may require grad)."""
+    rng = np.random.RandomState(0)
+    q = _t(rng.randn(1, 3, 4, 16) * 0.3, "float32", dev)
+    k = _t(rng.randn(1, 40, 2, 16) * 0.3, "float32", dev)
+    v = _t(rng.randn(1, 40, 2, 16) * 0.3, "float32", dev)
+    mask = torch.ones((1, 3, 40), dtype=torch.bool, device=dev)
+    pk = _t(rng.randn(1, 64, 2, 16) * 0.3, "float32", dev)
+    logits = _t(rng.randn(1, 3, 512), "float32", dev)
+    lane = (torch.zeros((1, 3), dtype=torch.int32, device=dev),
+            torch.ones(1, device=dev), torch.zeros(1, dtype=torch.int64,
+                                                   device=dev),
+            torch.zeros(1, dtype=torch.bool, device=dev))
+    return {
+        "tree_attention": (lambda a, b, c: tree_attention(a, b, c, mask),
+                           (q, k, v)),
+        "flash_prefill": (flash_prefill, (pk, pk.clone(), pk.clone())),
+        "flash_prefill_tri": (
+            lambda a, b, c: flash_prefill(a, b, c, triangular=True),
+            (pk, pk.clone(), pk.clone())),
+        "gumbel_argmax": (lambda x: gumbel_argmax(x, *lane), (logits,)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["tree_attention", "flash_prefill",
+                                    "flash_prefill_tri", "gumbel_argmax"])
+def test_kernels_refuse_inputs_that_require_grad(cuda, kernel):
+    """No kernel has a backward: an input that requires grad raises, naming
+    the kernel and where a gradient comes from, instead of returning an
+    output without one; under no_grad, or without such inputs, it
+    launches."""
+    fn, ins = _guarded_calls(cuda)[kernel]
+    name = "flash_prefill" if kernel.startswith("flash") else kernel
+    for i in range(len(ins)):
+        live = [t.clone().requires_grad_(j == i) for j, t in enumerate(ins)]
+        with pytest.raises(RuntimeError, match=f"{name}: an input requires "
+                                               "grad.*no backward"):
+            fn(*live)
+        with torch.no_grad():
+            fn(*live)
+    fn(*ins)
+    torch.cuda.synchronize()
+
+
+def test_lm_loss_through_the_cuda_prefill_raises_naming_b3(cuda):
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.models import transformer as ttx
+    from repro_torch.models.params import init_params
+    cfg = qwen2_1_5b.smoke_config()
+    assert cfg.prefill_backend == "cuda"
+    params = init_params(cfg, seed=0, device=cuda)
+    params["embed"].requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda)
+    with pytest.raises(RuntimeError, match="flash_prefill.*prefill_backend="
+                                           "'dense'"):
+        ttx.lm_loss(cfg, params, toks, toks)
+
+
+def test_embedding_bag_backward_on_the_card_matches_the_cpu(cuda):
+    """B5's autograd.Function: the kernel's forward and the plain backward
+    on the card against the CPU's (plain forward), f32, with wrapped and
+    out-of-range ids, weights and a mask.  The forward bit for bit; the
+    table gradient is summed by atomics in no fixed order and the weights'
+    over D in another order: atol 1e-6, rtol 1e-5, NaN in the same
+    places."""
+    rng = np.random.RandomState(3)
+    F, V, D, N, L = 4, 300, 32, 512, 4
+    table = torch.from_numpy(rng.randn(F, V, D).astype(np.float32) * 0.1)
+    ids = rng.randint(0, V, (N, F, L)).astype(np.int32)
+    ids.flat[::7] -= V
+    ids.flat[3::29] = V + 5
+    ids = torch.from_numpy(ids)
+    mask = torch.from_numpy(rng.rand(N, F, L) > 0.25)
+    w = torch.from_numpy(rng.randn(N, F, L).astype(np.float32))
+    g = torch.from_numpy(rng.randn(N, F, D).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        t = table.to(dev).detach().requires_grad_(True)
+        ww = w.to(dev).detach().requires_grad_(True)
+        n0 = embedding_bag_fused.launches
+        out = embedding_bag_fused(t, ids.to(dev), mask.to(dev), ww)
+        out.backward(g.to(dev))
+        assert embedding_bag_fused.launches == n0 + (dev != "cpu")
+        res[str(dev)] = [x.detach().cpu() for x in (out, t.grad, ww.grad)]
+    cpu, card = res["cpu"], res[str(cuda)]
+    _assert_same_bits(card[0], cpu[0])
+    torch.testing.assert_close(card[1], cpu[1], atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(card[2], cpu[2], atol=1e-6, rtol=1e-5,
+                               equal_nan=True)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """The Qwen2 smoke config in f32 through the dense backend (TF32 off),
+    from the same parameters on the card and on the CPU: every gradient
+    leaf of lm_loss within 1e-5 of its largest entry (rtol 1e-4); one
+    make_train_step step's loss and gradient norm rtol 1e-5 and parameters
+    atol lr / 10 (Adam's first update, lr * g / (|g| + eps), is continuous
+    in g; a wrong one moves entries by lr / 2 or more)."""
+    import dataclasses
+
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.models import transformer as ttx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import (adamw_init, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_step import make_train_step
+    cfg = dataclasses.replace(qwen2_1_5b.smoke_config(),
+                              prefill_backend="dense")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(4)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 64))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    loss = lambda p, b: ttx.lm_loss(cfg, p, b["tokens"], b["labels"])  # noqa: E731
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            p = tree_map(lambda t: t.to(dev), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+            grads = torch.autograd.grad(loss(live, b), tree_leaves(live))
+            newp, _, m = make_train_step(loss, lr=1e-3)(p, adamw_init(p), b)
+            out[str(dev)] = ([g.cpu() for g in grads], m,
+                             [t.cpu() for t in tree_leaves(newp)])
+        (gc_, mc, pc), (gg, mg, pg) = out["cpu"], out[str(cuda)]
+        for a, b in zip(gg, gc_):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * float(b.abs().max()))
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-5,
+                                       atol=0)
+        for a, b in zip(pg, pc):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -30,12 +30,14 @@ import torch
 
 from repro.models import transformer as jtx
 from repro.serving import api as japi
+from repro_torch.configs import get_arch
 from repro_torch.core import LookaheadEngine, reference_decode
 from repro_torch.core.request import SamplingParams
 from repro_torch.models import transformer as ttx
 from repro_torch.models.params import init_params, params_from_jax
 from repro_torch.serving import api as tapi
 from repro_torch.serving.session import make_session_fns
+from repro_torch.training.checkpoint import CheckpointManager
 
 pytestmark = pytest.mark.torch_port
 
@@ -336,7 +338,7 @@ def test_unported_features_are_refused(change, item):
     tapi.EngineConfig(**ECFG, sanitize=True).validate()
 
 
-def test_serve_cli_smoke_on_cpu():
+def test_serve_cli_smoke_on_cpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
             "--device", "cpu", "--requests", "3", "--max-new", "6"]
@@ -356,11 +358,16 @@ def test_serve_cli_smoke_on_cpu():
     hits = re.search(r"prefix cache: (\d+)/\d+ hits", proc.stdout)
     assert hits and int(hits.group(1)) > 0, proc.stdout
     assert "1.0 sync/step" in proc.stdout
-    proc = subprocess.run(base + ["--ckpt-dir=ck"], capture_output=True,
-                          text=True, env=env, cwd=str(REPO), timeout=300)
-    assert proc.returncode == 2
-    assert "--ckpt-dir: not yet ported to repro_torch (ROADMAP A17" \
-        in proc.stderr
+    # --ckpt-dir (A17 landed) serves a checkpoint's {"params"}
+    cfg = get_arch("qwen2-1.5b").smoke_config()
+    CheckpointManager(str(tmp_path)).save(
+        3, {"params": init_params(cfg, seed=1, device="cpu")})
+    proc = subprocess.run(base + [f"--ckpt-dir={tmp_path}"],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(REPO), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "restored checkpoint step 3" in proc.stdout
+    assert "continuous [cpu]: 18 tokens / 3 requests" in proc.stdout
 
 
 @pytest.mark.parametrize("arch", ["antglm-10b", "phi3-mini-3.8b",
