@@ -38,7 +38,8 @@ Phases, in order; any failure exits non-zero:
    that kernels made 3 % wrong must fail;
 4b. recsys scoring: Wide & Deep, Two-Tower, SASRec and BERT4Rec at their
    full published configurations in f32, each serve cell through its
-   config's serve function (Wide & Deep serve_p99 and serve_bulk, Two-Tower
+   config's serve function (Wide & Deep serve_p99, serve_bulk and
+   retrieval_cand (10^6 candidate contexts), Two-Tower
    serve_p99 and retrieval_cand, SASRec and BERT4Rec serve_p99 and
    retrieval_cand), timed, with B5 launched exactly twice per Wide & Deep
    forward and never elsewhere, and the scores held against the same
@@ -160,6 +161,22 @@ Phases, in order; any failure exits non-zero:
    each at full width, the batch cut as ``RECSYS_TRAIN_CUTS`` names.  The train
    paths launch B5 and no other kernel; its launches there join the
    kernel line's.
+13. the GNN (``--phases gnn``): EquiformerV2 (12 layers, 128 channels,
+   l_max 6, m_max 2, 8 heads, bf16, remat; weights from seed 0): the
+   smoke config in f32 on the card against the port on the CPU (forward,
+   node_class_loss, every gradient leaf) and the chunked path against the
+   dense one; the train cells full_graph_sm (a random geometric graph of
+   2,708 nodes and ~10,550 edges), molecule (128 graphs of 30 nodes) and
+   minibatch_lg (``sample_subgraph`` of 1,024 seeds, fanouts 15-10, from a
+   synthetic Reddit-sized graph with its in-degree cut to 50): each
+   forward timed, 3 train steps on one repeated batch (the loss must
+   fall), median step, nodes/s, edges/s, TFLOP/s from ``model_flops``,
+   the bound (``model_flops`` over 989 TFLOP/s or ``bytes_floor`` over
+   3.35 TB/s), peak memory, a profiled step's idle share and launches and
+   its device time by op class; the chunked path at full width
+   (ogb_products' d, classes and edge_chunk, two chunks) against the
+   dense path in f32 and both timed in bf16; ogb_products itself is not
+   run (one line says why).  No kernel of the port launches on this path.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -3300,7 +3317,8 @@ def profile_cell(label, fn, calls=5, top=3):
 
 def recsys_phase(gen):
     """Recommender scoring at full width on the card, f32 (TF32 off): each
-    arch's serve cells through its config's serve function, inputs from the
+    arch's serve cells (Wide & Deep: serve_p99, serve_bulk and
+    retrieval_cand) through its config's serve function, inputs from the
     port's batch generators and parameters made on the card from seed 0,
     one arch at a time.  Each cell is timed (median ms per call) with the
     fused EmbeddingBag kernel's launches counted (2 per Wide & Deep
@@ -3358,8 +3376,6 @@ def recsys_phase(gen):
                               f"launches for {n_calls} forwards")
     cell_line("wide-deep", "serve_bulk (B 262,144)", ms_b, 262144)
     profile_cell("wide-deep serve_bulk", lambda i: fn(cfg, params, *bulk))
-    print(f"  wide-deep: embedding_bag launched {launches} times, 2 per "
-          "forward")
     hold_scores("wide-deep serve_p99 logits", fn(cfg, params, *p99[0]),
                 wide_deep64(params, *p99[0]))
     n = RECSYS_BULK_CHECK_ROWS
@@ -3463,7 +3479,27 @@ def recsys_phase(gen):
                   f"{r['plain_call_ms']:.4f}, F.embedding_bag "
                   f"{r['library_call_ms']:.4f}")
     row = dict(rows.pop("deep_serve_p99"), **rows)
-    del params, p99, bulk
+
+    # retrieval_cand: one user's 10^6 candidate contexts.  It runs after
+    # B5's device timing above: on the H100, once this cell's profile had
+    # run, the profiler recorded no B5 launch of a serve_p99 call
+    cand = wd_inputs(1_000_000, 250)
+    fn = wide_deep.serve_cell("retrieval_cand").fn
+    ms, n_l, n_calls = counted(lambda i: fn(cfg, params, *cand), 5)
+    check(n_l == 2 * n_calls, f"wide-deep retrieval_cand: {n_l} "
+                              f"embedding_bag launches for {n_calls} forwards")
+    cell_line("wide-deep", "retrieval_cand (10^6 candidate contexts)", ms,
+              1_000_000, "candidates")
+    profile_cell("wide-deep retrieval_cand", lambda i: fn(cfg, params, *cand))
+    got = fn(cfg, params, *cand)
+    check(got.shape == (1_000_000,), f"retrieval_cand logits "
+                                     f"{tuple(got.shape)}")
+    n = RECSYS_BULK_CHECK_ROWS
+    hold_scores(f"wide-deep retrieval_cand logits (first {n} of 10^6)",
+                got[:n], wide_deep64(params, *(x[:n] for x in cand)))
+    print(f"  wide-deep: embedding_bag launched {launches} times in the "
+          "timed calls, 2 per forward")
+    del params, p99, bulk, cand, got
     torch.cuda.empty_cache()
     print(f"  wide-deep peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -3968,9 +4004,423 @@ def train_phase():
     return launches
 
 
+# --------------------------------------------------------------------- GNN
+GNN_STEPS = 3                 # train steps a cell on one repeated batch
+                              # (the first, cold, left out of the median)
+# card against CPU (smoke size, f32, TF32 off) and chunked against dense:
+# f32 sums in another order (index_add_ adds with atomics on the card);
+# atol is taken of the largest |value| of each array (of the whole
+# gradient for gradient leaves: attn_b's is zero but for rounding)
+GNN_SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)
+# chunked against dense at full width in f32: 12 layers of the same sums,
+# the chunked path's segment sums split in two
+GNN_WIDE_TOL = dict(rtol=1e-3, atol=1e-4)
+RGG_CUTOFF = 0.145            # random_geometric_graph(seed 0, 2,708 nodes,
+                              # box 2): 10,552 directed edges (Cora 10,556)
+REDDIT_NODES, REDDIT_FEAT, REDDIT_CLASSES = 232_965, 602, 41
+REDDIT_DEGREE = 50            # in-edges a node of the base graph: cut from
+                              # Reddit's ~492; the sampler draws with
+                              # replacement, so its padded shapes do not
+                              # depend on it
+MB_SEEDS, MB_FANOUTS = 1024, [15, 10]
+WIDE_CHUNKS = 2               # the full-width chunked path: ogb_products'
+                              # edge_chunk, two chunks of a synthetic graph
+                              # with its mean in-degree
+GNN_SPLIT = {                 # profiler range -> op class of the step split
+    "gnn.wigner": "Wigner-D recursion (rotation_to_z, wigner_blocks)",
+    "gnn.apply_blocks": "apply_blocks",
+    "gnn.so2": "SO(2) products (_so2_conv)",
+    "gnn.segment": "gathers and scatter-adds",
+    "gnn.eq_norm": "_eq_norm",
+    "gnn.ffn": "FFN",
+    "gnn.adamw": "AdamW"}
+GATHER_OPS = ("aten::index", "aten::index_select", "aten::index_add",
+              "aten::scatter_reduce", "aten::index_put_")
+
+
+def gnn_batch(cfg_mod, shape, b):
+    """A numpy graph batch on the card with the cell's inputs, in order."""
+    names = [i.name for i in cfg_mod.train_cell(shape).inputs]
+    return {k: torch.from_numpy(np.asarray(b[k])).cuda() for k in names}
+
+
+def close_tree(label, got, want, tol, scale=None):
+    """Every array of ``got`` (card) against ``want``: rtol, and atol taken
+    of ``scale`` or the array's own largest |value|.  Returns the largest
+    error relative to that scale."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        s = scale if scale is not None else float(w.abs().max())
+        err = float((g - w).abs().max())
+        ok = bool(torch.isfinite(g).all()) and torch.allclose(
+            g, w, rtol=tol["rtol"], atol=tol["atol"] * max(s, 1e-30))
+        check(ok, f"{label}: array {i} differs (max abs err {err}, scale "
+                  f"{s})")
+        worst = max(worst, err / max(s, 1e-30))
+    return worst
+
+
+def gnn_card_cpu_cell():
+    """smoke_config in f32 on one random geometric graph: forward,
+    node_class_loss and every gradient leaf on the card against the port
+    on the CPU; then the chunked path against the dense path on the
+    card."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.training import data
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = ecfg.smoke_config()
+    rng = np.random.RandomState(0)
+    g = data.random_geometric_graph(rng, 64, cfg.d_feat_in, cutoff=0.6,
+                                    max_edges=256)
+    g["labels"] = rng.randint(-1, cfg.n_out, 64).astype(np.int32)
+    params = eq.init_params(cfg, seed=0, device="cpu")
+
+    def run(dev, chunk):
+        """(forward outputs, loss, gradient leaves) on ``dev``."""
+        c = dataclasses.replace(cfg, edge_chunk=chunk)
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                     params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+        fwd = eq.forward(c, p, *(b[k] for k in ("node_feat", "positions",
+                                                "edges", "edge_mask")))
+        loss = eq.node_class_loss(c, p, b)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return [fwd[k] for k in sorted(fwd)], loss, list(grads)
+
+    cpu, card = run("cpu", 0), run("cuda", 0)
+    for label, got, want in (
+            ("card vs CPU", card, cpu),
+            ("chunked (4 chunks) vs dense, card", run("cuda", 64), card)):
+        e_out = close_tree(f"{label} forward", got[0], want[0],
+                           GNN_SMOKE_TOL)
+        e_loss = close_tree(f"{label} loss", [got[1]], [want[1]],
+                            GNN_SMOKE_TOL)
+        scale = max(float(w.abs().max()) for w in want[2])
+        e_grad = close_tree(f"{label} gradients", got[2], want[2],
+                            GNN_SMOKE_TOL, scale)
+        print(f"  smoke {label} (f32, 64 nodes, 256 edge slots): forward "
+              f"{e_out:.2e}, loss {e_loss:.2e}, {len(got[2])} gradient "
+              f"leaves {e_grad:.2e} (largest error over the scale; "
+              f"{GNN_SMOKE_TOL}, atol of the scale)")
+
+
+class gnn_ranges:
+    """While active, the GNN's op classes (GNN_SPLIT) run inside profiler
+    ranges: the port's functions are wrapped in their modules and put back
+    on exit."""
+    TARGETS = (("models.gnn.equiformer", "_edge_frames", "gnn.wigner"),
+               ("models.gnn.equiformer", "apply_blocks", "gnn.apply_blocks"),
+               ("models.gnn.equiformer", "_so2_conv", "gnn.so2"),
+               ("models.gnn.equiformer", "_segment_max", "gnn.segment"),
+               ("models.gnn.equiformer", "_segment_sum", "gnn.segment"),
+               ("models.gnn.equiformer", "_eq_norm", "gnn.eq_norm"),
+               ("models.gnn.equiformer", "_ffn", "gnn.ffn"),
+               ("training.train_step", "adamw_update", "gnn.adamw"))
+
+    def __enter__(self):
+        import importlib
+
+        from torch.profiler import record_function
+        self.saved = []
+        for mod, name, rng in self.TARGETS:
+            m = importlib.import_module(f"repro_torch.{mod}")
+            fn = getattr(m, name)
+
+            def wrapped(*a, _fn=fn, _rng=rng, **k):
+                with record_function(_rng):
+                    return _fn(*a, **k)
+
+            self.saved.append((m, name, fn))
+            setattr(m, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def gnn_profile(label, fn):
+    """One call of fn() under torch.profiler: wall time, device busy time
+    and idle share, launches, the three kernels that take the most device
+    time, and the device time split by op class: each kernel goes to the
+    innermost GNN_SPLIT range around the op that launched it; a backward
+    kernel to the class of the forward op that made its autograd node
+    (sequence number and forward thread); a kernel outside them launched
+    under an indexing op to the gathers and scatter-adds; the rest to
+    "other" (the attention weights and aggregation, the head, casts).  The
+    ranges' own spans on the device timeline are not kernels and are left
+    out."""
+    from torch.profiler import ProfilerActivity, profile
+    with gnn_ranges():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+
+    def own_class(e):
+        while e is not None:
+            if e.name in GNN_SPLIT:
+                return GNN_SPLIT[e.name]
+            if e.name in GATHER_OPS:
+                return GNN_SPLIT["gnn.segment"]
+            e = e.cpu_parent
+        return None
+
+    fwd_class = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            c = own_class(e)
+            if c is not None:
+                fwd_class.setdefault((e.thread, e.sequence_nr), c)
+    # the profiler hands an op the kernels of its correlation id, and ops
+    # that share an id (~1,700 in a minibatch_lg step on the H100) each
+    # get them all: each id's kernels go once, to the latest of its ops
+    # to start
+    launcher = {}
+    for e in events:
+        if e.kernels and (e.id not in launcher or e.time_range.start
+                          > launcher[e.id].time_range.start):
+            launcher[e.id] = e
+    shared = sum(1 for e in events if e.kernels) - len(launcher)
+    split, by_name = {}, {}             # class -> [ms, launches]
+    for e in launcher.values():
+        c = own_class(e)
+        a = e
+        while c is None and a is not None:
+            if a.name.startswith("autograd::engine::evaluate_function"):
+                c = fwd_class.get((a.fwd_thread, a.sequence_nr))
+                break
+            a = a.cpu_parent
+        for k in e.kernels:
+            if k.name in GNN_SPLIT:     # a range's span on the device
+                continue
+            for key, table in ((c or "other", split), (k.name, by_name)):
+                row = table.setdefault(key, [0.0, 0])
+                row[0] += k.duration / 1e3
+                row[1] += 1
+    busy = sum(ms for ms, _ in split.values())
+    n = sum(k for _, k in split.values())
+    device = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name not in GNN_SPLIT) / 1e3
+    print(f"    profile {label}: wall {wall:.1f} ms, device busy {device:.1f} "
+          f"ms, idle share {1 - device / wall:.3f}, {n} launches; "
+          f"{busy:.1f} ms of kernels attributed to ops ({shared} ops "
+          "shared a correlation id)")
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]:
+        print(f"      {ms:9.3f} ms {k:6d}x  {name[:80]}")
+    print("      by op class: " + "; ".join(
+        f"{k} {ms:.3f} ({ms / busy:.3f}, {c} kernels)"
+        for k, (ms, c) in sorted(split.items(), key=lambda kv: -kv[1][0])))
+    return dict(wall=wall, busy=device, launches=n, split=split)
+
+
+def gnn_train_cell(shape, batch, cut=None):
+    """One GNN train cell at full width (bf16, remat, random weights from
+    seed 0) on ``batch``: the forward timed (no grad), GNN_STEPS train
+    steps on the repeated batch (the loss must fall), their median, rates,
+    TFLOP/s, the bound, peak memory, a profile of a step and its device
+    time by op class.  Returns the cell's numbers."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.training.optimizer import adamw_init
+    free_card()
+    cfg = ecfg.full_config(shape)
+    c = ecfg.CELLS[shape]
+    N, E = c["n_nodes"], c["n_edges"]
+    check(batch["edges"].shape[0] == E and batch["node_feat"].shape[0] == N,
+          f"{shape}: batch {batch['node_feat'].shape[0]} nodes, "
+          f"{batch['edges'].shape[0]} edges")
+    n_real = int(batch["edge_mask"].sum())
+    params = eq.init_params(cfg, seed=0, device="cuda")
+    ins = [batch[k] for k in ("node_feat", "positions", "edges",
+                              "edge_mask")]
+    if shape == "molecule":
+        ins += [batch["graph_ids"], c["n_graphs"]]
+    with torch.no_grad():
+        out = eq.forward(cfg, params, *ins)
+        fwd_ms = time_calls(lambda i: eq.forward(cfg, params, *ins), 1,
+                            warmup=0)
+    check(all(bool(torch.isfinite(v).all()) for v in out.values())
+          and out["node_out"].shape == (N, cfg.n_out),
+          f"{shape}: forward outputs")
+    del out
+    cell = ecfg.train_cell(shape, cfg)
+    state = [params, adamw_init(params)]
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(cell.step, state, [batch], GNN_STEPS)
+    peak = peak_gb()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{shape}: losses on one repeated batch {losses}")
+    ms = float(np.median(secs[1:])) * 1e3
+    flops = ecfg.model_flops(cfg, E)
+    nbytes = ecfg.bytes_floor(cfg, N, E)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    print(f"  {shape} (N {N:,}, E {E:,}: {n_real:,} real; d "
+          f"{cfg.d_feat_in}, {cfg.n_out} {'classes' if cfg.node_level else 'targets'}"
+          f"{'; ' + cut if cut else ''}): forward {fwd_ms:.2f} ms; train "
+          f"step median {ms:.1f} ms (first {secs[0] * 1e3:.1f}), "
+          f"{N / ms * 1e3:.4g} nodes/s, {E / ms * 1e3:.4g} edges/s, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP), bound "
+          f"{b_ms:.1f} ms ({b_by}: {nbytes / 1e9:.1f} GB floor) = "
+          f"{b_ms / ms:.3f} of the step; peak {peak:.2f} GB; losses "
+          f"{[round(v, 4) for v in losses]}")
+    prof = gnn_profile(f"a {shape} train step",
+                       lambda: cell.step(*state, batch))
+    return dict(fwd_ms=fwd_ms, step_ms=ms, bound_ms=b_ms, peak=peak, **prof)
+
+
+def reddit_like_batch():
+    """minibatch_lg's batch: a synthetic base graph of Reddit's 232,965
+    nodes (d 602, 41 classes) with REDDIT_DEGREE random in-edges a node,
+    ``sample_subgraph`` from MB_SEEDS seeds with fanouts MB_FANOUTS (timed
+    on the host), features, positions and labels of the sampled nodes;
+    labels only on the seeds."""
+    from repro_torch.models.gnn import sampler
+    rng = np.random.RandomState(7)
+    Nb = REDDIT_NODES
+    t0 = time.perf_counter()
+    edges = np.stack([rng.randint(0, Nb, Nb * REDDIT_DEGREE),
+                      np.repeat(np.arange(Nb), REDDIT_DEGREE)], 1)
+    g = sampler.CSRGraph.from_edges(edges, Nb)
+    t_csr = time.perf_counter() - t0
+    seeds = rng.choice(Nb, MB_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    nodes, e, mask, slots = sampler.sample_subgraph(g, seeds, MB_FANOUTS,
+                                                    rng)
+    t_smp = time.perf_counter() - t0
+    n_uniq = len(np.unique(nodes))
+    print(f"  minibatch_lg base graph: {Nb:,} nodes, {len(edges):,} edges "
+          f"(in-degree {REDDIT_DEGREE}, cut from Reddit's ~492), CSR "
+          f"{t_csr:.2f} s; sample_subgraph ({MB_SEEDS} seeds, fanouts "
+          f"{MB_FANOUTS}) {t_smp * 1e3:.0f} ms on the host: {len(nodes):,} "
+          f"node slots ({n_uniq:,} distinct), {len(e):,} edge slots "
+          f"({int(mask.sum()):,} real)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    feats = torch.randn((Nb, REDDIT_FEAT), generator=gen, device="cuda")
+    pos = torch.rand((Nb, 3), generator=gen, device="cuda") * 2.0
+    base_labels = torch.randint(0, REDDIT_CLASSES, (Nb,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+    idx = torch.from_numpy(nodes).cuda()
+    labels = torch.full((len(nodes),), -1, dtype=torch.int32, device="cuda")
+    s = torch.from_numpy(slots.astype(np.int64)).cuda()
+    labels[s] = base_labels[torch.from_numpy(seeds).cuda()]
+    return {"node_feat": feats[idx], "positions": pos[idx],
+            "edges": torch.from_numpy(e).cuda(),
+            "edge_mask": torch.from_numpy(mask).cuda(), "labels": labels}
+
+
+def gnn_chunked_cell():
+    """The chunked path at full width: ogb_products' d, classes and
+    edge_chunk on a synthetic graph of WIDE_CHUNKS chunks with its mean
+    in-degree; the chunked forward against the dense one in f32 (remat
+    off, no grad), then both timed in bf16 with their peak memory."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    free_card()
+    c = ecfg.CELLS["ogb_products"]
+    cfg = dataclasses.replace(ecfg.full_config("ogb_products"), remat=False)
+    E = WIDE_CHUNKS * cfg.edge_chunk
+    N = round(E * c["n_nodes"] / c["n_edges"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    ins = [torch.randn((N, cfg.d_feat_in), generator=gen, device="cuda"),
+           torch.rand((N, 3), generator=gen, device="cuda") * 2.0,
+           torch.randint(0, N, (E, 2), generator=gen, device="cuda",
+                         dtype=torch.int32),
+           torch.ones(E, dtype=torch.bool, device="cuda")]
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        for path, chunk in (("chunked", cfg.edge_chunk), ("dense", 0)):
+            cc = dataclasses.replace(cfg, dtype=dtype, edge_chunk=chunk)
+            params = eq.init_params(cc, seed=0, device="cuda")
+            free_card()
+            base = torch.cuda.memory_allocated()
+            with torch.no_grad():
+                out = eq.forward(cc, params, *ins)["node_out"]
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                ms = time_calls(lambda i: eq.forward(cc, params, *ins), 1,
+                                warmup=0) if dtype == "bfloat16" else None
+            res[(dtype, path)] = (out, ms, peak)
+            del params
+    err = close_tree("full-width chunked vs dense (f32)",
+                     [res[("float32", "chunked")][0]],
+                     [res[("float32", "dense")][0]], GNN_WIDE_TOL)
+    print(f"  chunked path at full width (ogb_products' d {cfg.d_feat_in}, "
+          f"{cfg.n_out} classes, edge_chunk {cfg.edge_chunk:,}; synthetic "
+          f"graph N {N:,}, E {E:,} = {WIDE_CHUNKS} chunks): chunked vs "
+          f"dense f32 node_out {err:.2e} of max|ref| ({GNN_WIDE_TOL}); "
+          f"forward peak over the weights f32 chunked "
+          f"{res[('float32', 'chunked')][2]:.2f} GB, dense "
+          f"{res[('float32', 'dense')][2]:.2f} GB")
+    print(f"    bf16 forward (no grad): chunked "
+          f"{res[('bfloat16', 'chunked')][1]:.1f} ms, peak "
+          f"{res[('bfloat16', 'chunked')][2]:.2f} GB; dense "
+          f"{res[('bfloat16', 'dense')][1]:.1f} ms, peak "
+          f"{res[('bfloat16', 'dense')][2]:.2f} GB")
+    n, e = c["n_nodes"], c["n_edges"]
+    x_gb = n * cfg.lsq * cfg.channels * 2 / 1e9
+    print(f"  ogb_products ({n:,} nodes, {e:,} edges) not run: one (N, 49, "
+          f"128) bf16 tensor is {x_gb:.1f} GB, a forward holds at least "
+          f"four (x, its norm, the num accumulator, agg: "
+          f"{4 * x_gb:.0f} GB) and training keeps 12 layer inputs "
+          f"({12 * x_gb:.0f} GB): it waits for multi-GPU (ROADMAP A16); "
+          f"its E is no multiple of its edge_chunk "
+          f"({e % c['edge_chunk']:,} over), so forward would run it dense")
+
+
+def gnn_phase(card):
+    """EquiformerV2 on the card (ROADMAP A18): card = CPU at smoke size,
+    the train cells full_graph_sm, molecule and minibatch_lg at full width,
+    and the chunked path at full width; ``card`` is nvidia-smi's name and
+    power limit, printed beside the bounds.  No kernel of the port may
+    launch on this path."""
+    from repro_torch import kernels
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.training import data
+    before = kernels.snapshot()
+    gnn_card_cpu_cell()
+    print(f"  bounds: model_flops over {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
+          f" TFLOP/s (bf16) or bytes_floor over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the larger; card and power "
+          f"limit: {card}")
+    cells = {}
+    rng = np.random.RandomState(0)
+    c = ecfg.CELLS["full_graph_sm"]
+    g = data.random_geometric_graph(rng, c["n_nodes"], c["d_feat"],
+                                    cutoff=RGG_CUTOFF,
+                                    max_edges=c["n_edges"])
+    check(int(g["edge_mask"].sum()) < c["n_edges"],
+          "full_graph_sm: the cutoff fills the edge cap")
+    g["labels"] = rng.randint(0, c["n_out"], c["n_nodes"]).astype(np.int32)
+    cells["full_graph_sm"] = gnn_train_cell(
+        "full_graph_sm", gnn_batch(ecfg, "full_graph_sm", g))
+    g = data.batched_molecules(np.random.RandomState(1), 128, 30, 64, 64)
+    cells["molecule"] = gnn_train_cell("molecule",
+                                       gnn_batch(ecfg, "molecule", g))
+    cells["minibatch_lg"] = gnn_train_cell(
+        "minibatch_lg", reddit_like_batch(),
+        cut=f"base graph in-degree {REDDIT_DEGREE}")
+    gnn_chunked_cell()
+    moved = kernels.diff(kernels.snapshot(), before)
+    check(not moved, f"the GNN path launched port kernels: {moved}")
+    print("  no kernel of the port launched on the GNN path")
+    free_card()
+    return cells
+
+
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
           "sampled", "overlap", "graphs", "fleet", "sanitize", "long_prompt",
-          "archs", "moe", "train")
+          "archs", "moe", "train", "gnn")
 
 
 def main(argv=None) -> int:
@@ -4120,6 +4570,10 @@ def main(argv=None) -> int:
         launches["embedding_bag"] = (launches.get("embedding_bag", 0)
                                      + train_phase())
         phase_done("train")
+    if "gnn" in phases:
+        print("EquiformerV2 (GNN) at full width, bf16:")
+        gnn_phase(smi[0])
+        phase_done("gnn")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

@@ -1,7 +1,8 @@
 """Architecture configs the port runs, by name (``get_arch``): the dense
-and MoE LMs the serving path decodes and the four recommender archs it
-scores.  The reference's other archs raise, naming the ROADMAP item that
-ports them."""
+and MoE LMs the serving path decodes, the four recommender archs it scores
+and the GNN (EquiformerV2) it trains.  An arch of the reference that the
+port lacks would raise, naming the ROADMAP item that ports it
+(``NOT_YET_PORTED``; empty now)."""
 from __future__ import annotations
 
 import importlib
@@ -13,8 +14,8 @@ ARCHS = {"qwen2-1.5b": "qwen2_1_5b", "antglm-10b": "antglm_10b",
          "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
          "wide-deep": "wide_deep",
          "two-tower-retrieval": "two_tower_retrieval", "sasrec": "sasrec",
-         "bert4rec": "bert4rec"}
-NOT_YET_PORTED = {"equiformer-v2": "A18, the GNN"}
+         "bert4rec": "bert4rec", "equiformer-v2": "equiformer_v2"}
+NOT_YET_PORTED: dict = {}
 
 
 def get_arch(name: str):

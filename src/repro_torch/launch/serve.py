@@ -69,6 +69,7 @@ from repro_torch import configs as cfgreg
 from repro_torch.core import (DraftPolicy, LookaheadEngine, Request,
                               SamplingParams)
 from repro_torch.core.draft_sources import available_sources
+from repro_torch.models import TransformerConfig
 from repro_torch.models import attention as attn_backends
 from repro_torch.models.params import (init_params, resolve_device,
                                        tree_to_torch)
@@ -259,7 +260,7 @@ def main(argv=None) -> None:
         adaptive=args.adaptive_draft).validate()
     mod = cfgreg.get_arch(args.arch)
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
-    if not hasattr(cfg, "n_layers"):
+    if not isinstance(cfg, TransformerConfig):
         raise SystemExit(f"{args.arch} is not an LM arch; serving loop is "
                          "for autoregressive decoders (see DESIGN.md "
                          "§Arch-applicability)")

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch import configs as cfgreg
 from repro_torch.models import transformer as tx
+from repro_torch.models.transformer import TransformerConfig
 from repro_torch.models.params import (init_params, resolve_device,
                                        tree_to_torch)
 from repro_torch.training.checkpoint import CheckpointManager
@@ -67,9 +68,9 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     mod = cfgreg.get_arch(args.arch)
     cfg = mod.smoke_config() if args.smoke else mod.full_config()
-    if not hasattr(cfg, "n_layers"):
-        raise SystemExit(f"{args.arch} is not an LM arch; recsys archs "
-                         "train through their config's train_cell")
+    if not isinstance(cfg, TransformerConfig):
+        raise SystemExit(f"{args.arch} is not an LM arch; recsys and GNN "
+                         "archs train through their config's train_cell")
     cfg = dataclasses.replace(cfg, prefill_backend="dense")
     print(f"{args.arch}: {cfg.n_params()/1e6:.0f}M params")
     loss = lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"])  # noqa: E731

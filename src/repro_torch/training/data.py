@@ -1,10 +1,10 @@
 """Synthetic data (port-local copy of ``repro.training.data``'s
 ``CorpusProfile`` / ``PROFILES`` / ``SyntheticCorpus``, its LM training
-batches and its recsys batch generators, numpy only): RAG-style prompts
-whose answers copy spans from the prompt and from a shared phrase pool —
-the redundancy a Lookahead trie exploits — and LM and recommender batches
-drawn in the reference's order of ``RandomState`` calls, so the same seed
-gives the same arrays."""
+batches, its recsys batch generators and its graph generators, numpy
+only): RAG-style prompts whose answers copy spans from the prompt and from
+a shared phrase pool — the redundancy a Lookahead trie exploits — and LM,
+recommender and graph batches drawn in the reference's order of
+``RandomState`` calls, so the same seed gives the same arrays."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -140,5 +140,46 @@ def seq_rec_batch(rng: np.random.RandomState, batch: int, seq: int,
             "negatives": negatives, "pad_mask": pad}
 
 
+# --------------------------------------------------------------------- graph
+def random_geometric_graph(rng: np.random.RandomState, n_nodes: int,
+                           d_feat: int, cutoff: float = 0.5, box: float = 2.0,
+                           max_edges: Optional[int] = None
+                           ) -> Dict[str, np.ndarray]:
+    pos = rng.rand(n_nodes, 3).astype(np.float32) * box
+    d2 = np.sum((pos[:, None] - pos[None, :]) ** 2, axis=-1)
+    src, dst = np.nonzero((d2 < cutoff ** 2) & ~np.eye(n_nodes, dtype=bool))
+    edges = np.stack([src, dst], axis=1).astype(np.int32)
+    if max_edges is not None:
+        pad = max(0, max_edges - len(edges))
+        mask = np.concatenate([np.ones(min(len(edges), max_edges), bool),
+                               np.zeros(pad, bool)])
+        edges = np.concatenate(
+            [edges[:max_edges], np.zeros((pad, 2), np.int32)], axis=0)
+    else:
+        mask = np.ones(len(edges), bool)
+    return {"node_feat": rng.randn(n_nodes, d_feat).astype(np.float32),
+            "positions": pos, "edges": edges, "edge_mask": mask}
+
+
+def batched_molecules(rng: np.random.RandomState, n_graphs: int,
+                      nodes_per: int, d_feat: int, edges_per: int
+                      ) -> Dict[str, np.ndarray]:
+    """Disjoint union of small graphs (molecule cell)."""
+    gs = [random_geometric_graph(rng, nodes_per, d_feat, cutoff=0.9,
+                                 max_edges=edges_per) for _ in range(n_graphs)]
+    N = nodes_per
+    batch = {
+        "node_feat": np.concatenate([g["node_feat"] for g in gs]),
+        "positions": np.concatenate([g["positions"] for g in gs]),
+        "edges": np.concatenate(
+            [g["edges"] + i * N for i, g in enumerate(gs)]).astype(np.int32),
+        "edge_mask": np.concatenate([g["edge_mask"] for g in gs]),
+        "graph_ids": np.repeat(np.arange(n_graphs), N).astype(np.int32),
+        "energies": rng.randn(n_graphs).astype(np.float32),
+    }
+    return batch
+
+
 __all__ = ["CorpusProfile", "PROFILES", "SyntheticCorpus", "lm_train_batches",
-           "wide_deep_batch", "two_tower_batch", "seq_rec_batch"]
+           "wide_deep_batch", "two_tower_batch", "seq_rec_batch",
+           "random_geometric_graph", "batched_molecules"]

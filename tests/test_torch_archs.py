@@ -128,10 +128,19 @@ def test_configs_match_reference(arch):
     assert full.adtype == torch.float32 and full.pdtype == torch.float32
 
 
-@pytest.mark.parametrize("name,item", [("equiformer-v2", "A18")])
-def test_get_arch_refuses_unported_archs(name, item):
-    with pytest.raises(KeyError, match=f"not yet ported \\(ROADMAP {item}"):
+@pytest.mark.parametrize("name", ["no-such-arch"])
+def test_get_arch_refuses_unported_archs(name):
+    """Every arch of the reference is ported: an unknown name raises and
+    lists the archs there are."""
+    with pytest.raises(KeyError, match="not yet ported; have .*'equiformer-v2'"
+                                       ".*'qwen2-1.5b'"):
         get_arch(name)
+
+
+def test_get_arch_returns_the_ports_gnn_config():
+    from repro_torch.configs import equiformer_v2
+    assert get_arch("equiformer-v2") is get_arch("equiformer_v2") \
+        is equiformer_v2 and equiformer_v2.ARCH == "equiformer-v2"
 
 
 # --------------------------------------------------------- model functions

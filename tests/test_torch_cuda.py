@@ -21,6 +21,7 @@ reads the paged cache on the card after captured ``reset_blocks`` replays
 (one pull a check), and a spawned fleet replica builds its engine on the
 card.
 """
+import dataclasses
 import gc
 import weakref
 
@@ -1329,5 +1330,60 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
                                        atol=0)
         for a, b in zip(pg, pc):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ------------------------------------------------------------------ the GNN
+def _gnn_case(dev, chunk):
+    """EquiformerV2's smoke config in f32 on one random geometric graph
+    (64 nodes, 256 edge slots) on ``dev``: the forward's outputs, the
+    node-class loss and its gradient leaves, on the CPU."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.training import data
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    cfg = dataclasses.replace(ecfg.smoke_config(), edge_chunk=chunk)
+    rng = np.random.RandomState(0)
+    g = data.random_geometric_graph(rng, 64, cfg.d_feat_in, cutoff=0.6,
+                                    max_edges=256)
+    g["labels"] = rng.randint(-1, cfg.n_out, 64).astype(np.int32)
+    p = tree_map(lambda t: t.to(dev).requires_grad_(True),
+                 eq.init_params(cfg, seed=0, device="cpu"))
+    b = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+    out = eq.forward(cfg, p, b["node_feat"], b["positions"], b["edges"],
+                     b["edge_mask"])
+    loss = eq.node_class_loss(cfg, p, b)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    return ([out[k].detach().cpu() for k in sorted(out)], loss.detach().cpu(),
+            [x.cpu() for x in grads])
+
+
+def _gnn_close(got, want):
+    """f32 sums in another order (index_add_ adds with atomics on the
+    card): rtol 1e-4, atol 1e-5 of each output's largest |value| and of
+    the whole gradient's."""
+    for a, b in zip(got[0] + [got[1]], want[0] + [want[1]]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+    scale = max(float(b.abs().max()) for b in want[2])
+    for a, b in zip(got[2], want[2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_gnn_on_the_card_matches_the_cpu(cuda):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _gnn_close(_gnn_case(cuda, 0), _gnn_case("cpu", 0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_gnn_chunked_equals_dense_on_the_card(cuda):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _gnn_close(_gnn_case(cuda, 64), _gnn_case(cuda, 0))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
