@@ -177,6 +177,18 @@ Phases, in order; any failure exits non-zero:
    (ogb_products' d, classes and edge_chunk, two chunks) against the
    dense path in f32 and both timed in bf16; ogb_products itself is not
    run (one line says why).  No kernel of the port launches on this path.
+14. the dry-run's roofline against the card (``--phases cost``): 16 cells
+   (Wide & Deep's four, Two-Tower, SASRec and BERT4Rec at serve_p99 and
+   retrieval_cand, EquiformerV2's full_graph_sm and molecule steps,
+   Qwen2-1.5B's prefill and fused step at the serving shapes, its prefill
+   of one 4,096-token prompt through B3, and the reference's long_500k
+   step, B 1 at S 524,288 through B1, B1 held against its plain version at
+   the last layer and the step's logits, B1's and the dense backend's in
+   bf16, each against the dense step's in f32) each traced on the meta device
+   (``repro_torch.launch.dryrun``) and run on the card: counted TFLOP by
+   dtype, raw and floor bytes, the bound (``launch.roofline``), the
+   measured ms (its share of the bound at most COST_SHARE_MAX) and the
+   device ms and their share, and the meta trace's peak beside the card's.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -198,9 +210,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core rate
-              torch.float32: 67e12}    # f32 outside the tensor cores
+try:        # the H100's data-sheet rates, one source with the roofline
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS
+except ImportError:     # main() says the port is missing and exits non-zero
+    HBM_BYTES_PER_S, PEAK_FLOPS = None, {}
 # Kernel vs plain version.  Both sum in f32 and round once to the output
 # dtype, so in bf16 they differ by at most about one output ulp (2^-7 of the
 # value, relative): rtol 1.6e-2 is two of them, and atol 1e-4 covers the f32
@@ -4417,10 +4431,435 @@ def gnn_phase(card):
     free_card()
     return cells
 
+# ------------------------------------------------------------------- cost
+COST_RECSYS = (("wide_deep", ("serve_p99", "serve_bulk", "retrieval_cand",
+                              "train_batch")),
+               ("two_tower_retrieval", ("serve_p99", "retrieval_cand")),
+               ("sasrec", ("serve_p99", "retrieval_cand")),
+               ("bert4rec", ("serve_p99", "retrieval_cand")))
+COST_GNN = ("full_graph_sm", "molecule")
+COST_CALLS = 5                # timed calls a cell (GNN and train: 2)
+COST_SHARE_MAX = 1.05         # bound / measured above this: the count
+#                               charges work the program does not do
+LONG_S, LONG_T = 524288, 65   # Qwen2-1.5B's long_500k cell: B 1, one step
+COST_PREFILL = (1, LONG_PREFILL)  # (B, S) of the long prompt through B3
+
+
+def cost_cell(label, cell, run, calls):
+    """Trace ``cell`` on meta (``launch.dryrun._trace_cell``) and take its
+    roofline, then run ``run(i)`` on the card: the median event-timed ms of
+    ``calls`` calls, the device ms (torch.profiler, informative) and the
+    peak memory allocated.  The share is bound / measured, at most
+    COST_SHARE_MAX."""
+    from repro_torch.launch.dryrun import _trace_cell
+    from repro_torch.launch.roofline import bound_seconds, roofline
+    t0 = time.perf_counter()
+    tr = _trace_cell(cell)
+    t_trace = time.perf_counter() - t0
+    rf = roofline(tr, 1, meta=cell.meta)
+    b_ms = bound_seconds(rf) * 1e3
+    by = "operations" if rf["compute_s"] * 1e3 >= b_ms else "bytes"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_calls(run, calls, warmup=1)
+    card_peak = peak_gb()
+    dev, n_dev = device_busy_ms(run, 1 if calls <= 2 else 3)
+    share, share_dev = b_ms / ms, b_ms / max(dev, 1e-9)
+    tflop = ", ".join(f"{dt} {f / 1e12:.4g}" for dt, f in
+                      sorted(rf["flops_by_dtype"].items()))
+    print(f"  {label}: counted TFLOP {tflop}; raw {tr['bytes accessed'] / 1e9:.4g}"
+          f" GB, floor {rf['floor_bytes_per_chip'] / 1e9:.4g} GB; bound "
+          f"{b_ms:.4f} ms ({by}); measured {ms:.4f} ms (device {dev:.4f}, "
+          f"{n_dev:.0f} launches seen a call); "
+          f"share {share:.4f} (device {share_dev:.4f}); peak meta "
+          f"{tr['peak_memory_in_bytes'] / 1e9:.3f} GB, card {card_peak:.3f} "
+          f"GB [trace {t_trace:.1f} s, {tr['n_ops']} ops; cell "
+          f"{time.perf_counter() - t0:.1f} s]")
+    check(share <= COST_SHARE_MAX,
+          f"{label}: the bound {b_ms:.4f} ms is over {COST_SHARE_MAX} of the "
+          f"measured {ms:.4f} ms: the count charges work the program does "
+          "not do")
+    return dict(flops_by_dtype=rf["flops_by_dtype"],
+                raw_bytes=tr["bytes accessed"],
+                floor_bytes=rf["floor_bytes_per_chip"], bound_ms=b_ms,
+                bound_by=by, ms=ms, device_ms=dev, share=share,
+                share_device=share_dev, device_launches=n_dev,
+                meta_peak_gb=tr["peak_memory_in_bytes"] / 1e9,
+                card_peak_gb=card_peak)
+
+
+def device_busy_ms(fn, calls):
+    """(device ms, launches) per call of fn(i) in one torch.profiler window
+    over ``calls`` calls, every kernel summed.  Informative only: the
+    profiler can drop a small call's launches after an earlier profile in
+    the process (``timing.device_ms`` checks the count of a kernel's
+    launches, which a step of thousands varies by a few from call to
+    call), so the gate reads the event-timed calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+            sum(e.count for e in kernels) / calls)
+
+
+def card_input(name, meta, cfg, gen):
+    """A recsys cell's input on the card with the meta tensor's shape and
+    dtype: ids in their table's range (the sequence models' items from 2,
+    past PAD and MASK), masks three quarters set (``pad_mask`` all), labels
+    0/1, the rest N(0, 1)."""
+    shape, dev = tuple(meta.shape), "cuda"
+    if meta.dtype == torch.bool:
+        if name == "pad_mask":
+            return torch.ones(shape, dtype=torch.bool, device=dev)
+        return torch.rand(shape, generator=gen, device=dev) > 0.25
+    if meta.dtype == torch.int32:
+        lo, hi = ((2, cfg.n_items) if name in ("ids", "cand_ids")
+                  else (0, cfg.rows_per_table))
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    if name == "labels":
+        return torch.randint(0, 2, shape, generator=gen, device=dev).float()
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def same_layout(label, got, want):
+    """The card's inputs have the meta cell's shapes and dtypes."""
+    g = [(tuple(t.shape), t.dtype) for t in got]
+    w = [(tuple(t.shape), t.dtype) for t in want]
+    check(g == w, f"{label}: card inputs {g} are not the traced cell's {w}")
+
+
+def finite_outputs(label, out):
+    from repro_torch.configs.common import tensor_leaves
+    ts = [t for t in tensor_leaves(out) if torch.is_floating_point(t)]
+    check(ts and all(bool(torch.isfinite(t).all()) for t in ts),
+          f"{label}: non-finite output")
+
+
+def cost_recsys(rows):
+    """The recsys cells of COST_RECSYS: each arch's parameters made once on
+    the card (f32, seed 0), the cell's inputs by name at the traced
+    shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.training.optimizer import adamw_init
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for arch, shapes in COST_RECSYS:
+        mod = get_arch(arch)
+        cfg = mod.full_config()
+        free_card()
+        params = mod.model.init_params(cfg, seed=0, device="cuda")
+        for shape in shapes:
+            cell = mod.build_cell(shape)
+            label = f"{arch} {shape}"
+            train = shape == "train_batch"
+            names = [i.name for i in (mod.train_cell(cfg) if train else
+                                      mod.serve_cell(shape, cfg)).inputs]
+            metas = ([cell.args[2][n] for n in names] if train
+                     else cell.args[1:])
+            ins = [card_input(n, m, cfg, gen) for n, m in zip(names, metas)]
+            if train:
+                opt, batch = adamw_init(params), dict(zip(names, ins))
+                run = lambda i: cell.fn(params, opt, batch)  # noqa: E731
+                finite_outputs(label, run(0)[2])
+            else:
+                run = lambda i: cell.fn(params, *ins)  # noqa: E731
+                finite_outputs(label, run(0))
+            rows[label] = cost_cell(label, cell, run,
+                                    2 if train else COST_CALLS)
+            del run, cell, ins
+            opt = batch = None
+        del params
+
+
+def cost_gnn(rows):
+    """EquiformerV2's full_graph_sm and molecule: one train step (bf16,
+    remat) on the graphs of the gnn phase."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.training import data
+    from repro_torch.training.optimizer import adamw_init
+    rng = np.random.RandomState(0)
+    c = ecfg.CELLS["full_graph_sm"]
+    g = data.random_geometric_graph(rng, c["n_nodes"], c["d_feat"],
+                                    cutoff=RGG_CUTOFF,
+                                    max_edges=c["n_edges"])
+    g["labels"] = rng.randint(0, c["n_out"], c["n_nodes"]).astype(np.int32)
+    graphs = {"full_graph_sm": g,
+              "molecule": data.batched_molecules(np.random.RandomState(1),
+                                                 128, 30, 64, 64)}
+    for shape in COST_GNN:
+        free_card()
+        cell = ecfg.build_cell(shape)
+        batch = gnn_batch(ecfg, shape, graphs[shape])
+        same_layout(f"equiformer-v2 {shape}", list(batch.values()),
+                    [cell.args[2][k] for k in batch])
+        params = eq.init_params(ecfg.full_config(shape), seed=0,
+                                device="cuda")
+        opt = adamw_init(params)
+        run = lambda i: cell.fn(params, opt, batch)  # noqa: E731
+        finite_outputs(f"equiformer-v2 {shape}", run(0)[2])
+        rows[f"equiformer_v2 {shape}"] = cost_cell(
+            f"equiformer_v2 {shape}", cell, run, 2)
+        del run, params, opt
+
+
+def cost_lm(rows):
+    """Qwen2-1.5B (bf16, seed 0): the prefill and the fused step at the
+    dense phase's serving shapes (4 lanes, prefill_len 128, T 33, S 512)
+    and a long prompt (COST_PREFILL), traced with the dense backends and
+    run through B3 and B1; then the reference's long_500k cell, one fused
+    step on a zero cache with cache_lens S - T through B1, after B1 is
+    held against its plain version at the last layer's K/V, and its
+    logits held against the f32 dense step's (``long_logits``)."""
+    from repro_torch import kernels
+    from repro_torch.configs import lm_common, qwen2_1_5b
+    from repro_torch.configs.common import Cell, abstract, tensor_leaves
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.tree_attention.ops import (
+        tree_attention, tree_attention_reference)
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.attention import build_full_tree_mask
+    from repro_torch.models.params import init_params
+    free_card()
+    base = dataclasses.replace(qwen2_1_5b.full_config(), dtype="bfloat16",
+                               param_dtype="bfloat16")
+    dense = dataclasses.replace(base, prefill_backend="dense",
+                                decode_backend="dense")
+    cuda = dataclasses.replace(base, prefill_backend="cuda",
+                               decode_backend="cuda")
+    params = init_params(cuda, seed=0, device="cuda")
+    mparams = init_params(dense, device="meta")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    V, L = base.vocab_size, base.n_layers
+    B, S = PATH_PREFILL[0][:2]
+    T = PATH_TREE[1]
+
+    def step_inputs(cfg, B, T, start):
+        """decode_args on the card: a chain tree of T slots at cache_lens
+        ``start``."""
+        cache, lens, tok, pos, mask, parent, n_live = lm_common.decode_args(
+            cfg, B, T, device="cuda")
+        lens.fill_(start)
+        tok.copy_(torch.randint(0, V, (B, T), generator=gen, device="cuda"))
+        pos.copy_(start + torch.arange(T, device="cuda"))
+        mask.copy_(torch.ones(T, T, dtype=torch.bool, device="cuda").tril())
+        parent.copy_(torch.arange(T, device="cuda") - 1)
+        n_live.fill_(T)
+        return cache, lens, tok, pos, mask, parent, n_live
+
+    # prefill (4, 128) through B3
+    cell = Cell("qwen2_1_5b", "prefill (4,128)", "prefill",
+                lm_common._prefill_fn(dense),
+                (mparams, abstract((B, S), "int32"), abstract((B,), "int32"),
+                 tx.init_cache(dense, B, device=torch.device("meta"))),
+                lm_common._meta(dense, B * S, "prefill", S, B))
+    toks = torch.randint(0, V, (B, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    cache = tx.init_cache(cuda, B, device=torch.device("cuda"))
+    same_layout("prefill (4,128)", [toks, lens, cache["k"]],
+                [cell.args[1], cell.args[2], cell.args[3]["k"]])
+    run = lambda i: lm_common._prefill_fn(cuda)(params, toks, lens, cache)  # noqa: E731
+    n0 = flash_prefill.launches
+    finite_outputs("prefill (4,128)", run(0)[1])
+    check(flash_prefill.launches - n0 == L, f"prefill: "
+          f"{flash_prefill.launches - n0} B3 launches, not {L}")
+    rows["qwen2_1_5b prefill (4,128)"] = cost_cell(
+        "qwen2_1_5b prefill (4,128)", cell, run, COST_CALLS)
+    del cache, run
+
+    # a long prompt (1, 4096) through B3: the dense program's count holds
+    # the whole S x S square of scores, B3 computes its causal half
+    PB, PS = COST_PREFILL
+    pdense = dataclasses.replace(dense, max_seq_len=PS)
+    pcuda = dataclasses.replace(cuda, max_seq_len=PS)
+    label = f"qwen2_1_5b prefill ({PB},{PS})"
+    cell = Cell("qwen2_1_5b", f"prefill ({PB},{PS})", "prefill",
+                lm_common._prefill_fn(pdense),
+                (mparams, abstract((PB, PS), "int32"),
+                 abstract((PB,), "int32"),
+                 tx.init_cache(pdense, PB, device=torch.device("meta"))),
+                lm_common._meta(pdense, PB * PS, "prefill", PS, PB))
+    toks = torch.randint(0, V, (PB, PS), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens = torch.full((PB,), PS, dtype=torch.int32, device="cuda")
+    cache = tx.init_cache(pcuda, PB, device=torch.device("cuda"))
+    run = lambda i: lm_common._prefill_fn(pcuda)(params, toks, lens, cache)  # noqa: E731
+    n0 = flash_prefill.launches
+    finite_outputs(label, run(0)[1])
+    check(flash_prefill.launches - n0 == L, f"{label}: "
+          f"{flash_prefill.launches - n0} B3 launches, not {L}")
+    rows[label] = cost_cell(label, cell, run, COST_CALLS)
+    square = 4 * PB * base.n_heads * PS * PS * base.dh * L
+    peak = PEAK_FLOPS[torch.bfloat16]
+    print(f"  {label}: full-square attention {square / 1e12:.4g} TFLOP of "
+          f"the counted {sum(rows[label]['flops_by_dtype'].values()) / 1e12:.4g};"
+          f" B3's causal half would take the bound from "
+          f"{rows[label]['bound_ms']:.4f} to "
+          f"{rows[label]['bound_ms'] - square / 2 / peak * 1e3:.4f} ms "
+          f"(share {(rows[label]['bound_ms'] - square / 2 / peak * 1e3) / rows[label]['ms']:.4f})")
+    rows[label]["square_attention_flops"] = square
+    del cache, run, toks, lens
+
+    # the fused step (4, 33) at S 512 through B1
+    cell = Cell("qwen2_1_5b", "fused_step (4,33)", "decode",
+                lm_common._serve_fn(dense),
+                (mparams,) + lm_common.decode_args(dense, B, T),
+                lm_common._meta(dense, B * T, "decode", dense.max_seq_len, B))
+    args = step_inputs(cuda, B, T, S)
+    same_layout("fused_step (4,33)", tensor_leaves(args),
+                tensor_leaves(cell.args[1:]))
+    fused = lm_common._serve_fn(cuda)
+    run = lambda i: fused(params, *args)  # noqa: E731
+    n0 = tree_attention.launches
+    _, packed = run(0)
+    check(tree_attention.launches - n0 == L and packed.shape == (B, 1 + 2 * T)
+          and bool((packed[:, 0] >= 1).all()),
+          f"fused_step (4,33): {tree_attention.launches - n0} B1 launches, "
+          f"packed {tuple(packed.shape)}")
+    rows["qwen2_1_5b fused_step (4,33)"] = cost_cell(
+        "qwen2_1_5b fused_step (4,33)", cell, run, COST_CALLS)
+    del args, run, packed
+
+    # long_500k: B 1, S 524,288, T 65 through B1
+    free_card()
+    cell = qwen2_1_5b.build_cell("long_500k")
+    check(cell.meta["batch"] == 1 and cell.meta["seq"] == LONG_S
+          and cell.meta["tokens_per_step"] == LONG_T,
+          f"long_500k meta {cell.meta}")
+    lcfg = dataclasses.replace(cuda, max_seq_len=LONG_S)
+    args = step_inputs(lcfg, 1, LONG_T, LONG_S - LONG_T)
+    same_layout("long_500k", tensor_leaves(args),
+                tensor_leaves(cell.args[1:]))
+    # B1 at the last layer's K/V (3.6e9 elements past the cache's start),
+    # filled with random values, against its plain version, with the
+    # kernels phase's tolerance: every key of the lane is visible
+    cache, lens = args[:2]
+    cmp0 = kernels.snapshot()
+    kl, vl = cache["k"][L - 1], cache["v"][L - 1]
+    kl.copy_(torch.randn(kl.shape, generator=gen, device="cuda"))
+    vl.copy_(torch.randn(vl.shape, generator=gen, device="cuda"))
+    q = torch.randn((1, LONG_T, base.n_heads, base.dh), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    amask = build_full_tree_mask(lens, args[4], LONG_S)
+    out = tree_attention(q, kl, vl, amask)
+    ref = tree_attention_reference(q, kl, vl, amask)
+    hold("tree_attention", out, ref, torch.bfloat16,
+         f"long_500k last layer (1, {LONG_T}, {base.n_heads}, "
+         f"{base.n_kv_heads}, {base.dh}, {LONG_S})")
+    b1_ms = time_calls(lambda i: tree_attention(q, kl, vl, amask), 3)
+    b1_bound, b1_by = bound(2 * kl.numel() * 2 + amask.numel()
+                            + 2 * q.numel() * 2,
+                            4 * LONG_T * base.n_heads * LONG_S * base.dh,
+                            torch.bfloat16)
+    print(f"  B1 alone at long_500k's shape: {b1_ms:.4f} ms a call (bound "
+          f"{b1_bound:.4f} ms, {b1_by}), {L} a step")
+    kl.zero_()
+    vl.zero_()
+    del out, ref, q, amask, kl, vl
+    # the comparison and its timing are not the path's launches
+    kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    fused = lm_common._serve_fn(lcfg)
+    run = lambda i: fused(params, *args)  # noqa: E731
+    n0 = tree_attention.launches
+    _, packed = run(0)
+    check(tree_attention.launches - n0 == L and packed.shape == (1, 1 + 2 * LONG_T)
+          and int(packed[0, 0]) >= 1,
+          f"long_500k: {tree_attention.launches - n0} B1 launches, packed "
+          f"{tuple(packed.shape)}")
+    rows["qwen2_1_5b long_500k"] = cost_cell("qwen2_1_5b long_500k", cell,
+                                             run, 3)
+    del run, packed, cell, cache, lens
+    held = [params, args]       # long_logits frees them as it goes
+    del params, args
+    rows["qwen2_1_5b long_500k"].update(long_logits(lcfg, held))
+    free_card()
+
+
+def long_logits(lcfg, held):
+    """long_500k's logits, the whole 28-layer tree step on the same zero
+    cache: B1's (bf16) and the dense backend's (bf16), each held against
+    the dense backend's in f32 on the same bf16-rounded weights, as the
+    model phase holds them at 2 layers: B1's RMS error at most
+    BF16_LOGIT_RATIO times the dense backend's.  ``held`` is [bf16
+    parameters, the fused step's arguments]; it is emptied, so the bf16
+    cache is freed before the f32 one is made.  The launches of this check
+    are not the path's."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tx
+    params, args = held
+    held.clear()
+    cmp0 = kernels.snapshot()
+    cache, ins = args[0], args[1:5]          # cache_lens, tokens, pos, mask
+    ldense = dataclasses.replace(lcfg, prefill_backend="dense",
+                                 decode_backend="dense")
+    got = tx.tree_step(lcfg, params, cache, *ins)[1].float()
+    d16 = tx.tree_step(ldense, params, cache, *ins)[1].float()
+    del cache, args
+    free_card()
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    c32 = dataclasses.replace(ldense, dtype="float32", param_dtype="float32")
+    ref = tx.tree_step(c32, p32, tx.init_cache(c32, 1, device="cuda"),
+                       *ins)[1].float()
+    del p32
+    free_card()
+    kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+
+    def rms(a):
+        return a.pow(2).mean().sqrt().item()
+
+    e_cuda, e_dense = rms(got - ref), rms(d16 - ref)
+    scale = ref.abs().max().item()
+    limit = BF16_LOGIT_RATIO * e_dense
+    out = dict(logit_rms_err_b1=e_cuda, logit_rms_err_dense_bf16=e_dense,
+               logit_max_err_b1_vs_dense_bf16=(got - d16).abs().max().item()
+               / scale,
+               logit_max_err_dense_bf16_vs_f32=(d16 - ref).abs().max().item()
+               / scale,
+               logit_max_err_b1_vs_f32=(got - ref).abs().max().item() / scale)
+    print(f"  long_500k logits (1, {LONG_T}, {lcfg.vocab_size}) vs the f32 "
+          f"dense step: RMS err B1 {e_cuda:.4e}, dense bf16 {e_dense:.4e}; "
+          f"limit {limit:.4e} ({BF16_LOGIT_RATIO} x dense; |logits| RMS "
+          f"{rms(ref):.4f}, max {scale:.4f}); max err over max |logits|: "
+          f"B1 vs dense bf16 {out['logit_max_err_b1_vs_dense_bf16']:.4e}, "
+          f"dense bf16 vs f32 {out['logit_max_err_dense_bf16_vs_f32']:.4e}, "
+          f"B1 vs f32 {out['logit_max_err_b1_vs_f32']:.4e}")
+    check(bool(torch.isfinite(got).all()) and e_cuda <= limit,
+          f"long_500k logits: B1's RMS err {e_cuda} over {limit}")
+    return out
+
+
+def cost_phase(card):
+    """The dry-run's roofline against the card (ROADMAP A19): each cell
+    traced on meta and measured on the card, its share of its bound held at
+    most COST_SHARE_MAX.  Returns the kernels' launches on these runs."""
+    from repro_torch import kernels
+    print(f"  bound: max(counted FLOPs over the peak for their dtype, "
+          f"bytes_floor over {HBM_BYTES_PER_S / 1e12:.2f} TB/s), compute "
+          f"alone without a floor; card and power limit: {card}")
+    before = kernels.snapshot()
+    rows = {}
+    for part in (cost_recsys, cost_gnn, cost_lm):
+        t0 = time.perf_counter()
+        part(rows)
+        print(f"  [{part.__name__}: {time.perf_counter() - t0:.1f} s]")
+    print("  cost table: " + json.dumps(rows))
+    return kernels.diff(kernels.snapshot(), before)
+
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
           "sampled", "overlap", "graphs", "fleet", "sanitize", "long_prompt",
-          "archs", "moe", "train", "gnn")
+          "archs", "moe", "train", "gnn", "cost")
 
 
 def main(argv=None) -> int:
@@ -4574,6 +5013,11 @@ def main(argv=None) -> int:
         print("EquiformerV2 (GNN) at full width, bf16:")
         gnn_phase(smi[0])
         phase_done("gnn")
+    if "cost" in phases:
+        print("the dry-run's roofline against measured cells:")
+        for name, n in cost_phase(smi[0]).items():
+            launches[name] = launches.get(name, 0) + n
+        phase_done("cost")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

@@ -3,7 +3,8 @@
 
 * **Static pass** — ``repro_torch.analysis.lint`` walks the AST of the
   port with the rules of ``repro_torch.analysis.rules`` (R1 sync
-  discipline on torch, R3 refcount pairing, R6 warm-state pairing).  Run
+  discipline on torch, R3 refcount pairing, R4 recapture hazards, R6
+  warm-state pairing).  Run
   it as
 
       python -m repro_torch.analysis.lint src/repro_torch

@@ -3,8 +3,7 @@
 
 Walks every ``.py`` file under the given paths, parses it with ``ast``,
 runs the rule registry (``repro_torch.analysis.rules.all_rules``: R1, R3,
-R6), and prints
-findings as ``path:line:col: Rn message``.  Exit code 0 when clean, 1 when
+R4, R6), and prints findings as ``path:line:col: Rn message``.  Exit code 0 when clean, 1 when
 any finding survives suppression, 2 on usage / syntax errors.
 
 Per-line suppression::
@@ -93,7 +92,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
         description="Invariant linter for the port's serving engine "
-                    "(R1, R3, R6).")
+                    "(R1, R3, R4, R6).")
     parser.add_argument("paths", nargs="*", default=["src/repro_torch/"],
                         help="files or directories to lint")
     parser.add_argument("--select", default=None,

@@ -16,14 +16,17 @@ stdlib interpreter.
         free/cache_unref in the same class, and free()/cache_unref()
         results must never be dropped (only refcount-zero ids may be
         scrubbed or re-allocated)
+    R4  recapture hazards: no argument whose shape follows a Python value
+        (``len(...)``, a variable slice) flows into a captured member
+        (a ``_Member``/``member(...)`` name or a ``fns.<StepFns field>``
+        call) — pad into a fixed bucket first
     R6  warm-state pairing: every ``state_dict`` has a matching
         ``load_state_dict`` on the same class (and vice versa) — the
         fleet persistence round-trip contract
 
 The reference's R2 (jit argnums) and R5 (donation masks) have no torch
 counterpart: the port has no ``jax.jit`` and donates nothing (its step
-functions update the cache in place).  R4's counterpart, value-dependent
-shapes flowing into a captured member, is not written yet.
+functions update the cache in place).
 """
 from __future__ import annotations
 
@@ -92,10 +95,12 @@ def function_defs(node: ast.AST):
 def all_rules() -> List[Rule]:
     """Instantiate the full registry in rule-id order."""
     from repro_torch.analysis.rules.refcounts import RefcountPairingRule
+    from repro_torch.analysis.rules.retrace import RecaptureHazardRule
     from repro_torch.analysis.rules.state_pairing import StatePairingRule
     from repro_torch.analysis.rules.sync_discipline import \
         SyncDisciplineRule
-    return [SyncDisciplineRule(), RefcountPairingRule(), StatePairingRule()]
+    return [SyncDisciplineRule(), RefcountPairingRule(),
+            RecaptureHazardRule(), StatePairingRule()]
 
 
 __all__ = ["Finding", "Rule", "all_rules", "dotted_name", "call_name",

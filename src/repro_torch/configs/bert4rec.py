@@ -1,7 +1,10 @@
 """bert4rec [arXiv:1904.06690]: embed_dim=64, 2 blocks, 2 heads, seq 200,
 bidirectional cloze.  Encoder-only: serve = last-position scoring (the
 numbers of ``repro.configs.bert4rec``)."""
+import sys
+
 from repro_torch.configs import recsys_common as rc
+from repro_torch.configs.common import Cell
 from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import bert4rec as model
 
@@ -46,3 +49,11 @@ def train_cell(cfg: model.Bert4RecConfig = None,
         Input("masked_labels", (batch, M), "int32"),
         Input("negatives", (N_NEG,), "int32"),
         Input("pad_mask", (batch, S), "bool")))
+
+
+cell_meta = rc.sequence_meta
+
+
+def build_cell(shape: str) -> Cell:
+    """The dry-run cell (``recsys_common.build_cell``)."""
+    return rc.build_cell(sys.modules[__name__], shape)

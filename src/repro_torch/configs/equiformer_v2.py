@@ -9,22 +9,20 @@ Positions for the non-geometric graphs are synthetic (see DESIGN.md).
 
 Every cell is a train cell (``train_cell``: the step and its batch's
 inputs); ``model_flops`` and ``bytes_floor`` are the reference's cost
-figures for one step.  The reference's ``Cell`` objects, abstract shapes,
-logical axes and the chunked path's cost corrections belong to its
-dry-run (ROADMAP A19).
+figures for one step, and ``build_cell`` the dry-run ``Cell`` with the
+reference's meta, the chunked path's cost corrections included.  Logical
+axes wait for ROADMAP A16.
 """
 from __future__ import annotations
 
-from repro_torch.configs.recsys_common import Input, TrainCell
+from repro_torch.configs.common import Cell, pad_to_multiple
+from repro_torch.configs.recsys_common import (Input, TrainCell,
+                                               train_dryrun_cell)
 from repro_torch.models.gnn import equiformer as model
 from repro_torch.training.train_step import make_train_step
 
 ARCH = "equiformer-v2"
 SHAPES = ["full_graph_sm", "minibatch_lg", "ogb_products", "molecule"]
-
-
-def pad_to_multiple(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
 
 
 # (n_nodes, n_edges_padded, d_feat, n_out, node_level, edge_chunk)
@@ -87,6 +85,32 @@ def train_cell(shape: str, cfg: model.EquiformerConfig = None) -> TrainCell:
                                      grad_dtype="bfloat16"), tuple(inputs))
 
 
+def build_cell(shape: str) -> Cell:
+    """The dry-run cell: one train step over meta parameters, their AdamW
+    state and the batch, with the reference's meta.  ogb_products gets the
+    edge-chunk corrections although its E is no multiple of its
+    edge_chunk and it runs dense, as in the reference (ROADMAP §C);
+    ``launch.roofline`` adds no correction (the port's trace runs every
+    chunk)."""
+    c = CELLS[shape]
+    cfg = full_config(shape)
+    N, E = c["n_nodes"], c["n_edges"]
+    meta = {"n_params": cfg.n_params(), "n_active_params": cfg.n_params(),
+            "model_flops": model_flops(cfg, E), "tokens_per_step": N,
+            "batch": N, "weight_bytes": cfg.n_params() * 4,
+            "n_edges": E, "bytes_floor": bytes_floor(cfg, N, E)}
+    if cfg.edge_chunk and E > cfg.edge_chunk:
+        # the reference's correction for its edge-chunk lax.scan body,
+        # which XLA counts once (x4/3: forward-only to remat'd fwd+bwd)
+        nc = E // cfg.edge_chunk
+        fwd = model_flops(cfg, E) / 3
+        meta["flops_correction"] = (nc - 1) / nc * fwd * 4
+        meta["bytes_correction"] = (nc - 1) / nc * (
+            4.0 * E * cfg.lsq * cfg.channels * 2 * 6)
+    return train_dryrun_cell(ARCH, shape, cfg, model, train_cell(shape, cfg),
+                             meta)
+
+
 def model_flops(cfg: model.EquiformerConfig, E: int) -> int:
     """A train step's FLOPs (the reference's ``_flops``): per edge and
     layer the Wigner rotations in and out and the SO(2) products, x3 for
@@ -111,4 +135,5 @@ def bytes_floor(cfg: model.EquiformerConfig, N: int, E: int) -> float:
 
 
 __all__ = ["ARCH", "SHAPES", "CELLS", "full_config", "smoke_config",
-           "train_cell", "model_flops", "bytes_floor", "pad_to_multiple"]
+           "train_cell", "build_cell", "model_flops", "bytes_floor",
+           "pad_to_multiple"]

@@ -5,6 +5,7 @@ from repro_torch.configs import lm_common
 from repro_torch.models.transformer import TransformerConfig
 
 ARCH = "qwen3-moe-30b-a3b"
+SHAPES = lm_common.SHAPES
 
 
 def full_config() -> TransformerConfig:
@@ -18,3 +19,8 @@ def full_config() -> TransformerConfig:
 
 def smoke_config() -> TransformerConfig:
     return lm_common.smoke_config(full_config())
+
+
+def build_cell(shape: str):
+    """The dry-run cell (``lm_common.build_cell``)."""
+    return lm_common.build_cell(ARCH, full_config(), shape)

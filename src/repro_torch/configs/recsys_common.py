@@ -5,13 +5,16 @@ Shapes: train_batch 65,536 · serve_p99 512 · serve_bulk 262,144 ·
 retrieval_cand (batch=1 vs 1,000,000 candidates).  Each arch's config module
 gives every serve cell as a plain function and its inputs' shapes
 (``serve_cell``), and its train_batch cell as a train step and its batch's
-shapes (``train_cell``); the reference's ``Cell`` objects, abstract shapes
-and shardings belong to its dry-run (ROADMAP A19).
+shapes (``train_cell``), and its cell meta (``cell_meta``); ``build_cell``
+makes either a dry-run ``Cell`` over meta tensors (the reference's
+``serve_cell`` / ``train_cell``; shardings wait for ROADMAP A16).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
+from repro_torch.configs.common import Cell, abstract
+from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_step import make_train_step
 
 SHAPES = ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"]
@@ -55,5 +58,58 @@ def train_cell(cfg, loss_fn: Callable, inputs: Tuple[Input, ...]
                                      lr=1e-3, grad_dtype="bfloat16"), inputs)
 
 
+def abstract_inputs(inputs: Tuple[Input, ...]) -> Tuple:
+    """Meta tensors of the inputs' shapes and dtypes, in order."""
+    return tuple(abstract(i.shape, i.dtype) for i in inputs)
+
+
+def train_dryrun_cell(arch: str, shape: str, cfg, model, train: TrainCell,
+                      meta: dict) -> Cell:
+    """``train.step(params, opt_state, batch)`` over meta parameters, their
+    AdamW state and the batch."""
+    params = model.init_params(cfg, device="meta")
+    batch = dict(zip((i.name for i in train.inputs),
+                     abstract_inputs(train.inputs)))
+    return Cell(arch, shape, "train", train.step,
+                (params, adamw_init(params), batch), meta)
+
+
+def build_cell(mod, shape: str) -> Cell:
+    """The dry-run cell of the recsys config module ``mod`` (its ``ARCH``,
+    ``model``, ``full_config``, ``serve_cell``, ``train_cell`` and
+    ``cell_meta``): the train step at train_batch, else the serve function
+    over meta parameters (``model.init_params(cfg, device="meta")``) and
+    inputs."""
+    cfg = mod.full_config()
+    meta = mod.cell_meta(cfg, shape)
+    if shape == "train_batch":
+        return train_dryrun_cell(mod.ARCH, shape, cfg, mod.model,
+                                 mod.train_cell(cfg), meta)
+    serve = mod.serve_cell(shape, cfg)
+    params = mod.model.init_params(cfg, device="meta")
+    fn = lambda p, *a: serve.fn(cfg, p, *a)  # noqa: E731
+    return Cell(mod.ARCH, shape, "score", fn,
+                (params,) + abstract_inputs(serve.inputs), meta)
+
+
+def sequence_meta(cfg, shape: str) -> dict:
+    """The reference's cell meta of the sequence models (SASRec, BERT4Rec).
+    Its ``model_flops`` charges the full-catalog head to the ranking cells
+    too, which score their candidates and never compute it (a fault of the
+    reference kept for parity, ROADMAP §C); ``launch.roofline``'s bound
+    rests on the counted FLOPs instead."""
+    B, d, S = BATCHES[shape], cfg.embed_dim, cfg.seq_len
+    mult = 3 if shape == "train_batch" else 1
+    blocks = cfg.n_blocks * (8 * d * d * S + 4 * S * S * d + 16 * d * d * S)
+    head = 2 * S * d * cfg.n_items
+    return {"n_params": cfg.n_params(), "n_active_params": cfg.n_params(),
+            "model_flops": B * (blocks + head) * mult,
+            "tokens_per_step": B * S, "batch": B,
+            "weight_bytes": cfg.n_params() * 4,
+            "bytes_floor": float(B * (d * S * 8) * 4 * mult
+                                 + (cfg.n_params() * 16 if mult == 3 else 0))}
+
+
 __all__ = ["SHAPES", "SERVE_SHAPES", "BATCHES", "Input", "ServeCell",
-           "TrainCell", "check_serve_shape", "train_cell"]
+           "TrainCell", "check_serve_shape", "train_cell", "abstract_inputs",
+           "train_dryrun_cell", "build_cell", "sequence_meta"]

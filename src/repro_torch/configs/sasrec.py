@@ -1,7 +1,10 @@
 """sasrec [arXiv:1808.09781]: embed_dim=50, 2 blocks, 1 head, seq 50,
 causal self-attention, next-item objective (the numbers of
 ``repro.configs.sasrec``)."""
+import sys
+
 from repro_torch.configs import recsys_common as rc
+from repro_torch.configs.common import Cell
 from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import sasrec as model
 
@@ -46,3 +49,11 @@ def train_cell(cfg: model.SasRecConfig = None,
         Input("labels", (batch, S), "int32"),
         Input("negatives", (N_NEG,), "int32"),
         Input("pad_mask", (batch, S), "bool")))
+
+
+cell_meta = rc.sequence_meta
+
+
+def build_cell(shape: str) -> Cell:
+    """The dry-run cell (``recsys_common.build_cell``)."""
+    return rc.build_cell(sys.modules[__name__], shape)

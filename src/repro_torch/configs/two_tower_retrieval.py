@@ -2,9 +2,12 @@
 1024-512-256, dot interaction, sampled softmax; retrieval scores 1M
 candidates via a batched dot + top-k (the numbers of
 ``repro.configs.two_tower_retrieval``)."""
+import sys
+
 import torch
 
 from repro_torch.configs import recsys_common as rc
+from repro_torch.configs.common import Cell
 from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import two_tower as model
 
@@ -60,3 +63,28 @@ def train_cell(cfg: model.TwoTowerConfig = None,
     return rc.train_cell(cfg, model.loss, (
         Input("user_ids", (batch, cfg.n_user_fields), "int32"),
         Input("item_ids", (batch, cfg.n_item_fields), "int32")))
+
+
+def cell_meta(cfg: model.TwoTowerConfig, shape: str) -> dict:
+    """The reference's cell meta (no ``bytes_floor``)."""
+    B = rc.BATCHES[shape]
+    return {"n_params": cfg.n_params(), "n_active_params": cfg.n_params(),
+            "model_flops": _flops(cfg, B, shape), "tokens_per_step": B,
+            "batch": B, "weight_bytes": cfg.n_params() * 4}
+
+
+def build_cell(shape: str) -> Cell:
+    """The dry-run cell (``recsys_common.build_cell``)."""
+    return rc.build_cell(sys.modules[__name__], shape)
+
+
+def _flops(cfg, B, shape):
+    ud = (cfg.n_user_fields * cfg.feat_dim,) + cfg.tower_dims
+    it = (cfg.n_item_fields * cfg.feat_dim,) + cfg.tower_dims
+    t = sum(2 * a * b for a, b in zip(ud[:-1], ud[1:])) \
+        + sum(2 * a * b for a, b in zip(it[:-1], it[1:]))
+    if shape == "train_batch":
+        return B * (t * 3 + 2 * B * cfg.tower_dims[-1])
+    if shape == "retrieval_cand":
+        return t + 2 * N_CAND * cfg.tower_dims[-1]
+    return B * t

@@ -1,7 +1,10 @@
 """wide-deep [arXiv:1606.07792]: 40 sparse fields, embed_dim=32,
 MLP 1024-512-256, concat interaction.  Tables: 1M rows/field (the numbers
 of ``repro.configs.wide_deep``)."""
+import sys
+
 from repro_torch.configs import recsys_common as rc
+from repro_torch.configs.common import Cell
 from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
 from repro_torch.models.recsys import wide_deep as model
 
@@ -45,3 +48,31 @@ def train_cell(cfg: model.WideDeepConfig = None,
         Input("sparse_mask", (batch, F, L), "bool"),
         Input("dense", (batch, cfg.n_dense), "float32"),
         Input("labels", (batch,), "float32")))
+
+
+def cell_meta(cfg: model.WideDeepConfig, shape: str) -> dict:
+    """The reference's cell meta."""
+    B = rc.BATCHES[shape]
+    if shape == "retrieval_cand":
+        B = 1_000_000       # scoring 1M candidate contexts for one user
+    mult = 3 if shape == "train_batch" else 1
+    return {"n_params": cfg.n_params(), "n_active_params": cfg.n_params(),
+            "model_flops": _flops(cfg, B, train=(shape == "train_batch")),
+            "tokens_per_step": B, "batch": B,
+            "weight_bytes": cfg.n_params() * 4,
+            "bytes_floor": float(
+                B * cfg.n_sparse * cfg.multi_hot * cfg.embed_dim * 4 * mult
+                + B * sum(cfg.mlp_dims) * 4 * mult
+                + (cfg.n_params() * 16 if mult == 3 else 0))}
+
+
+def build_cell(shape: str) -> Cell:
+    """The dry-run cell (``recsys_common.build_cell``)."""
+    return rc.build_cell(sys.modules[__name__], shape)
+
+
+def _flops(cfg, B, train):
+    dims = (cfg.n_sparse * cfg.embed_dim + cfg.n_dense,) + cfg.mlp_dims
+    mlp = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    per = mlp + cfg.n_sparse * cfg.multi_hot * cfg.embed_dim * 2
+    return B * per * (3 if train else 1)

@@ -6,7 +6,10 @@ plain PyTorch version (``ref.py``); ``_build.py`` compiles the sources with
 ``nvcc`` at first use.  No kernel has a backward: each refuses an input
 that requires grad while grad mode is on (``_build.check_cuda``), and the
 EmbeddingBag wrapper gives its table a gradient through an
-``autograd.Function`` whose backward is plain torch.
+``autograd.Function`` whose backward is plain torch.  A wrapper takes its
+plain version on CPU tensors and on ``meta`` ones (``launch.dryrun``'s
+shape trace: nothing launches and no counter moves); a CUDA tensor always
+launches the kernel or raises.
 
 The launch counters.  Each wrapper adds one to a plain integer attribute of
 its function where it launches its kernel, so a run can show that a path

@@ -3,10 +3,11 @@ the port of ``repro.kernels.embedding_bag.ops.embedding_bag_fused``.
 
 A tensor on the card launches the kernel, after the checks of
 ``_build.check_cuda`` and of the shapes; anything the kernel does not take
-raises.  A tensor on the CPU takes the plain version (``ref.py``) on the
-weights ``fold_weights`` makes; the kernel takes the mask and the weights
-as they are and folds them itself, to the same f32 values.
-``embedding_bag_fused.launches`` counts kernel launches only.
+raises. A tensor on the CPU, or on ``meta`` (the dry-run's shape trace, which
+launches nothing), takes the plain version (``ref.py``) on the weights
+``fold_weights`` makes; the kernel takes the mask and the weights as they are
+and folds them itself, to the same f32 values. ``embedding_bag_fused.launches``
+counts kernel launches only.
 
 The gradient comes from a ``torch.autograd.Function`` around both: its
 forward is the kernel (or the plain version), its backward plain torch —
@@ -108,8 +109,9 @@ class _EmbeddingBag(torch.autograd.Function):
 
 
 def _forward(table, ids, mask, weights):
-    """The forward: the kernel on the card, the plain version on the CPU."""
-    if table.device.type == "cpu":
+    """The forward: the kernel on the card, the plain version on the CPU
+    and on ``meta``."""
+    if table.device.type in ("cpu", "meta"):
         return embedding_bag_ref(table, ids, fold_weights(ids, mask, weights))
     stacked = table.dim() == 3
     if table.dim() not in (2, 3) or ids.dim() < (3 if stacked else 2) \

@@ -5,8 +5,9 @@ its triangular-grid Pallas kernel the same way, and no model path does).
 
 A tensor on the card launches the kernel, after the checks of
 ``_build.check_cuda`` and of the shapes; anything the kernel does not take
-raises.  A tensor on the CPU takes the plain version (``ref.py``), which
-computes the same function for both.  ``flash_prefill.launches`` and
+raises. A tensor on the CPU, or on ``meta`` (the dry-run's shape trace, which
+launches nothing), takes the plain version (``ref.py``), which computes the
+same function for both. ``flash_prefill.launches`` and
 ``flash_prefill.tri_launches`` count kernel launches only.
 
 The triangular kernel's persistent blocks take their work from an int32
@@ -24,7 +25,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   triangular: bool = False) -> torch.Tensor:
     """q (B, S, H, dh); k/v (B, S, K, dh) -> causal attention (B, S, H, dh)
     in q's dtype; ``triangular`` selects the longest-first kernel."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_prefill_ref(q, k, v)
     B, S, H, dh = q.shape
     K = k.shape[2]

@@ -3,9 +3,9 @@ sampled branch of ``repro_torch.serving.sampler.choose_tokens_lanes``.
 
 A tensor on the card launches the kernel, after the checks of
 ``_build.check_cuda`` and of the shapes and dtypes; anything the kernel does
-not take raises.  A tensor on the CPU takes the plain version (``ref.py``).
-``gumbel_argmax.launches`` counts kernel launches only.
-"""
+not take raises. A tensor on the CPU, or on ``meta`` (the dry-run's shape
+trace, which launches nothing), takes the plain version (``ref.py``).
+``gumbel_argmax.launches`` counts kernel launches only."""
 from __future__ import annotations
 
 import torch
@@ -24,7 +24,7 @@ def gumbel_argmax(logits: torch.Tensor, pred_positions: torch.Tensor,
     (B, T) int32: row (b, t) is
     ``argmax_v(logits / max(temp[b], 1e-6) + gumbel(fold_in(key(seed[b]),
     pred_positions[b, t]))[v])``, and 0 on the rows of greedy lanes."""
-    if logits.device.type == "cpu":
+    if logits.device.type in ("cpu", "meta"):
         return gumbel_argmax_ref(logits, pred_positions, temp, seed, greedy)
     B, T, V = logits.shape
     pos = pred_positions.to(torch.int32).contiguous()

@@ -2,11 +2,11 @@
 
 A tensor on the card launches the kernel, after the checks of
 ``_build.check_cuda`` and of the shapes; anything the kernel does not take
-raises.  A tensor on the CPU takes the plain version (``ref.py``) — the only
-path the CPU tests can run.  ``tree_attention.launches`` counts kernel
-launches (never plain-version calls), so a run can show that the serving
-path went through the kernel.
-"""
+raises. A tensor on the CPU, or on ``meta`` (the dry-run's shape trace, which
+launches nothing), takes the plain version (``ref.py``) — the only path the CPU
+tests can run. ``tree_attention.launches`` counts kernel launches (never plain-
+version calls), so a run can show that the serving path went through the
+kernel."""
 from __future__ import annotations
 
 import torch
@@ -19,7 +19,7 @@ def tree_attention(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """q (B, T, H, dh); k/v (B, S, K, dh); mask (B, T, S) bool
     -> (B, T, H, dh) in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return tree_attention_reference(q, k_cache, v_cache, mask)
     B, T, H, dh = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]

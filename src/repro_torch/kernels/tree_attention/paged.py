@@ -3,10 +3,11 @@
 
 A tensor on the card launches the kernel, after the checks of
 ``_build.check_cuda`` and of the shapes, the int32 table and the bool mask;
-anything the kernel does not take raises — there is no fallback to a gather
-on the card.  A tensor on the CPU takes the plain version (``ref.py``: gather
-each lane's blocks, then the dense plain version).
-``paged_tree_attention.launches`` counts kernel launches only.
+anything the kernel does not take raises — there is no fallback to a gather on
+the card. A tensor on the CPU, or on ``meta`` (the dry-run's shape trace, which
+launches nothing), takes the plain version (``ref.py``: gather each lane's
+blocks, then the dense plain version). ``paged_tree_attention.launches`` counts
+kernel launches only.
 
 Table entries are not read on the host (that would wait for the card): the
 kernel clamps an entry outside the pool into it, for memory safety, where
@@ -26,7 +27,7 @@ def paged_tree_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """q (B, T, H, dh); k/v pool (n_blocks, bs, K, dh); block_tables
     (B, bpl) int32; mask (B, T, bpl * bs) bool -> (B, T, H, dh) in q's
     dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_tree_attention_reference(q, k_pool, v_pool,
                                               block_tables, mask)
     B, T, H, dh = q.shape

@@ -90,13 +90,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     at a time into the ``param_dtype`` tensor, so that their f32 scratch
     is one layer's (0.81 GB at Qwen3-MoE's width) and not the whole
     tensor's (38.7 GB); every other tensor is drawn whole, in
-    ``_layer_shapes`` order."""
+    ``_layer_shapes`` order.  ``device="meta"`` gives the same shapes and
+    dtypes with no draws (the counterpart of ``jax.eval_shape(init_params)``,
+    for the dry-run)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
     pd = cfg.pdtype
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
 
     def draw(shape):                     # N(0, 0.02^2) in f32
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).mul_(0.02)
 

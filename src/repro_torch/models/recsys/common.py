@@ -18,10 +18,21 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[name]
 
 
+class _NoDraws:
+    """The generator of ``device="meta"``: a device and no state, so that
+    ``init_params`` gives the parameters' shapes and dtypes alone (the
+    counterpart of ``jax.eval_shape(init_params)``)."""
+    device = torch.device("meta")
+
+
 def generator(seed: int, device: Device = None) -> torch.Generator:
     """A torch generator seeded with ``seed`` on the resolved device (the
-    card unless the caller asks for the CPU)."""
-    gen = torch.Generator(device=resolve_device(device))
+    card unless the caller asks for the CPU); on ``meta`` one that draws
+    nothing."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _NoDraws()
+    gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return gen
 
@@ -29,7 +40,9 @@ def generator(seed: int, device: Device = None) -> torch.Generator:
 def normal(gen: torch.Generator, shape, scale: float,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """N(0, scale^2) drawn in f32 on the generator's device, cast to
-    ``dtype``."""
+    ``dtype`` (on ``meta``: an empty tensor of that shape and dtype)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     t = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return t.mul_(scale).to(dtype)

@@ -1,5 +1,6 @@
 """The port's analysis layer (repro_torch.analysis) on the CPU: the torch
-sync-discipline rule (R1) and the copied R3/R6 against known-bad and
+sync-discipline rule (R1), the recapture rule (R4) and the copied R3/R6
+against known-bad and
 known-good snippets, the linter's gate over the port, the sanitizer's
 units (lifecycle, shadow ledger, the poison probe on torch tensors,
 retrace manifest) as tests/test_analysis.py holds the reference's, and the
@@ -207,6 +208,90 @@ def test_r6_flags_unpaired_and_accepts_suppressed():
     assert "never donates" in found[1].message
 
 
+# ------------------------------------------------------------------- R4
+def test_r4_flags_value_dependent_shapes_into_captured_members():
+    """The torch twin of tests/test_analysis.py's R4 case: a name bound to
+    a member (the session's ``member`` helper or ``_Member``) fed a
+    Python-length array, numpy's or torch's."""
+    src = """
+        import numpy as np
+        import torch
+
+        step = member("fused_step", lambda t: t)
+        other = _Member("prefill", lambda t: t)
+
+        def go(toks, n):
+            a = step(np.asarray(toks[:n]))
+            b = other(torch.zeros((len(toks),)))
+            return a, b
+    """
+    assert len(_rules(src, "R4")) == 2
+
+
+def test_r4_accepts_fixed_buckets():
+    src = """
+        import torch
+
+        step = member("fused_step", lambda t: t)
+
+        def go(toks, n, buf):
+            buf[0, :n] = torch.as_tensor(toks[:n])   # host staging: fine
+            return step(buf)
+    """
+    assert _rules(src, "R4") == []
+
+
+def test_r4_flags_step_fns_calls_and_honours_suppression():
+    """The port reaches its members through ``StepFns`` fields, so those
+    calls are checked; ``prefill_suffix`` (the padding layer) and a
+    receiver that is not ``fns`` are not."""
+    src = """
+        import numpy as np
+
+        class Sched:
+            def admit(self, fns, toks, n):
+                a = fns.prefill(np.asarray(toks[:n]), n)
+                b = self.fns.prefill_into_slot(self.cache, 0, toks[:n])
+                c = fns.prefill_suffix(self.cache, 0, toks[n:])
+                d = self.engine.prefill(toks[:n])
+                e = fns.fused_step(toks[:n])  # repro-lint: disable=R4
+                return a, b, c, d, e
+    """
+    assert [f.line for f in _rules(src, "R4")] == [6, 7]
+
+
+def test_r4_covers_the_step_fns_members_and_the_ports_call_sites():
+    """R4's member fields are StepFns' callables but the padding
+    ``prefill_suffix``, and over the port the rule sees the scheduler's and
+    the engine's member calls (so its clean result checks them)."""
+    import ast
+    import dataclasses
+    from repro_torch.analysis.rules.retrace import (STEP_MEMBERS,
+                                                    _captured_callee,
+                                                    _collect_member_names)
+    from repro_torch.core.request import StepFns
+    fields = {f.name for f in dataclasses.fields(StepFns)
+              if "Callable" in str(f.type)}
+    assert STEP_MEMBERS == fields - {"prefill_suffix"}
+    seen = 0
+    for rel in ("serving/scheduler.py", "core/engine.py",
+                "serving/session.py"):
+        tree = ast.parse((REPO / "src" / "repro_torch" / rel).read_text())
+        members = _collect_member_names(tree)
+        seen += sum(1 for n in ast.walk(tree) if isinstance(n, ast.Call)
+                    and _captured_callee(n, members))
+    assert seen >= 15
+    assert [f for f in lint_main_findings() if f.rule == "R4"] == []
+
+
+def lint_main_findings():
+    from repro_torch.analysis.rules import all_rules
+    out = []
+    for path in sorted((REPO / "src" / "repro_torch").rglob("*.py")):
+        out += lint_file(path, all_rules())
+    return out
+
+
 # ------------------------------------------------------- runner / port gate
 def test_port_lints_clean():
     """The gate: ``python -m repro_torch.analysis.lint src/repro_torch``
@@ -237,7 +322,7 @@ def test_lint_cli_exit_codes(tmp_path):
                           text=True, cwd=str(REPO), env=ENV)
     assert proc.returncode == 0
     assert [line.split()[0] for line in proc.stdout.splitlines()] == \
-        ["R1", "R3", "R6"]
+        ["R1", "R3", "R4", "R6"]
 
 
 def test_lint_file_select(tmp_path):

@@ -1,0 +1,339 @@
+"""The port's cost tooling (repro_torch.launch.{dryrun,roofline,report,
+fixup_rooflines}, repro_torch.configs' ``build_cell``) on the CPU: every
+cell's meta against the reference's, the roofline's terms against the
+reference's roofline scaled by the peak ratios, the meta trace's product
+counts against counts written out here and against the same trace on CPU
+tensors, the live-memory tracker on a hand-made sequence, abstract
+parameters, the kernel wrappers on meta, full-width cells and the CLIs.
+Nothing here runs on a device: the traces run on PyTorch's meta device.
+"""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as ref_configs
+from repro.launch import roofline as ref_roofline
+from repro_torch import configs, kernels
+from repro_torch.configs import lm_common, qwen2_1_5b
+from repro_torch.configs.common import Cell, abstract, tensor_leaves
+from repro_torch.launch import dryrun, fixup_rooflines, report
+from repro_torch.launch.dryrun import CostMode, LiveTracker, _trace_cell
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.roofline import roofline
+from repro_torch.models import transformer as tx
+from repro_torch.models.params import init_params
+
+pytestmark = [pytest.mark.torch_port]
+
+ALL_CELLS = configs.assigned_cells() + [
+    ("antglm_10b", s) for s in configs.get_arch("antglm_10b").SHAPES]
+
+
+@pytest.fixture(scope="module")
+def metas():
+    """(port meta, reference meta) of all 44 cells."""
+    return {(a, s): (configs.get_arch(a).build_cell(s).meta,
+                     ref_configs.get_arch(a).build_cell(s).meta)
+            for a, s in ALL_CELLS}
+
+
+# ----------------------------------------------------------- cells, metas
+def test_assigned_cells_match_the_reference():
+    assert configs.assigned_cells() == ref_configs.assigned_cells()
+    assert len(ALL_CELLS) == 44
+
+
+def test_cell_meta_equals_the_reference_on_all_44_cells(metas):
+    for cell, (port, ref) in metas.items():
+        assert set(port) == set(ref), cell
+        for k, v in ref.items():
+            if isinstance(v, int):
+                assert port[k] == v, (cell, k)
+            else:
+                assert port[k] == pytest.approx(v, rel=1e-12), (cell, k)
+
+
+def test_roofline_is_the_references_scaled_by_the_peaks(metas):
+    """The same count (bf16) and meta, n_chips 1: compute_s · 989e12 is the
+    reference's compute_s · 197e12 (less the reference's scan correction,
+    which the port's trace needs none of) and memory_s · 3.35e12 the
+    reference's · 819e9."""
+    F, B = 3.7e15, 2.9e12
+    for cell, (meta, _) in metas.items():
+        mine = roofline({"flops_by_dtype": {"bfloat16": F},
+                         "bytes accessed": B}, 1, meta=meta)
+        ref = ref_roofline.roofline({"flops": F, "bytes accessed": B}, "",
+                                    1, meta=meta)
+        corr = meta.get("flops_correction", 0.0)
+        assert mine["compute_s"] * PEAK_FLOPS_BF16 == pytest.approx(
+            ref["compute_s"] * ref_roofline.PEAK_FLOPS_BF16 - corr,
+            rel=1e-12), cell
+        bcorr = meta.get("bytes_correction", 0.0)
+        assert mine["memory_s"] * HBM_BW == pytest.approx(
+            ref["memory_s"] * ref_roofline.HBM_BW
+            - (0.0 if meta.get("bytes_floor") else bcorr), rel=1e-12), cell
+        assert mine["memory_raw_s"] * HBM_BW == pytest.approx(
+            ref["memory_raw_s"] * ref_roofline.HBM_BW - bcorr, rel=1e-12)
+        assert mine["collective_s"] == ref["collective_s"] == 0.0
+        assert mine.get("step_output_bytes") == ref.get("step_output_bytes")
+        if not corr:
+            assert mine["useful_flops_ratio"] == ref["useful_flops_ratio"]
+        assert set(ref) <= set(mine)
+
+
+def test_roofline_prices_each_dtype_at_its_peak():
+    rf = roofline({"flops_by_dtype": {"bfloat16": 989e12, "float32": 67e12},
+                   "bytes accessed": 0.0}, 1, meta={"bytes_floor": 3.35e12})
+    assert rf["compute_s"] == pytest.approx(2.0, rel=1e-12)
+    assert rf["memory_s"] == pytest.approx(1.0, rel=1e-12)
+    assert rf["bottleneck"] == "compute"
+
+
+# ------------------------------------------------------------ the counts
+def _smoke():
+    return lm_common.smoke_config(qwen2_1_5b.full_config())
+
+
+def _layer_products(cfg, N, attn):
+    d, H, K, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+                      cfg.d_ff)
+    return cfg.n_layers * (2 * N * d * (H * dh + 2 * K * dh)   # q, k, v
+                           + 2 * N * H * dh * d                 # wo
+                           + 3 * 2 * N * d * F                  # swiglu
+                           + attn)
+
+
+def _count(fn, *args):
+    mode = CostMode()
+    with mode:
+        fn(*args)
+    return dict(mode.flops)
+
+
+def test_counted_products_of_prefill_step_and_train_at_smoke_size():
+    """Qwen2-1.5B's smoke config (2 layers, d 64, 4 heads of 16, 1 KV
+    head, d_ff 128, vocab 512, f32): the products written out, on meta and
+    on CPU tensors alike."""
+    cfg = _smoke()
+    d, H, dh, V, S_max = (cfg.d_model, cfg.n_heads, cfg.dh, cfg.vocab_size,
+                          cfg.max_seq_len)
+    B, S, T = 2, 16, 5
+    dense = dataclasses.replace(cfg, prefill_backend="dense",
+                                decode_backend="dense")
+    prefill = (_layer_products(cfg, B * S, 4 * B * H * S * S * dh)
+               + 2 * B * d * V)                    # last token's logits
+    step = (_layer_products(cfg, B * T, 4 * B * H * T * S_max * dh)
+            + 2 * B * T * d * V)
+    train = 3 * (_layer_products(cfg, B * S, 4 * B * H * S * S * dh)
+                 + 2 * B * S * d * V)              # forward, 2x backward
+    train_step = lm_common.train_4k_step(dense)
+    for dev in ("meta", "cpu"):
+        params = init_params(dense, seed=0, device=dev)
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(0, V, (B, S), generator=g).to(dev)
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        cache = tx.init_cache(dense, B, device=torch.device(dev))
+        assert _count(lm_common._prefill_fn(dense), params, toks, lens,
+                      cache) == {"float32": prefill}
+        args = list(lm_common.decode_args(dense, B, T, device=dev))
+        args[2] = toks[:, :T].int()
+        args[6].fill_(T)
+        assert _count(lm_common._serve_fn(dense), params, *args) == \
+            {"float32": step}
+        from repro_torch.training.optimizer import adamw_init
+        assert _count(train_step, params, adamw_init(params),
+                      {"tokens": toks, "labels": toks}) == {"float32": train}
+
+
+def test_train_4k_cell_counts_the_whole_batch_and_holds_the_microbatches():
+    """train_4k's cell (at the smoke config's widths, the cell's batch 256
+    x 4,096): its cost program takes the batch at once, its memory program
+    (``memory_fn``, the reference's ``fast`` build) in 4 microbatches: the
+    same products in less live memory.  The other cells have one program."""
+    cell = lm_common.build_cell("qwen2-1.5b", _smoke(), "train_4k")
+    assert cell.memory_fn is not None
+    cost, mem = _trace_cell(cell), _trace_cell(cell, cell.memory_fn)
+    assert cost["flops_by_dtype"] == mem["flops_by_dtype"]
+    assert mem["peak_memory_in_bytes"] < cost["peak_memory_in_bytes"]
+    assert lm_common.build_cell("qwen2-1.5b", _smoke(),
+                                "prefill_32k").memory_fn is None
+
+
+def test_bf16_upcasts_count_as_bf16_products():
+    """``x.float() @ w.float()`` of bf16 values runs on bf16 tensor cores
+    with f32 sums; a product with a genuine f32 operand does not."""
+    a = torch.empty(8, 16, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(16, 4, dtype=torch.bfloat16, device="meta")
+    c = torch.empty(16, 4, dtype=torch.float32, device="meta")
+    assert _count(lambda: a.float() @ b.float()) == {"bfloat16": 2 * 8 * 16 * 4}
+    assert _count(lambda: torch.einsum("ik,kj->ij", a.float(), b.float())
+                  ) == {"bfloat16": 2 * 8 * 16 * 4}
+    assert _count(lambda: a.float() @ c) == {"float32": 2 * 8 * 16 * 4}
+    assert _count(lambda: (a.float() * 2) @ b.float()) == \
+        {"float32": 2 * 8 * 16 * 4}
+    v = torch.empty(16, dtype=torch.float32, device="meta")
+    assert _count(lambda: c.t() @ v) == {"float32": 2 * 16 * 4}
+
+
+def test_live_tracker_peak_is_exact_on_a_hand_made_sequence():
+    """Arguments live from the start; a view keeps its storage alive after
+    the tensor it was taken from dies; a storage is freed once, when its
+    last tensor goes."""
+    a = torch.empty(1000, device="meta")             # 4,000 B argument
+    live = LiveTracker()
+    live.add(a)
+    live.observe()
+    mode = CostMode(live)
+    with mode:
+        b = a * 2                                    # + 4,000
+        c = b.view(10, 100)                          # a view: + 0
+        del b                                        # kept alive by c
+        d = torch.cat([c, c, c]).flatten()           # + 12,000 -> 20,000
+        del c                                        # b's storage dies
+        e = d[:1000] * 1                             # + 4,000 -> 20,000
+        f = torch.cat([e, e])                        # + 8,000 -> 28,000
+        del d, e
+        g = f * 3                                    # - 16,000 + 8,000
+    assert live.peak == 28000
+    assert live.sweep() == 4000 + 8000 + 8000        # a, f, g
+    del f, g
+    assert live.sweep() == 4000
+
+
+def test_trace_cell_counts_arguments_outputs_and_the_peak():
+    p = abstract((64, 32), "float32")
+    x = abstract((8, 64), "float32")
+    cell = Cell("toy", "mm", "score", lambda p, x: torch.relu(x @ p),
+                (p, x))
+    tr = _trace_cell(cell)
+    assert tr["flops_by_dtype"] == {"float32": 2 * 8 * 64 * 32}
+    assert tr["argument_size_in_bytes"] == cell.arg_bytes() == \
+        (64 * 32 + 8 * 64) * 4
+    assert tr["output_size_in_bytes"] == 8 * 32 * 4
+    assert tr["peak_memory_in_bytes"] == (64 * 32 + 8 * 64 + 2 * 8 * 32) * 4
+    # mm reads p and x and writes its output; relu reads that, writes one
+    assert tr["bytes accessed"] == (64 * 32 + 8 * 64 + 3 * 8 * 32) * 4
+
+
+# ---------------------------------------------------- abstract parameters
+def _layout(tree):
+    return [(tuple(t.shape), t.dtype) for t in tensor_leaves(tree)]
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "wide_deep", "sasrec",
+                                  "equiformer_v2"])
+def test_init_params_on_meta_has_the_cpu_layout(arch):
+    mod = configs.get_arch(arch)
+    cfg = mod.smoke_config()
+    model = getattr(mod, "model", None)
+    make = model.init_params if model else init_params
+    meta = make(cfg, seed=0, device="meta")
+    cpu = make(cfg, seed=0, device="cpu")
+    assert _layout(meta) == _layout(cpu)
+    assert all(t.device.type == "meta" for t in tensor_leaves(meta))
+
+
+# --------------------------------------------------- the wrappers on meta
+def _wrapper_cases():
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_fused
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
+    from repro_torch.kernels.tree_attention.ops import tree_attention
+    from repro_torch.kernels.tree_attention.paged import paged_tree_attention
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*s, dtype=torch.bfloat16):
+        return torch.randn(s, generator=g).to(dtype)
+
+    B, T, H, K, dh, S = 2, 5, 4, 2, 16, 32
+    mask = torch.ones(B, T, S, dtype=torch.bool)
+    tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    return [
+        ("tree_attention", tree_attention,
+         (rn(B, T, H, dh), rn(B, S, K, dh), rn(B, S, K, dh), mask), {}),
+        ("paged_tree_attention", paged_tree_attention,
+         (rn(B, T, H, dh), rn(4, 16, K, dh), rn(4, 16, K, dh), tables,
+          mask), {}),
+        ("flash_prefill", flash_prefill,
+         (rn(B, S, H, dh), rn(B, S, K, dh), rn(B, S, K, dh)), {}),
+        ("flash_prefill_tri", flash_prefill,
+         (rn(B, S, H, dh), rn(B, S, K, dh), rn(B, S, K, dh)),
+         {"triangular": True}),
+        ("gumbel_argmax", gumbel_argmax,
+         (rn(B, T, 50, dtype=torch.float32),
+          torch.arange(B * T).reshape(B, T), torch.ones(B),
+          torch.arange(B), torch.zeros(B, dtype=torch.bool)), {}),
+        ("embedding_bag", embedding_bag_fused,
+         (rn(3, 20, 8, dtype=torch.float32),
+          torch.randint(0, 20, (B, 3, 4), generator=g),
+          torch.ones(B, 3, 4, dtype=torch.bool)), {}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_kernel_wrapper_on_meta_gives_the_plain_layout_and_no_launch(case):
+    name, fn, args, kw = _wrapper_cases()[case]
+    cpu = fn(*args, **kw)
+    before = kernels.snapshot()
+    out = fn(*(a.to("meta") for a in args), **kw)
+    assert kernels.snapshot() == before, name
+    assert out.device.type == "meta"
+    assert (tuple(out.shape), out.dtype) == (tuple(cpu.shape), cpu.dtype)
+
+
+# ---------------------------------------------------- full-width cells
+def test_run_cell_at_full_width():
+    """decode_32k's KV cache alone is 120 GB (28 layers, B 128, S 32,768, 2
+    KV heads of 128, bf16): it does not fit one card; Wide & Deep's
+    serve_p99 does; EquiformerV2's molecule step traces."""
+    rec = dryrun.run_cell("qwen2_1_5b", "decode_32k")
+    assert rec["ok"] and rec["mesh"] == "1xH100" and rec["n_chips"] == 1
+    kv = 28 * 128 * 32768 * 2 * 128 * 2 * 2
+    assert rec["memory"]["argument_size_in_bytes"] >= kv
+    assert not rec["fits_80gb"]
+    assert rec["meta"]["kv_bytes_per_step"] == kv
+    assert set(rec["cost"]["flops_by_dtype"]) == {"bfloat16"}
+    wd = dryrun.run_cell("wide_deep", "serve_p99")
+    assert wd["fits_80gb"] and wd["roofline"]["bottleneck"] == "compute"
+    assert set(wd["cost"]["flops_by_dtype"]) == {"float32"}
+    mol = dryrun.run_cell("equiformer_v2", "molecule")
+    assert mol["fits_80gb"] and mol["cost"]["flops"] > 0
+    assert mol["roofline"]["memory_s"] == pytest.approx(
+        mol["meta"]["bytes_floor"] / HBM_BW)
+
+
+def test_dryrun_cli_writes_resumes_and_skips(tmp_path, capsys):
+    out = tmp_path / "dry.json"
+    argv = ["--arch", "wide-deep", "--shape", "serve_p99", "--out", str(out)]
+    dryrun.main(argv)
+    first = capsys.readouterr().out
+    assert "[ ok ] wide-deep/serve_p99/1xH100" in first
+    res = json.loads(out.read_text())
+    assert res["wide-deep/serve_p99/1xH100"]["ok"]
+    dryrun.main(argv)
+    again = capsys.readouterr().out
+    assert "[skip] wide-deep/serve_p99/1xH100" in again
+    assert "1/1 cells OK" in again
+
+
+def test_report_and_fixup_round_trip(tmp_path):
+    rec = dryrun.run_cell("sasrec", "serve_p99")
+    results = {"sasrec/serve_p99/1xH100": rec,
+               "x/y/1xH100": {"arch": "x", "shape": "y", "ok": False,
+                              "mesh": "1xH100", "error": "KeyError: y"}}
+    text = report.render(results)
+    assert "**1/2** cells traced OK, **1** fit" in text
+    assert "| sasrec | serve_p99 |" in text and "`x/y/1xH100`" in text
+    want = json.loads(json.dumps(rec["roofline"]))
+    broken = json.loads(json.dumps(results))
+    broken["sasrec/serve_p99/1xH100"]["roofline"]["compute_s"] = 1.0
+    path = tmp_path / "r.json"
+    path.write_text(json.dumps(broken))
+    fixup_rooflines.main(str(path))
+    fixed = json.loads(path.read_text())["sasrec/serve_p99/1xH100"]
+    assert fixed["roofline"] == want
+    assert np.isclose(fixed["roofline"]["compute_s"],
+                      sum(fixed["cost"]["flops_by_dtype"].values()) / 67e12)

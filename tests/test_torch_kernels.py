@@ -113,15 +113,82 @@ def test_cpu_tensors_take_plain_version_and_do_not_count():
     assert (tree_attention.launches, flash_prefill.launches) == (n0, p0)
 
 
-def test_wrappers_refuse_non_cuda_devices():
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device that is neither the CPU, ``meta``
+    nor CUDA (XLA's)."""
+
+    @property
+    def device(self):
+        return torch.device("xla")
+
+
+def test_wrappers_refuse_non_cuda_devices(monkeypatch):
     """Off the CPU the wrappers launch the kernel or raise: no silent
-    fallback (a meta tensor stands in for a device the kernel refuses)."""
+    fallback.  ``meta`` is the dry-run's shape trace and takes the plain
+    version (tests/test_torch_cost.py); a tensor of any other device goes
+    to the launch's guard, ``_build.check_cuda``, and never to the plain
+    version.  The guard itself refuses a non-CUDA tensor."""
+    import importlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_fused
+    from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
+    from repro_torch.kernels.tree_attention.paged import paged_tree_attention
+
     q, k, v, m = _tree_inputs(1, 2, 4, 2, 16, 32, "float32")
-    meta = [t.to("meta") for t in (q[1], k[1], v[1], m[1])]
     with pytest.raises(ValueError, match="CUDA"):
-        tree_attention(*meta)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_prefill(meta[1], meta[1], meta[2])
+        _build.check_cuda("tree_attention", q[1], k[1], v[1], m[1])
+
+    class Guard(Exception):
+        pass
+
+    reached = []
+
+    def guard(kernel, *tensors, **kw):
+        reached.append(kernel)
+        raise Guard(kernel)
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(_build, "check_cuda", guard)
+    for mod, name in (("tree_attention.ops", "tree_attention_reference"),
+                      ("tree_attention.paged",
+                       "paged_tree_attention_reference"),
+                      ("flash_prefill.ops", "flash_prefill_ref"),
+                      ("embedding_bag.ops", "embedding_bag_ref"),
+                      ("gumbel_argmax.ops", "gumbel_argmax_ref")):
+        monkeypatch.setattr(
+            importlib.import_module(f"repro_torch.kernels.{mod}"), name, plain)
+
+    def away(t):
+        return torch.Tensor._make_subclass(_Elsewhere, t)
+
+    q, k, v, m = (away(t[1]) for t in (q, k, v, m))
+    pool = away(torch.zeros(4, 8, 2, 16))
+    tables = away(torch.arange(4, dtype=torch.int32).reshape(1, 4))
+    table = away(torch.zeros(3, 10, 8))
+    ids = away(torch.zeros(5, 3, 2, dtype=torch.int32))
+    bag_mask = away(torch.ones(5, 3, 2, dtype=torch.bool))
+    logits = away(torch.zeros(1, 2, 50))
+    pos = away(torch.zeros(1, 2, dtype=torch.int32))
+    calls = {
+        "tree_attention": lambda: tree_attention(q, k, v, m),
+        "paged_tree_attention": lambda: paged_tree_attention(
+            q, pool, pool, tables, m),
+        "flash_prefill": lambda: flash_prefill(k, k, v),
+        "flash_prefill_tri": lambda: flash_prefill(k, k, v, triangular=True),
+        "embedding_bag": lambda: embedding_bag_fused(table, ids, bag_mask),
+        "gumbel_argmax": lambda: gumbel_argmax(
+            logits, pos, away(torch.ones(1)),
+            away(torch.zeros(1, dtype=torch.int64)),
+            away(torch.zeros(1, dtype=torch.bool))),
+    }
+    for label, call in calls.items():
+        reached.clear()
+        with pytest.raises(Guard):
+            call()
+        assert reached, label
 
 
 @pytest.mark.parametrize("B,T,S", [(4, 33, 512), (1, 8, 256)])
