@@ -189,6 +189,29 @@ Phases, in order; any failure exits non-zero:
    dtype, raw and floor bytes, the bound (``launch.roofline``), the
    measured ms (its share of the bound at most COST_SHARE_MAX) and the
    device ms and their share, and the meta trace's peak beside the card's.
+15. the multi-rank paths (``--phases dist``; ROADMAP A16), each world's
+   ranks spawned, every rank on cuda:0, each naming its backend on its
+   first line: (a) 2 gloo ranks: which collectives gloo takes on CUDA
+   tensors (all four the Mesh uses must run), then long_500k (Qwen2-1.5B,
+   bf16, B 1, S 524,288, T 65) through flash decode on mesh (data 2, model
+   1), the KV sequence split over the ranks: the packed result equal to
+   the single-device B1 step's (a differing choice only as a near tie, its
+   top-two gaps printed), the logits under ``long_logits``' rule against
+   the dense f32 step, ms a step a rank and the collectives' share; (b) 1
+   NCCL rank: Qwen3-MoE-30B-A3B at full width and depth, its prefill and
+   decode step with ``moe_impl="ep"`` on mesh (data 1, model 1) bit for
+   bit against ``moe_local`` without a mesh; (c) 2 gloo ranks, mesh (data
+   1, model 2): ``moe_ep`` at one layer's full width (N 132 and 512,
+   capacity factor 1.25) against each token half's ``moe_local`` with all
+   128 experts, then the full-depth prefill and step with the experts
+   split over the ranks: timed at capacity factor 1.25 (its agreement
+   with world 1 printed: capacity drops follow the token split), and at
+   E / top_k, where nothing drops, held against world 1's ``moe_local``
+   at that factor (``moe_world_rule``: the RMS logit difference at most
+   1.25 x ``moe_ref``'s, packed equal up to near ties);
+   ``_sharded_argmax`` over V/2 on the step's logits equals argmax.  (b)
+   also profiles one ep and one local step and prints the ops where ep
+   spends more.  B1 and B3 launch on (b) and (c).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -4800,42 +4823,68 @@ def long_logits(lcfg, held):
     held.clear()
     cmp0 = kernels.snapshot()
     cache, ins = args[0], args[1:5]          # cache_lens, tokens, pos, mask
+    got = tx.tree_step(lcfg, params, cache, *ins)[1].float()
+    del cache, args
+    held_refs = [params, lcfg, ins]
+    del params
+    d16, ref = long_references(held_refs, got.shape)
+    kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    return long_rule("B1", got, d16, ref, lcfg.vocab_size)
+
+
+def long_references(held, shape):
+    """The dense backend's bf16 and f32 logits of the long step.  ``held``
+    is [bf16 parameters, a config, (cache_lens, tokens, positions, tree
+    mask)] with the bf16 cache already written by the step; the dense bf16
+    step runs on a fresh zero cache (the step writes its own rows), and
+    ``held`` is emptied so that the bf16 weights are freed before the f32
+    ones are made."""
+    from repro_torch.models import transformer as tx
+    params, lcfg, ins = held
+    held.clear()
     ldense = dataclasses.replace(lcfg, prefill_backend="dense",
                                  decode_backend="dense")
-    got = tx.tree_step(lcfg, params, cache, *ins)[1].float()
-    d16 = tx.tree_step(ldense, params, cache, *ins)[1].float()
-    del cache, args
+    d16 = tx.tree_step(ldense, params, tx.init_cache(ldense, shape[0],
+                                                     device="cuda"),
+                       *ins)[1].float()
     free_card()
     p32 = tree_map(lambda t: t.float(), params)
     del params
     c32 = dataclasses.replace(ldense, dtype="float32", param_dtype="float32")
-    ref = tx.tree_step(c32, p32, tx.init_cache(c32, 1, device="cuda"),
+    ref = tx.tree_step(c32, p32, tx.init_cache(c32, shape[0], device="cuda"),
                        *ins)[1].float()
     del p32
     free_card()
-    kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    return d16, ref
 
+
+def long_rule(label, got, d16, ref, vocab):
+    """``long_logits``' rule: ``got``'s RMS error against the dense f32
+    step at most BF16_LOGIT_RATIO times the dense bf16 step's."""
     def rms(a):
         return a.pow(2).mean().sqrt().item()
 
-    e_cuda, e_dense = rms(got - ref), rms(d16 - ref)
+    e_got, e_dense = rms(got - ref), rms(d16 - ref)
     scale = ref.abs().max().item()
     limit = BF16_LOGIT_RATIO * e_dense
-    out = dict(logit_rms_err_b1=e_cuda, logit_rms_err_dense_bf16=e_dense,
-               logit_max_err_b1_vs_dense_bf16=(got - d16).abs().max().item()
-               / scale,
-               logit_max_err_dense_bf16_vs_f32=(d16 - ref).abs().max().item()
-               / scale,
-               logit_max_err_b1_vs_f32=(got - ref).abs().max().item() / scale)
-    print(f"  long_500k logits (1, {LONG_T}, {lcfg.vocab_size}) vs the f32 "
-          f"dense step: RMS err B1 {e_cuda:.4e}, dense bf16 {e_dense:.4e}; "
-          f"limit {limit:.4e} ({BF16_LOGIT_RATIO} x dense; |logits| RMS "
-          f"{rms(ref):.4f}, max {scale:.4f}); max err over max |logits|: "
-          f"B1 vs dense bf16 {out['logit_max_err_b1_vs_dense_bf16']:.4e}, "
-          f"dense bf16 vs f32 {out['logit_max_err_dense_bf16_vs_f32']:.4e}, "
-          f"B1 vs f32 {out['logit_max_err_b1_vs_f32']:.4e}")
-    check(bool(torch.isfinite(got).all()) and e_cuda <= limit,
-          f"long_500k logits: B1's RMS err {e_cuda} over {limit}")
+    key = label.lower().replace(" ", "_")
+    out = {f"logit_rms_err_{key}": e_got, "logit_rms_err_dense_bf16": e_dense,
+           f"logit_max_err_{key}_vs_dense_bf16":
+               (got - d16).abs().max().item() / scale,
+           "logit_max_err_dense_bf16_vs_f32":
+               (d16 - ref).abs().max().item() / scale,
+           f"logit_max_err_{key}_vs_f32": (got - ref).abs().max().item()
+           / scale}
+    print(f"  long_500k logits (1, {LONG_T}, {vocab}) vs the f32 "
+          f"dense step: RMS err {label} {e_got:.4e}, dense bf16 "
+          f"{e_dense:.4e}; limit {limit:.4e} ({BF16_LOGIT_RATIO} x dense; "
+          f"|logits| RMS {rms(ref):.4f}, max {scale:.4f}); max err over max "
+          f"|logits|: {label} vs dense bf16 "
+          f"{out[f'logit_max_err_{key}_vs_dense_bf16']:.4e}, dense bf16 vs "
+          f"f32 {out['logit_max_err_dense_bf16_vs_f32']:.4e}, {label} vs f32 "
+          f"{out[f'logit_max_err_{key}_vs_f32']:.4e}")
+    check(bool(torch.isfinite(got).all()) and e_got <= limit,
+          f"long_500k logits: {label}'s RMS err {e_got} over {limit}")
     return out
 
 
@@ -4857,9 +4906,552 @@ def cost_phase(card):
     return kernels.diff(kernels.snapshot(), before)
 
 
+DIST_COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_gather",
+                    "all_to_all")
+DIST_MOE_NS = (132, 512)      # moe_ep rows: a decode step's 4 x 33, a
+                              # prefill's 4 x 128
+DIST_MOE_CF = 1.25            # Qwen3-MoE-30B-A3B's capacity factor
+DIST_STEPS = 3                # timed fused steps a world
+DIST_TURNS = 6                # world 1's ep and local steps timed in turns
+
+
+def dist_rank(rank, name, world, backend, directory, *args):
+    """A spawned rank: joins the world (``backend``; every rank on cuda:0,
+    named explicitly), runs the module-level ``name(rank, *args)`` and saves
+    what it returns for the parent.  Module-level, so that spawn can
+    unpickle it."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"  [{name} rank {rank}/{world}: backend {backend}, cuda:0, pid "
+          f"{os.getpid()}]", flush=True)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(directory, 'store')}",
+        rank=rank, world_size=world,
+        device_id=torch.device("cuda:0") if backend == "nccl" else None)
+    try:
+        out = globals()[name](rank)
+        torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_spawn(name, world, backend):
+    """Spawn ``world`` ranks running ``name`` (see ``dist_rank``) once the
+    parent's cached memory is freed; returns each rank's result."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as tmp
+    from torch.multiprocessing.spawn import ProcessException
+    free_card()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t0 = time.perf_counter()
+    try:
+        tmp.start_processes(dist_rank, args=(name, world, backend,
+                                             directory),
+                            nprocs=world, join=True, start_method="spawn")
+        return [torch.load(os.path.join(directory, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    except ProcessException as exc:
+        raise SmokeError(f"{name}: a rank failed: {exc}") from None
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        print(f"  [{name}: world {world} on {backend}, "
+              f"{time.perf_counter() - t0:.1f} s]")
+
+
+def gloo_probe(rank):
+    """Which collectives gloo runs on CUDA tensors, each called raw on
+    cuda:0: the Mesh hands gloo its CUDA tensors for all four."""
+    import torch.distributed as dist
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + rank
+    ops = {
+        "all_reduce_sum": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: dist.all_gather_into_tensor(
+            torch.empty(16, device="cuda"), x),
+        "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(x),
+                                                     x)}
+    out = {}
+    for name in DIST_COLLECTIVES:
+        try:
+            ops[name]()
+            torch.cuda.synchronize()
+            out[name] = "cuda"
+        except (RuntimeError, ValueError) as exc:
+            out[name] = f"raises: {str(exc).splitlines()[0][:120]}"
+    bad = [n for n, v in out.items() if v != "cuda"]
+    check(not bad, f"gloo takes no CUDA tensor for {bad}")
+    return out
+
+
+def chain_inputs(args, V, start, seed=0):
+    """Fill ``lm_common.decode_args``' zeroed step arguments in place: a
+    chain tree of T slots at cache_lens ``start``, tokens from ``seed``."""
+    cache, lens, tok, pos, mask, parent, n_live = args
+    B, T = tok.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lens.fill_(start)
+    tok.copy_(torch.randint(0, V, (B, T), generator=gen, device="cuda"))
+    pos.copy_(start + torch.arange(T, device="cuda"))
+    mask.copy_(torch.ones(T, T, dtype=torch.bool, device="cuda").tril())
+    parent.copy_(torch.arange(T, device="cuda") - 1)
+    n_live.fill_(T)
+    return args
+
+
+def timed_fused(fused, params, args, mesh=None):
+    """DIST_STEPS fused steps, each timed by the host clock from a barrier
+    to a synchronize (ms a step on this rank), then one more with the
+    mesh's collectives timed: (median ms, the collectives' share, every
+    step's ms)."""
+    ms = []
+    for _ in range(DIST_STEPS):
+        if mesh is not None:
+            mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused(params, *args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    share = None
+    if mesh is not None:
+        mesh.barrier()
+        mesh.timing, mesh.collective_s = True, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused(params, *args)
+        torch.cuda.synchronize()
+        share = mesh.collective_s / (time.perf_counter() - t0)
+        mesh.timing = False
+    return float(np.median(ms)), share, ms
+
+
+def dist_long(rank):
+    """World 2 on gloo, both ranks on the card: long_500k (Qwen2-1.5B at
+    full width and depth, bf16, B 1, S 524,288, T 65, cache_lens S - T)
+    through flash decode on mesh (data 2, model 1), which shards the KV
+    sequence (7.52 GB a rank).  Then on rank 0 alone the single-device
+    step through B1 and the dense steps in bf16 and f32 on the same
+    weights and inputs."""
+    from repro_torch import kernels
+    from repro_torch.configs import lm_common, qwen2_1_5b
+    from repro_torch.distributed.sharding import sharding_ctx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    probe = gloo_probe(rank)
+    mesh = make_host_mesh(data=2, model=1, device="cuda:0")
+    base = dataclasses.replace(qwen2_1_5b.full_config(), dtype="bfloat16",
+                               param_dtype="bfloat16", max_seq_len=LONG_S,
+                               prefill_backend="cuda", decode_backend="cuda")
+    flash = dataclasses.replace(base, decode_backend="flash_decode")
+    params = init_params(base, seed=0, device="cuda")
+    V, L = base.vocab_size, base.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.snapshot()
+    with sharding_ctx(mesh):
+        args = chain_inputs(lm_common.decode_args(flash, 1, LONG_T, "cuda"),
+                            V, LONG_S - LONG_T)
+        block = tuple(args[0]["k"].shape)
+        check(block == (L, 1, LONG_S // 2, base.n_kv_heads, base.dh),
+              f"flash decode cache block {block}")
+        ins = args[1:5]
+        logits = tx.tree_step(flash, params, args[0], *ins)[1].float()
+        fused = lm_common._serve_fn(flash)
+        _, packed = fused(params, *args)
+        ms, share, steps = timed_fused(fused, params, args, mesh)
+    launches = kernels.diff(kernels.snapshot(), before)
+    peak = peak_gb()
+    out = dict(probe=probe, block=block, ms=ms, collective_share=share,
+               steps=steps,
+               peak_gb=peak, launches=launches, packed=packed.cpu(),
+               logits=logits.cpu())
+    del args, ins, logits
+    free_card()
+    if rank == 0:
+        cmp0 = kernels.snapshot()
+        args = chain_inputs(lm_common.decode_args(base, 1, LONG_T, "cuda"),
+                            V, LONG_S - LONG_T)
+        ins = args[1:5]
+        b1 = tx.tree_step(base, params, args[0], *ins)[1].float()
+        _, b1_packed = lm_common._serve_fn(base)(params, *args)
+        b1_ms, _, _ = timed_fused(lm_common._serve_fn(base), params, args)
+        del args
+        free_card()
+        held = [params, base, ins]
+        del params
+        d16, ref = long_references(held, b1.shape)
+        kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+        out.update(b1_packed=b1_packed.cpu(), b1_ms=b1_ms, b1=b1.cpu(),
+                   d16=d16.cpu(), ref=ref.cpu())
+    mesh.barrier()
+    return out
+
+
+def op_profile(fn):
+    """One call of fn() under torch.profiler: (wall ms, device busy ms,
+    {op: [host self ms, device self ms of the kernels it launched, calls]})
+    over the host-side ops."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops, busy = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e3
+        else:
+            ops[e.key] = [e.self_cpu_time_total / 1e3,
+                          e.self_device_time_total / 1e3, e.count]
+    return wall, busy, ops
+
+
+def print_op_diff(label, a, b, top=8):
+    """Where profile ``a`` spends more than ``b`` (``op_profile``'s): the
+    ops with the largest excess of host self time, then of device time."""
+    (wa, ba, oa), (wb, bb, ob) = a, b
+    print(f"  {label}: wall {wa:.2f} ms vs {wb:.2f}, device busy {ba:.2f} "
+          f"ms vs {bb:.2f}, host self time of all ops "
+          f"{sum(v[0] for v in oa.values()):.2f} ms vs "
+          f"{sum(v[0] for v in ob.values()):.2f}")
+    zero = [0.0, 0.0, 0]
+    for col, what in ((0, "host"), (1, "device")):
+        keys = sorted(set(oa) | set(ob), key=lambda k: -(
+            oa.get(k, zero)[col] - ob.get(k, zero)[col]))
+        for k in keys[:top]:
+            x, y = oa.get(k, zero), ob.get(k, zero)
+            print(f"    +{x[col] - y[col]:8.3f} ms {what} ({x[col]:.3f} in "
+                  f"{x[2]} calls vs {y[col]:.3f} in {y[2]})  {k[:70]}")
+
+
+def dist_moe_step(cfg, params, mesh=None, timed=True):
+    """Qwen3-MoE's prefill (4, 128) through B3 and its decode step (4 x
+    33, cache_lens 128, S 512) through B1: the prefill's and the step's
+    logits, the packed result and the cache, ``run``, which runs one more
+    step, and with ``timed`` the step's median ms and collective share
+    (``timed_fused``)."""
+    from repro_torch.configs import lm_common
+    from repro_torch.distributed.sharding import sharding_ctx
+    from repro_torch.models import transformer as tx
+    B, T, _, _, _, S = PATH_TREE
+    P0 = PATH_PREFILL[0][1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, P0), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens = torch.full((B,), P0, dtype=torch.int32, device="cuda")
+    with sharding_ctx(mesh):
+        args = chain_inputs(lm_common.decode_args(cfg, B, T, "cuda"),
+                            cfg.vocab_size, P0, seed=6)
+        _, first = tx.prefill(cfg, params, toks, lens, args[0])
+        logits = tx.tree_step(cfg, params, args[0], *args[1:5])[1]
+        fused = lm_common._serve_fn(cfg)
+        _, packed = fused(params, *args)
+        out = dict(first=first, logits=logits, packed=packed,
+                   cache={n: c.clone() for n, c in args[0].items()})
+        if timed:
+            out["ms"], out["share"], out["steps"] = timed_fused(
+                fused, params, args, mesh)
+
+    def run():
+        with sharding_ctx(mesh):
+            fused(params, *args)
+    out["run"] = run
+    return out
+
+
+def moe_full_config(impl, cf=None):
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    base = qwen3_moe_30b_a3b.full_config()
+    return dataclasses.replace(
+        base, dtype="bfloat16", param_dtype="bfloat16",
+        prefill_backend="cuda", decode_backend="cuda",
+        max_seq_len=PATH_TREE[5], moe_impl=impl,
+        capacity_factor=base.capacity_factor if cf is None else cf)
+
+
+def no_drop_cf(cfg):
+    """A capacity factor at which no token drops: E / top_k."""
+    return cfg.n_experts / cfg.top_k
+
+
+def small(out):
+    """A ``dist_moe_step`` result for the parent: the outputs in f32 on the
+    host, the cache left out."""
+    return {k: (v.float().cpu() if k in ("first", "logits") else v.cpu())
+            for k, v in out.items() if k in ("first", "logits", "packed")}
+
+
+def dist_moe_nccl(rank):
+    """World 1 on NCCL: Qwen3-MoE-30B-A3B at full width and depth, its
+    prefill and decode step under mesh (data 1, model 1) with
+    ``moe_impl="ep"``, then without a mesh through ``moe_local`` on the
+    same weights: a group of one exchanges nothing (the Mesh calls no
+    collective for it), so every output must be the same bits.  The two
+    steps are then timed in turns (ep, local, local, ep, ...; DIST_TURNS
+    rounds) and one of each is profiled, to show what ep's step costs over
+    local's.  Then, untimed, the no-drop references for world 2:
+    ``moe_local`` and ``moe_ref`` without a mesh at capacity factor
+    E / top_k."""
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import init_params
+    mesh = make_host_mesh(data=1, model=1, device="cuda:0")
+    ep = moe_full_config("ep")
+    params = init_params(ep, seed=0, device="cuda", mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.snapshot()
+    got = dist_moe_step(ep, params, mesh)
+    launches = kernels.diff(kernels.snapshot(), before)
+    peak = peak_gb()
+    cmp0 = kernels.snapshot()
+    want = dist_moe_step(moe_full_config("local"), params)
+    turns = {"ep": [], "local": []}
+    for i in range(2 * DIST_TURNS):
+        name = ("ep", "local")[(i + i // 2) % 2]
+        run = (got if name == "ep" else want)["run"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    profiles = [op_profile(x["run"]) for x in (got, want)]
+    cf = no_drop_cf(ep)
+    local16 = small(dist_moe_step(moe_full_config("local", cf), params,
+                                  timed=False))
+    ref = small(dist_moe_step(moe_full_config("ref"), params, timed=False))
+    kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    same = {}
+    for name in ("first", "logits", "packed", "cache"):
+        a, b = got[name], want[name]
+        if isinstance(a, dict):
+            for n in a:
+                same[f"{name} {n}"] = torch.equal(a[n], b[n])
+        else:
+            same[name] = torch.equal(a, b)
+    print(f"  world 1 (NCCL): moe_ep == moe_local bit for bit: {same}; "
+          f"fused step ep {got['ms']:.3f} ms, local {want['ms']:.3f} ms "
+          f"(each alone); in turns ep {np.median(turns['ep']):.3f} ms, "
+          f"local {np.median(turns['local']):.3f} (medians of "
+          f"{DIST_TURNS}; ep {[round(t, 2) for t in turns['ep']]}, local "
+          f"{[round(t, 2) for t in turns['local']]}); peak {peak:.2f} GB "
+          f"(PR 21 read 62.3)")
+    print_op_diff("world 1 fused step, ep over local (one profiled step)",
+                  *profiles)
+    check(all(same.values()), f"moe_ep at world 1 differs from moe_local: "
+          f"{same}")
+    return dict(ms=got["ms"], local_ms=want["ms"], turns=turns,
+                collective_share=got["share"], peak_gb=peak,
+                launches=launches, **small(got), local16=local16, ref=ref)
+
+
+def dist_moe_gloo(rank):
+    """World 2 on gloo, mesh (data 1, model 2): ``moe_ep`` at one
+    Qwen3-MoE layer's full width (E 128, top 8, d 2048, F 768, random
+    weights) for N 132 and 512 at capacity factor 1.25 against the
+    single-process ``moe_local`` of each rank's token half with all 128
+    experts; then the full-depth prefill and decode step with the experts
+    split over the ranks, timed at capacity factor 1.25 and run once more
+    at E / top_k, where nothing drops, for the parent to hold against
+    world 1; ``_sharded_argmax`` over V/2 on the step's logits."""
+    from repro_torch import kernels
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  sharding_ctx)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.sampler import _sharded_argmax
+    mesh = make_host_mesh(data=1, model=2, device="cuda:0")
+    cfg = moe_full_config("ep")
+    E, k, d, F = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    wr = randn(gen, (d, E), torch.bfloat16, 0.02)
+    full = [randn(gen, shape, torch.bfloat16, 0.02)
+            for shape in ((E, d, F), (E, d, F), (E, F, d))]
+    experts = NamedSharding(mesh, P("model", None, None))
+    half = [experts.local(w).clone() for w in full]
+    layer = {}
+    for N in DIST_MOE_NS:
+        x = randn(gen, (N, d), torch.bfloat16, 1.0)
+        out = moe.moe_ep(x, wr, *half, k, DIST_MOE_CF, mesh)
+        n = N // 2
+        ref = moe.moe_local(x[rank * n:(rank + 1) * n], wr, *full, k,
+                            DIST_MOE_CF)
+        mine = out[rank * n:(rank + 1) * n]
+        err = (mine.float() - ref.float()).abs().max().item()
+        check(torch.allclose(mine.float(), ref.float(), **MOE_TOL),
+              f"moe_ep N {N}, rank {rank}'s half: {err} from moe_local")
+        ep_ms = time_calls(lambda i: moe.moe_ep(x, wr, *half, k, DIST_MOE_CF,
+                                                mesh), 5)
+        local_ms = time_calls(lambda i: moe.moe_local(x, wr, *full, k,
+                                                      DIST_MOE_CF), 5)
+        layer[N] = dict(max_abs_err=err, ep_ms=ep_ms, local_ms=local_ms)
+    del full, half, wr, x, out, ref, mine
+    free_card()
+    with sharding_ctx(mesh):
+        params = init_params(cfg, seed=0, device="cuda", mesh=mesh)
+    check(params["layers"]["we_gate"].shape[1] == E // 2,
+          f"expert block {tuple(params['layers']['we_gate'].shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.snapshot()
+    got = dist_moe_step(cfg, params, mesh)
+    launches = kernels.diff(kernels.snapshot(), before)
+    peak = peak_gb()
+    cmp0 = kernels.snapshot()
+    nodrop = small(dist_moe_step(moe_full_config("ep", no_drop_cf(cfg)),
+                                 params, mesh, timed=False))
+    logits = got["logits"]
+    with sharding_ctx(mesh):
+        choice = _sharded_argmax(logits)
+    kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    check(bool(torch.isfinite(logits).all()) and torch.equal(
+        choice, logits.argmax(-1).int()) and bool(
+            (got["packed"][:, 0] >= 1).all()),
+          "world 2 MoE step: non-finite logits, a sharded argmax that is not "
+          "argmax, or an empty accept")
+    return dict(layer=layer, ms=got["ms"], collective_share=got["share"],
+                steps=got["steps"], peak_gb=peak, launches=launches,
+                **small(got),
+                nodrop=nodrop)
+
+
+def moe_world_rule(w2, w1, ref, what):
+    """World 2's no-drop step against world 1's ``moe_local`` at the same
+    capacity factor, in bf16: the RMS difference of the prefill's and the
+    step's logits at most BF16_LOGIT_RATIO times ``moe_ref``'s from that
+    same ``moe_local`` (two orders of the same sums), and the packed
+    result equal, or each differing choice a near tie: its top-two gap in
+    both steps under 2 x BF16_LOGIT_RATIO times the largest difference of
+    ``moe_ref``'s and ``moe_local``'s logits in that row (a choice can
+    flip only where both gaps are under twice the largest difference of
+    the two rows)."""
+    def rms(a):
+        return a.pow(2).mean().sqrt().item()
+
+    out = {}
+    for name, label in (("first", "prefill"), ("logits", "step")):
+        e, e_ref = rms(w2[name] - w1[name]), rms(ref[name] - w1[name])
+        out[name] = dict(rms=e, ref_rms=e_ref,
+                         max_abs=(w2[name] - w1[name]).abs().max().item(),
+                         bits=torch.equal(w2[name], w1[name]))
+        print(f"  {what} {label} logits vs world 1 moe_local: RMS diff "
+              f"{e:.4e} (bit-equal {out[name]['bits']}), max |diff| "
+              f"{out[name]['max_abs']:.4e}; moe_ref vs moe_local RMS "
+              f"{e_ref:.4e}; limit {BF16_LOGIT_RATIO * e_ref:.4e}")
+        check(bool(torch.isfinite(w2[name]).all())
+              and e <= BF16_LOGIT_RATIO * e_ref,
+              f"{what}: {label} logits {e} from moe_local, over "
+              f"{BF16_LOGIT_RATIO} x {e_ref}")
+    a, b, c = w2["logits"], w1["logits"], ref["logits"]
+    ca, cb = a.argmax(-1), b.argmax(-1)
+    diff = (ca != cb).nonzero().tolist()
+    for bi, t in diff:
+        gaps = [torch.topk(lg[bi, t], 2).values for lg in (a, b)]
+        gaps = [float(g[0] - g[1]) for g in gaps]
+        near = 2 * BF16_LOGIT_RATIO * (c[bi, t] - b[bi, t]).abs().max().item()
+        print(f"  {what} lane {bi} slot {t}: chooses {int(ca[bi, t])}, "
+              f"world 1 {int(cb[bi, t])}; top-two gaps {gaps[0]:.4e} / "
+              f"{gaps[1]:.4e} against {near:.4e}; max |diff| of the rows "
+              f"{(a[bi, t] - b[bi, t]).abs().max().item():.4e}")
+        check(max(gaps) < near, f"{what} lane {bi} slot {t}: not a near tie")
+    same = torch.equal(w2["packed"], w1["packed"])
+    check(same or bool(diff), f"{what}: packed differs with equal choices")
+    print(f"  {what} packed result = world 1 moe_local's: {same} "
+          f"({len(diff)} differing choices of {ca.numel()})")
+    out["packed_equal"] = same
+    return out
+
+
+def dist_phase(card):
+    """``--phases dist``: the multi-rank paths (ROADMAP A16) on the one
+    card, each world's ranks spawned on cuda:0.  Returns the kernels'
+    launches on the worlds' paths."""
+    launches = {}
+
+    def count(res):
+        for r in res:
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+
+    print(f"  card and power limit: {card}")
+    res = dist_spawn("dist_long", 2, "gloo")
+    count(res)
+    print(f"  gloo on CUDA tensors (raw, torch {torch.__version__}): "
+          f"{res[0]['probe']}")
+    r0 = res[0]
+    for r, x in enumerate(res):
+        print(f"  long_500k flash decode, rank {r}: cache block {x['block']}"
+              f", fused step {x['ms']:.2f} ms (steps "
+              f"{[round(t, 2) for t in x['steps']]}), collectives "
+              f"{x['collective_share']:.4f} of a timed step, peak "
+              f"{x['peak_gb']:.2f} GB")
+    print(f"  long_500k single-device B1 fused step: {r0['b1_ms']:.2f} ms "
+          f"(rank 0 alone on the card)")
+    check(torch.equal(res[0]["packed"], res[1]["packed"]) and torch.equal(
+        res[0]["logits"], res[1]["logits"]), "the ranks' outputs differ")
+    rule = long_rule("flash decode", r0["logits"], r0["d16"], r0["ref"],
+                     r0["logits"].shape[-1])
+    rule.update(long_rule("B1", r0["b1"], r0["d16"], r0["ref"],
+                          r0["logits"].shape[-1]))
+    near = max(rule["logit_rms_err_flash_decode"], rule["logit_rms_err_b1"])
+    got, want = r0["packed"], r0["b1_packed"]
+    if not torch.equal(got, want):
+        ch_f, ch_b = r0["logits"].argmax(-1), r0["b1"].argmax(-1)
+        for t in (ch_f != ch_b).nonzero()[:, 1].tolist():
+            gaps = [torch.topk(lg[0, t], 2).values for lg in (r0["logits"],
+                                                              r0["b1"])]
+            gaps = [float(g[0] - g[1]) for g in gaps]
+            print(f"  slot {t}: flash chooses {int(ch_f[0, t])}, B1 "
+                  f"{int(ch_b[0, t])}; top-two gaps {gaps[0]:.4e} / "
+                  f"{gaps[1]:.4e} against the logit error {near:.4e}")
+            check(max(gaps) < near, f"slot {t}: not a near tie")
+    print(f"  long_500k packed result flash = B1: {torch.equal(got, want)} "
+          f"(n_acc {int(got[0, 0])})")
+    res = dist_spawn("dist_moe_nccl", 1, "nccl")
+    count(res)
+    w1 = res[0]
+    res = dist_spawn("dist_moe_gloo", 2, "gloo")
+    count(res)
+    for N in DIST_MOE_NS:
+        print(f"  moe_ep (E 128, top 8, d 2048, F 768, cf {DIST_MOE_CF}) N "
+              f"{N} over 2 ranks: max|err| per half "
+              f"{[x['layer'][N]['max_abs_err'] for x in res]} ({MOE_TOL}); "
+              f"{res[0]['layer'][N]['ep_ms']:.3f} ms a call, moe_local of "
+              f"all {N} rows in one process "
+              f"{res[0]['layer'][N]['local_ms']:.3f}")
+    check(torch.equal(res[0]["packed"], res[1]["packed"]) and torch.equal(
+        res[0]["nodrop"]["packed"], res[1]["nodrop"]["packed"]),
+          "the ranks' MoE steps differ")
+    for r, x in enumerate(res):
+        print(f"  Qwen3-MoE world 2, rank {r}: fused step {x['ms']:.2f} ms "
+              f"(steps {[round(t, 2) for t in x['steps']]}), collectives "
+              f"{x['collective_share']:.4f} of a timed step, "
+              f"peak {x['peak_gb']:.2f} GB")
+    moe_world_rule(res[0]["nodrop"], w1["local16"], w1["ref"],
+                   f"Qwen3-MoE world 2 at cf {no_drop_cf(moe_full_config('ep')):g}")
+    agree = (res[0]["logits"].argmax(-1) == w1["logits"].argmax(-1)
+             ).float().mean().item()
+    diff = (res[0]["logits"] - w1["logits"]).abs().max().item()
+    print(f"  Qwen3-MoE world 2 against world 1 at cf {DIST_MOE_CF} "
+          f"(capacity drops differ with the token split: printed, the "
+          f"no-drop run above is the gate): choices equal at {agree:.4f} of "
+          f"the slots, max |logit diff| {diff:.4e}; the ranks' peaks sum to "
+          f"{sum(x['peak_gb'] for x in res):.2f} GB")
+    return launches
+
+
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
           "sampled", "overlap", "graphs", "fleet", "sanitize", "long_prompt",
-          "archs", "moe", "train", "gnn", "cost")
+          "archs", "moe", "train", "gnn", "cost", "dist")
 
 
 def main(argv=None) -> int:
@@ -5018,6 +5610,12 @@ def main(argv=None) -> int:
         for name, n in cost_phase(smi[0]).items():
             launches[name] = launches.get(name, 0) + n
         phase_done("cost")
+    if "dist" in phases:
+        print("multi-rank paths (flash decode, moe_ep, sharded argmax) on "
+              "the one card:")
+        for name, n in dist_phase(smi[0]).items():
+            launches[name] = launches.get(name, 0) + n
+        phase_done("dist")
 
     src = {"tree_attention": (
                "src/repro_torch/kernels/tree_attention/csrc/tree_attention.cu",

@@ -14,12 +14,14 @@ tensors for ``launch.dryrun``; ``smoke_config`` is the reduced config of
 the CPU tests, ``train_4k_config``/``train_4k_step`` the train_4k cell's
 config and step that ``chip_smoke.py`` runs at a cut batch.
 
-On one card the decode cells run the ``dense`` tree backend where the
-reference shards the KV sequence with ``flash_decode`` (a ``shard_map``,
-ROADMAP A16): the same computation on one shard.  The reference's
-``REPRO_SERVE_FSDP`` switch is a sharding rule and has no counterpart.
-MoE archs keep ``moe_impl="auto"``, which one device serves as ``moe_ref``
-(every expert computes every token), and the counted FLOPs show it.
+The decode cells take the ``flash_decode`` tree backend, as the
+reference's: it shards the KV sequence over a mesh's ranks
+(``repro_torch.distributed.flash_decode``) and is the ``dense`` backend
+without one, so the dry-run's traces (no mesh) count the dense program.
+The reference's ``REPRO_SERVE_FSDP`` switch is a sharding rule and has no
+counterpart.  MoE archs keep ``moe_impl="auto"``, which one device serves
+as ``moe_ref`` (every expert computes every token) and a mesh with a
+``model`` axis as ``moe_ep``; the counted FLOPs show the former.
 """
 from __future__ import annotations
 
@@ -87,7 +89,8 @@ def _serve_fn(cfg: TransformerConfig):
         chosen = choose_tokens(logits, pos + 1)
         n_acc, acc_tok, kv_slots = tx.verify_accept_device(tokens, parent,
                                                            n_live, chosen)
-        cache, _ = tx.commit_cache(cache, cache_lens, kv_slots, n_acc)
+        cache, _ = tx.commit_cache(cache, cache_lens, kv_slots, n_acc,
+                                   tx.cache_sharding(cfg, tokens.shape[0]))
         return cache, tx.pack_step_result(n_acc, acc_tok, kv_slots)
     return serve_step
 
@@ -152,8 +155,9 @@ def decode_args(cfg: TransformerConfig, B: int, T: int, device="meta"):
 
 
 def build_cell(arch: str, base: TransformerConfig, shape: str) -> Cell:
-    """The (arch, shape) cell over meta tensors, on the ``dense`` backends
-    as in the reference's dry-run.  train_4k counts its cost on the whole
+    """The (arch, shape) cell over meta tensors, on the reference's
+    backends (``dense``; ``flash_decode``, dense without a mesh, for the
+    decode cells), as in the reference's dry-run.  train_4k counts its cost on the whole
     batch at once and its memory on the 4 microbatches that run
     (``memory_fn``; the reference's cost and ``fast`` builds)."""
     if shape == "train_4k":
@@ -191,7 +195,7 @@ def build_cell(arch: str, base: TransformerConfig, shape: str) -> Cell:
         cfg = dataclasses.replace(
             base, dtype="bfloat16", param_dtype="bfloat16",
             max_seq_len=524288 if long else 32768, prefill_backend="dense",
-            decode_backend="dense", moe_impl="auto")
+            decode_backend="flash_decode", moe_impl="auto")
         cfg = _perf_overrides(cfg)
         B = 1 if long else 128
         T = LA_SLOTS

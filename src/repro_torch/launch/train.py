@@ -11,8 +11,9 @@ trains a reduced config on the CPU).  The model trains through the
 kernels have no backward and refuse inputs that require grad.  A restart
 with the same ``--ckpt-dir`` resumes from the latest checkpoint, whose
 format is the reference's (``training/checkpoint.py``): either package
-resumes the other's.  SIGTERM checkpoints at the next step boundary and
-exits.  Resharding onto another mesh is multi-GPU (ROADMAP A16).
+resumes the other's.  Checkpoints record the parameters' logical axes, as
+the reference's do, so ``CheckpointManager.restore(mesh=)`` can place them
+on any mesh.  SIGTERM checkpoints at the next step boundary and exits.
 
 The step runs eagerly (the reference jits it).  A step syncs the host only
 where it prints the loss and where it pulls a checkpoint.
@@ -88,6 +89,7 @@ def main(argv=None) -> dict:
         out["restore_s"] = time.perf_counter() - t0
         print(f"resumed from step {start}")
     handler = PreemptionHandler().install()
+    axes = tx.param_logical_axes(cfg)
     batches = lm_train_batches(cfg.vocab_size, args.batch, args.seq,
                                seed=start)
     try:
@@ -104,6 +106,7 @@ def main(argv=None) -> dict:
                 t0 = time.perf_counter()
                 # save pulls the state to host numpy: a sync, by design
                 mgr.save(i + 1, {"p": params, "o": opt},  # repro-lint: disable=R1
+                         logical_axes={"p": axes, "o": None},
                          blocking=handler.preempted)
                 out["pull_s"] = time.perf_counter() - t0
             if handler.preempted:

@@ -26,6 +26,9 @@ Registered here:
           kernels/tree_attention for the decode step on the dense layout
           and its paged twin on the paged layout (the plain versions when
           the tensors lie on the CPU)
+  flash_decode — sequence-parallel decode over a mesh's ranks
+          (repro_torch.distributed.flash_decode); dense without a mesh,
+          and dense for prefill and the paged layout
 
 Both keep the reference's invariants: the mask semantics of
 ``build_full_tree_mask``, draft slot i's KV at row ``cache_len + i`` of
@@ -243,6 +246,10 @@ def available_backends() -> Tuple[str, ...]:
 
 register_backend(AttentionBackend())           # "dense"
 register_backend(CudaBackend())
+
+from repro_torch.distributed.flash_decode import FlashDecodeBackend  # noqa: E402
+
+register_backend(FlashDecodeBackend())
 
 __all__ = ["AttentionBackend", "CudaBackend", "register_backend",
            "get_backend", "available_backends", "scatter_kv",

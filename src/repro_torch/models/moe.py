@@ -8,11 +8,21 @@
   per-expert products, weighted combine.  With a capacity factor of at
   least E / top_k nothing is dropped and it equals ``moe_ref`` up to the
   order of f32 sums.  Its capacity couples rows (a row can be dropped
-  for another's sake) and its combine adds with ``index_add_``, so it is
-  held as a module and not served.
+  for another's sake), so one device serves ``moe_ref``.  The combine
+  puts each token's k contributions back in (token, slot) order and sums
+  them there, not with atomic adds, so its bits are the same run to run
+  (the reference adds them with a scatter-add).
 
-The reference's expert-parallel ``moe_ep`` (a ``shard_map`` over a mesh
-with two all-to-alls) waits for the port's multi-GPU item, ROADMAP A16.
+* ``moe_ep``    — expert parallelism over a mesh of ``torch.distributed``
+  ranks (the reference's ``shard_map``, written out): tokens split over
+  every mesh axis, each rank's ``moe_local`` dispatches its tokens into
+  capacity blocks for all E experts, an all-to-all over ``model`` moves
+  each block to the rank that holds its experts (each rank keeps its E/ep
+  experts: ``init_params(mesh=)``), the expert products run there, the
+  reverse all-to-all brings the rows back, and the outputs are gathered
+  to every rank.  The all-to-all has a gradient (its transpose is another
+  all-to-all), and a replicated weight's gradient is summed over the ranks
+  that share it.
 
 Routing: softmax → top-k → renormalized top-k weights (Qwen/Mixtral
 style), in f32.  Every op here is free of host syncs, so the functions
@@ -21,10 +31,13 @@ run inside a captured step.
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import (Mesh, NamedSharding, P, shard,
+                                              sum_grad, unshard)
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int
@@ -99,24 +112,83 @@ def _expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.einsum("ecf,efd->ecd", act(g) * u, w_down)
 
 
+class _AllToAll(torch.autograd.Function):
+    """``Mesh.all_to_all`` over ``axes``; with equal chunks its transpose
+    is the same all-to-all, so the backward sends the gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.all_to_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g.contiguous(), ctx.axes), None, None
+
+
 def moe_local(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
-              capacity_factor: float, act: Callable = F.silu
-              ) -> torch.Tensor:
-    """Single-device MoE through capacity blocks (the reference's
-    ``moe_local`` without ``ep_axis``)."""
+              capacity_factor: float, act: Callable = F.silu,
+              ep_group: Optional[Tuple[Mesh, str]] = None) -> torch.Tensor:
+    """MoE through capacity blocks on one device, or on one rank of an
+    expert-parallel group.
+
+    ``ep_group`` (mesh, axis): the expert dimension of the weights is this
+    rank's block of the axis's ep ranks (E = ep × the local count), and two
+    all-to-alls move the capacity blocks to and from the ranks that own
+    them.  C comes from the local token count n, as the reference's."""
     n, D = x.shape
-    E = w_gate.shape[0]
+    ep = ep_group[0].shape[ep_group[1]] if ep_group is not None else 1
+    E = w_gate.shape[0] * ep            # global expert count
     # static per-expert capacity, the reference's formula
     C = max(4, math.ceil(top_k * n / E * capacity_factor))
     C = -(-C // 4) * 4
 
     rw, ridx = router_topk(x, w_router, top_k)
     buf, src, dest, wflat = _dispatch_local(x, rw, ridx, E, C)
+    if ep_group is not None:
+        # (E, C, D) -> (E/ep, ep*C, D): each rank keeps its expert slice,
+        # receiving that slice's rows from every peer (peer j at rows j*C)
+        El = E // ep
+        buf = _AllToAll.apply(buf, ep_group[0], (ep_group[1],))
+        buf = buf.view(ep, El, C, D).transpose(0, 1).reshape(El, ep * C, D)
     y = _expert_ffn(buf, w_gate, w_up, w_down, act)
+    if ep_group is not None:
+        y = y.reshape(El, ep, C, D).transpose(0, 1).contiguous()
+        y = _AllToAll.apply(y, ep_group[0], (ep_group[1],)).view(E, C, D)
     yflat = torch.cat([y.reshape(E * C, D), y.new_zeros((1, D))], dim=0)
     contrib = yflat[dest] * wflat[:, None].to(y.dtype)
-    return torch.zeros_like(x).index_add_(0, src, contrib)
+    # sorted element i is token src[i]'s slot order[i] % k: put each back
+    # in (token, slot) order and sum the k slots
+    order = torch.argsort(ridx.reshape(-1), stable=True)
+    per_slot = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    return per_slot.view(n, top_k, D).sum(dim=1)
 
 
-__all__ = ["router_topk", "moe_ref", "moe_local"]
+def moe_ep(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
+           w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
+           capacity_factor: float, mesh: Mesh, act: Callable = F.silu
+           ) -> torch.Tensor:
+    """Expert-parallel MoE over a (pod?, data, model) mesh.  x (N, D)
+    global, the same on every rank; ``w_router`` whole; the expert weights
+    this rank's E/ep block along ``model``.
+
+    Tokens are split over every mesh axis (N padded to a multiple of the
+    mesh size); experts live on ``model``.  Returns the global (N, D)
+    output on every rank."""
+    N, D = x.shape
+    pad = (-N) % mesh.size
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, D))], dim=0)
+    dp_axes = tuple(a for a in ("pod", "data", "model") if a in mesh.shape)
+    tokens = NamedSharding(mesh, P(dp_axes, None))
+    others = tuple(a for a in mesh.axis_names if a != "model")
+    wg, wu, wd = (sum_grad(w, mesh, others) for w in (w_gate, w_up, w_down))
+    out = moe_local(shard(x, tokens), sum_grad(w_router, mesh, dp_axes), wg,
+                    wu, wd, top_k, capacity_factor, act,
+                    ep_group=(mesh, "model"))
+    out = unshard(out, tokens)
+    return out[:N] if pad else out
+
+
+__all__ = ["router_topk", "moe_ref", "moe_local", "moe_ep"]

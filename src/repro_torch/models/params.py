@@ -8,15 +8,22 @@ axis in ``x @ W`` orientation (``wq`` (L, d, H*dh), ``wo`` (L, H*dh, d),
 place of the dense FFN ``router`` (L, d, E), ``we_gate``/``we_up``
 (L, E, d, F), ``we_down`` (L, E, F, d) and, with shared experts,
 ``ws_gate``/``ws_up`` (L, d, F·n_shared) and ``ws_down`` (L, F·n_shared, d).
+
+Under a mesh (``init_params(mesh=)``, ``shard_params``) each tensor lies
+as ``distributed.sharding.placement`` of its ``param_logical_axes`` puts
+it: the expert tensors ``we_*`` are this rank's E/ep block along
+``model``, every other tensor is whole on every rank (ROADMAP A16b).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Union
+from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Params, TransformerConfig
+from repro_torch.distributed.sharding import Mesh, placement
+from repro_torch.models.transformer import (Params, TransformerConfig,
+                                            param_logical_axes)
 
 Device = Union[str, torch.device, None]
 
@@ -78,8 +85,31 @@ def _layer_shapes(cfg: TransformerConfig):
     return shapes
 
 
+def _local(block, a: torch.Tensor) -> torch.Tensor:
+    """``a`` (whole) as this rank's block under ``block`` (a ``placement``
+    or None): a copy where the placement splits it, else ``a`` itself."""
+    if block is None or not block.axes():
+        return a
+    return block.local(a).clone()
+
+
+def shard_params(cfg: TransformerConfig, params: Params, mesh: Mesh
+                 ) -> Params:
+    """Whole parameters (e.g. from ``params_from_jax`` or a checkpoint) as
+    this rank's, each leaf by ``placement`` of its ``param_logical_axes``:
+    the expert tensors sliced to the rank's E/ep block (copies), the rest
+    shared with ``params``."""
+    axes = param_logical_axes(cfg)
+    out = {k: _local(placement(mesh, axes[k], a.shape), a)
+           for k, a in params.items() if k != "layers"}
+    out["layers"] = {k: _local(placement(mesh, axes["layers"][k], a.shape),
+                               a) for k, a in params["layers"].items()}
+    return out
+
+
 def init_params(cfg: TransformerConfig, seed: int = 0,
-                device: Device = None) -> Params:
+                device: Device = None, mesh: Optional[Mesh] = None
+                ) -> Params:
     """Random parameters made on ``device`` itself, with the distributions
     of the JAX ``init_params``: weights N(0, 0.02^2) drawn in f32 and cast
     to ``param_dtype``, norm scales 1, biases 0.  The numbers differ from
@@ -92,9 +122,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     tensor's (38.7 GB); every other tensor is drawn whole, in
     ``_layer_shapes`` order.  ``device="meta"`` gives the same shapes and
     dtypes with no draws (the counterpart of ``jax.eval_shape(init_params)``,
-    for the dry-run)."""
+    for the dry-run).
+
+    With ``mesh``, each tensor keeps only this rank's block under
+    ``placement`` (the expert tensors' E/ep block; the rest whole): every
+    layer is drawn whole, as without a mesh, and sliced, so the block
+    holds the bits of the single-device tensor."""
     dev = resolve_device(device)
     pd = cfg.pdtype
+    axes = param_logical_axes(cfg)
+
+    def block(ax, shape):
+        return placement(mesh, ax, shape) if mesh is not None else None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -110,25 +149,34 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 
     layers = {}
     for name, shape in _layer_shapes(cfg).items():
+        b = block(axes["layers"][name], shape)
         if name in ("ln1", "ln2"):
-            layers[name] = torch.ones(shape, dtype=pd, device=dev)
+            layers[name] = _local(b, torch.ones(shape, dtype=pd, device=dev))
         elif name in ("bq", "bk", "bv"):
-            layers[name] = torch.zeros(shape, dtype=pd, device=dev)
+            layers[name] = _local(b, torch.zeros(shape, dtype=pd,
+                                                 device=dev))
         elif name.startswith("we_"):
-            layers[name] = torch.empty(shape, dtype=pd, device=dev)
+            layers[name] = torch.empty(b.shard_shape(shape) if b else shape,
+                                       dtype=pd, device=dev)
             for i in range(shape[0]):
-                layers[name][i].copy_(draw(shape[1:]))
+                w = draw(shape[1:])
+                if b is not None:       # this rank's block of the layer
+                    w = b.local(w[None])[0]
+                layers[name][i].copy_(w)
+                del w       # before the next layer's draw: one f32 scratch
         else:
-            layers[name] = normal(shape)
+            layers[name] = _local(b, normal(shape))
+    V, d = cfg.vocab_size, cfg.d_model
     params: Params = {
-        "embed": normal((cfg.vocab_size, cfg.d_model)),
-        "ln_f": torch.ones((cfg.d_model,), dtype=pd, device=dev),
+        "embed": _local(block(axes["embed"], (V, d)), normal((V, d))),
+        "ln_f": torch.ones((d,), dtype=pd, device=dev),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.d_model, cfg.vocab_size))
+        params["lm_head"] = _local(block(axes["lm_head"], (d, V)),
+                                   normal((d, V)))
     return params
 
 
 __all__ = ["init_params", "params_from_jax", "resolve_device",
-           "tree_to_torch"]
+           "tree_to_torch", "shard_params"]

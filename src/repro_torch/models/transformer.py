@@ -12,6 +12,11 @@ the dense and the paged KV layout.
     written at cache_len + slot.
   * ``commit_cache`` / ``verify_accept_device`` / ``pack_step_result`` —
     the device epilogue of the fused decode step.
+  * under a mesh (``repro_torch.distributed``): the ``flash_decode`` decode
+    backend's KV cache is this rank's block of ``cache_partition_spec``
+    (``cache_sharding``: ``init_cache``, ``prefill``, ``commit_cache``),
+    and ``moe_impl`` "auto" runs the expert-parallel ``moe_ep``; weights
+    and activations are whole on every rank.
   * the paged twins (``init_paged_cache``, ``prefill_paged``,
     ``prefill_into_slot_paged``, ``tree_step_paged``,
     ``commit_paged_cache``, ``reset_blocks``), whose KV lives in a block
@@ -35,6 +40,10 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.flash_decode import (cache_partition_spec,
+                                                  seq_offset, write_rows)
+from repro_torch.distributed.sharding import (NamedSharding, P, dim_axes,
+                                              active_mesh)
 from repro_torch.models import attention as attn_backends
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ACTS, apply_rope, rms_norm,
@@ -63,8 +72,8 @@ class TransformerConfig:
     act: str = "silu"
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
-    # MoE (models/moe.py); on one device "auto" resolves to "ref", "local"
-    # runs the capacity dispatch, "ep" waits for ROADMAP A16
+    # MoE (models/moe.py): "auto" resolves to "ep" under a mesh with a
+    # model axis, else "ref"; "local" runs the capacity dispatch on one rank
     moe: bool = False
     n_experts: int = 0
     top_k: int = 0
@@ -122,6 +131,38 @@ class TransformerConfig:
         return self.n_layers * per_layer + emb + d
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Params:
+    """Logical-axis names per param (the reference's; checkpoints record
+    them, and ``restore(mesh=)`` places each leaf by them)."""
+    layers = {
+        "ln1": (None, None), "ln2": (None, None),
+        "wq": (None, "fsdp", "tensor"), "wk": (None, "fsdp", "tensor"),
+        "wv": (None, "fsdp", "tensor"), "wo": (None, "tensor", "fsdp"),
+    }
+    if cfg.qkv_bias:
+        layers.update({"bq": (None, "tensor"), "bk": (None, "tensor"),
+                       "bv": (None, "tensor")})
+    if cfg.moe:
+        layers.update({
+            "router": (None, "fsdp", None),
+            "we_gate": (None, "expert", "fsdp", None),
+            "we_up": (None, "expert", "fsdp", None),
+            "we_down": (None, "expert", None, "fsdp"),
+        })
+        if cfg.n_shared_experts:
+            layers.update({"ws_gate": (None, "fsdp", "tensor"),
+                           "ws_up": (None, "fsdp", "tensor"),
+                           "ws_down": (None, "tensor", "fsdp")})
+    else:
+        layers.update({"w_gate": (None, "fsdp", "tensor"),
+                       "w_up": (None, "fsdp", "tensor"),
+                       "w_down": (None, "tensor", "fsdp")})
+    out = {"embed": ("tensor", "fsdp"), "ln_f": (None,), "layers": layers}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("fsdp", "tensor")
+    return out
+
+
 # ------------------------------------------------------------------- layer fwd
 def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -144,17 +185,23 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
         return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], act)
     B, T, d = h.shape
     x = h.reshape(B * T, d)
+    mesh = active_mesh()
     impl = cfg.moe_impl
+    if impl == "auto":
+        impl = "ep" if (mesh is not None and "model" in mesh.shape) else "ref"
     if impl == "ep":
-        raise NotImplementedError(
-            "expert-parallel MoE (moe_impl='ep'): not yet ported to "
-            "repro_torch (ROADMAP A16, multi-GPU); use 'auto', 'ref' or "
-            "'local'")
-    if impl == "local":
+        if mesh is None or "model" not in mesh.shape:
+            raise ValueError("moe_impl='ep' needs an active mesh with a "
+                             "'model' axis (sharding_ctx); without a mesh "
+                             "use 'auto', 'ref' or 'local'")
+        y = moe_lib.moe_ep(x, lp["router"], lp["we_gate"], lp["we_up"],
+                           lp["we_down"], cfg.top_k, cfg.capacity_factor,
+                           mesh, act)
+    elif impl == "local":
         y = moe_lib.moe_local(x, lp["router"], lp["we_gate"], lp["we_up"],
                               lp["we_down"], cfg.top_k, cfg.capacity_factor,
                               act)
-    else:       # "auto" on one device (the port has no mesh) and "ref"
+    else:
         y = moe_lib.moe_ref(x, lp["router"], lp["we_gate"], lp["we_up"],
                             lp["we_down"], cfg.top_k, act)
     y = y.reshape(B, T, d)
@@ -310,19 +357,52 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     return head(h, labels, loss_mask)
 
 
+def cache_sharding(cfg: TransformerConfig, batch: int
+                   ) -> Optional[NamedSharding]:
+    """How the (L, B, S, K, dh) cache lies on the active mesh: this rank's
+    block of ``cache_partition_spec`` when the decode backend is
+    ``flash_decode``, which reads blocks; None (the whole cache on every
+    rank) without a mesh or with another backend, which reads all of it."""
+    mesh = active_mesh()
+    if mesh is None or cfg.decode_backend != "flash_decode":
+        return None
+    return NamedSharding(mesh, cache_partition_spec(
+        mesh, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.n_heads))
+
+
+def cache_logical_axes(cfg: TransformerConfig) -> Dict[str, Tuple]:
+    """Logical-axis names of the cache's leaves (the reference's)."""
+    if cfg.kv_layout == "paged":
+        # block pool is lane-agnostic: only the head axis is shardable
+        return {"k": (None, None, None, "kv_heads", None),
+                "v": (None, None, None, "kv_heads", None),
+                "block_tables": (None, None)}
+    if cfg.decode_backend == "flash_decode":
+        return {"k": (None, None, "kv_seq", "kv_heads", None),
+                "v": (None, None, "kv_seq", "kv_heads", None)}
+    return {"k": (None, "batch", None, "kv_heads", None),
+            "v": (None, "batch", None, "kv_heads", None)}
+
+
 def init_cache(cfg: TransformerConfig, batch: int,
                dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None) -> Cache:
-    L, S, K, dh = cfg.n_layers, cfg.max_seq_len, cfg.n_kv_heads, cfg.dh
+    """Zeroed (L, batch, max_seq_len, K, dh) K and V, or this rank's block
+    of them (``cache_sharding``)."""
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.dh)
+    sh = cache_sharding(cfg, batch)
+    if sh is not None:
+        shape = sh.shard_shape(shape)
     dt = dtype or cfg.adtype
-    return {"k": torch.zeros((L, batch, S, K, dh), dtype=dt, device=device),
-            "v": torch.zeros((L, batch, S, K, dh), dtype=dt, device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
             lens: torch.Tensor, cache: Optional[Cache] = None
             ) -> Tuple[Cache, torch.Tensor]:
-    """Causal forward over padded prompts; fills cache[:, :, :S] in place.
+    """Causal forward over padded prompts; fills cache[:, :, :S] in place
+    (of a sharded cache, the rows of that range in this rank's block).
 
     cache=None allocates the cache (S must be max_seq_len).  Returns
     (cache, last_logits (B, V)) at position lens-1 of each row.
@@ -331,10 +411,21 @@ def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     if cache is None:
         assert S == cfg.max_seq_len, (S, cfg.max_seq_len)
         cache = init_cache(cfg, B, device=tokens.device)
+    sh = cache_sharding(cfg, B)
+    if sh is not None:          # the rank's lanes and heads, all S rows
+        _, ba, sa, ha, _ = sh.spec
+        lanes_heads = NamedSharding(sh.mesh, P(ba, None, ha, None))
+        Sl = cache["k"].shape[2]
+        off = seq_offset(sh.mesh, dim_axes(sa), Sl)
+        n = max(0, min(Sl, S - off))
 
     def write_kv(i, k, v):
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        if sh is None:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+            return
+        for name, new in (("k", k), ("v", v)):
+            cache[name][i, :, :n] = lanes_heads.local(new)[:, off:off + n]
 
     logits = _self_forward(cfg, params, tokens, lens, write_kv)
     return cache, logits
@@ -402,7 +493,8 @@ def tree_step(cfg: TransformerConfig, params: Params, cache: Cache,
 
 
 def commit_cache(cache: Cache, cache_lens: torch.Tensor,
-                 gather_idx: torch.Tensor, n_accept: torch.Tensor
+                 gather_idx: torch.Tensor, n_accept: torch.Tensor,
+                 sharding: Optional[NamedSharding] = None
                  ) -> Tuple[Cache, torch.Tensor]:
     """Compact accepted slots in place: new position m+j takes KV from
     m+gather[j].
@@ -412,7 +504,17 @@ def commit_cache(cache: Cache, cache_lens: torch.Tensor,
     Every source row is gathered into its own tensor before any row is
     written, as JAX's functional update does: row m+j may be the source of
     a later row (gather[j'] = j for j' > j) and must be read first.
+
+    ``sharding`` (``cache_sharding``) says the cache is this rank's block:
+    an accepted row may lie in another rank's range, so each rank
+    contributes the source rows in its range, zeros elsewhere, one
+    all-reduce (SUM, on the rows' bits as int32: a sum of one row and
+    zeros, exact) over the sequence axes gathers them, and each rank
+    writes the rows that land in its own range.
     """
+    if sharding is not None:
+        return _commit_sharded(cache, cache_lens, gather_idx, n_accept,
+                               sharding)
     k, v = cache["k"], cache["v"]
     B, T = gather_idx.shape
     lens = cache_lens.long()
@@ -423,6 +525,32 @@ def commit_cache(cache: Cache, cache_lens: torch.Tensor,
     vg = v[:, bidx, src]
     k[:, bidx, dst] = kg
     v[:, bidx, dst] = vg
+    return cache, cache_lens + n_accept
+
+
+def _commit_sharded(cache: Cache, cache_lens: torch.Tensor,
+                    gather_idx: torch.Tensor, n_accept: torch.Tensor,
+                    sharding: NamedSharding) -> Tuple[Cache, torch.Tensor]:
+    mesh = sharding.mesh
+    _, ba, sa, _, _ = sharding.spec
+    seq_axes = dim_axes(sa)
+    k = cache["k"]
+    Bl, Sl = k.shape[1], k.shape[2]
+    lens = NamedSharding(mesh, P(ba)).local(cache_lens).long()
+    gi = NamedSharding(mesh, P(ba, None)).local(gather_idx).long()
+    off = seq_offset(mesh, seq_axes, Sl)
+    src = lens[:, None] + gi - off                      # local source rows
+    have = ((src >= 0) & (src < Sl))[None, :, :, None, None]
+    bidx = torch.arange(Bl, device=k.device)[:, None]
+    rows = []
+    for name in ("k", "v"):
+        g = cache[name][:, bidx, src.clamp(0, Sl - 1)]      # (L,Bl,T,Kl,dh)
+        if seq_axes:
+            bits = torch.where(have, g.contiguous().view(torch.int32), 0)
+            g = mesh.all_reduce(bits, "sum", seq_axes).view(g.dtype)
+        rows.append(g)
+    for name, g in zip(("k", "v"), rows):
+        write_rows(cache[name], lens - off, g, lead=1)
     return cache, cache_lens + n_accept
 
 
@@ -713,7 +841,9 @@ def pack_step_result(n_acc: torch.Tensor, acc_tokens: torch.Tensor,
                       kv_slots.int()], dim=1)
 
 
-__all__ = ["TransformerConfig", "Params", "lane_index", "init_cache", "prefill",
+__all__ = ["TransformerConfig", "Params", "param_logical_axes",
+           "cache_logical_axes", "cache_sharding", "lane_index",
+           "init_cache", "prefill",
            "prefill_into_slot", "reset_slot", "tree_step", "commit_cache",
            "verify_accept_device", "pack_step_result", "blocks_per_lane",
            "init_paged_cache", "paged_row_index", "prefill_paged",

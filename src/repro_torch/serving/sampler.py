@@ -25,7 +25,12 @@ lane pool mixing greedy and sampled requests).  On a CUDA tensor the sampled
 branch runs the Gumbel-argmax kernel (``kernels/gumbel_argmax``), which
 never materialises the (B, T, V) noise; its plain version is the CPU path
 and the kernel's yardstick.  ``argmax`` takes the first index on a
-tie, as ``jnp.argmax`` does.
+tie, as ``jnp.argmax`` does.  The reference's greedy choice under a mesh
+is ``_sharded_argmax`` over vocab-sharded logits; the port's logits are
+whole on every rank (ROADMAP A16b), where it gives plain argmax's answer
+for two all-gathers, so the choosers call ``greedy_choice`` and
+``_sharded_argmax`` waits, held against the reference's, for A16b's
+vocab-sharded lm_head.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import NamedSharding, P, active_mesh
 from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
 from repro_torch.kernels.gumbel_argmax.ref import (  # noqa: F401
     F32_TINY, M32, MIN_TEMP, fold_in, gumbel, gumbel_argmax_ref, random_bits32,
@@ -55,6 +61,37 @@ def seed_from_key(words: Sequence[int]) -> int:
 def greedy_choice(logits: torch.Tensor) -> torch.Tensor:
     """(B, T, V) -> (B, T) int32 argmax ids, first index on a tie."""
     return logits.argmax(dim=-1).int()
+
+
+def _sharded_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """(B, T, V) -> (B, T) int32 argmax over vocab-sharded logits: each
+    rank takes the argmax of its vocab block (and batch block, where the
+    data axes divide B), offsets it, the (tp, B_l, T) values and ids are
+    gathered over ``model`` and the first maximum wins — the first index on
+    a tie, as ``argmax``; the (B, T) result is gathered to every rank.
+    Without a mesh (or a ``model`` axis that divides V) plain argmax.
+    Not on the serving path while the logits are whole (ROADMAP A16b)."""
+    mesh = active_mesh()
+    B, T, V = logits.shape
+    if mesh is None:
+        return greedy_choice(logits)
+    tp = mesh.shape.get("model", 1)
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dp = 1
+    for a in dp_axes:
+        dp *= mesh.shape[a]
+    if tp <= 1 or V % tp:
+        return greedy_choice(logits)
+    ba = dp_axes if (dp > 1 and B % dp == 0) else None
+    lg = NamedSharding(mesh, P(ba, None, "model")).local(logits)
+    li = lg.argmax(dim=-1)
+    lv = lg.gather(-1, li[..., None])[..., 0]
+    gi = li + mesh.axis_index("model") * lg.shape[-1]
+    vs = mesh.all_gather(lv, ("model",))                    # (tp, B_l, T)
+    gs = mesh.all_gather(gi, ("model",))
+    w = vs.argmax(dim=0)
+    out = gs.gather(0, w[None])[0].int()
+    return NamedSharding(mesh, P(ba, None)).gather(out)
 
 
 def choose_tokens(logits: torch.Tensor, pred_positions: torch.Tensor,

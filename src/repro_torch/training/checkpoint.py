@@ -4,10 +4,17 @@
 Format: one ``arrays.npz`` per checkpoint (flat ``{path: array}``, a
 ``None`` leaf as ``<path>#none``) plus a ``manifest.json`` with the step,
 the sorted keys, a sha256 digest over each key and its array's bytes, and
-``logical_axes: null`` (the axes come with multi-GPU, ROADMAP A16).  Writes go to ``<dir>/tmp.<step>`` and are renamed to
-``<dir>/step_<step:010d>``, so a crash mid-write never corrupts the latest
-checkpoint.  The same state saved by either package gives the same keys and
-digest, and restores in the other.
+the logical axes of each leaf (``save(logical_axes=)``, flattened as the
+reference does; null without them).  Writes go to ``<dir>/tmp.<step>`` and
+are renamed to ``<dir>/step_<step:010d>``, so a crash mid-write never
+corrupts the latest checkpoint.  The same state saved by either package
+gives the same keys and digest, and restores in the other.
+
+ELASTIC resharding: ``restore(mesh=)`` returns each leaf that has logical
+axes as this rank's block under ``placement`` on that mesh (where the port
+keeps it: the expert tensors' E/ep block, every other leaf whole), whatever
+mesh saved it; ``save(mesh=)`` gathers such blocks from the ranks, and rank
+0 writes the whole arrays.
 
 Tensors are pulled to host numpy in ``save``, before a non-blocking write's
 thread starts (as the reference's ``_flatten`` does), so the caller may go
@@ -29,6 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import DEFAULT_RULES, Mesh, placement
 
 _NUMPY_DTYPES = (torch.float64, torch.float32, torch.float16, torch.int64,
                  torch.int32, torch.int16, torch.int8, torch.uint8,
@@ -92,24 +101,43 @@ class CheckpointManager:
         self._async_thread: Optional[threading.Thread] = None
 
     # ----------------------------------------------------------------- save
-    def save(self, step: int, tree: Any, *, blocking: bool = True) -> str:
+    def save(self, step: int, tree: Any, *, logical_axes: Any = None,
+             mesh: Optional[Mesh] = None, blocking: bool = True) -> str:
+        """Write ``tree``; ``logical_axes`` (a tree of per-dim names beside
+        it, e.g. ``{"p": param_logical_axes(cfg), "o": None}``) goes into
+        the manifest.  With ``mesh``, every rank calls this: a leaf with
+        axes is this rank's block under ``placement`` on the mesh
+        (``DEFAULT_RULES``; ``init_params(mesh=)`` and ``shard_params``
+        place parameters so); the blocks are gathered and rank 0 writes,
+        the other ranks wait for it when ``blocking``."""
+        if mesh is not None:
+            tree = _gather_blocks(tree, _flatten_axes(logical_axes), mesh)
         flat = _flatten(tree)
+        path = os.path.join(self.dir, f"step_{step:010d}")
         if self._async_thread is not None:
             self._async_thread.join()        # one in-flight write max
             self._async_thread = None
+        if mesh is not None and mesh.rank != 0:
+            if blocking:
+                mesh.barrier()
+            return path
         if blocking:
-            return self._write(step, flat)
+            self._write(step, flat, logical_axes)
+            if mesh is not None:
+                mesh.barrier()
+            return path
         self._async_thread = threading.Thread(
-            target=self._write, args=(step, flat), daemon=True)
+            target=self._write, args=(step, flat, logical_axes), daemon=True)
         self._async_thread.start()
-        return os.path.join(self.dir, f"step_{step:010d}")
+        return path
 
     def wait(self) -> None:
         if self._async_thread is not None:
             self._async_thread.join()
             self._async_thread = None
 
-    def _write(self, step: int, flat: Dict[str, np.ndarray]) -> str:
+    def _write(self, step: int, flat: Dict[str, np.ndarray],
+               logical_axes: Any = None) -> str:
         with self._lock:
             tmp = os.path.join(self.dir, f"tmp.{step}")
             final = os.path.join(self.dir, f"step_{step:010d}")
@@ -119,7 +147,7 @@ class CheckpointManager:
                 "step": step,
                 "keys": sorted(flat.keys()),
                 "digest": _digest(flat),
-                "logical_axes": None,
+                "logical_axes": _flatten_axes(logical_axes),
             }
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
@@ -150,14 +178,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                mesh=None) -> Tuple[Any, int]:
+                mesh: Optional[Mesh] = None, rules=None) -> Tuple[Any, int]:
         """Restore into the structure of ``template`` (its leaves only mark
-        where arrays go) as numpy arrays.  Resharding onto a mesh
-        (``mesh=``) belongs to multi-GPU (ROADMAP A16) and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "restore(mesh=...): elastic resharding is not yet ported to "
-                "repro_torch (ROADMAP A16, multi-GPU)")
+        where arrays go) as numpy arrays.  With ``mesh`` and saved logical
+        axes, each leaf that has axes is this rank's block under
+        ``placement(mesh, axes, shape, rules)``, as ``shard_params`` would
+        cut it — the elastic path: the mesh that saved it does not matter,
+        only the logical names."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"restore(mesh=) takes a repro_torch Mesh, not "
+                            f"{type(mesh).__name__}")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -170,7 +200,58 @@ class CheckpointManager:
             data = dict(npz)
         if _digest(data) != manifest["digest"]:
             raise IOError(f"checkpoint {path} failed integrity check")
-        return _unflatten(data, template), step
+        tree = _unflatten(data, template)
+        axes = manifest.get("logical_axes")
+        if mesh is not None and axes:
+            placed = {}
+            for key, leaf in _flatten(tree).items():
+                ax = axes.get(key)
+                placed[key] = leaf if ax is None else np.ascontiguousarray(
+                    placement(mesh, ax, leaf.shape,
+                              rules or DEFAULT_RULES).local(leaf))
+            tree = _unflatten(placed, template)
+        return tree, step
+
+
+def _flatten_axes(axes: Any) -> Optional[Dict[str, Any]]:
+    """The reference's flattening of a logical-axes tree: ``{path: list of
+    names}``, a subtree of None as one None entry."""
+    if axes is None:
+        return None
+    flat = {}
+
+    def rec(t, prefix=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                rec(t[k], f"{prefix}{k}/")
+        elif isinstance(t, (list,)) or (isinstance(t, tuple)
+                                        and t and isinstance(t[0], (dict,
+                                                                    list))):
+            for i, v in enumerate(t):
+                rec(v, f"{prefix}{i}/")
+        else:
+            flat[prefix[:-1]] = list(t) if isinstance(t, tuple) else t
+
+    rec(axes)
+    return flat
+
+
+def _gather_blocks(tree: Any, axes: Optional[Dict[str, Any]], mesh: Mesh
+                   ) -> Dict[str, np.ndarray]:
+    """The flat global arrays of ``tree``, whose leaves with axes are this
+    rank's blocks under ``placement``: a split block's global shape is its
+    shape times the mesh axes its dims take, and all ranks gather it (in
+    key order)."""
+    out = {}
+    for key, leaf in _flatten(tree).items():
+        ax = (axes or {}).get(key)
+        if ax is not None:
+            sh = placement(mesh, ax, None, DEFAULT_RULES)
+            if sh.axes():
+                block = torch.as_tensor(leaf, device=mesh.device)
+                leaf = sh.gather(block).cpu().numpy()
+        out[key] = leaf
+    return out
 
 
 __all__ = ["CheckpointManager"]

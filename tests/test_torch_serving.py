@@ -323,15 +323,18 @@ def test_entry_points_default_to_cuda():
           moe_impl="ep"), "A16"),
 ])
 def test_unported_features_are_refused(change, item):
-    """The MoE FFN landed (A15); its expert-parallel dispatch waits for
-    multi-GPU (A16) and is refused at the first forward."""
+    """Expert-parallel MoE landed with multi-GPU (ROADMAP ``item``):
+    ``moe_impl="ep"`` runs under an active mesh
+    (``tests/test_torch_distributed.py``) and without one is refused at the
+    first forward, with a message that names the mesh."""
     cfg = dataclasses.replace(ttx.TransformerConfig(n_layers=1, d_model=32,
                                                     n_heads=4, n_kv_heads=2,
                                                     d_ff=64, vocab_size=53),
                               **change)
     params = init_params(cfg, device="cpu")
     toks = torch.ones((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    assert item == "A16"
+    with pytest.raises(ValueError, match="needs an active mesh"):
         ttx.prefill(cfg, params, toks, torch.tensor([8], dtype=torch.int32),
                     ttx.init_cache(cfg, 1))
     # the sanitizer (A12) landed: its config validates

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import qwen2_1_5b as j_qwen
 from repro.configs import qwen3_moe_30b_a3b as j_moe
@@ -41,6 +42,7 @@ from repro.training import data as j_data
 from repro.training import optimizer as jopt
 from repro.training.train_step import make_train_step as j_make_step
 from repro_torch.launch import serve as t_serve
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch import train as t_train
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as ttx
@@ -298,8 +300,22 @@ def test_checkpoint_roundtrip_retention_integrity(tiny_lm, tmp_path):
     path.write_bytes(bytes(raw))
     with pytest.raises(Exception):
         mgr.restore({"p": params, "o": opt}, step=9)
-    with pytest.raises(NotImplementedError, match="A16"):
+    # elastic restore onto a one-rank gloo mesh: the blocks are the leaves
+    with pytest.raises(TypeError, match="Mesh"):
         mgr.restore({"p": params}, mesh=object())
+    mgr.save(11, {"p": params, "o": opt}, logical_axes={
+        "p": ttx.param_logical_axes(cfg), "o": None})
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        out, step = mgr.restore({"p": params, "o": opt},
+                                mesh=make_host_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert step == 11
+    for a, b in zip(topt.tree_leaves(out), topt.tree_leaves(
+            {"p": params, "o": opt})):
+        np.testing.assert_array_equal(a, b.numpy())
     with pytest.raises(TypeError, match="'p/embed' is torch.bfloat16"):
         mgr.save(10, {"p": {"embed": params["embed"].bfloat16()}})
 
@@ -408,11 +424,14 @@ def test_checkpoint_state_crosses_packages(models, tmp_path):
                            jax.tree.map(np.asarray, jstate))
     tstate["o"] = topt.AdamWState(*tstate["o"])
     jdir, tdir = tmp_path / "jax", tmp_path / "torch"
-    jC.CheckpointManager(str(jdir)).save(3, jstate)
-    tC.CheckpointManager(str(tdir)).save(3, tstate)
+    axes = {"p": jtx.param_logical_axes(jcfg), "o": None}
+    jC.CheckpointManager(str(jdir)).save(3, jstate, logical_axes=axes)
+    tC.CheckpointManager(str(tdir)).save(3, tstate, logical_axes=axes)
     man = [json.loads((d / "step_0000000003" / "manifest.json").read_text())
            for d in (jdir, tdir)]
     assert man[0]["keys"] == man[1]["keys"]
+    assert man[0]["logical_axes"] == man[1]["logical_axes"]
+    assert man[1]["logical_axes"]["p/layers/wq"] == [None, "fsdp", "tensor"]
     assert "o/0" in man[0]["keys"] and "o/1/embed" in man[0]["keys"]
     assert man[0]["digest"] == man[1]["digest"]
     t_from_j, _ = tC.CheckpointManager(str(jdir)).restore(tstate)
