@@ -142,7 +142,8 @@ Phases, in order; any failure exits non-zero:
 
 12. training (``--phases train``): Qwen2-1.5B at full width through the
    train CLI (``launch/train.main``, its defaults: f32, batch 8, seq 128,
-   dense attention) for 20 steps with a checkpoint at the last, some of
+   dense attention; its depth cut to TRAIN_CLI_LAYERS, which cuts the
+   checkpoint) for 20 steps with a checkpoint at the last, some of
    whose arrays must be the trained state's bits; a second ``main``
    resumes from it (its restore checks the sha256 of every array it reads
    against the manifest's, taken from the saved arrays) and takes 2 more
@@ -198,20 +199,48 @@ Phases, in order; any failure exits non-zero:
    the single-device B1 step's (a differing choice only as a near tie, its
    top-two gaps printed), the logits under ``long_logits``' rule against
    the dense f32 step, ms a step a rank and the collectives' share; (b) 1
-   NCCL rank: Qwen3-MoE-30B-A3B at full width and depth, its prefill and
-   decode step with ``moe_impl="ep"`` on mesh (data 1, model 1) bit for
-   bit against ``moe_local`` without a mesh; (c) 2 gloo ranks, mesh (data
-   1, model 2): ``moe_ep`` at one layer's full width (N 132 and 512,
-   capacity factor 1.25) against each token half's ``moe_local`` with all
-   128 experts, then the full-depth prefill and step with the experts
-   split over the ranks: timed at capacity factor 1.25 (its agreement
-   with world 1 printed: capacity drops follow the token split), and at
-   E / top_k, where nothing drops, held against world 1's ``moe_local``
-   at that factor (``moe_world_rule``: the RMS logit difference at most
-   1.25 x ``moe_ref``'s, packed equal up to near ties);
-   ``_sharded_argmax`` over V/2 on the step's logits equals argmax.  (b)
-   also profiles one ep and one local step and prints the ops where ep
-   spends more.  B1 and B3 launch on (b) and (c).
+   NCCL rank: Qwen3-MoE-30B-A3B at full width, its depth cut to
+   DIST_MOE_LAYERS, its prefill and decode step with ``moe_impl="ep"`` on
+   mesh (data 1, model 1) bit for bit against ``moe_local`` without a
+   mesh; (c) 2 gloo ranks, mesh (data 1, model 2): ``moe_ep`` at one
+   layer's full width (N 132 and 512, capacity factor 1.25) against each
+   token half's ``moe_local`` with all 128 experts, then the prefill and
+   step at (b)'s depth with the experts split over the ranks (the dense
+   weights whole: ``ep_rules``): timed at capacity factor 1.25 (its
+   agreement with world 1 printed: capacity drops follow the token
+   split), and at E / top_k, where nothing drops, held against world 1's
+   ``moe_local`` at that factor (``moe_world_rule``: the RMS logit
+   difference at most 1.25 x
+   ``moe_ref``'s, packed equal up to near ties); ``_sharded_argmax`` over
+   the step's logits cut into V/2 blocks equals argmax; then Qwen3-MoE
+   cut to DIST_MOE_TP_LAYERS under the serve rules (heads, vocab and
+   experts over ``model``, no token dropped): its gathered prefill and
+   step logits within BF16_LOGIT_RATIO of the dense bf16 path's RMS error
+   against the dense f32 path (``moe_ref``; ``moe_tp_rule``).  (b) also
+   profiles one ep and one local step and prints the ops where ep spends
+   more.  (d) 2 gloo ranks, mesh (data 1, model 2), the serve rules
+   (tensor parallelism): Qwen2-1.5B at full width and depth, bf16, each
+   rank holding its blocks of the dense weights (heads, FFN, vocab),
+   DIST_TP_PROMPTS guided requests served twice through ``build_engine``
+   inside ``sharding_ctx`` on the dense and the paged layout (the second
+   pass, drafting from the first's outputs, in fewer steps), their tokens
+   equal to the single-device session's; the gathered prefill and step
+   logits
+   within BF16_LOGIT_RATIO of the dense bf16 path's RMS error against the
+   dense f32 path; B1 at the rank's heads against its plain version; the
+   dense weights and the peak a rank, and the dtype the row-parallel
+   partial sums are reduced in; the session itself on both layouts
+   (``session_state``: a cohort prefill, DIST_STATE_STEPS guided fused
+   steps whose drafts accept along a branch, one unguided step): the
+   committed K and V rows below each lane's length, gathered, and the
+   unguided step's logits within BF16_LOGIT_RATIO of the single-device
+   session's RMS error against the f32 session (``state_rule``).  (e)
+   the same on 4 gloo ranks, mesh (data
+   2, model 2), ``DEFAULT_RULES`` (each layer's FSDP blocks gathered over
+   ``data``, the lanes split over it on the dense layout), Qwen2-1.5B cut
+   to DIST_TP_E_LAYERS layers, DIST_TP_E_PROMPTS requests of DIST_TP_E_NEW
+   tokens.  B1 and B3 launch on (b) to (e), B2 on (d) and (e), on every
+   rank.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -418,6 +447,11 @@ def paged_kernel_cases(gen, dtype):
 def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def tree_leaves(tree):
+    for v in tree.values():
+        yield from (tree_leaves(v) if isinstance(v, dict) else (v,))
 
 
 # ----------------------------------------------------------------- timing
@@ -1127,16 +1161,18 @@ def guided_transform(vocab: int, phase: int = 2, seed: int = 0,
     base = rng.randint(2, span, size=(vocab,))
     spec = rng.randint(2, span, size=(phase, vocab))
     shared = rng.rand(phase, vocab) < 0.7
-    guide = torch.from_numpy(
-        np.where(shared, base[None, :], spec).astype(np.int64)).cuda()
+    table = np.where(shared, base[None, :], spec).astype(np.int64)
+    guide = torch.from_numpy(table).cuda()
 
-    def bias(logits, tokens, positions):
-        nxt = guide[positions.long() % phase, tokens.long()]
+    def bias(logits, tokens, positions, vocab_offset=0):
+        # under a mesh the session passes a vocab block and its first id
+        nxt = guide[positions.long() % phase, tokens.long()] - vocab_offset
+        inside = (nxt >= 0) & (nxt < logits.shape[-1])
         return logits.scatter_add(
-            -1, nxt[..., None],
-            torch.full(nxt.shape + (1,), 1e4, dtype=logits.dtype,
-                       device=logits.device))
+            -1, nxt.clamp(0, logits.shape[-1] - 1)[..., None],
+            (inside * 1e4).to(logits.dtype)[..., None])
 
+    bias.table = table         # [position % phase, token] -> next token
     return bias
 
 
@@ -1217,8 +1253,8 @@ def register_scaled_backend(factor, name="cuda_scaled"):
         def prefill_attention(self, *args):
             return super().prefill_attention(*args) * factor
 
-        def make_tree_attend(self, *args):
-            attend = super().make_tree_attend(*args)
+        def make_tree_attend(self, *args, **kwargs):
+            attend = super().make_tree_attend(*args, **kwargs)
             return lambda *a: attend(*a) * factor
 
     Scaled.name = name
@@ -3649,6 +3685,9 @@ def recsys_phase(gen):
 
 # ---------------------------------------------------------------- training
 TRAIN_CLI_STEPS = 20          # the CLI run; it checkpoints at its last step
+TRAIN_CLI_LAYERS = 4          # the CLI run's depth cut 28 -> 4: its f32
+                              # checkpoint (weights and both AdamW moments)
+                              # 18.5 -> 5.0 GB
 TRAIN_RESUME_STEPS = 2        # steps the resumed CLI run takes
 # leaves of the checkpoint compared bit for bit with the trained state
 CKPT_SPOT_KEYS = ("p/embed", "p/ln_f", "p/layers/wq", "p/layers/bq", "o/0",
@@ -3730,17 +3769,19 @@ def lm_rate(cfg, tokens, secs):
 
 def train_cli_cell():
     """Qwen2-1.5B at full width through ``launch/train.main`` with its
-    defaults (f32, batch 8, seq 128, dense, lr 3e-4): TRAIN_CLI_STEPS
-    steps and a checkpoint at the last, whose CKPT_SPOT_KEYS arrays must
-    be the trained state's bits; a second ``main`` resumes from it (its
-    restore checks the sha256 of every array it reads against the
-    manifest's, taken from the saved arrays) and takes TRAIN_RESUME_STEPS
-    more.
-    Then the CLI's step on one repeated batch: the loss must fall by
-    OVERFIT_MARGIN, and these steps are timed."""
+    defaults (f32, batch 8, seq 128, dense, lr 3e-4), its depth cut to
+    TRAIN_CLI_LAYERS (the arch module's ``full_config`` patched for the
+    two calls): TRAIN_CLI_STEPS steps and a checkpoint at the last, whose
+    CKPT_SPOT_KEYS arrays must be the trained state's bits; a second
+    ``main`` resumes from it (its restore checks the sha256 of every array
+    it reads against the manifest's, taken from the saved arrays) and
+    takes TRAIN_RESUME_STEPS more.
+    Then the CLI's step on one repeated batch at full depth: the loss must
+    fall by OVERFIT_MARGIN, and these steps are timed."""
     import shutil
     import tempfile
 
+    from repro_torch.configs import qwen2_1_5b
     from repro_torch.configs.qwen2_1_5b import full_config
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as tx
@@ -3749,6 +3790,9 @@ def train_cli_cell():
     from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.train_step import make_train_step
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    qwen2_1_5b.full_config = lambda: dataclasses.replace(
+        full_config(), n_layers=TRAIN_CLI_LAYERS)
+    print(f"  [train CLI: depth cut to {TRAIN_CLI_LAYERS} of 28 layers]")
     try:
         argv = ["--device", "cuda", "--ckpt-dir", ckpt, "--ckpt-every",
                 str(TRAIN_CLI_STEPS)]
@@ -3793,6 +3837,7 @@ def train_cli_cell():
               f"{TRAIN_CLI_STEPS + 1}")
         del second
     finally:
+        qwen2_1_5b.full_config = full_config
         shutil.rmtree(ckpt, ignore_errors=True)
 
     free_card()
@@ -4913,6 +4958,17 @@ DIST_MOE_NS = (132, 512)      # moe_ep rows: a decode step's 4 x 33, a
 DIST_MOE_CF = 1.25            # Qwen3-MoE-30B-A3B's capacity factor
 DIST_STEPS = 3                # timed fused steps a world
 DIST_TURNS = 6                # world 1's ep and local steps timed in turns
+DIST_MOE_LAYERS = 12          # (b), (c): Qwen3-MoE's depth cut 48 -> 12
+DIST_TP_PROMPTS = 6           # (d), (e): guided requests on 4 lanes
+DIST_TP_NEW = 32              # their new tokens each
+DIST_TP_E_LAYERS = 8          # (e): Qwen2-1.5B's depth cut 28 -> 8,
+DIST_TP_E_PROMPTS = 4         # its requests (one cohort)
+DIST_TP_E_NEW = 12            # and their new tokens: its FSDP gathers move
+                              # ~0.8 GB a step a rank through gloo
+DIST_STATE_STEPS = 3          # (d), (e): guided session steps before the
+                              # unguided one whose logits are held
+DIST_MOE_TP_LAYERS = 4        # (c)'s serve-rules step: Qwen3-MoE's depth
+                              # cut 48 -> 4
 
 
 def dist_rank(rank, name, world, backend, directory, *args):
@@ -5132,12 +5188,21 @@ def print_op_diff(label, a, b, top=8):
                   f"{x[2]} calls vs {y[col]:.3f} in {y[2]})  {k[:70]}")
 
 
+def ep_rules():
+    """(b) and (c)'s rules: the experts split over ``model``, the dense
+    weights and the cache whole on every rank (expert parallelism alone,
+    so that world 2 differs from world 1 only in the experts; (d) and (e)
+    split the dense weights)."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    return DEFAULT_RULES.override(tensor=(), fsdp=(), kv_heads=())
+
+
 def dist_moe_step(cfg, params, mesh=None, timed=True):
     """Qwen3-MoE's prefill (4, 128) through B3 and its decode step (4 x
-    33, cache_lens 128, S 512) through B1: the prefill's and the step's
-    logits, the packed result and the cache, ``run``, which runs one more
-    step, and with ``timed`` the step's median ms and collective share
-    (``timed_fused``)."""
+    33, cache_lens 128, S 512) through B1, under ``ep_rules``: the
+    prefill's and the step's logits, the packed result and the cache,
+    ``run``, which runs one more step, and with ``timed`` the step's
+    median ms and collective share (``timed_fused``)."""
     from repro_torch.configs import lm_common
     from repro_torch.distributed.sharding import sharding_ctx
     from repro_torch.models import transformer as tx
@@ -5148,39 +5213,47 @@ def dist_moe_step(cfg, params, mesh=None, timed=True):
     toks = torch.randint(0, cfg.vocab_size, (B, P0), generator=gen,
                          device="cuda", dtype=torch.int32)
     lens = torch.full((B,), P0, dtype=torch.int32, device="cuda")
-    with sharding_ctx(mesh):
+    with sharding_ctx(mesh, ep_rules()):
         args = chain_inputs(lm_common.decode_args(cfg, B, T, "cuda"),
                             cfg.vocab_size, P0, seed=6)
+        lay = tx.Layout(cfg, B)
         _, first = tx.prefill(cfg, params, toks, lens, args[0])
         logits = tx.tree_step(cfg, params, args[0], *args[1:5])[1]
         fused = lm_common._serve_fn(cfg)
         _, packed = fused(params, *args)
-        out = dict(first=first, logits=logits, packed=packed,
+        out = dict(first=whole(lay.logits_sharding(2), first),
+                   logits=whole(lay.logits, logits), packed=packed,
                    cache={n: c.clone() for n, c in args[0].items()})
         if timed:
             out["ms"], out["share"], out["steps"] = timed_fused(
                 fused, params, args, mesh)
 
     def run():
-        with sharding_ctx(mesh):
+        with sharding_ctx(mesh, ep_rules()):
             fused(params, *args)
     out["run"] = run
     return out
 
 
 def moe_full_config(impl, cf=None):
+    """Qwen3-MoE-30B-A3B at full width, its depth cut to DIST_MOE_LAYERS."""
     from repro_torch.configs import qwen3_moe_30b_a3b
     base = qwen3_moe_30b_a3b.full_config()
     return dataclasses.replace(
         base, dtype="bfloat16", param_dtype="bfloat16",
         prefill_backend="cuda", decode_backend="cuda",
-        max_seq_len=PATH_TREE[5], moe_impl=impl,
+        max_seq_len=PATH_TREE[5], moe_impl=impl, n_layers=DIST_MOE_LAYERS,
         capacity_factor=base.capacity_factor if cf is None else cf)
 
 
 def no_drop_cf(cfg):
     """A capacity factor at which no token drops: E / top_k."""
     return cfg.n_experts / cfg.top_k
+
+
+def whole(sharding, x):
+    """The global tensor of a block (itself where nothing is split)."""
+    return x if sharding is None else sharding.gather(x)
 
 
 def small(out):
@@ -5191,8 +5264,8 @@ def small(out):
 
 
 def dist_moe_nccl(rank):
-    """World 1 on NCCL: Qwen3-MoE-30B-A3B at full width and depth, its
-    prefill and decode step under mesh (data 1, model 1) with
+    """World 1 on NCCL: Qwen3-MoE-30B-A3B at full width, DIST_MOE_LAYERS
+    deep, its prefill and decode step under mesh (data 1, model 1) with
     ``moe_impl="ep"``, then without a mesh through ``moe_local`` on the
     same weights: a group of one exchanges nothing (the Mesh calls no
     collective for it), so every output must be the same bits.  The two
@@ -5202,11 +5275,13 @@ def dist_moe_nccl(rank):
     ``moe_local`` and ``moe_ref`` without a mesh at capacity factor
     E / top_k."""
     from repro_torch import kernels
+    from repro_torch.distributed.sharding import sharding_ctx
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.params import init_params
     mesh = make_host_mesh(data=1, model=1, device="cuda:0")
     ep = moe_full_config("ep")
-    params = init_params(ep, seed=0, device="cuda", mesh=mesh)
+    with sharding_ctx(mesh, ep_rules()):
+        params = init_params(ep, seed=0, device="cuda", mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     before = kernels.snapshot()
     got = dist_moe_step(ep, params, mesh)
@@ -5258,13 +5333,13 @@ def dist_moe_gloo(rank):
     Qwen3-MoE layer's full width (E 128, top 8, d 2048, F 768, random
     weights) for N 132 and 512 at capacity factor 1.25 against the
     single-process ``moe_local`` of each rank's token half with all 128
-    experts; then the full-depth prefill and decode step with the experts
-    split over the ranks, timed at capacity factor 1.25 and run once more
+    experts; then the prefill and decode step (DIST_MOE_LAYERS deep) with
+    the experts split over the ranks (``ep_rules``: the dense weights
+    whole), timed at capacity factor 1.25 and run once more
     at E / top_k, where nothing drops, for the parent to hold against
     world 1; ``_sharded_argmax`` over V/2 on the step's logits."""
     from repro_torch import kernels
-    from repro_torch.distributed.sharding import (NamedSharding, P,
-                                                  sharding_ctx)
+    from repro_torch.distributed.sharding import NamedSharding, P, sharding_ctx
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
     from repro_torch.models.params import init_params
@@ -5297,7 +5372,7 @@ def dist_moe_gloo(rank):
         layer[N] = dict(max_abs_err=err, ep_ms=ep_ms, local_ms=local_ms)
     del full, half, wr, x, out, ref, mine
     free_card()
-    with sharding_ctx(mesh):
+    with sharding_ctx(mesh, ep_rules()):
         params = init_params(cfg, seed=0, device="cuda", mesh=mesh)
     check(params["layers"]["we_gate"].shape[1] == E // 2,
           f"expert block {tuple(params['layers']['we_gate'].shape)}")
@@ -5310,18 +5385,474 @@ def dist_moe_gloo(rank):
     nodrop = small(dist_moe_step(moe_full_config("ep", no_drop_cf(cfg)),
                                  params, mesh, timed=False))
     logits = got["logits"]
-    with sharding_ctx(mesh):
-        choice = _sharded_argmax(logits)
+    vocab = NamedSharding(mesh, P(None, None, "model"))
+    choice = NamedSharding(mesh, P(None, None)).gather(
+        _sharded_argmax(vocab.local(logits), vocab))
     kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
     check(bool(torch.isfinite(logits).all()) and torch.equal(
         choice, logits.argmax(-1).int()) and bool(
             (got["packed"][:, 0] >= 1).all()),
           "world 2 MoE step: non-finite logits, a sharded argmax that is not "
           "argmax, or an empty accept")
-    return dict(layer=layer, ms=got["ms"], collective_share=got["share"],
-                steps=got["steps"], peak_gb=peak, launches=launches,
-                **small(got),
-                nodrop=nodrop)
+    out = dict(layer=layer, ms=got["ms"], collective_share=got["share"],
+               steps=got["steps"], peak_gb=peak, **small(got), nodrop=nodrop)
+    del params, got, logits
+    free_card()
+    out["tp"] = moe_tp_step(rank, mesh)
+    tp = out["tp"]["launches"]
+    out["launches"] = {n: launches.get(n, 0) + tp.get(n, 0)
+                       for n in {*launches, *tp}}
+    return out
+
+
+def moe_tp_step(rank, mesh):
+    """(c)'s serve-rules cell: Qwen3-MoE-30B-A3B at full width, cut to
+    DIST_MOE_TP_LAYERS layers, placed under the serve rules
+    (``override(fsdp=())``: the heads, the vocab and the experts over
+    ``model``), capacity factor E / top_k so that no token drops: the
+    prefill and tree step of ``model_inputs`` under the mesh (TP
+    attention, ``moe_ep(lanes=)``, the vocab-sharded head), gathered; then
+    rank 0 alone, the other waiting: the same weights drawn whole on one
+    device, their logits through the dense backends and ``moe_ref`` in
+    bf16 and in f32."""
+    from repro_torch import kernels
+    from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    base = moe_full_config("ep")
+    cfg = dataclasses.replace(base, n_layers=DIST_MOE_TP_LAYERS,
+                              capacity_factor=no_drop_cf(base))
+    ins = model_inputs(cfg.vocab_size)
+    toks, lens, tree, pos, tm = ins
+    out = {"layers": cfg.n_layers}
+    with sharding_ctx(mesh, DEFAULT_RULES.override(fsdp=())):
+        params = init_params(cfg, seed=1, device="cuda", mesh=mesh)
+        out["weight_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params))
+        out["experts"] = params["layers"]["we_gate"].shape[1]
+        before = kernels.snapshot()
+        lay = tx.Layout(cfg, toks.shape[0])
+        cache, pre = tx.prefill(cfg, params, toks, lens, tx.init_cache(
+            cfg, toks.shape[0], device="cuda"))
+        step = tx.tree_step(cfg, params, cache, lens, tree, pos, tm)[1]
+        out["launches"] = kernels.diff(kernels.snapshot(), before)
+        out["heads"] = (lay.q_heads, lay.kv_heads)
+        out["vocab"] = step.shape[-1]
+        out["pre"] = whole(lay.logits_sharding(2), pre).float().cpu()
+        out["step"] = whole(lay.logits, step).float().cpu()
+        del params, cache, pre, step
+    free_card()
+    mesh.barrier()
+    if rank == 0:
+        cmp0 = kernels.snapshot()
+        one = dataclasses.replace(cfg, moe_impl="ref")
+        p16 = init_params(one, seed=1, device="cuda")
+        out["whole_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(p16))
+        out["d16"] = [x.cpu() for x in model_logits(one, p16, ins, "dense")]
+        p32 = tree_map(lambda t: t.float(), p16)
+        del p16
+        c32 = dataclasses.replace(one, dtype="float32", param_dtype="float32")
+        out["ref"] = [x.cpu() for x in model_logits(c32, p32, ins, "dense")]
+        del p32
+        free_card()
+        kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    mesh.barrier()
+    return out
+
+
+def moe_tp_rule(res):
+    """(c)'s serve-rules cell: every rank's gathered logits alike, B1 and
+    B3 launched on each rank, and the prefill and step logits within
+    BF16_LOGIT_RATIO of the dense bf16 path's RMS error against the dense
+    f32 path (``moe_ref`` on one device)."""
+    def rms(a):
+        return a.pow(2).mean().sqrt().item()
+
+    r0 = res[0]["tp"]
+    label = (f"Qwen3-MoE cut to {r0['layers']} of 48 layers, mesh (data 1, "
+             "model 2), serve rules")
+    for r, x in enumerate(res):
+        t = x["tp"]
+        check(torch.equal(t["pre"], r0["pre"]) and torch.equal(
+            t["step"], r0["step"]), f"{label}: rank {r}'s gathered logits "
+                                    "differ from rank 0's")
+        n = t["launches"]
+        check(n.get("tree_attention", 0) > 0 and n.get("flash_prefill", 0)
+              > 0, f"{label} rank {r}: B1/B3 launches {n}")
+        print(f"  {label} rank {r}: heads {t['heads']}, vocab block "
+              f"{t['vocab']}, experts {t['experts']}, weights "
+              f"{t['weight_bytes'] / 1e9:.3f} GB of "
+              f"{r0['whole_bytes'] / 1e9:.3f} whole; launches B1 "
+              f"{n.get('tree_attention', 0)}, B3 {n.get('flash_prefill', 0)}")
+    rule = {}
+    for i, name in enumerate(("prefill", "step")):
+        got = r0["pre" if i == 0 else "step"]
+        e_got, e_dense = (rms(x - r0["ref"][i]) for x in (got, r0["d16"][i]))
+        limit = BF16_LOGIT_RATIO * e_dense
+        print(f"  {label} {name} logits vs the f32 path (moe_ref): RMS err "
+              f"mesh {e_got:.4e}, dense bf16 {e_dense:.4e}; limit "
+              f"{limit:.4e}")
+        check(bool(torch.isfinite(got).all()) and e_got <= limit,
+              f"{label} {name} logits: RMS err {e_got} over {limit}")
+        rule[name] = dict(rms=e_got, dense=e_dense)
+    return rule
+
+
+def guided_drafts(rng, table, roots, lens, T, vocab):
+    """A random draft tree a lane, rooted at the lane's next token at its
+    length: each node's token is, with probability 0.7, the guided model's
+    choice after its parent (``table``, ``guided_transform``'s), else a
+    random id, so a step accepts slots along one branch of the tree, not
+    slots 0, 1, ... in order.  (tokens, positions, mask, parents, live)."""
+    B, phase = len(lens), table.shape[0]
+    tok = np.zeros((B, T), np.int32)
+    parent = np.full((B, T), -1, np.int32)
+    depth = np.zeros((B, T), np.int32)
+    mask = np.zeros((B, T, T), bool)
+    for b in range(B):
+        tok[b, 0] = roots[b]
+        for i in range(1, T):
+            p = rng.randint(0, i)
+            parent[b, i], depth[b, i] = p, depth[b, p] + 1
+            tok[b, i] = (table[(lens[b] + depth[b, p]) % phase, tok[b, p]]
+                         if rng.rand() < 0.7 else rng.randint(2, vocab))
+        for i in range(T):
+            j = i
+            while j >= 0:
+                mask[b, i, j] = True
+                j = parent[b, j]
+    pos = (np.asarray(lens)[:, None] + depth).astype(np.int32)
+    return tok, pos, mask, parent, np.full((B,), T, np.int32)
+
+
+def committed_rows(cache, lens, bs, sharding):
+    """Each lane's K and V rows below its length, every layer, read through
+    the block tables on the paged layout and gathered over the ranks under
+    ``sharding`` (the dense cache's or the pool's; None on one device):
+    (2, L, sum(lens), K, dh), f32 on the host."""
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.models import transformer as tx
+    dev = cache["k"].device
+    smax = int(max(lens))
+    lens = torch.as_tensor(np.asarray(lens), device=dev)
+    pos = torch.arange(smax, device=dev)
+    out = []
+    for n in ("k", "v"):
+        if "block_tables" in cache:
+            tables = cache["block_tables"].to(dev)
+            rows = tx.paged_row_index(tables, pos[None].expand(
+                tables.shape[0], smax), bs)
+            view = cache[n].flatten(1, 2)[:, rows]
+            spec = None if sharding is None else P(None, None, None,
+                                                   sharding.spec[3], None)
+        else:
+            view = cache[n][:, :, :smax]
+            spec = None if sharding is None else sharding.spec
+        if spec is not None:
+            view = NamedSharding(sharding.mesh, spec).gather(
+                view.contiguous())
+        out.append(view[:, pos[None] < lens[:, None]].float().cpu())
+    return torch.stack(out)
+
+
+def session_state(cfg, params, layout, ins):
+    """The serving session's state on ``model_inputs``' prompts, through
+    ``make_session_fns`` (greedy, eager; under the active mesh where there
+    is one): the cohort prefill, DIST_STATE_STEPS guided fused steps on
+    ``guided_drafts`` (a few slots accepted a step, so the commit moves
+    rows), then one fused step unguided, whose logits a transform
+    records.  Returns the committed K and V rows below each lane's length
+    (``committed_rows``), the unguided step's logits gathered over the
+    lanes and the vocab, each lane's length and accepts a step."""
+    from repro_torch.models import transformer as tx
+    from repro_torch.serving.session import make_session_fns
+    toks, lens = (x.cpu().numpy().astype(np.int32) for x in ins[:2])
+    B, T, V, bs = toks.shape[0], PATH_TREE[1], cfg.vocab_size, PATH_PAGED[5]
+    guided, rec = guided_transform(V), []
+
+    def transform(logits, tokens, positions):
+        # no vocab_offset keyword: under a mesh it sees the whole vocab
+        if not rec:
+            return guided(logits, tokens, positions)
+        rec[0] = logits.float()
+        return logits
+
+    paged = layout == "paged"
+    fns = make_session_fns(cfg, params, slots=T, sampling="greedy",
+                           logits_transform=transform, kv_layout=layout,
+                           block_size=bs, device="cuda", cuda_graphs=False)
+    if paged:
+        bpl = -(-cfg.max_seq_len // bs)
+        cache, first = fns.prefill(toks, lens, shuffled_tables([bpl] * B,
+                                                               bpl, seed=3))
+    else:
+        cache, first = fns.prefill(toks, lens)
+    roots, cur, accepted = first.cpu().numpy(), lens.copy(), []
+    rng = np.random.RandomState(7)
+    for step in range(DIST_STATE_STEPS + 1):
+        if step == DIST_STATE_STEPS:
+            rec.append(None)                      # the unguided step
+        drafts = guided_drafts(rng, guided.table, roots, cur, T, V)
+        cache, packed = fns.fused_step(cache, cur, *drafts)
+        packed = packed.cpu().numpy()
+        if step < DIST_STATE_STEPS:
+            n = packed[:, 0]
+            accepted.append(n.tolist())
+            roots, cur = packed[np.arange(B), n], cur + n
+    lay = tx.Layout(cfg, B, paged)
+    sharding = tx.paged_sharding(cfg) if paged else lay.cache
+    return dict(rows=committed_rows(cache, cur, bs, sharding),
+                logits=lay.gather(rec[0]).cpu(), lens=cur.tolist(),
+                accepted=accepted)
+
+
+def dist_tp_world(rank, data, model, rules_name, n_layers=None,
+                  n_prompts=DIST_TP_PROMPTS, n_new=DIST_TP_NEW):
+    """A world of data x model gloo ranks, every rank on cuda:0, serving
+    Qwen2-1.5B (bf16, the cuda backends, random weights from seed 0,
+    ``n_layers`` deep or at full depth) placed over mesh (data, model)
+    under the rules named (``DEFAULT_RULES`` or the serve cells'
+    ``override(fsdp=())``): ``init_params(mesh=)`` draws each rank's
+    blocks; ``n_prompts`` guided requests of ``n_new`` new tokens
+    through ``build_engine`` inside ``sharding_ctx`` on the dense layout
+    and on the paged one, twice each (``serve``; kernel counters read
+    around the four passes); the
+    prefill and step logits of ``model_inputs`` through ``tx.prefill`` and
+    ``tx.tree_step`` under the mesh, gathered; B1 at this rank's heads
+    against its plain version; ``session_state`` on both layouts.  Then
+    rank 0 alone, every other rank waiting: the single-device session's
+    tokens (captured), the single-device logits (the cuda backends in
+    bf16, the dense backend in bf16 and in f32) and ``session_state`` (in
+    bf16 on both layouts, in f32 on the dense one) on the same weights."""
+    from repro_torch import kernels
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
+    from repro_torch.kernels.timing import path_mask
+    from repro_torch.kernels.tree_attention.ops import (
+        tree_attention, tree_attention_reference)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.api import EngineConfig, build_engine
+    mesh = make_host_mesh(data=data, model=model, device="cuda:0")
+    rules = (DEFAULT_RULES if rules_name == "default"
+             else DEFAULT_RULES.override(fsdp=()))
+    cfg = dataclasses.replace(qwen2_1_5b.full_config(), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    V = cfg.vocab_size
+    prompts = path_prompts(V)[:n_prompts]
+    sp = SamplingParams(max_new_tokens=n_new)
+    ins = model_inputs(V)
+
+    def serve(params, layout):
+        """The requests served twice by one engine: the second pass drafts
+        from the first's outputs in the trie, so its steps accept several
+        tokens.  Returns [(tokens, wall s, decode steps)] a pass."""
+        engine = build_engine(EngineConfig(kv_layout=layout,
+                                           default_params=sp),
+                              cfg, params, logits_transform=guided_transform(
+                                  V), device="cuda")
+        passes = []
+        for _ in range(2):
+            steps = engine.stats.decode_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hs = [engine.submit(list(p), max_new_tokens=n_new)
+                  for p in prompts]
+            engine.run()
+            torch.cuda.synchronize()
+            passes.append(([[int(t) for t in h.result().tokens] for h in hs],
+                           time.perf_counter() - t0,
+                           engine.stats.decode_steps - steps))
+        return passes
+
+    out = {"layers": cfg.n_layers, "whole_bytes": cfg.n_params() * 2}
+    with sharding_ctx(mesh, rules):
+        params = init_params(cfg, seed=0, device="cuda", mesh=mesh)
+        out["weight_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params))
+        free_card()
+        before = kernels.snapshot()
+        for layout in ("dense", "paged"):
+            out[layout] = serve(params, layout)
+        out["launches"] = kernels.diff(kernels.snapshot(), before)
+        out["peak_gb"] = peak_gb()
+        cmp0 = kernels.snapshot()
+        toks, lens, tree, pos, tm = ins
+        lay = tx.Layout(cfg, toks.shape[0])
+        cache, pre = tx.prefill(cfg, params, toks, lens,
+                                tx.init_cache(cfg, toks.shape[0],
+                                              device="cuda"))
+        step = tx.tree_step(cfg, params, cache, lens, tree, pos, tm)[1]
+        out["pre"] = whole(lay.logits_sharding(2), pre).float().cpu()
+        out["step"] = whole(lay.logits, step).float().cpu()
+        out["heads"] = (lay.q_heads, lay.kv_heads)
+        B, T, _, _, dh, S = PATH_TREE
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(rank)
+        q = randn(gen, (B, T, lay.q_heads, dh), torch.bfloat16)
+        k, v = (randn(gen, (B, S, lay.kv_heads, dh), torch.bfloat16)
+                for _ in range(2))
+        mask = path_mask(B, T, S, max_new=MAX_NEW)
+        out["b1_err"] = hold(
+            f"rank {rank} tree_attention at its heads", tree_attention(
+                q, k, v, mask), tree_attention_reference(q, k, v, mask),
+            torch.bfloat16, (B, T, lay.q_heads, lay.kv_heads, dh, S))
+        del cache, q, k, v
+        out["state"] = {layout: session_state(cfg, params, layout, ins)
+                        for layout in ("dense", "paged")}
+        kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+        del params
+    free_card()
+    mesh.barrier()
+    if rank == 0:
+        cmp0 = kernels.snapshot()
+        p16 = init_params(cfg, seed=0, device="cuda")
+        out["one_device"] = serve(p16, "dense")
+        free_card()
+        out["one_cuda"] = [x.cpu() for x in model_logits(cfg, p16, ins,
+                                                         "cuda")]
+        out["d16"] = [x.cpu() for x in model_logits(cfg, p16, ins, "dense")]
+        out["state_one"] = {layout: session_state(cfg, p16, layout, ins)
+                            for layout in ("dense", "paged")}
+        p32 = tree_map(lambda t: t.float(), p16)
+        del p16
+        c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        out["ref"] = [x.cpu() for x in model_logits(c32, p32, ins, "dense")]
+        out["state_ref"] = session_state(dataclasses.replace(
+            c32, prefill_backend="dense", decode_backend="dense"), p32,
+            "dense", ins)
+        del p32
+        free_card()
+        kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
+    mesh.barrier()
+    return out
+
+
+def dist_tp_serve(rank):
+    """(d): Qwen2-1.5B at full depth on mesh (data 1, model 2), the serve
+    rules (tensor parallelism only)."""
+    return dist_tp_world(rank, 1, 2, "serve")
+
+
+def dist_tp_fsdp(rank):
+    """(e): Qwen2-1.5B cut to DIST_TP_E_LAYERS layers on mesh (data 2,
+    model 2), ``DEFAULT_RULES`` (the FSDP gathers over ``data``)."""
+    return dist_tp_world(rank, 2, 2, "default", DIST_TP_E_LAYERS,
+                         DIST_TP_E_PROMPTS, DIST_TP_E_NEW)
+
+
+def dist_tp_rule(label, res):
+    """The parent's checks of a placement world: every rank's tokens, on
+    both layouts and in both passes, the single-device session's, the
+    primed pass in fewer steps (drafts accepted); the gathered prefill and
+    step logits alike on every rank and within BF16_LOGIT_RATIO of the
+    dense bf16 path's RMS error against the dense f32 path; B1, B2 and B3
+    launched on every rank.  Prints the weights and the peak a rank."""
+    from repro_torch.distributed.sharding import REDUCE_DTYPE
+
+    def rms(a):
+        return a.pow(2).mean().sqrt().item()
+
+    r0 = res[0]
+    want = r0["one_device"][0][0]
+    for r, x in enumerate(res):
+        for layout in ("dense", "paged"):
+            for i, (toks, wall, steps) in enumerate(x[layout]):
+                check(toks == want, f"{label} rank {r} {layout} pass {i}: "
+                                    "tokens differ from the single-device "
+                                    "session's")
+            check(x[layout][1][2] < x[layout][0][2],
+                  f"{label} rank {r} {layout}: the primed pass took "
+                  f"{x[layout][1][2]} steps, the first {x[layout][0][2]}")
+        check(torch.equal(x["pre"], r0["pre"]) and torch.equal(
+            x["step"], r0["step"]), f"{label}: rank {r}'s gathered logits "
+                                    "differ from rank 0's")
+        n = x["launches"]
+        check(n["tree_attention"] > 0 and n["paged_tree_attention"] > 0
+              and n["flash_prefill"] > 0,
+              f"{label} rank {r}: B1/B2/B3 launches {n}")
+        runs = "; ".join(
+            f"{layout} {x[layout][0][1]:.1f} s ({x[layout][0][2]} steps), "
+            f"primed {x[layout][1][1]:.1f} s ({x[layout][1][2]} steps)"
+            for layout in ("dense", "paged"))
+        print(f"  {label} rank {r}: heads {x['heads']}, dense weights "
+              f"{x['weight_bytes'] / 1e9:.3f} GB of "
+              f"{x['whole_bytes'] / 1e9:.3f} whole, peak "
+              f"{x['peak_gb']:.2f} GB; {runs}; launches B1 "
+              f"{n['tree_attention']}, B2 {n['paged_tree_attention']}, B3 "
+              f"{n['flash_prefill']}; B1 at its heads max|err| "
+              f"{x['b1_err']:.3e}")
+    one = r0["one_device"]
+    print(f"  {label}: {r0['layers']} layers; tokens = the single-device "
+          f"session's on both layouts, both passes ({sum(map(len, want))} "
+          f"tokens a pass; the single-device captured session "
+          f"{one[0][1]:.1f} s, {one[0][2]} steps, primed {one[1][1]:.1f} s, "
+          f"{one[1][2]} steps); row-parallel partial sums reduced in "
+          f"{str(REDUCE_DTYPE)[6:]} (the bf16 partials cast up, the sum cast "
+          "back)")
+    rule = {}
+    for i, name in enumerate(("prefill", "step")):
+        got = r0["pre" if i == 0 else "step"]
+        e_got, e_dense, e_one = (rms(x - r0["ref"][i]) for x in (
+            got, r0["d16"][i], r0["one_cuda"][i]))
+        limit = BF16_LOGIT_RATIO * e_dense
+        print(f"  {label} {name} logits vs the f32 path: RMS err mesh "
+              f"{e_got:.4e}, one device cuda {e_one:.4e}, dense bf16 "
+              f"{e_dense:.4e}; limit {limit:.4e}")
+        check(bool(torch.isfinite(got).all()) and e_got <= limit,
+              f"{label} {name} logits: RMS err {e_got} over {limit}")
+        rule[name] = dict(rms=e_got, dense=e_dense, one=e_one)
+    rule["session"] = state_rule(label, res)
+    return rule
+
+
+def state_rule(label, res):
+    """``session_state`` under the mesh against the single-device session
+    (bf16, the cuda backends) on the same requests, each against the f32
+    session (the dense backends): the same accepts a step and lengths,
+    more than one slot accepted in some step (the commit moved rows), every
+    rank's gathered state alike, and the committed K and V rows and the
+    unguided step's logits each within BF16_LOGIT_RATIO of the
+    single-device session's RMS error."""
+    def rms(a):
+        return a.pow(2).mean().sqrt().item()
+
+    r0, ref, out = res[0], res[0]["state_ref"], {}
+    for layout in ("dense", "paged"):
+        got, one = r0["state"][layout], r0["state_one"][layout]
+        for r, x in enumerate(res):
+            mine = x["state"][layout]
+            check(torch.equal(mine["rows"], got["rows"]) and torch.equal(
+                mine["logits"], got["logits"]), f"{label} {layout}: rank "
+                f"{r}'s gathered session state differs from rank 0's")
+        check(got["accepted"] == one["accepted"] == ref["accepted"]
+              and got["lens"] == one["lens"] == ref["lens"],
+              f"{label} {layout} session: accepts {got['accepted']}, one "
+              f"device {one['accepted']}, f32 {ref['accepted']}")
+        check(max(max(a) for a in got["accepted"]) > 1,
+              f"{label} {layout} session: no step accepted a draft")
+        out[layout] = {}
+        for name, what in (("rows", "committed K/V rows"),
+                           ("logits", "unguided step logits")):
+            e_got, e_one = (rms(x[name] - ref[name]) for x in (got, one))
+            limit = BF16_LOGIT_RATIO * e_one
+            print(f"  {label} {layout} session, {what} "
+                  f"{tuple(got[name].shape)} vs the f32 session: RMS err "
+                  f"mesh {e_got:.4e}, one device {e_one:.4e}; limit "
+                  f"{limit:.4e}")
+            check(bool(torch.isfinite(got[name]).all()) and e_got <= limit,
+                  f"{label} {layout} session {name}: RMS err {e_got} over "
+                  f"{limit}")
+            out[layout][name] = dict(rms=e_got, one=e_one)
+        print(f"  {label} {layout} session: accepts a step "
+              f"{got['accepted']} (= one device's and the f32 session's), "
+              f"lengths {got['lens']}")
+    return out
 
 
 def moe_world_rule(w2, w1, ref, what):
@@ -5383,6 +5914,8 @@ def dist_phase(card):
                 launches[name] = launches.get(name, 0) + n
 
     print(f"  card and power limit: {card}")
+    print(f"  [Qwen3-MoE in (b) and (c): depth cut to {DIST_MOE_LAYERS} of "
+          f"48 layers; (c)'s serve-rules step to {DIST_MOE_TP_LAYERS}]")
     res = dist_spawn("dist_long", 2, "gloo")
     count(res)
     print(f"  gloo on CUDA tensors (raw, torch {torch.__version__}): "
@@ -5446,6 +5979,14 @@ def dist_phase(card):
           f"no-drop run above is the gate): choices equal at {agree:.4f} of "
           f"the slots, max |logit diff| {diff:.4e}; the ranks' peaks sum to "
           f"{sum(x['peak_gb'] for x in res):.2f} GB")
+    moe_tp_rule(res)
+    res = dist_spawn("dist_tp_serve", 2, "gloo")
+    count(res)
+    dist_tp_rule("(d) Qwen2-1.5B, mesh (data 1, model 2), serve rules", res)
+    res = dist_spawn("dist_tp_fsdp", 4, "gloo")
+    count(res)
+    dist_tp_rule(f"(e) Qwen2-1.5B cut to {DIST_TP_E_LAYERS} of 28 layers, "
+                 "mesh (data 2, model 2), DEFAULT_RULES", res)
     return launches
 
 
@@ -5611,8 +6152,8 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + n
         phase_done("cost")
     if "dist" in phases:
-        print("multi-rank paths (flash decode, moe_ep, sharded argmax) on "
-              "the one card:")
+        print("multi-rank paths (flash decode, moe_ep, sharded argmax, the "
+              "dense LM's placement) on the one card:")
         for name, n in dist_phase(smi[0]).items():
             launches[name] = launches.get(name, 0) + n
         phase_done("dist")

@@ -84,14 +84,10 @@ def _serve_fn(cfg: TransformerConfig):
     # what serving actually runs.
     def serve_step(params, cache, cache_lens, tokens, pos, mask,
                    parent, n_live):
-        cache, logits = tx.tree_step(cfg, params, cache, cache_lens, tokens,
-                                     pos, mask)
-        chosen = choose_tokens(logits, pos + 1)
-        n_acc, acc_tok, kv_slots = tx.verify_accept_device(tokens, parent,
-                                                           n_live, chosen)
-        cache, _ = tx.commit_cache(cache, cache_lens, kv_slots, n_acc,
-                                   tx.cache_sharding(cfg, tokens.shape[0]))
-        return cache, tx.pack_step_result(n_acc, acc_tok, kv_slots)
+        return tx.fused_step(
+            cfg, params, cache, cache_lens, tokens, pos, mask, parent,
+            n_live, lambda logits, _, p, lay: choose_tokens(
+                logits, p + 1, sharding=lay.logits))
     return serve_step
 
 

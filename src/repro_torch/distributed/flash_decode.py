@@ -17,11 +17,15 @@ Axis assignment is derived from the global shapes:
     together over the sequence axes' group, independent of S.
 
 The reference's ``shard_map`` is written out: each rank holds its block of
-the (L, B, S, K, dh) cache (``cache_partition_spec``), takes its batch and
-head block of q, k_new and v_new, attends locally in f32 as the reference
-does, and the outputs are gathered over the batch and head axes, so the
-layer's activations stay replicated.  The local attention is the
-reference's einsum, not a kernel: plain torch.
+the (L, B, S, K, dh) cache (``cache_partition_spec``) and attends locally
+in f32 as the reference does.  q, k_new and v_new arrive as the model
+computes them under the mesh (``models/transformer.Layout``): this rank's
+lanes, which are the cache block's, and its heads where the cache splits
+heads.  Where the cache keeps every head (K not divisible by ``model``)
+but the rank's query heads are a block, q is gathered over ``model``
+first and the output cut back to the block, since the sequence shards
+combine every head.  The local attention is the reference's einsum, not a
+kernel: plain torch.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.distributed.sharding import (Mesh, NamedSharding, P,
-                                              active_mesh)
+                                              active_mesh, dim_axes)
 
 NEG_INF = -1e30     # models.layers.NEG_INF; importing models here would cycle
 
@@ -104,34 +108,35 @@ def write_rows(buf: torch.Tensor, start: torch.Tensor, new: torch.Tensor,
 
 
 def make_flash_attend(mesh: Mesh, cache_lens: torch.Tensor,
-                      tree_mask: torch.Tensor, S: int,
-                      score_f32: bool = True) -> Callable:
+                      tree_mask: torch.Tensor, cache_spec: P,
+                      score_f32: bool = True,
+                      q_axes: Tuple[str, ...] = ()) -> Callable:
     """Returns attend(q, k_new, v_new, k_cache, v_cache) -> attn_out over
-    this rank's (B_l, S_l, K_l, dh) cache blocks of a global (B, S, K, dh)
-    cache, written in place; q, k_new, v_new, cache_lens, tree_mask and
-    the output are global (replicated)."""
+    this rank's block (``cache_spec``, ``cache_partition_spec``'s) of the
+    global (B, S, K, dh) cache, written in place.  cache_lens, tree_mask,
+    q, k_new and v_new are this rank's lanes; k_new and v_new hold the
+    cache block's heads; q holds its own heads, a block over ``q_axes``
+    where the cache keeps every head (then gathered, and the output cut
+    back to the block)."""
+    seq_axes = dim_axes(cache_spec[2])
+    heads = NamedSharding(mesh, P(None, None, q_axes, None)) if q_axes \
+        else None
 
     def attend(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
-        B, T, H, dh = q.shape
-        K = k_new.shape[2]
-        batch_axes, seq_axes, h_ax = _derive_axes(mesh, B, S, K, H)
-        ba = batch_axes if batch_axes else None
-        sa = seq_axes if seq_axes else None
-        act = NamedSharding(mesh, P(ba, None, h_ax, None))
-        want = NamedSharding(mesh, P(ba, sa, h_ax, None)).shard_shape(
-            (B, S, K, dh))
-        if tuple(k_cache.shape) != want:
+        if k_cache.shape[0] != q.shape[0] or k_cache.shape[2] != \
+                k_new.shape[2]:
             raise ValueError(f"flash decode: cache block {tuple(k_cache.shape)}"
-                             f" is not this rank's {want} of ({B}, {S}, {K}, "
-                             f"{dh}) (init_cache under the mesh makes it)")
+                             f" does not hold these {q.shape[0]} lanes and "
+                             f"{k_new.shape[2]} heads (init_cache under the "
+                             "mesh makes it)")
+        if heads is not None:
+            q = heads.gather(q)
         out = _local_attend(
-            act.local(q), act.local(k_new), act.local(v_new), k_cache,
-            v_cache, NamedSharding(mesh, P(ba)).local(cache_lens),
-            NamedSharding(mesh, P(ba, None, None)).local(tree_mask),
-            mesh=mesh, seq_axes=seq_axes, T=T, scale=dh ** -0.5,
-            score_f32=score_f32)
-        return act.gather(out)
+            q, k_new, v_new, k_cache, v_cache, cache_lens, tree_mask,
+            mesh=mesh, seq_axes=seq_axes, T=q.shape[1],
+            scale=q.shape[3] ** -0.5, score_f32=score_f32)
+        return out if heads is None else heads.local(out).contiguous()
 
     return attend
 
@@ -202,23 +207,29 @@ class FlashDecodeBackend:
         from repro_torch.models.attention import dense_prefill_attention
         return dense_prefill_attention(cfg, q, k, v, positions, len_mask)
 
-    def make_tree_attend(self, cfg, cache_lens, tree_mask, S_max):
-        """``S_max`` is the local cache's length; under a mesh the global
-        one is ``cfg.max_seq_len``, which ``init_cache`` allocates."""
+    def make_tree_attend(self, cfg, cache_lens, tree_mask, S_max,
+                         layout=None):
+        """``S_max`` is the local cache's length; under a mesh ``layout``
+        (the model's ``Layout``, which every call under a mesh passes)
+        gives the cache block's spec and the query heads' axes."""
         from repro_torch.models.attention import get_backend
         mesh = active_mesh()
         if mesh is None:
             return get_backend("dense").make_tree_attend(cfg, cache_lens,
                                                          tree_mask, S_max)
+        if layout is None:
+            raise ValueError("flash decode under a mesh needs the model's "
+                             "layout (transformer.Layout)")
         return make_flash_attend(mesh, cache_lens, tree_mask,
-                                 cfg.max_seq_len,
-                                 score_f32=cfg.attn_score_f32)
+                                 layout.cache.spec,
+                                 score_f32=cfg.attn_score_f32,
+                                 q_axes=layout.q_gather)
 
     def make_paged_tree_attend(self, cfg, block_tables, cache_lens,
-                               tree_mask, slot_valid=None):
+                               tree_mask, slot_valid=None, layout=None):
         from repro_torch.models.attention import get_backend
         return get_backend("dense").make_paged_tree_attend(
-            cfg, block_tables, cache_lens, tree_mask, slot_valid)
+            cfg, block_tables, cache_lens, tree_mask, slot_valid, layout)
 
 
 __all__ = ["make_flash_attend", "cache_partition_spec", "FlashDecodeBackend",

@@ -11,21 +11,25 @@ Mesh axes (``launch/mesh.py``):
   * ``data``  — FSDP / batch / sequence sharding inside a pod
   * ``model`` — tensor parallelism (heads, ffn, vocab, experts)
 
-The reference's three ``shard_map`` programs (``distributed/flash_decode``,
-``models/moe.moe_ep``, ``serving/sampler._sharded_argmax``) become explicit
-SPMD code here: each rank takes its block of the global inputs
-(``NamedSharding.local``), runs the local body with collectives over the
-axis groups (``Mesh.all_reduce`` / ``all_gather`` / ``all_to_all``), and
-gathers outputs that the reference shards back to global
-(``NamedSharding.gather``).  The expert weights and the flash-decode KV
-cache are truly sharded: a rank allocates and keeps only its block.
-Everything else — the dense weights, the activations, the recsys tables
-and the GNN — stays replicated on every rank in the port: GSPMD's
-placement of the dense weights from the rules (FSDP × TP), the dry-run's
-multi-chip legs and ogb_products are ROADMAP A16b.  So ``constrain``
-returns its tensor unchanged, and ``placement`` (the one rule for where a
-weight lives: its "expert" dims split, the rest whole) places parameters
-and checkpoint leaves.
+GSPMD's partitioning of the reference is written out as explicit SPMD
+code: each rank holds its block of every global tensor
+(``NamedSharding.local``), runs the local body, and calls the collectives
+GSPMD would insert over the axis groups (``Mesh.all_reduce`` /
+``all_gather`` / ``all_to_all``).  ``placement`` is the one rule for where
+a weight lives: its "fsdp", "tensor" and "expert" dims split over the
+mesh axes the rules give them, a dim those axes do not divide whole (as
+``logical_spec(shape=)`` drops them; an "expert" dim raises instead,
+since ``moe_ep`` needs E to divide).  ``init_params(mesh=)``,
+``shard_params`` and the checkpoint's ``save`` / ``restore(mesh=)`` place
+parameters by it, and the dense LM (``models/transformer.Layout``) computes
+on those blocks: column-parallel products on the "tensor" block, a
+row-parallel product followed by ``reduce_sum`` over ``model``, a
+layer's "fsdp" blocks gathered over ``data`` before its products
+(``gather_blocks``), lanes split over the "batch" axes and gathered back
+where the host reads them.  Each of these moves is an
+``autograd.Function`` with its transpose.  The recsys tables and the GNN
+stay replicated (ROADMAP A16b).  ``constrain`` returns its tensor
+unchanged: the model's activations are blocks by construction.
 
 A ``Mesh`` covers the initialized world (``init_process_group``), rank r
 at the row-major coordinates of r in the mesh shape (as
@@ -283,6 +287,12 @@ def _active() -> Tuple[Optional[Mesh], ShardingRules]:
     return None, DEFAULT_RULES
 
 
+def active_rules() -> ShardingRules:
+    """The rules of the innermost ``sharding_ctx`` (``DEFAULT_RULES``
+    outside one)."""
+    return _active()[1]
+
+
 def logical_spec(logical_axes: Sequence[Optional[str]],
                  shape: Optional[Sequence[int]] = None,
                  mesh: Optional[Mesh] = None,
@@ -316,8 +326,9 @@ def logical_spec(logical_axes: Sequence[Optional[str]],
 
 def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """The reference's activation hook, which only promises unchanged
-    values: activations are replicated on every rank in the port, so ``x``
-    comes back as it is.  No model code calls it."""
+    values: the port's model code lays its activations out explicitly
+    (``models/transformer.Layout``), so ``x`` comes back as it is.  No
+    model code calls it."""
     return x
 
 
@@ -399,8 +410,9 @@ def named_sharding(mesh: Mesh, logical_axes: Sequence[Optional[str]],
 
 
 # The logical axes whose dims the port splits over ranks; a dim under any
-# other name stays whole on every rank (ROADMAP A16b).
-PLACED_AXES = frozenset({"expert"})
+# other name stays whole on every rank (the recsys and GNN axes: ROADMAP
+# A16b).
+PLACED_AXES = frozenset({"fsdp", "tensor", "expert"})
 
 
 def placement(mesh: Mesh, logical_axes: Sequence[Optional[str]],
@@ -410,10 +422,18 @@ def placement(mesh: Mesh, logical_axes: Sequence[Optional[str]],
     split along the dims named in ``PLACED_AXES`` (by ``rules``), whole
     along the others.  ``init_params(mesh=)``, ``shard_params`` and the
     checkpoint's ``save(mesh=)`` / ``restore(mesh=)`` all place by it.
-    With ``shape``, a split dim that the mesh axes do not divide raises
-    (``moe_ep`` needs E a multiple of the ``model`` axis)."""
+    With ``shape``, a mesh axis that does not divide its "fsdp" or
+    "tensor" dim is dropped, as ``logical_spec(shape=)`` drops it (that
+    dim stays whole), and an "expert" dim that the axes do not divide
+    raises (``moe_ep`` needs E a multiple of the ``model`` axis)."""
     kept = [a if a in PLACED_AXES else None for a in logical_axes]
-    sh = NamedSharding(mesh, logical_spec(kept, None, mesh, rules))
+    spec = logical_spec(kept, None, mesh, rules)
+    if shape is not None:
+        fit = logical_spec([None if a == "expert" else a for a in kept],
+                           shape, mesh, rules)
+        spec = P(*(e if a == "expert" else f
+                   for a, e, f in zip(kept, spec, fit)))
+    sh = NamedSharding(mesh, spec)
     if shape is not None:
         sh.shard_shape(shape)
     return sh
@@ -472,6 +492,42 @@ class _SumGrad(torch.autograd.Function):
         return ctx.mesh.all_reduce(g, "sum", ctx.axes), None, None
 
 
+REDUCE_DTYPE = torch.float32    # partial sums are summed in it, then cast
+
+
+class _ReduceSum(torch.autograd.Function):
+    """All-reduce (SUM) over ``axes`` of per-rank partial sums, in
+    REDUCE_DTYPE and cast back (the all-reduce GSPMD puts after a
+    row-parallel product); the gradient, alike on every rank, passes
+    unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x.to(REDUCE_DTYPE), "sum", axes).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The global tensor from the blocks, as ``_Unshard``, for a block
+    that every rank then uses on its own share of the work (an FSDP
+    weight on each rank's lanes); the transpose is a reduce-scatter: the
+    ranks' gradients summed, each rank keeping its block."""
+
+    @staticmethod
+    def forward(ctx, x, sharding):
+        ctx.sharding = sharding
+        return sharding.gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        sh = ctx.sharding
+        total = sh.mesh.all_reduce(g.contiguous(), "sum", sh.axes())
+        return sh.local(total).contiguous(), None
+
+
 def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return _Shard.apply(x, sharding)
 
@@ -488,8 +544,31 @@ def sum_grad(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
     return _SumGrad.apply(x, mesh, axes)
 
 
+def _live(mesh: Mesh, axes: Sequence[str]) -> Tuple[str, ...]:
+    return tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+
+
+def reduce_sum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
+               ) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axes`` (each holding a partial sum),
+    in REDUCE_DTYPE, cast back to ``x``'s dtype; ``x`` itself where the
+    axes hold one rank."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    return _ReduceSum.apply(x, mesh, axes)
+
+
+def gather_blocks(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The global tensor from this rank's block (see ``_GatherBlocks``);
+    ``x`` itself where the sharding splits nothing."""
+    if not _live(sharding.mesh, sharding.axes()):
+        return x
+    return _GatherBlocks.apply(x, sharding)
+
+
 __all__ = ["Mesh", "PartitionSpec", "P", "NamedSharding", "ShardingRules",
            "DEFAULT_RULES", "sharding_ctx", "constrain", "active_mesh",
-           "logical_spec", "named_sharding", "placement", "PLACED_AXES",
-           "axis_size", "shard", "unshard",
-           "sum_grad", "dim_axes"]
+           "active_rules", "logical_spec", "named_sharding", "placement",
+           "PLACED_AXES", "axis_size", "shard", "unshard", "sum_grad",
+           "reduce_sum", "REDUCE_DTYPE", "gather_blocks", "dim_axes"]

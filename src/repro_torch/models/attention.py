@@ -6,16 +6,21 @@ A backend implements the two serving phases:
   * ``prefill_attention(cfg, q, k, v, positions, len_mask)`` —
     full-sequence causal attention (``prefill`` / ``prefill_into_slot``):
     q (B, S, H, dh), k/v (B, S, K, dh) -> (B, S, H, dh).
-  * ``make_tree_attend(cfg, cache_lens, tree_mask, S_max)`` — returns the
-    per-layer tree-decode closure
+  * ``make_tree_attend(cfg, cache_lens, tree_mask, S_max, layout=None)``
+    — returns the per-layer tree-decode closure
     ``attend(q, k_new, v_new, k_cache, v_cache) -> out`` that writes the T
     draft-slot KV rows at ``cache_len + slot`` of the layer's cache (in
     place, where JAX donates the buffer) and attends the slots against the
     whole cache.
   * ``make_paged_tree_attend(cfg, block_tables, cache_lens, tree_mask,
-    slot_valid=None)`` — the same closure over the paged layout, whose
-    per-layer caches are the (n_blocks, block_size, K, dh) block pool
-    reached through each lane's block table.
+    slot_valid=None, layout=None)`` — the same closure over the paged
+    layout, whose per-layer caches are the (n_blocks, block_size, K, dh)
+    block pool reached through each lane's block table.
+
+``layout`` is the model's ``transformer.Layout`` of the call (None without
+a mesh): where a rank computes every KV head but its query heads read one
+of them (a ``model`` axis that splits a head), the closure writes every
+head and attends against ``layout.kv_for_attention`` of the cache.
 
 Registered here:
 
@@ -102,6 +107,14 @@ def dense_prefill_attention(cfg, q: torch.Tensor, k: torch.Tensor,
     return gqa_attention(q, k, v, causal_prefill_mask(positions, len_mask))
 
 
+def _reader(layout) -> Callable:
+    """The cache heads a rank's queries read (``layout.kv_for_attention``;
+    every head without a layout)."""
+    if layout is None:
+        return lambda x: x
+    return layout.kv_for_attention
+
+
 # ---------------------------------------------------------------- backends
 class AttentionBackend:
     """Base class doubling as the ``dense`` reference backend."""
@@ -113,12 +126,14 @@ class AttentionBackend:
         return dense_prefill_attention(cfg, q, k, v, positions, len_mask)
 
     def make_tree_attend(self, cfg, cache_lens: torch.Tensor,
-                         tree_mask: torch.Tensor, S_max: int) -> Callable:
+                         tree_mask: torch.Tensor, S_max: int,
+                         layout=None) -> Callable:
         full_mask = build_full_tree_mask(cache_lens, tree_mask, S_max)
+        read = _reader(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv(k_cache, v_cache, cache_lens, k, v)
-            return gqa_attention(q, k_cache, v_cache, full_mask,
+            return gqa_attention(q, read(k_cache), read(v_cache), full_mask,
                                  softmax_in_f32=cfg.attn_score_f32)
 
         return attend
@@ -149,7 +164,7 @@ class AttentionBackend:
     def make_paged_tree_attend(self, cfg, block_tables: torch.Tensor,
                                cache_lens: torch.Tensor,
                                tree_mask: torch.Tensor,
-                               slot_valid=None) -> Callable:
+                               slot_valid=None, layout=None) -> Callable:
         """Tree-decode closure over the paged cache.  Reference semantics:
         gather each lane's blocks back into a contiguous (B, S_virtual)
         window and reuse the dense math (the parity oracle of the paged
@@ -162,6 +177,7 @@ class AttentionBackend:
         all_pos = torch.arange(S_virtual, device=full_mask.device)
         flat = paged_row_index(block_tables, all_pos[None].expand(
             B, S_virtual), cfg.kv_block_size).reshape(-1)
+        read = _reader(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv_paged(k_cache, v_cache, slot_rows, k, v)
@@ -170,7 +186,7 @@ class AttentionBackend:
                                                             dh)
             vg = v_cache.view(nb * bs, K, dh)[flat].reshape(B, S_virtual, K,
                                                             dh)
-            return gqa_attention(q, kg, vg, full_mask,
+            return gqa_attention(q, read(kg), read(vg), full_mask,
                                  softmax_in_f32=cfg.attn_score_f32)
 
         return attend
@@ -194,18 +210,20 @@ class CudaBackend(AttentionBackend):
         from repro_torch.kernels.flash_prefill.ops import flash_prefill
         return flash_prefill(q, k, v)
 
-    def make_tree_attend(self, cfg, cache_lens, tree_mask, S_max):
+    def make_tree_attend(self, cfg, cache_lens, tree_mask, S_max,
+                         layout=None):
         from repro_torch.kernels.tree_attention.ops import tree_attention
         full_mask = build_full_tree_mask(cache_lens, tree_mask, S_max)
+        read = _reader(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv(k_cache, v_cache, cache_lens, k, v)
-            return tree_attention(q, k_cache, v_cache, full_mask)
+            return tree_attention(q, read(k_cache), read(v_cache), full_mask)
 
         return attend
 
     def make_paged_tree_attend(self, cfg, block_tables, cache_lens,
-                               tree_mask, slot_valid=None):
+                               tree_mask, slot_valid=None, layout=None):
         """The paged kernel reads each lane's keys through its block table:
         no contiguous per-lane cache is gathered (a CUDA call the kernel
         cannot take raises; it never falls back to the gather)."""
@@ -213,11 +231,12 @@ class CudaBackend(AttentionBackend):
             paged_tree_attention
         full_mask, slot_rows = self._paged_geometry(
             cfg, block_tables, cache_lens, tree_mask, slot_valid)
+        read = _reader(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv_paged(k_cache, v_cache, slot_rows, k, v)
-            return paged_tree_attention(q, k_cache, v_cache, block_tables,
-                                        full_mask)
+            return paged_tree_attention(q, read(k_cache), read(v_cache),
+                                        block_tables, full_mask)
 
         return attend
 

@@ -167,24 +167,31 @@ def moe_local(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
 
 def moe_ep(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
            w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
-           capacity_factor: float, mesh: Mesh, act: Callable = F.silu
-           ) -> torch.Tensor:
-    """Expert-parallel MoE over a (pod?, data, model) mesh.  x (N, D)
-    global, the same on every rank; ``w_router`` whole; the expert weights
-    this rank's E/ep block along ``model``.
+           capacity_factor: float, mesh: Mesh, act: Callable = F.silu,
+           lanes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """Expert-parallel MoE over a (pod?, data, model) mesh.  x (N, D) the
+    same on every rank of the axes not in ``lanes`` (over ``lanes`` each
+    rank holds its own lanes' tokens, as the dense LM's layout splits
+    them); ``w_router`` whole; the expert weights this rank's E/ep block
+    along ``model``.
 
-    Tokens are split over every mesh axis (N padded to a multiple of the
-    mesh size); experts live on ``model``.  Returns the global (N, D)
-    output on every rank."""
+    Tokens are split over every mesh axis but ``lanes`` (N padded to a
+    multiple of their size); experts live on ``model``.  Returns this
+    rank's (N, D) output."""
     N, D = x.shape
-    pad = (-N) % mesh.size
+    dp_axes = tuple(a for a in ("pod", "data", "model")
+                    if a in mesh.shape and a not in lanes)
+    n = 1
+    for a in dp_axes:
+        n *= mesh.shape[a]
+    pad = (-N) % n
     if pad:
         x = torch.cat([x, x.new_zeros((pad, D))], dim=0)
-    dp_axes = tuple(a for a in ("pod", "data", "model") if a in mesh.shape)
     tokens = NamedSharding(mesh, P(dp_axes, None))
     others = tuple(a for a in mesh.axis_names if a != "model")
     wg, wu, wd = (sum_grad(w, mesh, others) for w in (w_gate, w_up, w_down))
-    out = moe_local(shard(x, tokens), sum_grad(w_router, mesh, dp_axes), wg,
+    split = tuple(a for a in mesh.axis_names if a in dp_axes + tuple(lanes))
+    out = moe_local(shard(x, tokens), sum_grad(w_router, mesh, split), wg,
                     wu, wd, top_k, capacity_factor, act,
                     ep_group=(mesh, "model"))
     out = unshard(out, tokens)

@@ -11,8 +11,11 @@ place of the dense FFN ``router`` (L, d, E), ``we_gate``/``we_up``
 
 Under a mesh (``init_params(mesh=)``, ``shard_params``) each tensor lies
 as ``distributed.sharding.placement`` of its ``param_logical_axes`` puts
-it: the expert tensors ``we_*`` are this rank's E/ep block along
-``model``, every other tensor is whole on every rank (ROADMAP A16b).
+it under the rules: its "fsdp" dims split over ``data``, its "tensor"
+dims over ``model`` (the heads of ``wq``/``wk``/``wv``, the rows of
+``wo``, the FFN width, the vocab of ``embed`` and ``lm_head``), the
+expert tensors' E over ``model``, and a dim the axes do not divide whole;
+the norms are whole.  A block holds the bits of the single-device tensor.
 """
 from __future__ import annotations
 
@@ -21,9 +24,9 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import Mesh, placement
+from repro_torch.distributed.sharding import Mesh, active_rules, placement
 from repro_torch.models.transformer import (Params, TransformerConfig,
-                                            param_logical_axes)
+                                            param_logical_axes, param_shapes)
 
 Device = Union[str, torch.device, None]
 
@@ -64,25 +67,7 @@ def params_from_jax(cfg: TransformerConfig, tree: Mapping[str, Any],
 
 
 def _layer_shapes(cfg: TransformerConfig):
-    d, dh, H, K, L = (cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.n_layers)
-    shapes = {"ln1": (L, d), "ln2": (L, d), "wq": (L, d, H * dh),
-              "wk": (L, d, K * dh), "wv": (L, d, K * dh),
-              "wo": (L, H * dh, d)}
-    if cfg.moe:
-        E, F = cfg.n_experts, cfg.moe_d_ff
-        shapes.update(router=(L, d, E), we_gate=(L, E, d, F),
-                      we_up=(L, E, d, F), we_down=(L, E, F, d))
-        if cfg.n_shared_experts:
-            Fs = F * cfg.n_shared_experts
-            shapes.update(ws_gate=(L, d, Fs), ws_up=(L, d, Fs),
-                          ws_down=(L, Fs, d))
-    else:
-        shapes.update(w_gate=(L, d, cfg.d_ff), w_up=(L, d, cfg.d_ff),
-                      w_down=(L, cfg.d_ff, d))
-    if cfg.qkv_bias:
-        shapes.update(bq=(L, H * dh), bk=(L, K * dh), bv=(L, K * dh))
-    return shapes
+    return param_shapes(cfg)["layers"]
 
 
 def _local(block, a: torch.Tensor) -> torch.Tensor:
@@ -96,14 +81,17 @@ def _local(block, a: torch.Tensor) -> torch.Tensor:
 def shard_params(cfg: TransformerConfig, params: Params, mesh: Mesh
                  ) -> Params:
     """Whole parameters (e.g. from ``params_from_jax`` or a checkpoint) as
-    this rank's, each leaf by ``placement`` of its ``param_logical_axes``:
-    the expert tensors sliced to the rank's E/ep block (copies), the rest
+    this rank's, each leaf by ``placement`` of its ``param_logical_axes``
+    under the active rules (``sharding_ctx``; ``DEFAULT_RULES`` outside
+    one): a split leaf sliced to the rank's block (a copy), a whole one
     shared with ``params``."""
+    rules = active_rules()
     axes = param_logical_axes(cfg)
-    out = {k: _local(placement(mesh, axes[k], a.shape), a)
+    out = {k: _local(placement(mesh, axes[k], a.shape, rules), a)
            for k, a in params.items() if k != "layers"}
-    out["layers"] = {k: _local(placement(mesh, axes["layers"][k], a.shape),
-                               a) for k, a in params["layers"].items()}
+    out["layers"] = {k: _local(placement(mesh, axes["layers"][k], a.shape,
+                                         rules), a)
+                     for k, a in params["layers"].items()}
     return out
 
 
@@ -125,15 +113,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     for the dry-run).
 
     With ``mesh``, each tensor keeps only this rank's block under
-    ``placement`` (the expert tensors' E/ep block; the rest whole): every
-    layer is drawn whole, as without a mesh, and sliced, so the block
-    holds the bits of the single-device tensor."""
+    ``placement`` under the active rules (as ``shard_params``): every
+    tensor is drawn whole (an expert tensor a layer at a time), as
+    without a mesh, and sliced, so the block holds the bits of the
+    single-device tensor."""
     dev = resolve_device(device)
     pd = cfg.pdtype
     axes = param_logical_axes(cfg)
+    rules = active_rules()
 
     def block(ax, shape):
-        return placement(mesh, ax, shape) if mesh is not None else None
+        return placement(mesh, ax, shape, rules) if mesh is not None \
+            else None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))

@@ -12,11 +12,23 @@ the dense and the paged KV layout.
     written at cache_len + slot.
   * ``commit_cache`` / ``verify_accept_device`` / ``pack_step_result`` —
     the device epilogue of the fused decode step.
-  * under a mesh (``repro_torch.distributed``): the ``flash_decode`` decode
-    backend's KV cache is this rank's block of ``cache_partition_spec``
-    (``cache_sharding``: ``init_cache``, ``prefill``, ``commit_cache``),
-    and ``moe_impl`` "auto" runs the expert-parallel ``moe_ep``; weights
-    and activations are whole on every rank.
+  * under a mesh (``repro_torch.distributed``): GSPMD's placement written
+    out (``Layout``).  Each rank computes on its parameter blocks
+    (``distributed.sharding.placement``): this rank's query and KV heads
+    (column-parallel ``wq``/``wk``/``wv``), a row-parallel ``wo`` and
+    ``w_down`` followed by an all-reduce over ``model``, a layer's
+    "fsdp" blocks gathered over ``data`` before its products, a
+    vocab-parallel embedding lookup and vocab-sharded logits.  The dense
+    KV cache is this rank's ``batch`` × ``kv_heads`` block
+    (``cache_logical_axes``; the ``flash_decode`` backend's is its block
+    of ``cache_partition_spec``) and the step runs on this rank's lanes;
+    the paged pool is this rank's ``kv_heads`` block, its lanes whole.
+    Inputs are global (every rank passes the same); the cache and the
+    logits that come back are this rank's blocks (``cache_sharding``,
+    ``Layout.logits``).  ``moe_impl`` "auto" runs the expert-parallel
+    ``moe_ep``.  ``lm_loss`` under a mesh takes this rank's lanes and
+    sums the loss over the lanes' ranks; every move has its transpose, so
+    each rank gets the gradient of its parameter blocks.
   * the paged twins (``init_paged_cache``, ``prefill_paged``,
     ``prefill_into_slot_paged``, ``tree_step_paged``,
     ``commit_paged_cache``, ``reset_blocks``), whose KV lives in a block
@@ -34,6 +46,7 @@ every function that writes it also returns it, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -42,8 +55,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.flash_decode import (cache_partition_spec,
                                                   seq_offset, write_rows)
-from repro_torch.distributed.sharding import (NamedSharding, P, dim_axes,
-                                              active_mesh)
+from repro_torch.distributed.sharding import (NamedSharding, P, active_mesh,
+                                              active_rules, dim_axes,
+                                              gather_blocks, logical_spec,
+                                              placement, reduce_sum, shard,
+                                              sum_grad, unshard)
 from repro_torch.models import attention as attn_backends
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ACTS, apply_rope, rms_norm,
@@ -163,11 +179,272 @@ def param_logical_axes(cfg: TransformerConfig) -> Params:
     return out
 
 
+def param_shapes(cfg: TransformerConfig) -> Params:
+    """The global shape of every parameter, in ``param_logical_axes``'
+    structure."""
+    d, dh, H, K, L = (cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.n_layers)
+    layers = {"ln1": (L, d), "ln2": (L, d), "wq": (L, d, H * dh),
+              "wk": (L, d, K * dh), "wv": (L, d, K * dh),
+              "wo": (L, H * dh, d)}
+    if cfg.moe:
+        E, F = cfg.n_experts, cfg.moe_d_ff
+        layers.update(router=(L, d, E), we_gate=(L, E, d, F),
+                      we_up=(L, E, d, F), we_down=(L, E, F, d))
+        if cfg.n_shared_experts:
+            Fs = F * cfg.n_shared_experts
+            layers.update(ws_gate=(L, d, Fs), ws_up=(L, d, Fs),
+                          ws_down=(L, Fs, d))
+    else:
+        layers.update(w_gate=(L, d, cfg.d_ff), w_up=(L, d, cfg.d_ff),
+                      w_down=(L, cfg.d_ff, d))
+    if cfg.qkv_bias:
+        layers.update(bq=(L, H * dh), bk=(L, K * dh), bv=(L, K * dh))
+    out = {"embed": (cfg.vocab_size, d), "ln_f": (d,), "layers": layers}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, cfg.vocab_size)
+    return out
+
+
+# ----------------------------------------------------------- placement (SPMD)
+def _axes_size(mesh, axes: Tuple[str, ...]) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def _block_index(mesh, axes: Tuple[str, ...]) -> int:
+    """This rank's block index along a dim split over ``axes``."""
+    return NamedSharding(mesh, P(axes or None))._index(1)[0]
+
+
+class Layout:
+    """How one call of the model lies on the active mesh for a batch of
+    ``batch`` lanes: GSPMD's partitioning of the reference, written out.
+    Without a mesh every method is the identity and every count whole.
+
+    The compute follows the parameters' ``placement`` under the active
+    rules.  The query heads split where ``wq``'s columns split over the
+    "tensor" axes and H divides; the KV heads where ``wk``'s do and K
+    divides as well.  Where ``wk``'s block would split a head (``model``
+    divides K·dh but not K), ``wk``/``wv`` are gathered whole and every
+    rank computes all K heads (the cache's ``kv_heads`` dim is then whole
+    by the same rule), its query heads reading ``kv_read`` of them.
+    Where ``wq``'s columns split but its heads do not fall on the ranks
+    whole, each rank's on one KV head (H not divisible, or a rank's query
+    heads spanning two KV heads), it raises (ROADMAP A16b).  A
+    row-parallel product (``wo``, ``w_down``, the embedding lookup over a
+    vocab block) is followed by ``reduce_sum`` (in float32), and
+    the input of a product whose ranks do different work passes
+    ``fan_in``, whose transpose sums its gradient over them (Megatron's
+    f and g).
+    ``weight`` turns a leaf into what this rank multiplies: its "tensor"
+    block (sliced from a whole leaf, or gathered where the compute keeps
+    the dim whole) with its "fsdp" dims gathered — the per-layer FSDP
+    gather.  A leaf may be whole or this rank's block under the active
+    rules; anything else raises.  Under autograd a weight's gradient is
+    summed over the lanes' ranks (the FSDP gather's transpose, a
+    reduce-scatter, sums it over ``data``); an FSDP gather over an axis the
+    lanes are not split over (B not divisible) would count the gradient
+    once a rank, and raises instead (ROADMAP A16b).
+
+    The lanes: the dense layout splits them as the cache's ``batch`` dim
+    (``cache_sharding``), and ``local`` / ``gather`` move a global
+    lane-major array to this rank's lanes and back; the paged pool is
+    lane-agnostic, so every rank computes every lane there.  ``logits``
+    is the sharding of the (B, T, V) logits a call returns (lanes, then
+    the vocab block), None where nothing is split."""
+
+    def __init__(self, cfg: TransformerConfig, batch: int,
+                 paged: bool = False):
+        self.mesh, rules = active_mesh(), active_rules()
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        self.q_heads, self.kv_heads = H, K
+        self.kv_read: Optional[Tuple[int, int]] = None
+        self.q_gather: Tuple[str, ...] = ()
+        self.wo_axes = self.ffn_axes = self.vocab_axes = ()
+        self.lane_axes: Tuple[str, ...] = ()
+        self.v0 = 0
+        self.lanes = self.cache = self.logits = None
+        self._whole: Dict[str, torch.Tensor] = {}
+        if self.mesh is None:
+            return
+        mesh = self.mesh
+        axes, shapes = param_logical_axes(cfg), param_shapes(cfg)
+        flat_axes = dict(axes["layers"], **{k: v for k, v in axes.items()
+                                            if k != "layers"})
+        flat_shapes = dict(shapes["layers"], **{
+            k: v for k, v in shapes.items() if k != "layers"})
+        stored = {n: placement(mesh, flat_axes[n], flat_shapes[n],
+                               rules).spec for n in flat_axes}
+
+        def live(entry):                # the entry's axes of size > 1
+            return tuple(a for a in dim_axes(entry) if mesh.shape[a] > 1)
+
+        def split(name, dim):
+            return live(stored[name][dim]) if name in stored else ()
+
+        qa, ka = split("wq", 2), split("wk", 2)
+        n_q = _axes_size(mesh, qa)
+        kv_local = bool(qa) and ka == qa and K % n_q == 0
+        if qa and (H % n_q or not kv_local and (H // K) % (H // n_q)):
+            raise NotImplementedError(
+                f"wq's heads split over {qa} at H {H}, K {K}: a rank's "
+                "query heads are not whole heads on one KV head; placing "
+                "them so is not ported (ROADMAP A16b)")
+        if qa:
+            self.q_heads = H // n_q
+        if kv_local:
+            self.kv_heads = K // n_q
+        elif qa:             # the one KV head its query heads read
+            first = _block_index(mesh, qa) * self.q_heads // (H // K)
+            self.kv_read = (first, first + 1)
+            self.q_gather = qa
+        self.wo_axes = split("wo", 1)
+        self.ffn_axes = split("ws_down" if cfg.moe else "w_down", 1)
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        self.vocab_axes = split(head, 0 if cfg.tie_embeddings else 1)
+        if self.vocab_axes:
+            self.v0 = _block_index(mesh, self.vocab_axes) * (
+                cfg.vocab_size // _axes_size(mesh, self.vocab_axes))
+        heads_split = {"wq": bool(qa), "bq": bool(qa), "wk": kv_local,
+                       "bk": kv_local, "wv": kv_local, "bv": kv_local}
+        self._prep = {}
+        for n, ax in flat_axes.items():
+            lead = 1 if n in axes["layers"] else 0
+            keep = tuple(
+                () if a == "fsdp" or (a == "tensor"
+                                      and not heads_split.get(n, True))
+                else live(e) for a, e in zip(ax, stored[n]))
+            self._prep[n] = (flat_shapes[n][lead:], stored[n][lead:],
+                             keep[lead:], ax[lead:], bool(lead))
+        self.cache = (paged_sharding(cfg) if paged
+                      else cache_sharding(cfg, batch))
+        cache_heads = live(self.cache.spec[3])
+        if cache_heads != (ka if kv_local else ()):
+            raise NotImplementedError(
+                f"the cache's heads lie on {cache_heads} and wk's on "
+                f"{ka if kv_local else ()} under these rules: a layout "
+                "that moves heads between them is not ported")
+        if not paged:
+            self.lane_axes = tuple(a for a in dim_axes(self.cache.spec[1])
+                                   if mesh.shape[a] > 1)
+        if self.lane_axes:
+            self.lanes = NamedSharding(mesh, P(self.lane_axes))
+        if self.lane_axes or self.vocab_axes:
+            self.logits = NamedSharding(mesh, P(self.lane_axes or None, None,
+                                                self.vocab_axes or None))
+
+    # ------------------------------------------------------------ lanes
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's lanes of a global (batch, ...) array."""
+        return x if self.lanes is None else self.lanes.local(x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global (batch, ...) array from every rank's lanes."""
+        return x if self.lanes is None else unshard(x, self.lanes)
+
+    def logits_sharding(self, ndim: int) -> Optional[NamedSharding]:
+        """The sharding of the (batch, [T,] V) logits a call returns."""
+        if self.logits is None or ndim == 3:
+            return self.logits
+        return NamedSharding(self.mesh, P(self.lane_axes or None,
+                                          self.vocab_axes or None))
+
+    # ----------------------------------------------------------- weights
+    def weight(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """Leaf ``name`` (one layer of a stacked leaf) as this rank
+        multiplies it.  A leaf that is not per layer is prepared once a
+        call (the embedding's FSDP gather serves the lookup and the tied
+        unembedding)."""
+        if self.mesh is None:
+            return w
+        if name in self._whole:
+            return self._whole[name]
+        glob, stored, keep, names, layered = self._prep[name]
+        gat, cut, fsdp = [], [], set()
+        for j, (g, s, k) in enumerate(zip(glob, stored, keep)):
+            n = _axes_size(self.mesh, dim_axes(s))
+            if w.shape[j] == g:                         # whole along j
+                gat.append(None)
+                cut.append(k or None)
+            elif n > 1 and w.shape[j] * n == g:         # the stored block
+                gat.append(None if k else tuple(
+                    a for a in dim_axes(s) if self.mesh.shape[a] > 1))
+                cut.append(None)
+                if names[j] == "fsdp":
+                    fsdp.update(gat[-1])
+            else:
+                raise ValueError(
+                    f"parameter {name!r} has shape {tuple(w.shape)} (per "
+                    f"layer): neither whole {tuple(glob)} nor this rank's "
+                    f"block under the active rules ({P(*stored)!r}); place "
+                    "parameters inside the sharding_ctx they are served "
+                    "in (init_params(mesh=) / shard_params)")
+        grad = w.requires_grad and torch.is_grad_enabled()
+        if grad and not fsdp <= set(self.lane_axes):
+            raise NotImplementedError(
+                f"the gradient of {name!r} under a mesh whose lanes are not "
+                f"split over {sorted(fsdp)}: every rank there computes the "
+                "same lanes, and the FSDP gather's reduce-scatter would add "
+                "their gradients (ROADMAP A16b); use a batch that the data "
+                "axes divide")
+        if any(gat):
+            w = gather_blocks(w, NamedSharding(self.mesh, P(*gat)))
+        if any(cut):
+            w = shard(w, NamedSharding(self.mesh, P(*cut)))
+        if grad:
+            w = sum_grad(w, self.mesh, [a for a in self.lane_axes
+                                        if a not in fsdp])
+        if not layered:
+            self._whole[name] = w
+        return w
+
+    def fan_in(self, x: torch.Tensor, axes: Tuple[str, ...]
+               ) -> torch.Tensor:
+        """``x``, replicated over ``axes``, as the input of work that
+        differs between their ranks: the identity, whose transpose sums
+        the gradient over them."""
+        if self.mesh is None or not axes:
+            return x
+        return sum_grad(x, self.mesh, axes)
+
+    def reduce(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """Partial sums over ``axes`` (a row-parallel product) summed."""
+        if self.mesh is None or not axes:
+            return x
+        return reduce_sum(x, self.mesh, axes)
+
+    def attn_out(self, attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        """(B, T, heads, dh) attention output through this rank's rows of
+        ``wo``, summed over the ranks."""
+        B, T = attn.shape[:2]
+        return self.reduce(attn.reshape(B, T, -1) @ wo, self.wo_axes)
+
+    def attend_kw(self) -> Dict[str, "Layout"]:
+        """The backends' ``layout=`` keyword: under a mesh only, so that
+        a backend written for one device needs none."""
+        return {} if self.mesh is None else {"layout": self}
+
+    def kv_for_attention(self, x: torch.Tensor) -> torch.Tensor:
+        """The K or V heads (dim -2) that this rank's query heads read."""
+        if self.kv_read is None:
+            return x
+        return x[..., self.kv_read[0]:self.kv_read[1], :].contiguous()
+
+
 # ------------------------------------------------------------------- layer fwd
-def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor
+def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+         lay: Optional[Layout] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """This rank's query and KV heads (``lay.q_heads``, ``lay.kv_heads``;
+    ``lay`` defaults to the call's ``Layout``, as in every function
+    below)."""
     B, T, _ = h.shape
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    lay = lay or Layout(cfg, B)
+    dh = cfg.dh
+    h = lay.fan_in(h, lay.wo_axes)
     q = h @ lp["wq"]
     k = h @ lp["wk"]
     v = h @ lp["wv"]
@@ -175,14 +452,18 @@ def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    return (q.reshape(B, T, H, dh), k.reshape(B, T, K, dh),
+    K = lay.kv_heads
+    return (q.reshape(B, T, lay.q_heads, dh), k.reshape(B, T, K, dh),
             v.reshape(B, T, K, dh))
 
 
-def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+         lay: Optional[Layout] = None) -> torch.Tensor:
     act = ACTS[cfg.act]
+    lay = lay or Layout(cfg, h.shape[0])
     if not cfg.moe:
-        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], act)
+        return lay.reduce(swiglu(lay.fan_in(h, lay.ffn_axes), lp["w_gate"],
+                                 lp["w_up"], lp["w_down"], act), lay.ffn_axes)
     B, T, d = h.shape
     x = h.reshape(B * T, d)
     mesh = active_mesh()
@@ -196,7 +477,7 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
                              "use 'auto', 'ref' or 'local'")
         y = moe_lib.moe_ep(x, lp["router"], lp["we_gate"], lp["we_up"],
                            lp["we_down"], cfg.top_k, cfg.capacity_factor,
-                           mesh, act)
+                           mesh, act, lanes=lay.lane_axes)
     elif impl == "local":
         y = moe_lib.moe_local(x, lp["router"], lp["we_gate"], lp["we_up"],
                               lp["we_down"], cfg.top_k, cfg.capacity_factor,
@@ -206,114 +487,146 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
                             lp["we_down"], cfg.top_k, act)
     y = y.reshape(B, T, d)
     if cfg.n_shared_experts:
-        y = y + swiglu(h, lp["ws_gate"], lp["ws_up"], lp["ws_down"], act)
+        y = y + lay.reduce(swiglu(lay.fan_in(h, lay.ffn_axes), lp["ws_gate"],
+                                  lp["ws_up"], lp["ws_down"], act),
+                           lay.ffn_axes)
     return y
 
 
 def _layer_self(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
                 positions: torch.Tensor, len_mask: torch.Tensor,
-                want_kv: bool = True):
+                lay: Optional[Layout] = None, want_kv: bool = True):
     """Self-attention layer over the full sequence (train / prefill).
     Returns new hidden states and the (k, v) tensors for cache filling
     (None with ``want_kv=False``: training keeps no cache)."""
+    lay = lay or Layout(cfg, h.shape[0])
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, lp, hn)
+    q, k, v = _qkv(cfg, lp, hn, lay)
     cos, sin = rope_angles(positions, cfg.dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     backend = attn_backends.get_backend(cfg.prefill_backend)
-    attn = backend.prefill_attention(cfg, q, k, v, positions, len_mask)
-    B, T, H, dh = attn.shape
-    h = h + attn.reshape(B, T, H * dh) @ lp["wo"]
-    h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    attn = backend.prefill_attention(cfg, q, lay.kv_for_attention(k),
+                                     lay.kv_for_attention(v), positions,
+                                     len_mask)
+    h = h + lay.attn_out(attn, lp["wo"])
+    h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), lay)
     return h, ((k, v) if want_kv else None)
 
 
 def _layer_tree(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
                 positions: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, attend: Callable) -> torch.Tensor:
+                v_cache: torch.Tensor, attend: Callable,
+                lay: Optional[Layout] = None) -> torch.Tensor:
     """Tree-decode layer: T slots attend to cache + tree siblings.
     ``attend`` (from ``make_tree_attend``) writes the slots' KV into
     ``k_cache``/``v_cache`` in place, then attends."""
-    B, T, _ = h.shape
+    lay = lay or Layout(cfg, h.shape[0])
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, lp, hn)
+    q, k, v = _qkv(cfg, lp, hn, lay)
     cos, sin = rope_angles(positions, cfg.dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attend(q, k, v, k_cache, v_cache)
-    H, dh = cfg.n_heads, cfg.dh
-    h = h + attn.reshape(B, T, H * dh) @ lp["wo"]
-    return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    h = h + lay.attn_out(attn, lp["wo"])
+    return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), lay)
 
 
-def _layer_params(cfg: TransformerConfig, params: Params, i: int) -> Params:
-    """Layer i's weights, floating ones cast to the activation dtype (a
-    no-op when the parameter and activation dtypes agree)."""
-    return {name: (a[i].to(cfg.adtype) if a.is_floating_point() else a[i])
-            for name, a in params["layers"].items()}
+def _layer_params(cfg: TransformerConfig, params: Params, i: int,
+                  lay: Optional[Layout] = None) -> Params:
+    """Layer i's weights as this rank multiplies them (``Layout.weight``),
+    floating ones cast to the activation dtype (a no-op when the
+    parameter and activation dtypes agree)."""
+    lay = lay or Layout(cfg, 1)
+    out = {}
+    for name, a in params["layers"].items():
+        w = lay.weight(name, a[i])
+        out[name] = w.to(cfg.adtype) if w.is_floating_point() else w
+    return out
 
 
 # ----------------------------------------------------------------- full models
-def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor
-           ) -> torch.Tensor:
-    return params["embed"].to(cfg.adtype)[tokens.long()]
+def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+           lay: Optional[Layout] = None) -> torch.Tensor:
+    """The embedding lookup; over a vocab block, rows outside it give 0
+    and the ranks' lookups are summed."""
+    lay = lay or Layout(cfg, tokens.shape[0])
+    emb = lay.weight("embed", params["embed"]).to(cfg.adtype)
+    if not lay.vocab_axes:
+        return emb[tokens.long()]
+    ids = tokens.long() - lay.v0
+    inside = (ids >= 0) & (ids < emb.shape[0])
+    x = emb[ids.clamp(0, emb.shape[0] - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return lay.reduce(x, lay.vocab_axes)
 
 
-def _unembed(cfg: TransformerConfig, params: Params, h: torch.Tensor
-             ) -> torch.Tensor:
-    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+def _unembed(cfg: TransformerConfig, params: Params, h: torch.Tensor,
+             lay: Optional[Layout] = None) -> torch.Tensor:
+    """Logits over this rank's vocab block (the whole vocab without a
+    mesh)."""
+    lay = lay or Layout(cfg, h.shape[0])
+    h = lay.fan_in(rms_norm(h, lay.weight("ln_f", params["ln_f"]),
+                            cfg.norm_eps), lay.vocab_axes)
+    if cfg.tie_embeddings:
+        w = lay.weight("embed", params["embed"]).t()
+    else:
+        w = lay.weight("lm_head", params["lm_head"])
     return h @ w.to(h.dtype)
 
 
 def _self_forward(cfg: TransformerConfig, params: Params,
-                  tokens: torch.Tensor, lens: torch.Tensor, write_kv: Callable
-                  ) -> torch.Tensor:
+                  tokens: torch.Tensor, lens: torch.Tensor, write_kv: Callable,
+                  lay: Layout) -> torch.Tensor:
     """Causal forward over padded prompts; ``write_kv(i, k, v)`` stores
     layer i's (B, S, K, dh) KV.  Returns the last real token's logits."""
     B, S = tokens.shape
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, lay)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     len_mask = positions < lens[:, None]
     for i in range(cfg.n_layers):
-        h, (k, v) = _layer_self(cfg, _layer_params(cfg, params, i), h,
-                                positions, len_mask)
+        h, (k, v) = _layer_self(cfg, _layer_params(cfg, params, i, lay), h,
+                                positions, len_mask, lay)
         write_kv(i, k, v)
     h_last = h[torch.arange(B, device=h.device), lens.long() - 1]
-    return _unembed(cfg, params, h_last)
+    return _unembed(cfg, params, h_last, lay)
 
 
 def _tree_forward(cfg: TransformerConfig, params: Params, cache: Cache,
                   tokens: torch.Tensor, positions: torch.Tensor,
-                  attend: Callable) -> torch.Tensor:
+                  attend: Callable, lay: Layout) -> torch.Tensor:
     """Embed ``tokens`` and run every tree-decode layer against the cache's
     per-layer K/V through ``attend``; returns the last hidden states."""
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, lay)
     for i in range(cfg.n_layers):
-        h = _layer_tree(cfg, _layer_params(cfg, params, i), h, positions,
-                        cache["k"][i], cache["v"][i], attend)
+        h = _layer_tree(cfg, _layer_params(cfg, params, i, lay), h,
+                        positions, cache["k"][i], cache["v"][i], attend, lay)
     return h
 
 
 def _train_hidden(cfg: TransformerConfig, params: Params,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """Embed and run every layer causally over (B, S) tokens, no padding,
-    no cache.  Each stacked weight is unbound once, so its gradient is one
-    stack of the layers' gradients; with ``cfg.remat`` each layer's body
-    is checkpointed (the reference's ``jax.checkpoint``) and recomputed in
-    the backward pass."""
+                  tokens: torch.Tensor, lay: Optional[Layout] = None
+                  ) -> torch.Tensor:
+    """Embed and run every layer causally over (B, S) tokens (this rank's
+    lanes under a mesh), no padding, no cache.  Each stacked weight is
+    unbound once, so its gradient is one stack of the layers' gradients;
+    with ``cfg.remat`` each layer's body is checkpointed (the reference's
+    ``jax.checkpoint``) and recomputed in the backward pass, its FSDP
+    gathers with it."""
     B, S = tokens.shape
-    h = _embed(cfg, params, tokens)
+    lay = lay or Layout(cfg, B)
+    h = _embed(cfg, params, tokens, lay)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     len_mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
     names = list(params["layers"])
     per_layer = [a.unbind(0) for a in params["layers"].values()]
 
     def layer(h, *weights):
-        lp = {n: (w.to(cfg.adtype) if w.is_floating_point() else w)
-              for n, w in zip(names, weights)}
-        return _layer_self(cfg, lp, h, positions, len_mask,
+        lp = {}
+        for n, w in zip(names, weights):
+            w = lay.weight(n, w)
+            lp[n] = w.to(cfg.adtype) if w.is_floating_point() else w
+        return _layer_self(cfg, lp, h, positions, len_mask, lay,
                            want_kv=False)[0]
 
     for i in range(cfg.n_layers):
@@ -328,8 +641,11 @@ def _train_hidden(cfg: TransformerConfig, params: Params,
 
 def train_logits(cfg: TransformerConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V); plain causal, no padding mask."""
-    return _unembed(cfg, params, _train_hidden(cfg, params, tokens))
+    """tokens (B, S) -> logits (B, S, V); plain causal, no padding mask.
+    Under a mesh: this rank's lanes and vocab block (``Layout.logits``)."""
+    lay = Layout(cfg, tokens.shape[0])
+    return _unembed(cfg, params, _train_hidden(cfg, params,
+                                               lay.local(tokens), lay), lay)
 
 
 def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
@@ -340,16 +656,36 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     through ``dense`` (the CUDA kernels have no backward and refuse inputs
     that require grad).  With ``cfg.remat`` the loss head is checkpointed
     too: the (B, S, V) f32 logits are recomputed in the backward pass, not
-    kept."""
-    h = _train_hidden(cfg, params, tokens)
+    kept.
+
+    Under a mesh each rank runs its lanes, gathers its lanes' logits over
+    the vocab, and the NLL sum and the weight over the lanes' ranks
+    (``reduce_sum``): every rank returns the global loss, and backward
+    gives each rank the gradient of its parameter blocks."""
+    B = tokens.shape[0]
+    lay = Layout(cfg, B)
+    h = _train_hidden(cfg, params, lay.local(tokens), lay)
+    labels = lay.local(labels)
+    if loss_mask is not None:
+        loss_mask = lay.local(loss_mask)
+    vocab = (None if not lay.vocab_axes else NamedSharding(
+        lay.mesh, P(None, None, lay.vocab_axes)))
 
     def head(h, labels, mask):
-        logits = _unembed(cfg, params, h)
+        logits = _unembed(cfg, params, h, lay)
+        if vocab is not None:
+            logits = unshard(logits, vocab)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        if lay.mesh is None:
+            if mask is None:
+                return nll.mean()
+            return (nll * mask).sum() / mask.sum().clamp_min(1.0)
         if mask is None:
-            return nll.mean()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+            mask = torch.ones_like(nll)
+        total, weight = (lay.reduce(x.reshape(1), lay.lane_axes)
+                         for x in ((nll * mask).sum(), mask.sum().float()))
+        return (total / weight.clamp_min(1.0))[0]
 
     if cfg.remat:
         return checkpoint(head, h, labels, loss_mask, use_reentrant=False,
@@ -359,15 +695,34 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
 
 def cache_sharding(cfg: TransformerConfig, batch: int
                    ) -> Optional[NamedSharding]:
-    """How the (L, B, S, K, dh) cache lies on the active mesh: this rank's
-    block of ``cache_partition_spec`` when the decode backend is
-    ``flash_decode``, which reads blocks; None (the whole cache on every
-    rank) without a mesh or with another backend, which reads all of it."""
+    """How the dense (L, B, S, K, dh) cache lies on the active mesh: the
+    ``flash_decode`` backend's block of ``cache_partition_spec``, else the
+    ``batch`` × ``kv_heads`` block of ``cache_logical_axes`` under the
+    active rules (an axis that does not divide its dim dropped); None
+    without a mesh."""
     mesh = active_mesh()
-    if mesh is None or cfg.decode_backend != "flash_decode":
+    if mesh is None:
         return None
-    return NamedSharding(mesh, cache_partition_spec(
-        mesh, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.n_heads))
+    if cfg.decode_backend == "flash_decode":
+        spec = cache_partition_spec(mesh, batch, cfg.max_seq_len,
+                                    cfg.n_kv_heads, cfg.n_heads)
+    else:
+        spec = logical_spec((None, "batch", None, "kv_heads", None),
+                            (cfg.n_layers, batch, cfg.max_seq_len,
+                             cfg.n_kv_heads, cfg.dh), mesh, active_rules())
+    return NamedSharding(mesh, spec)
+
+
+def paged_sharding(cfg: TransformerConfig) -> Optional[NamedSharding]:
+    """How the paged (L, n_blocks, block_size, K, dh) pool lies on the
+    active mesh: its ``kv_heads`` block (the pool is lane-agnostic, so
+    every rank holds every block); None without a mesh."""
+    mesh = active_mesh()
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, logical_spec(
+        cache_logical_axes(dataclasses.replace(cfg, kv_layout="paged"))["k"],
+        (1, 1, 1, cfg.n_kv_heads, 1), mesh, active_rules()))
 
 
 def cache_logical_axes(cfg: TransformerConfig) -> Dict[str, Tuple]:
@@ -384,50 +739,104 @@ def cache_logical_axes(cfg: TransformerConfig) -> Dict[str, Tuple]:
             "v": (None, "batch", None, "kv_heads", None)}
 
 
+class CacheBlock(dict):
+    """A dense-layout cache ``{"k", "v"}`` made under a mesh: this rank's
+    block of the global (L, ``batch``, S, K, dh) K and V under
+    ``sharding``.  A block alone cannot tell its global lane count (one
+    lane a rank may be 1 lane whole or ``data`` lanes split), which the
+    calls that take a single lane (``prefill_into_slot`` on one row,
+    ``reset_slot``) need."""
+
+    def __init__(self, tensors: Cache, batch: int, sharding: NamedSharding):
+        super().__init__(tensors)
+        self.batch, self.sharding = batch, sharding
+
+
+def cache_batch(cache: Cache) -> int:
+    """The global lane count of a cache: its block table's rows (paged), a
+    ``CacheBlock``'s ``batch``, else its own lanes (a whole cache)."""
+    if "block_tables" in cache:
+        return cache["block_tables"].shape[0]
+    if isinstance(cache, CacheBlock):
+        return cache.batch
+    if active_mesh() is not None:
+        raise ValueError("under a mesh this call needs the cache that "
+                         "init_cache or prefill made there (a CacheBlock, "
+                         "which knows its global lane count)")
+    return cache["k"].shape[1]
+
+
 def init_cache(cfg: TransformerConfig, batch: int,
                dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None) -> Cache:
     """Zeroed (L, batch, max_seq_len, K, dh) K and V, or this rank's block
-    of them (``cache_sharding``)."""
+    of them (``cache_sharding``) in a ``CacheBlock``."""
     shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.dh)
     sh = cache_sharding(cfg, batch)
-    if sh is not None:
-        shape = sh.shard_shape(shape)
     dt = dtype or cfg.adtype
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    local = shape if sh is None else sh.shard_shape(shape)
+    out = {"k": torch.zeros(local, dtype=dt, device=device),
+           "v": torch.zeros(local, dtype=dt, device=device)}
+    return out if sh is None else CacheBlock(out, batch, sh)
+
+
+def _seq_rows(cache: Cache, sh: Optional[NamedSharding], S: int
+              ) -> Tuple[int, int]:
+    """(first global row of this rank's cache block, how many of the rows
+    [0, S) lie in it)."""
+    if sh is None:
+        return 0, S
+    Sl = cache["k"].shape[2]
+    off = seq_offset(sh.mesh, dim_axes(sh.spec[2]), Sl)
+    return off, max(0, min(Sl, S - off))
+
+
+def _local_lane(lanes: Optional[NamedSharding], batch: int,
+                slot: torch.Tensor):
+    """(this rank's lane index of global lane ``slot``, clamped into its
+    block; a (1,) bool that the lane is this rank's, None where every
+    rank holds every lane)."""
+    if lanes is None:
+        return slot, None
+    Bl = lanes.shard_shape((batch,))[0]
+    local = slot - lanes._index(1)[0] * Bl
+    return local.clamp(0, Bl - 1), (local >= 0) & (local < Bl)
+
+
+def _lane_write(buf: torch.Tensor, dim: int, lane: torch.Tensor,
+                mine: Optional[torch.Tensor], new: torch.Tensor) -> None:
+    """``buf``'s lane ``lane`` along ``dim`` set to ``new`` in place, where
+    ``mine`` (the lane is this rank's; None: always)."""
+    new = new.to(buf.dtype)
+    if mine is not None:
+        keep = mine.view((1,) * dim + (1,) + (1,) * (buf.dim() - dim - 1))
+        new = torch.where(keep, new, buf.index_select(dim, lane))
+    buf.index_copy_(dim, lane, new)
 
 
 def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
             lens: torch.Tensor, cache: Optional[Cache] = None
             ) -> Tuple[Cache, torch.Tensor]:
     """Causal forward over padded prompts; fills cache[:, :, :S] in place
-    (of a sharded cache, the rows of that range in this rank's block).
+    (of a cache block, the rows of that range in this rank's block).
 
     cache=None allocates the cache (S must be max_seq_len).  Returns
-    (cache, last_logits (B, V)) at position lens-1 of each row.
+    (cache, last_logits (B, V)) at position lens-1 of each row: this
+    rank's lanes and vocab block under a mesh (``Layout.logits``).
     """
     B, S = tokens.shape
     if cache is None:
         assert S == cfg.max_seq_len, (S, cfg.max_seq_len)
         cache = init_cache(cfg, B, device=tokens.device)
-    sh = cache_sharding(cfg, B)
-    if sh is not None:          # the rank's lanes and heads, all S rows
-        _, ba, sa, ha, _ = sh.spec
-        lanes_heads = NamedSharding(sh.mesh, P(ba, None, ha, None))
-        Sl = cache["k"].shape[2]
-        off = seq_offset(sh.mesh, dim_axes(sa), Sl)
-        n = max(0, min(Sl, S - off))
+    lay = Layout(cfg, B)
+    off, n = _seq_rows(cache, lay.cache, S)
 
     def write_kv(i, k, v):
-        if sh is None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-            return
-        for name, new in (("k", k), ("v", v)):
-            cache[name][i, :, :n] = lanes_heads.local(new)[:, off:off + n]
+        cache["k"][i, :, :n] = k[:, off:off + n]
+        cache["v"][i, :, :n] = v[:, off:off + n]
 
-    logits = _self_forward(cfg, params, tokens, lens, write_kv)
+    logits = _self_forward(cfg, params, lay.local(tokens), lay.local(lens),
+                           write_kv, lay)
     return cache, logits
 
 
@@ -450,28 +859,48 @@ def prefill_into_slot(cfg: TransformerConfig, params: Params, cache: Cache,
     tokens (1, S) padded prompt; lens (1,) — or (B, S) / (B,) holding the
     request in row ``slot`` and padding in the other rows, computed
     alongside so the forward runs at the cohort prefill's batch shape (on
-    the card a row's rounding depends on it).  Writes KV for positions
-    [0, S) of that lane only (other lanes untouched).  Returns (cache,
-    last_logits (1, V))."""
-    B, S = tokens.shape
+    the card a row's rounding depends on it; under a mesh each rank runs
+    its lanes, as the cohort prefill does).  Writes KV for positions
+    [0, S) of that lane only (other lanes untouched; under a mesh the rank
+    that holds the lane writes it).  Returns (cache, last_logits (1, V)),
+    the vocab block under a mesh."""
+    rows, S = tokens.shape
+    B = rows if rows > 1 else cache_batch(cache)
+    lay = Layout(cfg, B)
     slot = lane_index(slot, tokens.device)
-    row = slot if B > 1 else torch.zeros_like(slot)
+    lane, mine = _local_lane(lay.lanes, B, slot)
+    split = lay.lanes is not None and rows > 1
+    row = (lane if split else slot) if rows > 1 else torch.zeros_like(slot)
+    off, n = _seq_rows(cache, lay.cache, S)
 
     def write_kv(i, k, v):
         for name, new in (("k", k), ("v", v)):
-            buf = cache[name][i, :, :S]
-            buf.index_copy_(0, slot, new.index_select(0, row).to(buf.dtype))
+            _lane_write(cache[name][i, :, :n], 0, lane, mine,
+                        new.index_select(0, row)[:, off:off + n])
 
-    logits = _self_forward(cfg, params, tokens, lens, write_kv)
-    return cache, logits.index_select(0, row)
+    if split:
+        tokens, lens = lay.local(tokens), lay.local(lens)
+    logits = _self_forward(cfg, params, tokens, lens, write_kv, lay)
+    if split:
+        logits = lay.gather(logits)
+    return cache, logits.index_select(0, slot if rows > 1 else row)
 
 
 def reset_slot(cache: Cache, slot: Index) -> Cache:
     """Zero one batch lane (an int or a (1,) int tensor) of the KV cache in
-    place.  Hygiene only: correctness never depends on it (rows >=
-    cache_len are never attended)."""
+    place (of a ``CacheBlock``, on the rank that holds it).  Hygiene only:
+    correctness never depends on it (rows >= cache_len are never
+    attended)."""
+    sh = getattr(cache, "sharding", None)
+    lanes = None
+    if sh is not None and any(sh.mesh.shape[a] > 1
+                              for a in dim_axes(sh.spec[1])):
+        lanes = NamedSharding(sh.mesh, P(sh.spec[1]))
+    batch = cache_batch(cache) if lanes is not None else 0
     for buf in cache.values():
-        buf.index_fill_(1, lane_index(slot, buf.device), 0)
+        lane, mine = _local_lane(lanes, batch, lane_index(slot, buf.device))
+        _lane_write(buf, 1, lane, mine,
+                    torch.zeros_like(buf.index_select(1, lane)))
     return cache
 
 
@@ -483,13 +912,47 @@ def tree_step(cfg: TransformerConfig, params: Params, cache: Cache,
 
     tokens (B, T), positions (B, T), tree_mask (B, T, T) ancestor-closure.
     Writes the slots' KV at cache_len + slot (in place) and returns
-    (cache, logits (B, T, V)).
+    (cache, logits (B, T, V)): this rank's lanes and vocab block under a
+    mesh (``Layout.logits``).
     """
+    lay = Layout(cfg, tokens.shape[0])
+    cache_lens, tokens, positions, tree_mask = (
+        lay.local(x) for x in (cache_lens, tokens, positions, tree_mask))
     S_max = cache["k"].shape[2]
     backend = attn_backends.get_backend(cfg.decode_backend)
-    attend = backend.make_tree_attend(cfg, cache_lens, tree_mask, S_max)
-    h = _tree_forward(cfg, params, cache, tokens, positions, attend)
-    return cache, _unembed(cfg, params, h)
+    attend = backend.make_tree_attend(cfg, cache_lens, tree_mask, S_max,
+                                      **lay.attend_kw())
+    h = _tree_forward(cfg, params, cache, tokens, positions, attend, lay)
+    return cache, _unembed(cfg, params, h, lay)
+
+
+def fused_step(cfg: TransformerConfig, params: Params, cache: Cache,
+               cache_lens: torch.Tensor, tokens: torch.Tensor,
+               positions: torch.Tensor, tree_mask: torch.Tensor,
+               parent: torch.Tensor, n_live: torch.Tensor,
+               choose: Callable) -> Tuple[Cache, torch.Tensor]:
+    """The fused decode step on ``cfg.kv_layout``: the tree step, token
+    choice ``choose(logits, tokens, positions, layout)`` (on this rank's
+    lanes and logits block under a mesh), the device accept walk and the
+    commit.  Returns (cache, packed (B, 1+2T) int32), the packed result
+    gathered over the lanes, so every rank's host reads the same."""
+    paged = cfg.kv_layout == "paged"
+    T = tokens.shape[1]
+    step = tree_step_paged if paged else tree_step
+    cache, logits = step(cfg, params, cache, cache_lens, tokens, positions,
+                         tree_mask)
+    lay = Layout(cfg, tokens.shape[0], paged)
+    tok = lay.local(tokens)
+    chosen = choose(logits, tok, lay.local(positions), lay)
+    n_acc, acc_tok, kv_slots = verify_accept_device(
+        tok, lay.local(parent), lay.local(n_live), chosen)
+    packed = lay.gather(pack_step_result(n_acc, acc_tok, kv_slots))
+    n_acc, kv_slots = packed[:, 0], packed[:, 1 + T:]
+    if paged:
+        cache, _ = commit_paged_cache(cfg, cache, cache_lens, kv_slots, n_acc)
+    else:
+        cache, _ = commit_cache(cache, cache_lens, kv_slots, n_acc, lay.cache)
+    return cache, packed
 
 
 def commit_cache(cache: Cache, cache_lens: torch.Tensor,
@@ -505,13 +968,16 @@ def commit_cache(cache: Cache, cache_lens: torch.Tensor,
     written, as JAX's functional update does: row m+j may be the source of
     a later row (gather[j'] = j for j' > j) and must be read first.
 
-    ``sharding`` (``cache_sharding``) says the cache is this rank's block:
-    an accepted row may lie in another rank's range, so each rank
-    contributes the source rows in its range, zeros elsewhere, one
-    all-reduce (SUM, on the rows' bits as int32: a sum of one row and
+    ``sharding`` (``cache_sharding``; a ``CacheBlock``'s own by default)
+    says the cache is this rank's block: the rank takes its lanes of the
+    global inputs, and an accepted row may lie in another rank's range, so
+    each rank contributes the source rows in its range, zeros elsewhere,
+    one all-reduce (SUM, on the rows' bits as int32: a sum of one row and
     zeros, exact) over the sequence axes gathers them, and each rank
     writes the rows that land in its own range.
     """
+    if sharding is None:
+        sharding = getattr(cache, "sharding", None)
     if sharding is not None:
         return _commit_sharded(cache, cache_lens, gather_idx, n_accept,
                                sharding)
@@ -571,13 +1037,19 @@ def init_paged_cache(cfg: TransformerConfig, lanes: int,
     hold max_seq_len rows) plus the reserved NULL block 0; serving stacks
     pass a smaller pool sized to the workload.  Table entries start at 0
     (the NULL block), where never-attended scatters land harmlessly.
+    Under a mesh the pool is this rank's ``kv_heads`` block
+    (``paged_sharding``) and the tables are whole.
     """
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.dh
     bs, bpl = cfg.kv_block_size, blocks_per_lane(cfg)
     nb = int(n_blocks) if n_blocks else 1 + lanes * bpl
     dt = dtype or cfg.adtype
-    return {"k": torch.zeros((L, nb, bs, K, dh), dtype=dt, device=device),
-            "v": torch.zeros((L, nb, bs, K, dh), dtype=dt, device=device),
+    shape = (L, nb, bs, K, dh)
+    sh = paged_sharding(cfg)
+    if sh is not None:                  # this rank's kv_heads block
+        shape = sh.shard_shape(shape)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
             "block_tables": torch.zeros((lanes, bpl), dtype=torch.int32,
                                         device=device)}
 
@@ -626,7 +1098,8 @@ def prefill_paged(cfg: TransformerConfig, params: Params,
                            cfg.kv_block_size)
     logits = _self_forward(
         cfg, params, tokens, lens,
-        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v))
+        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v),
+        Layout(cfg, B, paged=True))
     return cache, logits
 
 
@@ -648,7 +1121,8 @@ def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
         cfg, params, tokens, lens,
         lambda i, k, v: _scatter_paged_rows(cache, i, rows,
                                             k.index_select(0, row),
-                                            v.index_select(0, row)))
+                                            v.index_select(0, row)),
+        Layout(cfg, B, paged=True))
     return cache, logits.index_select(0, row)
 
 
@@ -703,9 +1177,10 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
     block = torch.zeros((n_rows + 1,), dtype=tokens.dtype, device=dev)
     block[dst] = tokens[0]
     block_pos = torch.arange(Sp, device=dev)[None, :]    # as the admission's
+    lay = Layout(cfg, lanes, paged=True)
     backend = attn_backends.get_backend(cfg.decode_backend)
     attend = backend.make_paged_tree_attend(cfg, bt_row, offset, causal,
-                                            valid)
+                                            valid, **lay.attend_kw())
 
     def attend_suffix(q, k, v, k_cache, v_cache):
         out = attend(*(x.reshape(n_rows, *x.shape[2:])[src][None]
@@ -715,11 +1190,11 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
         return full[:n_rows].view(q.shape)
 
     h = _tree_forward(cfg, params, cache, block[:n_rows].view(lanes, Sp),
-                      block_pos.expand(lanes, Sp), attend_suffix)
+                      block_pos.expand(lanes, Sp), attend_suffix, lay)
     last = slot * Sp + offset.long() + lens.long() - 1              # (1,)
     h_last = torch.zeros((lanes, h.shape[-1]), dtype=h.dtype, device=dev)
     h_last.index_copy_(0, slot, h.reshape(n_rows, -1)[last])
-    return cache, _unembed(cfg, params, h_last).index_select(0, slot)
+    return cache, _unembed(cfg, params, h_last, lay).index_select(0, slot)
 
 
 def copy_paged_block(cache: Cache, src: Index, dst: Index) -> Cache:
@@ -742,12 +1217,15 @@ def tree_step_paged(cfg: TransformerConfig, params: Params, cache: Cache,
     """Lookahead VA forward over the paged cache: the decode backend's
     ``make_paged_tree_attend`` scatters draft-slot KV through the block
     tables and attends against the blocks (dense: a gather; cuda: the
-    paged kernel)."""
+    paged kernel).  Under a mesh every rank runs every lane on its heads;
+    the logits are its vocab block."""
+    lay = Layout(cfg, tokens.shape[0], paged=True)
     backend = attn_backends.get_backend(cfg.decode_backend)
     attend = backend.make_paged_tree_attend(cfg, cache["block_tables"],
-                                            cache_lens, tree_mask)
-    h = _tree_forward(cfg, params, cache, tokens, positions, attend)
-    return cache, _unembed(cfg, params, h)
+                                            cache_lens, tree_mask,
+                                            **lay.attend_kw())
+    h = _tree_forward(cfg, params, cache, tokens, positions, attend, lay)
+    return cache, _unembed(cfg, params, h, lay)
 
 
 def commit_paged_cache(cfg: TransformerConfig, cache: Cache,
@@ -842,9 +1320,11 @@ def pack_step_result(n_acc: torch.Tensor, acc_tokens: torch.Tensor,
 
 
 __all__ = ["TransformerConfig", "Params", "param_logical_axes",
-           "cache_logical_axes", "cache_sharding", "lane_index",
-           "init_cache", "prefill",
-           "prefill_into_slot", "reset_slot", "tree_step", "commit_cache",
+           "param_shapes", "Layout", "CacheBlock",
+           "cache_logical_axes", "cache_sharding", "paged_sharding",
+           "cache_batch", "lane_index", "init_cache", "prefill",
+           "prefill_into_slot", "reset_slot", "tree_step", "fused_step",
+           "commit_cache",
            "verify_accept_device", "pack_step_result", "blocks_per_lane",
            "init_paged_cache", "paged_row_index", "prefill_paged",
            "prefill_into_slot_paged", "prefill_from_offset_paged",

@@ -25,12 +25,16 @@ lane pool mixing greedy and sampled requests).  On a CUDA tensor the sampled
 branch runs the Gumbel-argmax kernel (``kernels/gumbel_argmax``), which
 never materialises the (B, T, V) noise; its plain version is the CPU path
 and the kernel's yardstick.  ``argmax`` takes the first index on a
-tie, as ``jnp.argmax`` does.  The reference's greedy choice under a mesh
-is ``_sharded_argmax`` over vocab-sharded logits; the port's logits are
-whole on every rank (ROADMAP A16b), where it gives plain argmax's answer
-for two all-gathers, so the choosers call ``greedy_choice`` and
-``_sharded_argmax`` waits, held against the reference's, for A16b's
-vocab-sharded lm_head.
+tie, as ``jnp.argmax`` does.
+
+Under a mesh the model's logits are this rank's block: its lanes and its
+vocab block (``models/transformer.Layout.logits``, passed as
+``sharding``).  The greedy choice is then ``_sharded_argmax``, as in the
+reference: each rank's argmax over its vocab block, one all-gather of
+(value, index) pairs over the vocab axes.  The sampled branch draws its
+noise at global vocab indices, so it gathers the logits over the vocab
+axes first (a Gumbel kernel that takes a vocab offset is ROADMAP
+perf work); a session built with ``sampling="greedy"`` never gathers.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import NamedSharding, P, active_mesh
+from repro_torch.distributed.sharding import NamedSharding, P, dim_axes
 from repro_torch.kernels.gumbel_argmax.ops import gumbel_argmax
 from repro_torch.kernels.gumbel_argmax.ref import (  # noqa: F401
     F32_TINY, M32, MIN_TEMP, fold_in, gumbel, gumbel_argmax_ref, random_bits32,
@@ -63,45 +67,57 @@ def greedy_choice(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(dim=-1).int()
 
 
-def _sharded_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """(B, T, V) -> (B, T) int32 argmax over vocab-sharded logits: each
-    rank takes the argmax of its vocab block (and batch block, where the
-    data axes divide B), offsets it, the (tp, B_l, T) values and ids are
-    gathered over ``model`` and the first maximum wins — the first index on
-    a tie, as ``argmax``; the (B, T) result is gathered to every rank.
-    Without a mesh (or a ``model`` axis that divides V) plain argmax.
-    Not on the serving path while the logits are whole (ROADMAP A16b)."""
-    mesh = active_mesh()
-    B, T, V = logits.shape
-    if mesh is None:
+def _vocab_axes(sharding) -> tuple:
+    """The live mesh axes of ``sharding``'s last (vocab) dim."""
+    if sharding is None:
+        return ()
+    return tuple(a for a in dim_axes(sharding.spec[-1])
+                 if sharding.mesh.shape[a] > 1)
+
+
+def _sharded_argmax(logits: torch.Tensor, sharding=None) -> torch.Tensor:
+    """(B, T, V) -> (B, T) int32 argmax over vocab-sharded logits.
+    ``logits`` is this rank's block under ``sharding`` (a
+    ``NamedSharding`` of the global logits; None: whole): each rank takes
+    the argmax of its vocab block, offsets it, the (n, B_l, T) values and
+    ids are gathered over the vocab axes and the first maximum wins — the
+    first index on a tie, as ``argmax``.  Returns this rank's lanes of the
+    (B, T) result (the lanes of ``logits``).  Plain argmax where the vocab
+    is whole."""
+    axes = _vocab_axes(sharding)
+    if not axes:
         return greedy_choice(logits)
-    tp = mesh.shape.get("model", 1)
-    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
-    dp = 1
-    for a in dp_axes:
-        dp *= mesh.shape[a]
-    if tp <= 1 or V % tp:
-        return greedy_choice(logits)
-    ba = dp_axes if (dp > 1 and B % dp == 0) else None
-    lg = NamedSharding(mesh, P(ba, None, "model")).local(logits)
-    li = lg.argmax(dim=-1)
-    lv = lg.gather(-1, li[..., None])[..., 0]
-    gi = li + mesh.axis_index("model") * lg.shape[-1]
-    vs = mesh.all_gather(lv, ("model",))                    # (tp, B_l, T)
-    gs = mesh.all_gather(gi, ("model",))
+    mesh = sharding.mesh
+    li = logits.argmax(dim=-1)
+    lv = logits.gather(-1, li[..., None])[..., 0]
+    nd = logits.dim()
+    block = NamedSharding(mesh, P(*((None,) * (nd - 1)), axes))._index(nd)
+    gi = li + block[-1] * logits.shape[-1]
+    vs = mesh.all_gather(lv, axes)                          # (n, B_l, T)
+    gs = mesh.all_gather(gi, axes)
     w = vs.argmax(dim=0)
-    out = gs.gather(0, w[None])[0].int()
-    return NamedSharding(mesh, P(ba, None)).gather(out)
+    return gs.gather(0, w[None])[0].int()
+
+
+def whole_vocab(logits: torch.Tensor, sharding=None) -> torch.Tensor:
+    """``logits`` (this rank's block under ``sharding``) gathered over the
+    vocab axes: this rank's lanes, every vocab id."""
+    axes = _vocab_axes(sharding)
+    if not axes:
+        return logits
+    return NamedSharding(sharding.mesh, P(*((None,) * (logits.dim() - 1)),
+                                          axes)).gather(logits)
 
 
 def choose_tokens(logits: torch.Tensor, pred_positions: torch.Tensor,
                   sample: bool = False, temperature: float = 1.0,
-                  seed: int = 0) -> torch.Tensor:
+                  seed: int = 0, sharding=None) -> torch.Tensor:
     """logits (B, T, V); pred_positions (B, T) — the output position each
     slot's logits predict.  Returns (B, T) int32 chosen ids: the argmax, or
-    with ``sample`` one Gumbel-argmax draw per row under one seed."""
+    with ``sample`` one Gumbel-argmax draw per row under one seed.
+    ``sharding``: the logits are this rank's block (see module doc)."""
     if not sample:
-        return greedy_choice(logits)
+        return _sharded_argmax(logits, sharding)
     B = logits.shape[0]
     dev = logits.device
     return choose_tokens_lanes(logits, pred_positions, {
@@ -109,27 +125,30 @@ def choose_tokens(logits: torch.Tensor, pred_positions: torch.Tensor,
         "temp": torch.full((B,), float(temperature), dtype=torch.float32,
                            device=dev),
         "seed": torch.full((B,), int(seed) & M32, dtype=torch.int64,
-                           device=dev)})
+                           device=dev)}, sharding)
 
 
 def choose_tokens_lanes(logits: torch.Tensor, pred_positions: torch.Tensor,
-                        lane_params: LaneParams) -> torch.Tensor:
+                        lane_params: LaneParams, sharding=None
+                        ) -> torch.Tensor:
     """Per-lane token choice: lane b argmaxes when ``greedy[b]``, else draws
     by Gumbel-argmax at ``temp[b]`` with the key fold_in(key(seed[b]), p).
 
     logits (B, T, V); pred_positions (B, T) absolute output positions.
     Returns (B, T) int32.  Both branches run and ``where`` selects per lane
     (the lane vectors live on the device: reading them would sync); a
-    session built with ``sampling="greedy"`` calls ``greedy_choice``
-    alone."""
-    arg = greedy_choice(logits)
+    session built with ``sampling="greedy"`` calls ``_sharded_argmax``
+    alone.  Under a mesh (``sharding``) every argument holds this rank's
+    lanes."""
+    arg = _sharded_argmax(logits, sharding)
     greedy = lane_params["greedy"]
-    samp = gumbel_argmax(logits, pred_positions, lane_params["temp"],
-                         lane_params["seed"], greedy)
+    samp = gumbel_argmax(whole_vocab(logits, sharding), pred_positions,
+                         lane_params["temp"], lane_params["seed"], greedy)
     return torch.where(greedy.bool()[:, None], arg, samp)
 
 
 __all__ = ["threefry2x32", "random_key", "fold_in", "random_bits32",
            "uniform_tiny_one", "gumbel", "seed_from_key", "greedy_choice",
            "gumbel_argmax_ref", "choose_tokens", "choose_tokens_lanes",
+           "whole_vocab",
            "LaneParams", "F32_TINY", "MIN_TEMP"]

@@ -28,6 +28,20 @@ buffers and replays: a decode step is one ``cudaGraphLaunch``.
 ``make_session_fns(cuda_graphs=False)`` builds the eager twin (the
 counterpart of ``jax.disable_jit``); CPU sessions always run eagerly.
 
+Under a mesh.  A session built inside ``sharding_ctx(mesh, rules)`` runs
+every member under that context, SPMD: each rank's host runs the same
+scheduler, and each member runs this rank's share of the step
+(``models/transformer.Layout``: its lanes of the dense cache, its heads,
+its vocab block of the logits), then gathers what the host reads — the
+chosen tokens and the packed (B, 1+2T) step result — over the lanes, so
+every rank's host takes the same decisions.  On the paged layout every
+rank runs every lane (the pool is lane-agnostic; exchanging the rows each
+rank wrote is ROADMAP A16b).  Such a session runs eagerly: its
+collectives (gloo) cannot be captured in a CUDA graph.  A
+``logits_transform`` that takes a ``vocab_offset`` keyword is called on
+this rank's vocab block with the block's first id; one that does not is
+called on the logits gathered over the vocab.
+
 Every member exposes ``_cache_size()`` — the number of distinct input-shape
 signatures it has seen (the reference's compiled executables) — so the
 compile-once checks of the serving loop (each member sees one shape per
@@ -39,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import time
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -50,9 +65,12 @@ from repro_torch import kernels
 from repro_torch.core.request import SamplingParams, StepFns
 from repro_torch.models import attention as attn_backends
 from repro_torch.models import transformer as tx
+from repro_torch.distributed.sharding import (NamedSharding, P, active_mesh,
+                                              active_rules, sharding_ctx)
 from repro_torch.models.params import resolve_device
-from repro_torch.serving.sampler import (choose_tokens_lanes, greedy_choice,
-                                         seed_from_key)
+from repro_torch.serving.sampler import (_sharded_argmax, _vocab_axes,
+                                         choose_tokens_lanes, seed_from_key,
+                                         whole_vocab)
 
 MAX_GRAPHS = 4        # graphs a member keeps (least recently used dropped)
 _SEEN = object()      # a key's first call ran eagerly; the next captures
@@ -302,7 +320,8 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
 
     ``cuda_graphs`` (CUDA only): replay each member as a captured CUDA
     graph (the default); False builds the eager twin, the counterpart of
-    ``jax.disable_jit``, for holding the graphs against it.
+    ``jax.disable_jit``, for holding the graphs against it.  A session
+    built under a mesh runs eagerly (see the module doc).
     """
     overrides = {}
     if backend is not None:
@@ -336,8 +355,11 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     params = _to_device(params, dev)
     defaults = SamplingParams(sample=sample, temperature=float(temperature),
                               seed=int(seed)).validate()
-    stream = (torch.cuda.Stream(dev)
-              if cuda_graphs and dev.type == "cuda" else None)
+    mesh, rules = active_mesh(), active_rules()
+    stream = (torch.cuda.Stream(dev) if cuda_graphs and dev.type == "cuda"
+              and mesh is None else None)
+    offset_kw = (logits_transform is not None and "vocab_offset" in
+                 inspect.signature(logits_transform).parameters)
 
     def put(t: torch.Tensor) -> torch.Tensor:
         """Input -> device tensor, host data staged through pinned memory
@@ -349,8 +371,18 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
             t = t.pin_memory()
         return t.to(dev, non_blocking=True)
 
+    def in_mesh(body):
+        """``body`` run under the session's mesh and rules."""
+        if mesh is None:
+            return body
+
+        def run(*args, **kwargs):
+            with sharding_ctx(mesh, rules):
+                return body(*args, **kwargs)
+        return run
+
     def member(name, body, stage=None):
-        return _Member(name, body, stage, put, stream)
+        return _Member(name, in_mesh(body), stage, put, stream)
 
     def lane_inputs(lane_params, n) -> Tuple[torch.Tensor, ...]:
         """The (n,) per-lane vectors (greedy, temp, seed): the caller's, or
@@ -369,21 +401,40 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
                 _host(np.asarray(lane_params["seed"], np.uint32)
                       .astype(np.int64), torch.int64))
 
-    def choose(logits, tokens, pos, lanes):
+    def transform(logits, tokens, pos, sharding):
+        """``logits_transform`` on this rank's block (see the module
+        doc)."""
+        axes = _vocab_axes(sharding)
+        if not axes:
+            return logits_transform(logits, tokens, pos)
+        vocab = NamedSharding(sharding.mesh, P(None, None, axes))
+        if offset_kw:
+            return logits_transform(logits, tokens, pos, vocab_offset=(
+                vocab._index(3)[2] * logits.shape[-1]))
+        return vocab.local(logits_transform(whole_vocab(logits, sharding),
+                                            tokens, pos)).contiguous()
+
+    def choose(logits, tokens, pos, lanes, sharding=None):
         """Token choice for the slots at positions ``pos``: each predicts
-        output position pos + 1."""
+        output position pos + 1.  Under a mesh every argument holds this
+        rank's lanes and ``sharding`` is the logits' (``Layout.logits``)."""
         if logits_transform is not None:
-            logits = logits_transform(logits, tokens, pos)
+            logits = transform(logits, tokens, pos, sharding)
         if not lanes:
-            return greedy_choice(logits)
+            return _sharded_argmax(logits, sharding)
         greedy, temp, seed_ = lanes
         return choose_tokens_lanes(logits, pos + 1, {
-            "greedy": greedy, "temp": temp, "seed": seed_})
+            "greedy": greedy, "temp": temp, "seed": seed_}, sharding)
 
-    def choose_last(tokens, lens, last_logits, lanes):
+    def choose_last(tokens, lens, last_logits, lanes, sharding=None):
         last_tok = tokens.gather(1, (lens - 1)[:, None].long())
         return choose(last_logits[:, None, :], last_tok,
-                      (lens - 1)[:, None], lanes)[:, 0]
+                      (lens - 1)[:, None], lanes, sharding)[:, 0]
+
+    def on_lanes(lay, tokens, pos, lanes):
+        """This rank's lanes of the step's host inputs (``lay.local``)."""
+        return (lay.local(tokens), lay.local(pos),
+                tuple(lay.local(x) for x in lanes))
 
     i32 = functools.partial(_host, dtype=torch.int32)
     paged = cfg.kv_layout == "paged"
@@ -399,8 +450,7 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         # lane count: the cohort prefill's shape, so on the card its rows
         # round as they would in a cohort (and as reference_decode's do)
         slot = int(slot)
-        lanes = (cache["block_tables"].shape[0] if paged
-                 else cache["k"].shape[1])
+        lanes = tx.cache_batch(cache)
         tokens = np.asarray(tokens, np.int32)
         padded = np.full((lanes, tokens.shape[1]), pad_id, np.int32)
         padded[slot] = tokens[0]
@@ -412,9 +462,10 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     def prefill_into_slot(cache, slot, tokens, lens, *lanes):
         cache, last_logits = slot_fn(cfg, params, cache, slot, tokens, lens)
         row = slot.long()
+        lay = tx.Layout(cfg, tokens.shape[0], paged)
         return cache, choose_last(tokens.index_select(0, row),
                                   lens.index_select(0, row), last_logits,
-                                  lanes)
+                                  lanes, lay.logits)
 
     def stage_tree(cache, cache_lens, tokens, pos, mask, *rest,
                    lane_params=None):
@@ -426,17 +477,18 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
     def tree_step(cache, cache_lens, tokens, pos, mask, *lanes):
         cache, logits = tree_fn(cfg, params, cache, cache_lens, tokens, pos,
                                 mask)
-        return cache, choose(logits, tokens, pos, lanes)
+        lay = tx.Layout(cfg, tokens.shape[0], paged)
+        return cache, lay.gather(choose(logits, *on_lanes(lay, tokens, pos,
+                                                          lanes),
+                                        lay.logits))
 
     def fused_step(cache, cache_lens, tokens, pos, mask, parent, n_live,
                    *lanes):
-        cache, logits = tree_fn(cfg, params, cache, cache_lens, tokens, pos,
-                                mask)
-        chosen = choose(logits, tokens, pos, lanes)
-        n_acc, acc_tok, kv_slots = tx.verify_accept_device(
-            tokens, parent, n_live, chosen)
-        cache, _ = commit_fn(cache, cache_lens, kv_slots, n_acc)
-        return cache, tx.pack_step_result(n_acc, acc_tok, kv_slots)
+        return tx.fused_step(
+            cfg, params, cache, cache_lens, tokens, pos, mask, parent,
+            n_live, lambda logits, tok, p, lay: choose(
+                logits, tok, p, tuple(lay.local(x) for x in lanes),
+                lay.logits))
 
     def stage_commit(cache, cache_lens, gather_idx, n_accept):
         return cache, (i32(cache_lens), i32(gather_idx), i32(n_accept))
@@ -474,7 +526,10 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         # graph's pool and every call returns a fresh copy of it
         cache = tx.init_cache(cfg, tokens.shape[0], device=dev)
         cache, last_logits = tx.prefill(cfg, params, tokens, lens, cache)
-        return cache, choose_last(tokens, lens, last_logits, lanes)
+        lay = tx.Layout(cfg, tokens.shape[0])
+        tokens, lens, lanes = on_lanes(lay, tokens, lens, lanes)
+        return cache, lay.gather(choose_last(tokens, lens, last_logits,
+                                             lanes, lay.logits))
 
     def stage_reset_slot(cache, slot):
         return cache, (_index(slot),)
@@ -507,7 +562,9 @@ def _paged_fns(cfg, params, dev, member, lane_inputs, choose, choose_last,
         cache["block_tables"] = block_tables
         cache, last_logits = tx.prefill_paged(cfg, params, tokens, lens,
                                               cache)
-        return cache, choose_last(tokens, lens, last_logits, lanes)
+        return cache, choose_last(tokens, lens, last_logits, lanes,
+                                  tx.Layout(cfg, tokens.shape[0],
+                                            True).logits)
 
     def stage_reset_blocks(cache, block_ids):
         return cache, (i32(block_ids),)
@@ -523,7 +580,8 @@ def _paged_fns(cfg, params, dev, member, lane_inputs, choose, choose_last,
             cfg, params, cache, slot, tokens, offset, slen, prefill_len=cap)
         last_tok = tokens.gather(1, (slen - 1)[:, None].long())
         return cache, choose(last_logits[:, None, :], last_tok,
-                             (offset + slen - 1)[:, None], lanes)[:, 0]
+                             (offset + slen - 1)[:, None], lanes,
+                             tx.Layout(cfg, 1, True).logits)[:, 0]
 
     def stage_copy(cache, src, dst):
         return cache, (_index(src), _index(dst))

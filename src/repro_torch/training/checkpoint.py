@@ -11,10 +11,12 @@ corrupts the latest checkpoint.  The same state saved by either package
 gives the same keys and digest, and restores in the other.
 
 ELASTIC resharding: ``restore(mesh=)`` returns each leaf that has logical
-axes as this rank's block under ``placement`` on that mesh (where the port
-keeps it: the expert tensors' E/ep block, every other leaf whole), whatever
-mesh saved it; ``save(mesh=)`` gathers such blocks from the ranks, and rank
-0 writes the whole arrays.
+axes as this rank's block under ``placement`` on that mesh and the active
+rules (``sharding_ctx``; ``DEFAULT_RULES`` outside one, as in the
+reference: the "fsdp", "tensor" and "expert" dims split, a dim the axes
+do not divide whole), whatever mesh saved it; ``save(mesh=)`` takes such
+blocks with their global shapes, gathers them from the ranks, and rank 0
+writes the whole arrays.
 
 Tensors are pulled to host numpy in ``save``, before a non-blocking write's
 thread starts (as the reference's ``_flatten`` does), so the caller may go
@@ -37,7 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import DEFAULT_RULES, Mesh, placement
+from repro_torch.distributed.sharding import Mesh, active_rules, placement
 
 _NUMPY_DTYPES = (torch.float64, torch.float32, torch.float16, torch.int64,
                  torch.int32, torch.int16, torch.int8, torch.uint8,
@@ -102,16 +104,21 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, tree: Any, *, logical_axes: Any = None,
-             mesh: Optional[Mesh] = None, blocking: bool = True) -> str:
+             mesh: Optional[Mesh] = None, shapes: Any = None,
+             blocking: bool = True) -> str:
         """Write ``tree``; ``logical_axes`` (a tree of per-dim names beside
         it, e.g. ``{"p": param_logical_axes(cfg), "o": None}``) goes into
-        the manifest.  With ``mesh``, every rank calls this: a leaf with
-        axes is this rank's block under ``placement`` on the mesh
-        (``DEFAULT_RULES``; ``init_params(mesh=)`` and ``shard_params``
-        place parameters so); the blocks are gathered and rank 0 writes,
+        the manifest.  With ``mesh``, every rank calls this, and
+        ``shapes`` (a tree of global shapes beside ``tree``, e.g.
+        ``{"p": param_shapes(cfg)}``) gives each leaf with axes its global
+        shape: the leaf must be this rank's block of it under
+        ``placement`` on the mesh by the active rules (as
+        ``init_params(mesh=)`` and ``shard_params`` place parameters), and
+        anything else raises; the blocks are gathered and rank 0 writes,
         the other ranks wait for it when ``blocking``."""
         if mesh is not None:
-            tree = _gather_blocks(tree, _flatten_axes(logical_axes), mesh)
+            tree = _gather_blocks(tree, _flatten_axes(logical_axes), mesh,
+                                  _flatten_axes(shapes) or {})
         flat = _flatten(tree)
         path = os.path.join(self.dir, f"step_{step:010d}")
         if self._async_thread is not None:
@@ -178,13 +185,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                mesh: Optional[Mesh] = None, rules=None) -> Tuple[Any, int]:
+                mesh: Optional[Mesh] = None) -> Tuple[Any, int]:
         """Restore into the structure of ``template`` (its leaves only mark
         where arrays go) as numpy arrays.  With ``mesh`` and saved logical
         axes, each leaf that has axes is this rank's block under
-        ``placement(mesh, axes, shape, rules)``, as ``shard_params`` would
-        cut it — the elastic path: the mesh that saved it does not matter,
-        only the logical names."""
+        ``placement`` by the active rules, as ``shard_params`` would cut it
+        — the elastic path: the mesh that saved it does not matter, only
+        the logical names."""
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"restore(mesh=) takes a repro_torch Mesh, not "
                             f"{type(mesh).__name__}")
@@ -203,12 +210,12 @@ class CheckpointManager:
         tree = _unflatten(data, template)
         axes = manifest.get("logical_axes")
         if mesh is not None and axes:
+            rules = active_rules()
             placed = {}
             for key, leaf in _flatten(tree).items():
                 ax = axes.get(key)
                 placed[key] = leaf if ax is None else np.ascontiguousarray(
-                    placement(mesh, ax, leaf.shape,
-                              rules or DEFAULT_RULES).local(leaf))
+                    placement(mesh, ax, leaf.shape, rules).local(leaf))
             tree = _unflatten(placed, template)
         return tree, step
 
@@ -236,17 +243,31 @@ def _flatten_axes(axes: Any) -> Optional[Dict[str, Any]]:
     return flat
 
 
-def _gather_blocks(tree: Any, axes: Optional[Dict[str, Any]], mesh: Mesh
-                   ) -> Dict[str, np.ndarray]:
+def _gather_blocks(tree: Any, axes: Optional[Dict[str, Any]], mesh: Mesh,
+                   shapes: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The flat global arrays of ``tree``, whose leaves with axes are this
-    rank's blocks under ``placement``: a split block's global shape is its
-    shape times the mesh axes its dims take, and all ranks gather it (in
-    key order)."""
+    rank's blocks of the global ``shapes`` under ``placement`` by the
+    active rules: all ranks gather each split block (in key order).  A
+    leaf without its global shape, or of another shape than its block,
+    raises."""
+    rules = active_rules()
     out = {}
     for key, leaf in _flatten(tree).items():
         ax = (axes or {}).get(key)
         if ax is not None:
-            sh = placement(mesh, ax, None, DEFAULT_RULES)
+            glob = shapes.get(key)
+            if glob is None:
+                raise ValueError(f"checkpoint leaf {key!r}: save(mesh=) "
+                                 "needs its global shape in shapes= (e.g. "
+                                 "param_shapes(cfg))")
+            sh = placement(mesh, ax, tuple(glob), rules)
+            if tuple(leaf.shape) != sh.shard_shape(glob):
+                raise ValueError(
+                    f"checkpoint leaf {key!r} has shape {tuple(leaf.shape)}"
+                    f", not this rank's block {sh.shard_shape(glob)} of "
+                    f"{tuple(glob)} under {sh.spec!r} (the active rules): "
+                    "save the blocks placed inside the sharding_ctx they "
+                    "were placed in")
             if sh.axes():
                 block = torch.as_tensor(leaf, device=mesh.device)
                 leaf = sh.gather(block).cpu().numpy()

@@ -1,19 +1,23 @@
 """The port's multi-rank paths (repro_torch.distributed, ``moe_ep``,
-``_sharded_argmax``, the elastic checkpoint) on the CPU, against the JAX
-package's sharded functions.
+``_sharded_argmax``, the dense LM's placement, the elastic checkpoint) on
+the CPU, against the JAX package's sharded functions.
 
 The rule translation (``logical_spec``, ``_derive_axes``,
 ``cache_partition_spec``) is held against the reference's on stand-in
 meshes that have only ``.shape``.  The sharded programs run in one spawn of
-8 gloo ranks on a (data 4, model 2) mesh (``tests/torch_dist_ranks.py``),
-which checks them against the port's single-device paths; their outputs are
-then held against the reference's ``shard_map`` programs, run once in a JAX
-subprocess with 8 host devices on a mesh with Auto axes (``jax.make_mesh``
-builds Explicit axes under jax 0.9, where the reference's own 8-device
-tests fail).  A second spawn of 4 ranks restores the checkpoint the first
-saved onto (data 2, model 2).
+8 gloo ranks on (data 4, model 2) and (data 2, model 4) meshes
+(``tests/torch_dist_ranks.py``), which checks them against the port's
+single-device paths; their outputs are then held against the reference's
+programs, run once in a JAX subprocess with 8 host devices on meshes with
+Auto axes (``jax.make_mesh`` builds Explicit axes under jax 0.9, where the
+reference's own 8-device tests fail): its ``shard_map`` programs, and its
+prefill, tree step and fused step partitioned by GSPMD from parameters
+placed with ``named_sharding`` under ``DEFAULT_RULES`` or the serve cells'
+``override(fsdp=())``.  A second spawn of 4 ranks restores the checkpoint
+the first saved, and one the JAX package saved, onto (data 2, model 2).
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -96,15 +100,25 @@ def test_logical_axes_of_params_and_cache_equal_the_reference(arch):
             == ref_tx.cache_logical_axes(dataclasses.replace(ref, **change))
 
 
-def test_placement_splits_only_the_expert_dims():
-    """The port's one placement rule: the dims named "expert" split over
-    ``model``, every other logical axis whole (ROADMAP A16b), and E that
-    the ``model`` axis does not divide raises."""
+def test_placement_splits_the_expert_fsdp_and_tensor_dims():
+    """The port's one placement rule: the dims named "expert", "fsdp" and
+    "tensor" split over the mesh axes the rules give them, every other
+    logical axis whole; an axis that does not divide an "fsdp" or
+    "tensor" dim is dropped (that dim whole), as ``logical_spec(shape=)``
+    drops it, and an E that the ``model`` axis does not divide raises."""
     from repro_torch.distributed.sharding import placement
     mesh = _Shape(data=4, model=2)
     assert tuple(placement(mesh, (None, "expert", "fsdp", None)).spec) == (
-        None, "model", None, None)
-    for axes in (("tensor", "fsdp"), ("batch", "tensor"), (None, "kv_seq")):
+        None, "model", "data", None)
+    assert tuple(placement(mesh, ("tensor", "fsdp"), (8, 8)).spec) == (
+        "model", "data")
+    assert tuple(placement(mesh, ("tensor", "fsdp"), (97, 8)).spec) == (
+        None, "data")
+    assert tuple(placement(mesh, (None, "fsdp", "tensor"), (2, 6, 8),
+                           DEFAULT_RULES.override(fsdp=())).spec) == (
+        None, None, "model")
+    for axes in (("batch", "kv_heads"), ("vocab_act", None),
+                 (None, "kv_seq")):
         assert placement(mesh, axes, (8, 8)).spec == (None, None)
     with pytest.raises(ValueError, match="does not split"):
         placement(_Shape(data=1, model=3), (None, "expert", None),
@@ -203,14 +217,147 @@ JAX_REFS = """
     with sharding_ctx(mesh):
         out["argmax"] = np.asarray(jax.jit(_sharded_argmax)(
             jnp.asarray(d["argmax/logits"])))
+    # the dense LM placed by the rules and partitioned by GSPMD: prefill,
+    # a tree step and the fused step on each placement case
+    import json
+    from repro.distributed.sharding import DEFAULT_RULES, named_sharding
+    from repro.serving.sampler import choose_tokens
+    rule_sets = {"default": DEFAULT_RULES,
+                 "serve": DEFAULT_RULES.override(fsdp=())}
+    tp = {n: jnp.asarray(d["tp/" + n]) for n in ("toks", "lens", "tables")}
+    for name, (data, model, rname, V, K, layout, backend) in json.loads(
+            str(d["tp/cases"])).items():
+        mesh = Mesh(np.array(jax.devices()).reshape(data, model),
+                    ("data", "model"))
+        rules = rule_sets[rname]
+        cfg = tx.TransformerConfig(
+            n_layers=2, d_model=64, n_heads=8, n_kv_heads=K, d_ff=128,
+            vocab_size=V, max_seq_len=64, kv_layout=layout, kv_block_size=16,
+            decode_backend="flash_decode" if backend == "flash_decode"
+            else "dense")
+
+        def place(t, ax):
+            if isinstance(t, dict):
+                return {k: place(t[k], ax[k]) for k in t}
+            return jax.device_put(t, named_sharding(mesh, ax, t.shape,
+                                                    rules))
+        params = place(tree(f"w{V}_{K}/params"), tx.param_logical_axes(cfg))
+        args = [jnp.asarray(d[f"w{V}_{K}/{n}"])
+                for n in ("ctoks", "pos", "mask", "parent", "n_live")]
+
+        def run(params, toks, lens, tables, ctoks, pos, mask, parent,
+                n_live):
+            if layout == "paged":
+                cache = tx.init_paged_cache(cfg, 4, 17)
+                cache["block_tables"] = tables
+                cache, l_pre = tx.prefill_paged(cfg, params, toks, lens,
+                                                cache)
+                c1, l_tree = tx.tree_step_paged(cfg, params, cache, lens,
+                                                ctoks, pos, mask)
+            else:
+                cache, l_pre = tx.prefill(cfg, params, toks, lens)
+                c1, l_tree = tx.tree_step(cfg, params, cache, lens, ctoks,
+                                          pos, mask)
+            chosen = choose_tokens(l_tree, pos + 1)
+            n_acc, acc, kvs = tx.verify_accept_device(ctoks, parent, n_live,
+                                                      chosen)
+            if layout == "paged":
+                c2, _ = tx.commit_paged_cache(cfg, c1, lens, kvs, n_acc)
+            else:
+                c2, _ = tx.commit_cache(c1, lens, kvs, n_acc)
+            return (l_pre, cache["k"], cache["v"], l_tree,
+                    tx.pack_step_result(n_acc, acc, kvs), c2["k"], c2["v"])
+        with sharding_ctx(mesh, rules):
+            got = jax.jit(run)(params, tp["toks"], tp["lens"], tp["tables"],
+                               *args)
+        for key, a in zip(("pre_logits", "pre_k", "pre_v", "tree_logits",
+                           "packed", "k", "v"), got):
+            out[f"{name}/{key}"] = np.asarray(a)
     np.savez(sys.argv[2], **out)
 """
 
 
+def _put(d, prefix, t):
+    """A nested dict of arrays into ``d`` under flat ``prefix/...`` keys."""
+    for k, v in t.items():
+        if isinstance(v, dict):
+            _put(d, f"{prefix}/{k}", v)
+        else:
+            d[f"{prefix}/{k}"] = v
+
+
+TREE_PARENT = [-1, 0, 0, 1, 2]
+
+
+def _tree_mask(parent):
+    T = len(parent)
+    m = np.zeros((T, T), bool)
+    for i in range(T):
+        j = i
+        while j >= 0:
+            m[i, j] = True
+            j = parent[j]
+    return m
+
+
+def _placement_inputs(d, rng):
+    """The placement cases' inputs: the reference's ``init_params`` at each
+    (V, K), 4 prompts of 64 tokens (lens 40, 23, 33, 58), the paged block
+    tables (4 blocks of 16 a lane), and per (V, K) a tree step at
+    cache_lens = lens whose tokens the port's single-device step accepts
+    along slots 0, 1, 3 (slot 2 takes a token it does not choose; lane 3
+    is idle)."""
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import params_from_jax
+    d["tp/toks"] = rng.randint(1, 96, (4, 64)).astype(np.int32)
+    d["tp/lens"] = np.array([40, 23, 33, 58], np.int32)
+    d["tp/tables"] = (1 + np.arange(16)).reshape(4, 4).astype(np.int32)
+    d["tp/cases"] = np.array(json.dumps(ranks.TP_CASES))
+    lens = torch.from_numpy(d["tp/lens"])
+    T = len(TREE_PARENT)
+    pos = d["tp/lens"][:, None] + np.array([0, 1, 1, 2, 2], np.int32)
+    mask = np.stack([_tree_mask(TREE_PARENT)] * 4)
+    for V, K in sorted({(c[3], c[4]) for c in ranks.TP_CASES.values()}):
+        jcfg = ref_tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                        n_kv_heads=K, d_ff=128, vocab_size=V,
+                                        max_seq_len=64)
+        params = jax.tree.map(np.asarray, jax.jit(
+            ref_tx.init_params, static_argnums=0)(jcfg,
+                                                  jax.random.key(V + K)))
+        _put(d, f"w{V}_{K}/params", params)
+        cfg = ranks.tp_cfg(V, K)
+        tp = params_from_jax(cfg, params, device="cpu")
+        cache, _ = tx.prefill(cfg, tp, torch.from_numpy(d["tp/toks"]), lens)
+        toks = rng.randint(1, V, (4, T)).astype(np.int32)
+        for _ in range(3):
+            step = {n: c.clone() for n, c in cache.items()}
+            ch = tx.tree_step(cfg, tp, step, lens, torch.from_numpy(toks),
+                              torch.from_numpy(pos), torch.from_numpy(mask)
+                              )[1].argmax(-1).numpy()
+            toks[:, 1:] = np.stack([ch[:, 0], (ch[:, 0] + 1) % V, ch[:, 1],
+                                    ch[:, 2]], 1)
+        for n, a in (("ctoks", toks), ("pos", pos), ("mask", mask),
+                     ("parent", np.array([TREE_PARENT] * 4, np.int32)),
+                     ("n_live", np.array([T, T, T, 0], np.int32))):
+            d[f"w{V}_{K}/{n}"] = a
+
+
+def _guide_inputs(d, rng, vocab=96, phase=2):
+    """The guided bench model's continuation table (benchmarks/common.py)
+    and the served prompts."""
+    g = np.random.RandomState(1000 * phase)
+    base = g.randint(2, vocab, size=(vocab,))
+    spec = g.randint(2, vocab, size=(phase, vocab))
+    shared = g.rand(phase, vocab) < 0.7
+    d["guide/table"] = np.where(shared, base[None, :], spec).astype(np.int32)
+    d["guide/prompts"] = np.array(json.dumps(
+        [rng.randint(2, vocab, size=n).tolist()
+         for n in (9, 14, 6, 11, 7, 12)]))
+
+
 def _inputs():
     """Every input of the spawned ranks and the JAX subprocess, from one
-    numpy seed (the flash cases' weights from the reference's
-    ``init_params``)."""
+    numpy seed (the weights from the reference's ``init_params``)."""
     rng = np.random.RandomState(0)
     d = {}
     for case, K, B, lens in (("a", 4, 4, [10, 7, 33, 58]), ("b", 1, 1, [3])):
@@ -219,14 +366,7 @@ def _inputs():
                                        max_seq_len=64)
         params = jax.tree.map(np.asarray, jax.jit(
             ref_tx.init_params, static_argnums=0)(cfg, jax.random.key(K)))
-
-        def put(prefix, t):
-            for k, v in t.items():
-                if isinstance(v, dict):
-                    put(f"{prefix}/{k}", v)
-                else:
-                    d[f"{prefix}/{k}"] = v
-        put(f"{case}/params", params)
+        _put(d, f"{case}/params", params)
         T = 5
         d[f"{case}/K"] = np.array(K)
         d[f"{case}/k"] = (rng.randn(2, B, 64, K, 8) * 0.3).astype(np.float32)
@@ -257,6 +397,8 @@ def _inputs():
     logits[1, 2, [50, 51, 90]] = 9.0      # inside one block and across
     logits[3, 1, :] = 0.0                 # all equal
     d["argmax/logits"] = logits
+    _placement_inputs(d, rng)
+    _guide_inputs(d, rng)
     return d
 
 
@@ -308,6 +450,21 @@ def spawned(tmp_path_factory):
     directory = str(tmp_path_factory.mktemp("dist"))
     d = _inputs()
     np.savez(os.path.join(directory, "inputs.npz"), **d)
+    from repro.training.checkpoint import CheckpointManager as JaxCkpt
+    jcfg = ref_tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                    n_kv_heads=2, d_ff=128, vocab_size=96,
+                                    max_seq_len=64)
+    params = {}
+    for k, v in d.items():
+        if k.startswith("w96_2/params/"):
+            node = params
+            parts = k[len("w96_2/params/"):].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = jax.numpy.asarray(v)
+    JaxCkpt(os.path.join(directory, "jckpt")).save(
+        5, {"params": params},
+        logical_axes={"params": ref_tx.param_logical_axes(jcfg)})
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     refs_path = os.path.join(directory, "refs.npz")
@@ -422,24 +579,41 @@ def test_sharded_argmax_takes_the_first_maximum(spawned):
     np.testing.assert_array_equal(refs["argmax"], want)
 
 
-def test_init_params_and_shard_params_give_the_expert_blocks(spawned):
-    """Each rank checked its expert blocks bit for bit against the
-    single-device draw, sliced."""
-    assert all(r["params/we_gate_shape"] == (2, 4, 32, 16)
-               for r in spawned["res"])
+def test_init_params_and_shard_params_give_every_leafs_block(spawned):
+    """Each rank checked every leaf of the MoE and the dense config, under
+    ``DEFAULT_RULES`` and the serve rules, bit for bit against the
+    single-device draw sliced by ``placement``: the expert E/ep block, the
+    fsdp × tensor blocks of the dense weights, the norms whole."""
+    for r in spawned["res"]:
+        assert r["params/we_gate_shape"] == (2, 4, 8, 16)
+    r0 = spawned["res"][0]
+    # (data 4, model 2): d 64 over data, the heads and the FFN over model
+    assert r0["params/dense/default/layers/wq"] == (
+        (2, 16, 32), (None, "data", "model"))
+    assert r0["params/dense/serve/layers/wq"] == ((2, 64, 32),
+                                                  (None, None, "model"))
+    assert r0["params/dense/default/layers/wk"] == (
+        (2, 16, 8), (None, "data", "model"))
+    assert r0["params/dense/default/layers/w_down"] == (
+        (2, 64, 16), (None, "model", "data"))
+    assert r0["params/dense/default/embed"] == ((48, 16), ("model", "data"))
+    assert r0["params/dense/serve/layers/ln1"] == ((2, 64), (None, None))
+    assert r0["params/moe/serve/layers/we_down"] == (
+        (2, 4, 16, 32), (None, "model", None, None))
 
 
 def test_checkpoint_saved_on_8_ranks_restores_onto_4(spawned):
     """The twin of the reference's ``test_elastic_checkpoint_reshard_8dev``,
     placed where the port keeps each leaf (``placement``): saved under
     (data 4, model 2), restored under (data 2, model 2).  The leaf with
-    logical axes ("batch", "tensor"), which the reference would restore as
-    (4, 4) blocks, is whole on every rank in the port and written once,
-    whole.  Qwen3-MoE's smoke parameters, drawn with each rank's expert
-    blocks, are written as the single-device arrays; each restoring rank
-    got ``shard_params``' blocks bit for bit and ran the forward through
-    ``moe_ep`` on them, equal to ``moe_ref``'s without a mesh (atol
-    1e-4)."""
+    logical axes ("batch", "tensor") is split over ``model`` along its
+    "tensor" dim ("batch" is no parameter axis; the reference would
+    restore (4, 4) blocks), gathered and written whole.  Qwen3-MoE's smoke
+    parameters, drawn with each rank's fsdp, tensor and expert blocks, are
+    written as the single-device arrays; each restoring rank got
+    ``shard_params``' blocks bit for bit and ran the forward through
+    ``moe_ep`` and the placed dense weights (a head of wk split at model
+    2, K 1) on them, equal to ``moe_ref``'s without a mesh (atol 1e-4)."""
     from repro_torch.distributed.sharding import named_sharding
     from repro_torch.models.params import init_params
     x = np.arange(64.0).reshape(8, 8)
@@ -454,7 +628,8 @@ def test_checkpoint_saved_on_8_ranks_restores_onto_4(spawned):
     E = ranks.ckpt_cfg().n_experts
     for r in spawned["restored"]:
         assert r["step"] == 1
-        np.testing.assert_array_equal(r["w"], x)
+        m = r["coords"]["model"]
+        np.testing.assert_array_equal(r["w"], x[:, 4 * m:4 * (m + 1)])
         assert r["we_gate"][1] == E // 2
         torch.testing.assert_close(r["logits"],
                                    spawned["restored"][0]["logits"],
@@ -462,6 +637,214 @@ def test_checkpoint_saved_on_8_ranks_restores_onto_4(spawned):
     mesh = _Shape(data=2, model=2)
     assert named_sharding(mesh, ("batch", "tensor"), (8, 8)).shard_shape(
         (8, 8)) == (4, 4)
+
+
+def test_checkpoint_save_asks_for_a_shape_its_block_cannot_tell(spawned):
+    """A (97, 8) leaf split over ``data`` along 8 (``model`` does not
+    divide 97) gives (97, 2) blocks, which a (194, 8) leaf split over both
+    axes gives too: ``save(mesh=)`` without the global shapes raises
+    naming ``shapes=``, and with them it writes the whole leaf."""
+    for r in spawned["res"]:
+        assert "shapes=" in r["ckpt_no_shape"]
+    with np.load(os.path.join(spawned["dir"], "ckpt_odd", "step_0000000001",
+                              "arrays.npz")) as npz:
+        np.testing.assert_array_equal(npz["y"],
+                                      np.arange(97 * 8.0).reshape(97, 8))
+
+
+def test_checkpoint_save_refuses_a_leaf_that_is_not_its_block(spawned):
+    """``save(mesh=)`` under ``DEFAULT_RULES`` at (data 4, model 2) refuses
+    a whole (8, 8) leaf with axes ("batch", "tensor"), whose block there
+    is (8, 4) (a whole leaf would once have been written as copies of
+    itself), and the smoke MoE's parameters placed under the serve rules
+    (d whole, where the active rules split it over ``data``): each raises
+    naming the block it expected, and nothing is written."""
+    for r in spawned["res"]:
+        assert "(8, 4)" in r["ckpt_refused/whole"]
+        assert "not this rank's block" in r["ckpt_refused/serve"]
+        assert r["ckpt_refused/written"] == []
+
+
+def test_checkpoint_saved_by_the_jax_package_restores_onto_the_mesh(
+        spawned):
+    """The JAX package's ``CheckpointManager`` saved the V 96, K 2
+    parameters with their logical axes; each of 4 ranks restored them onto
+    (data 2, model 2) under ``DEFAULT_RULES``, equal bit for bit to
+    ``shard_params`` of the same parameters (wq's (2, 32, 32) block)."""
+    for r in spawned["restored"]:
+        assert r["jax_step"] == 5
+        assert r["jax_equal"]
+        assert r["jax_wq"] == (2, 32, 32)
+
+
+def _lane_rows(cache, tables, layout):
+    """A (L, B, S, K, dh) view of a dense cache or a paged pool (read
+    through the block tables)."""
+    if layout != "paged":
+        return cache
+    bs = cache.shape[2]
+    s = np.arange(tables.shape[1] * bs)
+    return cache[:, tables[:, s // bs], s % bs]
+
+
+def _rows_below(cache, limit):
+    """The rows of each lane b below ``limit[b]`` (the rest: garbage that
+    no query attends, the pad rows' K/V from a prefill backend that does
+    not mask them)."""
+    keep = np.arange(cache.shape[2])[None, :] < np.asarray(limit)[:, None]
+    return cache[:, keep]
+
+
+@pytest.mark.parametrize("case", list(ranks.TP_CASES))
+def test_dense_placement_equals_the_reference(spawned, case):
+    """The dense LM placed over the mesh (``ranks.TP_CASES``: (data 4,
+    model 2) and (data 2, model 4), ``DEFAULT_RULES`` and the serve rules,
+    V 97 whole and V 96 split, K 2 at model 4 splitting a head, the dense
+    and paged layouts, flash decode under TP): every rank holds each leaf
+    as its ``placement`` block, and rank 0's gathered prefill logits and
+    cache, tree-step logits and the session's fused step (packed result
+    and committed cache) equal the reference's jitted functions on the
+    Auto mesh with GSPMD-placed parameters, within 3e-5 (the packed
+    result exactly, and alike on every rank)."""
+    data, model, rname, V, K, layout, backend = ranks.TP_CASES[case]
+    res, refs = spawned["res"], spawned["refs"]
+    assert all(r[f"{case}/shapes_ok"] for r in res)
+    r0 = res[0]
+    for key in ("pre_logits", "tree_logits"):
+        np.testing.assert_allclose(r0[f"{case}/{key}"].numpy(),
+                                   refs[f"{case}/{key}"], atol=3e-5,
+                                   err_msg=key)
+    lens, tables = (spawned["inputs"][f"tp/{n}"] for n in ("lens", "tables"))
+    T = len(TREE_PARENT)
+    for key, limit in (("pre_k", lens), ("pre_v", lens), ("k", lens + T),
+                       ("v", lens + T)):
+        got, want = (_rows_below(_lane_rows(c, tables, layout), limit)
+                     for c in (r0[f"{case}/{key}"].numpy(),
+                               refs[f"{case}/{key}"]))
+        np.testing.assert_allclose(got, want, atol=3e-5, err_msg=key)
+    for r in res:
+        assert torch.equal(r[f"{case}/packed"], r0[f"{case}/packed"])
+    np.testing.assert_array_equal(r0[f"{case}/packed"].numpy(),
+                                  refs[f"{case}/packed"])
+    assert r0[f"{case}/packed"][:3, 0].tolist() == [3, 3, 3]
+    H = 8
+    q_heads, kv_heads, kv_read = r0[f"{case}/heads"]
+    assert q_heads == H // model
+    if K % model:             # a head of wk split: every KV head computed
+        assert kv_heads == K and kv_read is not None
+    else:
+        assert kv_heads == K // model and kv_read is None
+    vocab = r0[f"{case}/logits_spec"]
+    assert (vocab is not None and vocab[-1] == "model") == (V % model == 0)
+
+
+@pytest.fixture(scope="module")
+def one_device_streams(spawned):
+    """The guided prompts served by the single-device port and by the JAX
+    engine on the same weights (V 96, K 2)."""
+    from repro.serving import api as japi
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.models.params import params_from_jax
+    from repro_torch.serving import api as tapi
+    d = spawned["inputs"]
+    prompts = json.loads(str(d["guide/prompts"]))
+    ecfg = dict(lanes=ranks.TP_LANES, prefill_len=16, decoding_length=4,
+                branch_length=2,
+                default_params=SamplingParams(max_new_tokens=ranks.SERVE_NEW))
+    tcfg = ranks.tp_cfg(96, 2)
+    jcfg = ref_tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                    n_kv_heads=2, d_ff=128, vocab_size=96,
+                                    max_seq_len=64)
+    flat = {k[len("w96_2/params/"):]: v for k, v in d.items()
+            if k.startswith("w96_2/params/")}
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    table = jax.numpy.asarray(d["guide/table"])
+
+    def j_bias(logits, tokens, positions):
+        nxt = table[positions % table.shape[0], tokens]
+        return logits + 1e4 * jax.nn.one_hot(nxt, 96, dtype=logits.dtype)
+
+    def serve(engine):
+        hs = [engine.submit(list(p), max_new_tokens=ranks.SERVE_NEW)
+              for p in prompts]
+        engine.run()
+        return [[int(t) for t in h.result().tokens] for h in hs]
+
+    port = serve(tapi.build_engine(
+        tapi.EngineConfig(**ecfg), tcfg,
+        params_from_jax(tcfg, tree, device="cpu"),
+        logits_transform=ranks.guided_bias(d["guide/table"]), device="cpu"))
+    ref = serve(japi.build_engine(
+        japi.EngineConfig(**ecfg), jcfg,
+        jax.tree.map(jax.numpy.asarray, tree), logits_transform=j_bias))
+    return port, ref
+
+
+@pytest.mark.parametrize("case", list(ranks.SERVE_CASES))
+def test_greedy_streams_under_the_mesh_equal_one_device_and_jax(
+        spawned, one_device_streams, case):
+    """Guided requests served through ``build_engine`` inside
+    ``sharding_ctx`` (lanes over ``data`` on the dense layout, heads and
+    vocab over ``model``; the guide on each rank's vocab block, or on the
+    vocab the session gathers for it) give the single-device port's
+    tokens and the JAX engine's, in both passes of the requests; each rank
+    checked them equal to ``reference_decode`` under the same mesh (I1),
+    and the second pass, drafting from the first's outputs, took fewer
+    decode steps (its drafts accepted)."""
+    port, ref = one_device_streams
+    assert port == ref
+    for r in spawned["res"]:
+        assert r[f"serve/{case}/1"] == r[f"serve/{case}/2"] == port
+    first, primed = spawned["res"][0][f"serve/{case}/steps"]
+    assert primed < first
+
+
+@pytest.mark.parametrize("case", list(ranks.GRAD_CASES))
+def test_lm_loss_gradient_under_the_mesh_equals_one_device(spawned, case):
+    """``lm_loss`` under the mesh (its lanes over ``data``, the heads, FFN
+    and vocab over ``model``; (data 4, model 2) with ``DEFAULT_RULES``'
+    FSDP and a loss mask, (data 2, model 4) with the serve rules, a split
+    head and remat): every rank's loss is the single-device loss and its
+    gradient of each parameter block is its block of the single-device
+    gradient, within 3e-5."""
+    for r in spawned["res"]:
+        one, mesh = r[f"{case}/loss"]
+        assert abs(one - mesh) < 3e-5
+        assert r[f"{case}/grad_err"] < 3e-5
+        assert r[f"{case}/grad_scale"] > 1e-3
+
+
+def test_lm_loss_refuses_an_fsdp_gradient_without_split_lanes(spawned):
+    """Where the batch does not split over ``data`` every data rank runs
+    the same lanes, and the FSDP gather's reduce-scatter would add their
+    gradients: ``lm_loss`` raises and names ROADMAP A16b instead of a
+    gradient that is silently wrong."""
+    for r in spawned["res"]:
+        assert "A16b" in r["lm_loss_refusal"]
+
+
+@pytest.mark.parametrize("heads,model", [((12, 2), 8), ((12, 3), 2)],
+                         ids=["H12_model8", "G4_span_two_kv"])
+def test_layout_refuses_query_heads_off_one_kv_head(heads, model):
+    """Where ``wq``'s columns split over ``model`` but a rank's query
+    heads are not whole heads on one KV head (H 12 at model 8; H 12, K 3
+    at model 2, 6 query heads a rank over two KV heads), ``Layout``
+    raises, naming ROADMAP A16b: no rank gathers ``wq`` whole."""
+    from repro_torch.distributed.sharding import sharding_ctx
+    from repro_torch.models import transformer as tx
+    H, K = heads
+    cfg = tx.TransformerConfig(n_layers=1, d_model=96, n_heads=H,
+                               n_kv_heads=K, d_ff=128, vocab_size=96,
+                               max_seq_len=16)
+    with sharding_ctx(_Shape(data=1, model=model)):
+        with pytest.raises(NotImplementedError, match="A16b"):
+            tx.Layout(cfg, 4)
 
 
 def test_sharding_ctx_without_a_mesh_changes_nothing():

@@ -1,8 +1,11 @@
 """Rank bodies of ``tests/test_torch_distributed.py``: spawned gloo ranks
 on the CPU that run the port's sharded paths (flash decode, the fused
 step's commit, prefill, ``moe_ep`` and its gradient, ``_sharded_argmax``,
-the expert blocks of ``init_params``/``shard_params``, and a checkpoint
-saved under one mesh and restored under another), check what they can
+the dense LM's placement over (data 4, model 2) and (data 2, model 4) —
+prefill, tree step and the session's fused step on both KV layouts, and
+guided serving through the engine — the parameter blocks of
+``init_params``/``shard_params``, and checkpoints saved under one mesh or
+by the JAX package and restored under another), check what they can
 against the port's single-device paths, and leave their outputs in
 ``<dir>/rank<r>.pt`` for the test to hold against the JAX package's
 sharded functions.  Imports torch and the port only, so a spawned rank
@@ -10,6 +13,8 @@ does not import JAX."""
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import json
 import os
 
 import numpy as np
@@ -17,19 +22,47 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import lm_common
+from repro_torch.core import reference_decode
+from repro_torch.core.request import SamplingParams
 from repro_torch.distributed.flash_decode import cache_partition_spec
-from repro_torch.distributed.sharding import NamedSharding, P, sharding_ctx
+from repro_torch.distributed.sharding import (DEFAULT_RULES, NamedSharding,
+                                              P, placement, sharding_ctx)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe
 from repro_torch.models import transformer as tx
 from repro_torch.models.params import (init_params, params_from_jax,
                                        shard_params, tree_to_torch)
+from repro_torch.serving import api
 from repro_torch.serving.sampler import _sharded_argmax
+from repro_torch.serving.session import make_session_fns
 from repro_torch.training.checkpoint import CheckpointManager
 
 ATOL = 3e-5           # flash decode against dense, as the reference's test
 MOE_ATOL = 1e-4
 COMMIT_ARGS = ("lens", "toks", "pos", "mask", "parent", "n_live")
+TREE_ARGS = ("ctoks", "pos", "mask", "parent", "n_live")
+RULES = {"default": DEFAULT_RULES,
+         "serve": DEFAULT_RULES.override(fsdp=())}   # the serve cells'
+# The dense LM's placement cases: mesh (data, model), rules, V, K, KV
+# layout, decode backend.  V 97 keeps the vocab whole, V 96 splits it; K 2
+# at model 4 splits a head of wk/wv (each rank computes every KV head).
+TP_CASES = {
+    "d42": (4, 2, "default", 97, 4, "dense", "cuda"),
+    "p42": (4, 2, "serve", 96, 4, "paged", "cuda"),
+    "d24": (2, 4, "default", 96, 2, "dense", "cuda"),
+    "p24": (2, 4, "serve", 97, 4, "paged", "cuda"),
+    "f24": (2, 4, "default", 96, 4, "dense", "flash_decode"),
+    "g24": (2, 4, "serve", 97, 2, "dense", "flash_decode"),
+    "s24": (2, 4, "default", 96, 2, "paged", "cuda"),
+}
+TP_LANES, TP_BLOCKS = 4, 17         # 4 lanes of 4 blocks of 16, + NULL
+# guided serving under a mesh: (data, model), rules, KV layout, whether the
+# guide takes the vocab offset (else the session gathers the vocab for it)
+SERVE_CASES = {
+    "d42": (4, 2, "serve", "dense", True),
+    "p24": (2, 4, "default", "paged", False),
+}
+SERVE_NEW = 12
 
 
 def flash_cfg(n_kv_heads: int, backend: str) -> tx.TransformerConfig:
@@ -58,10 +91,39 @@ def ckpt_cfg() -> tx.TransformerConfig:
                                capacity_factor=cfg.n_experts / cfg.top_k)
 
 
+def tp_cfg(V: int, K: int, kv_layout: str = "dense",
+           backend: str = "cuda") -> tx.TransformerConfig:
+    """The flash test's model at vocab V and K KV heads, f32; the cuda
+    backends take their plain versions on the CPU."""
+    return tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                n_kv_heads=K, d_ff=128, vocab_size=V,
+                                max_seq_len=64, prefill_backend="cuda",
+                                decode_backend=backend, kv_layout=kv_layout,
+                                kv_block_size=16)
+
+
+def guided_bias(table: np.ndarray):
+    """The guided bench model's +1e4 bias on the continuation
+    ``table[position % phase, token]``; it takes the first id of a vocab
+    block (``vocab_offset``), so under a mesh it biases the rank's own
+    block."""
+    guide = torch.from_numpy(table).long()
+    phase = guide.shape[0]
+
+    def bias(logits, tokens, positions, vocab_offset=0):
+        nxt = guide[positions.long() % phase, tokens.long()] - vocab_offset
+        inside = (nxt >= 0) & (nxt < logits.shape[-1])
+        return logits.scatter_add(-1, nxt.clamp(0, logits.shape[-1] - 1)[
+            ..., None], (inside * 1e4).to(logits.dtype)[..., None])
+
+    return bias
+
+
 def _init(rank: int, world: int, store: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
 
 
 def _tree(d, prefix):
@@ -95,6 +157,7 @@ def _flash_case(mesh, ins, case, res):
         assert tx.cache_sharding(fcfg, B).spec == spec
         block = {n: sh.local(c).clone() for n, c in cache.items()}
         _, l_flash = tx.tree_step(fcfg, params, block, *args)
+        l_flash = _whole(tx.Layout(fcfg, B).logits, l_flash)
     torch.testing.assert_close(l_flash, l_dense, atol=ATOL, rtol=0)
     for n in ("k", "v"):
         torch.testing.assert_close(block[n], sh.local(dense[n]), atol=ATOL,
@@ -103,6 +166,11 @@ def _flash_case(mesh, ins, case, res):
     res[f"{case}/logits"] = l_flash
     res[f"{case}/k"] = sh.gather(block["k"])
     res[f"{case}/v"] = sh.gather(block["v"])
+
+
+def _whole(sharding, x):
+    """The global tensor of a block (itself where nothing is split)."""
+    return x if sharding is None else sharding.gather(x)
 
 
 def _commit_case(mesh, ins, res):
@@ -134,7 +202,9 @@ def _commit_case(mesh, ins, res):
 
 
 def _prefill_case(mesh, ins, res):
-    """prefill(cache=None) under the mesh keeps this rank's block."""
+    """prefill(cache=None) under the mesh keeps this rank's block, within
+    ATOL of its block of the prefill without a mesh (the heads and the FFN
+    are split over ``model``, whose partial sums add in another order)."""
     cfg = flash_cfg(1, "flash_decode")
     params = params_from_jax(cfg, _tree(ins, "b/params"), device="cpu")
     toks = torch.from_numpy(ins["prefill/toks"])
@@ -143,9 +213,11 @@ def _prefill_case(mesh, ins, res):
     with sharding_ctx(mesh):
         block, l_block = tx.prefill(cfg, params, toks, lens)
         sh = tx.cache_sharding(cfg, 2)
-    assert torch.equal(l_block, l_whole)
+        l_block = _whole(tx.Layout(cfg, 2).logits_sharding(2), l_block)
+    torch.testing.assert_close(l_block, l_whole, atol=ATOL, rtol=0)
     for n in ("k", "v"):
-        assert torch.equal(block[n], sh.local(whole[n])), n
+        torch.testing.assert_close(block[n], sh.local(whole[n]), atol=ATOL,
+                                   rtol=0)
         res[f"prefill/{n}"] = sh.gather(block[n])
     res["prefill/logits"] = l_block
     res["prefill/block_shape"] = tuple(block["k"].shape)
@@ -170,26 +242,237 @@ def _moe_case(mesh, ins, res):
 
 
 def _argmax_case(mesh, ins, res):
+    """The (4, 3, 96) logits as vocab-sharded blocks, the lanes over
+    ``data``: each rank's choice for its lanes, gathered."""
     logits = torch.from_numpy(ins["argmax/logits"])
-    with sharding_ctx(mesh):
-        got = _sharded_argmax(logits)
+    sh = NamedSharding(mesh, P("data", None, "model"))
+    got = _sharded_argmax(sh.local(logits), sh)
+    got = NamedSharding(mesh, P("data", None)).gather(got)
     assert torch.equal(got, logits.argmax(-1).int()), (got, logits.argmax(-1))
     res["argmax"] = got
 
 
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def _params_case(mesh, res):
-    cfg = moe_cfg()
-    whole = init_params(cfg, seed=0, device="cpu")
-    mine = init_params(cfg, seed=0, device="cpu", mesh=mesh)
-    cut = shard_params(cfg, whole, mesh)
-    m = mesh.axis_index("model")
-    El = cfg.n_experts // mesh.shape["model"]
-    for name, a in whole["layers"].items():
-        want = a[:, m * El:(m + 1) * El] if name.startswith("we_") else a
-        assert torch.equal(mine["layers"][name], want), name
-        assert torch.equal(cut["layers"][name], want), name
-    assert torch.equal(mine["embed"], whole["embed"])
-    res["params/we_gate_shape"] = tuple(mine["layers"]["we_gate"].shape)
+    """``init_params(mesh=)`` and ``shard_params`` give every leaf its
+    block under each rule set (the expert E/ep block, the fsdp × tensor
+    blocks of the dense weights, the norms whole), bit for bit the
+    single-device draw's."""
+    for cfg in (moe_cfg(), tp_cfg(96, 2)):
+        whole = init_params(cfg, seed=0, device="cpu")
+        axes, shapes = tx.param_logical_axes(cfg), tx.param_shapes(cfg)
+        flat_axes, flat_shapes = dict(_leaves(axes)), dict(_leaves(shapes))
+        for rname, rules in RULES.items():
+            with sharding_ctx(mesh, rules):
+                mine = dict(_leaves(init_params(cfg, seed=0, device="cpu",
+                                                mesh=mesh)))
+                cut = dict(_leaves(shard_params(cfg, whole, mesh)))
+            for name, a in _leaves(whole):
+                pl = placement(mesh, flat_axes[name], flat_shapes[name],
+                               rules)
+                want = pl.local(a)
+                assert tuple(mine[name].shape) == pl.shard_shape(a.shape)
+                assert torch.equal(mine[name], want), (rname, name)
+                assert torch.equal(cut[name], want), (rname, name)
+                kind = "moe" if cfg.moe else "dense"
+                res[f"params/{kind}/{rname}/{name}"] = (
+                    tuple(mine[name].shape), tuple(pl.spec))
+    res["params/we_gate_shape"] = res["params/moe/default/layers/we_gate"][0]
+
+
+def _tp_case(meshes, ins, name, res):
+    """One placement case (``TP_CASES``): the parameters cut by
+    ``shard_params`` (every leaf's shape its ``placement`` block), the
+    cohort prefill (the dense cache made by ``prefill(cache=None)``, the
+    paged pool through the block tables), a tree step on a copy of that
+    cache, and the session's fused step on it (greedy choice through
+    ``_sharded_argmax``, the sampled branch's vocab gather run alongside,
+    its lanes greedy).  Logits and caches are gathered for the test."""
+    data, model, rname, V, K, layout, backend = TP_CASES[name]
+    mesh, rules = meshes[(data, model)], RULES[rname]
+    cfg = tp_cfg(V, K, layout, backend)
+    paged = layout == "paged"
+    whole = params_from_jax(cfg, _tree(ins, f"w{V}_{K}/params"),
+                            device="cpu")
+    toks, lens, tables = (torch.from_numpy(ins[f"tp/{n}"])
+                          for n in ("toks", "lens", "tables"))
+    tree = {n: ins[f"w{V}_{K}/{n}"] for n in TREE_ARGS}
+    ct = {n: torch.from_numpy(a) for n, a in tree.items()}
+    with sharding_ctx(mesh, rules):
+        params = shard_params(cfg, whole, mesh)
+        axes = dict(_leaves(tx.param_logical_axes(cfg)))
+        shapes = dict(_leaves(tx.param_shapes(cfg)))
+        shapes_ok = all(
+            tuple(a.shape) == placement(mesh, axes[k], shapes[k],
+                                        rules).shard_shape(shapes[k])
+            for k, a in _leaves(params))
+        lay = tx.Layout(cfg, TP_LANES, paged)
+        if paged:
+            cache = tx.init_paged_cache(cfg, TP_LANES, TP_BLOCKS,
+                                        device="cpu")
+            cache["block_tables"] = tables
+            cache, l_pre = tx.prefill_paged(cfg, params, toks, lens, cache)
+            held, step = tx.paged_sharding(cfg), tx.tree_step_paged
+        else:
+            cache, l_pre = tx.prefill(cfg, params, toks, lens)
+            held, step = lay.cache, tx.tree_step
+        res[f"{name}/block"] = tuple(cache["k"].shape)
+        res[f"{name}/pre_logits"] = _whole(lay.logits_sharding(2), l_pre)
+        for n in ("k", "v"):
+            res[f"{name}/pre_{n}"] = held.gather(cache[n])
+        copy = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+        _, l_tree = step(cfg, params, copy, lens, ct["ctoks"], ct["pos"],
+                         ct["mask"])
+        res[f"{name}/tree_logits"] = _whole(lay.logits, l_tree)
+        fns = make_session_fns(cfg, params, slots=ct["ctoks"].shape[1],
+                               device="cpu")
+        cache, packed = fns.fused_step(cache, ins["tp/lens"],
+                                       *(tree[n] for n in TREE_ARGS))
+        res[f"{name}/packed"] = packed
+        for n in ("k", "v"):
+            res[f"{name}/{n}"] = held.gather(cache[n])
+    res[f"{name}/shapes_ok"] = shapes_ok
+    res[f"{name}/heads"] = (lay.q_heads, lay.kv_heads, lay.kv_read)
+    res[f"{name}/logits_spec"] = (None if lay.logits is None
+                                  else tuple(lay.logits.spec))
+
+
+def _serve_case(meshes, ins, name, res):
+    """Guided serving under the mesh through ``api.build_engine`` inside
+    ``sharding_ctx`` (the lanes over ``data`` on the dense layout, the
+    heads and vocab over ``model``), the requests served twice (the second
+    pass drafts from the first's outputs): every output equals
+    ``reference_decode`` through the same session under the same mesh."""
+    data, model, rname, layout, offset = SERVE_CASES[name]
+    mesh, rules = meshes[(data, model)], RULES[rname]
+    cfg = tp_cfg(96, 2)
+    bias = guided_bias(ins["guide/table"])
+    transform = bias if offset else (lambda lg, t, p: bias(lg, t, p))
+    prompts = json.loads(str(ins["guide/prompts"]))
+    with sharding_ctx(mesh, rules):
+        params = shard_params(cfg, params_from_jax(
+            cfg, _tree(ins, "w96_2/params"), device="cpu"), mesh)
+        engine = api.build_engine(api.EngineConfig(
+            lanes=TP_LANES, prefill_len=16, decoding_length=4,
+            branch_length=2, kv_layout=layout, block_size=16,
+            default_params=SamplingParams(max_new_tokens=SERVE_NEW)),
+            cfg, params, logits_transform=transform, device="cpu")
+        steps = []
+        for _ in range(2):     # the second pass drafts from the first's
+            before = engine.stats.decode_steps
+            handles = [engine.submit(list(p), max_new_tokens=SERVE_NEW)
+                       for p in prompts]
+            engine.run()
+            outs = [[int(t) for t in h.result().tokens] for h in handles]
+            steps.append(engine.stats.decode_steps - before)
+            res[f"serve/{name}/{len(steps)}"] = outs
+        refs = [reference_decode(engine.fns, p, SERVE_NEW) for p in prompts]
+    assert outs == refs, (outs, refs)
+    res[f"serve/{name}/steps"] = steps
+
+
+GRAD_CASES = {       # mesh (data, model), rules, remat, with a loss mask
+    "g42": (4, 2, "default", False, True),
+    "g24": (2, 4, "serve", True, False),
+}
+
+
+def _grad_case(meshes, ins, name, res):
+    """``lm_loss`` and its gradient under the mesh (4 lanes of 16 tokens,
+    the dense attention): each rank's gradient of each of its parameter
+    blocks against its block of the single-device gradient, and the loss
+    against the single-device loss."""
+    data, model, rname, remat, masked = GRAD_CASES[name]
+    mesh, rules = meshes[(data, model)], RULES[rname]
+    cfg = dataclasses.replace(tp_cfg(96, 2), prefill_backend="dense",
+                              remat=remat)
+    whole = params_from_jax(cfg, _tree(ins, "w96_2/params"), device="cpu")
+    toks = torch.from_numpy(ins["tp/toks"][:, :17])
+    mask = (torch.arange(16)[None, :] < torch.tensor([[16], [9], [12], [5]])
+            ).float() if masked else None
+
+    def grads(params):
+        params = {k: ({n: a.detach().clone().requires_grad_()
+                       for n, a in v.items()} if isinstance(v, dict)
+                      else v.detach().clone().requires_grad_())
+                  for k, v in params.items()}
+        loss = tx.lm_loss(cfg, params, toks[:, :16], toks[:, 1:], mask)
+        loss.backward()
+        return loss.detach(), dict((k, a.grad) for k, a in _leaves(params))
+
+    loss1, g1 = grads(whole)
+    axes = dict(_leaves(tx.param_logical_axes(cfg)))
+    with sharding_ctx(mesh, rules):
+        loss2, g2 = grads(shard_params(cfg, whole, mesh))
+    err = max((g2[k] - placement(mesh, axes[k], g1[k].shape, rules).local(
+        g1[k])).abs().max().item() for k in g1)
+    res[f"{name}/loss"] = (float(loss1), float(loss2))
+    res[f"{name}/grad_err"] = err
+    res[f"{name}/grad_scale"] = max(g.abs().max().item() for g in g1.values())
+
+
+def _refusals(meshes, res):
+    """``lm_loss``'s gradient where the FSDP gather's axis does not split
+    the lanes (B 2 on data 4): it raises, naming ROADMAP A16b."""
+    cfg = dataclasses.replace(tp_cfg(96, 2), prefill_backend="dense")
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.ones((2, 8), dtype=torch.int32)
+    with sharding_ctx(meshes[(4, 2)]):
+        params = shard_params(cfg, params, meshes[(4, 2)])
+        params["embed"].requires_grad_()
+        try:
+            tx.lm_loss(cfg, params, toks, toks)
+        except NotImplementedError as exc:
+            res["lm_loss_refusal"] = str(exc)
+
+
+def _checkpoint_saves(mesh, directory, res):
+    """``save(mesh=)`` under ``DEFAULT_RULES`` (no ``sharding_ctx``): a
+    leaf split over model (its "batch" dim is no parameter axis) and the
+    smoke MoE's parameters with each rank's blocks, written whole; a
+    (97, 8) leaf's (97, 2) block (also the block of a (194, 8) one)
+    refused without its global shape and written with it; a whole leaf
+    that the rules split, and parameters placed under the serve rules,
+    refused."""
+    x = torch.arange(64.0).reshape(8, 8)
+    cfg = ckpt_cfg()
+    CheckpointManager(os.path.join(directory, "ckpt")).save(
+        1, {"w": NamedSharding(mesh, P(None, "model")).local(x),
+            "p": init_params(cfg, seed=3, device="cpu", mesh=mesh)},
+        logical_axes={"w": ("batch", "tensor"),
+                      "p": tx.param_logical_axes(cfg)},
+        shapes={"w": (8, 8), "p": tx.param_shapes(cfg)}, mesh=mesh)
+    y = torch.arange(97 * 8.0).reshape(97, 8)
+    yb = placement(mesh, ("tensor", "fsdp"), (97, 8)).local(y)
+    odd = CheckpointManager(os.path.join(directory, "ckpt_odd"))
+    try:
+        odd.save(1, {"y": yb}, logical_axes={"y": ("tensor", "fsdp")},
+                 mesh=mesh)
+    except ValueError as exc:
+        res["ckpt_no_shape"] = str(exc)
+    odd.save(1, {"y": yb}, logical_axes={"y": ("tensor", "fsdp")},
+             mesh=mesh, shapes={"y": (97, 8)})
+    with sharding_ctx(mesh, RULES["serve"]):
+        served = init_params(cfg, seed=3, device="cpu", mesh=mesh)
+    refused = CheckpointManager(os.path.join(directory, "ckpt_refused"))
+    for name, tree, axes, shapes in (
+            ("whole", {"w": x}, {"w": ("batch", "tensor")},
+             {"w": (8, 8)}),
+            ("serve", {"p": served}, {"p": tx.param_logical_axes(cfg)},
+             {"p": tx.param_shapes(cfg)})):
+        try:
+            refused.save(1, tree, logical_axes=axes, shapes=shapes,
+                         mesh=mesh)
+        except ValueError as exc:
+            res[f"ckpt_refused/{name}"] = str(exc)
+    res["ckpt_refused/written"] = refused.all_steps()
 
 
 def world8(rank: int, directory: str) -> None:
@@ -206,15 +489,15 @@ def world8(rank: int, directory: str) -> None:
         _moe_case(mesh, ins, res)
         _argmax_case(mesh, ins, res)
         _params_case(mesh, res)
-        # a leaf the port keeps whole on every rank, and the smoke MoE's
-        # parameters with each rank's expert blocks
-        x = torch.arange(64.0).reshape(8, 8)
-        cfg = ckpt_cfg()
-        CheckpointManager(os.path.join(directory, "ckpt")).save(
-            1, {"w": x, "p": init_params(cfg, seed=3, device="cpu",
-                                         mesh=mesh)},
-            logical_axes={"w": ("batch", "tensor"),
-                          "p": tx.param_logical_axes(cfg)}, mesh=mesh)
+        meshes = {(4, 2): mesh, (2, 4): make_host_mesh(data=2, model=4)}
+        for name in TP_CASES:
+            _tp_case(meshes, ins, name, res)
+        for name in SERVE_CASES:
+            _serve_case(meshes, ins, name, res)
+        for name in GRAD_CASES:
+            _grad_case(meshes, ins, name, res)
+        _refusals(meshes, res)
+        _checkpoint_saves(mesh, directory, res)
         torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -224,7 +507,10 @@ def world4(rank: int, directory: str) -> None:
     """The checkpoint of ``world8`` restored onto (data 2, model 2): the
     parameters equal ``shard_params`` of the single-device draw bit for
     bit, and the fused step's forward runs on them through ``moe_ep``
-    (the experts split over ``model``)."""
+    (the experts split over ``model``, the dense weights placed, a head
+    of wk split); then the checkpoint the JAX package saved of the
+    placement cases' V 96, K 2 parameters, restored onto the same mesh,
+    equals ``shard_params`` of them."""
     _init(rank, 4, os.path.join(directory, "store4"))
     try:
         mesh = make_host_mesh(data=2, model=2)
@@ -254,11 +540,24 @@ def world4(rank: int, directory: str) -> None:
 
         ref = forward(whole)                    # moe_ref, no mesh
         with sharding_ctx(mesh):
-            got = forward(params)               # moe_ep
+            got = _whole(tx.Layout(cfg, B).logits, forward(params))  # moe_ep
         torch.testing.assert_close(got, ref, atol=MOE_ATOL, rtol=0)
+        ins = dict(np.load(os.path.join(directory, "inputs.npz")))
+        tcfg = tp_cfg(96, 2)
+        jwhole = params_from_jax(tcfg, _tree(ins, "w96_2/params"),
+                                 device="cpu")
+        jout, jstep = CheckpointManager(os.path.join(directory, "jckpt")
+                                        ).restore({"params": jwhole},
+                                                  mesh=mesh)
+        jwant = dict(_leaves(shard_params(tcfg, jwhole, mesh)))
+        jgot = dict(_leaves(tree_to_torch(jout["params"],
+                                          torch.device("cpu"))))
+        jsame = sorted(jgot) == sorted(jwant) and all(
+            torch.equal(jgot[k], jwant[k]) for k in jwant)
         torch.save({"w": out["w"], "step": saved, "coords": mesh.coords(),
                     "we_gate": tuple(params["layers"]["we_gate"].shape),
-                    "logits": got},
+                    "logits": got, "jax_step": jstep, "jax_equal": jsame,
+                    "jax_wq": tuple(jgot["layers/wq"].shape)},
                    os.path.join(directory, f"restored{rank}.pt"))
     finally:
         dist.destroy_process_group()
