@@ -112,7 +112,8 @@ Phases, in order; any failure exits non-zero:
    prefill's device time and B3's share of it, and a decode step's tree
    attention over ~4,000 keys;
 10. the other archs: AntGLM-10B, Phi-3-mini and Phi-3-medium at full width
-   in bf16 (weights from seed 0, each freed before the next; parameter
+   in bf16, their depth cut to 1/ARCH_DEPTH_DIV (named on a line before
+   each arch's), (weights from seed 0, each freed before the next; parameter
    count and peak memory printed), each served guided on the dense and the
    paged layout (6 requests on 4 lanes, so two are admitted into a lane
    mid-flight; the serve CLI's defaults, captured members): outputs equal
@@ -130,7 +131,8 @@ Phases, in order; any failure exits non-zero:
    archs' shapes too and times them, and holds the Gumbel kernel at the
    sampled arch's vocabulary;
 11. the MoE LMs (``--phases moe``): Qwen3-MoE-30B-A3B and Moonlight-16B-A3B
-   served as the other archs are (``archs_phase``), after two checks of
+   served as the other archs are (``archs_phase``, the depth cut too),
+   after two checks of
    the MoE FFN: the draw (expert tensors a layer at a time) may exceed
    the weights by at most 1.5 GB, and at one layer's full width on layer
    0's weights ``moe_ref`` in bf16 agrees with a per-token f32 formula
@@ -240,7 +242,22 @@ Phases, in order; any failure exits non-zero:
    ``data``, the lanes split over it on the dense layout), Qwen2-1.5B cut
    to DIST_TP_E_LAYERS layers, DIST_TP_E_PROMPTS requests of DIST_TP_E_NEW
    tokens.  B1 and B3 launch on (b) to (e), B2 on (d) and (e), on every
-   rank.
+   rank.  (f) the train step under a mesh (``dist_train_world``): the
+   train CLI (``launch/train.main``, Qwen2-1.5B at full width cut to
+   TRAIN_CLI_LAYERS, f32, its batch 8 x 128) inside ``sharding_ctx`` on 4
+   gloo ranks, mesh (data 2, model 2), under the train_4k rules (FSDP
+   over ``data``, TP and the sequence-parallel residual over ``model``):
+   TRAIN_CLI_STEPS[0] steps with a checkpoint every TRAIN_CLI_EVERY,
+   then resumed on 2 ranks, mesh (data 1, model 2), to TRAIN_CLI_STEPS[1];
+   the parent runs the same two CLI calls on one device (the train
+   phase's, where it ran: ``one_device_cli``)
+   (``dist_train_rule``: every rank's losses alike and within
+   DIST_TRAIN_LOSS_RTOL of one device's, the final checkpoint's moments
+   and parameters within DIST_TRAIN_MOMENT_RTOL / DIST_TRAIN_PARAM_FRAC
+   of one device's, the state a rank holds equal to its ``placement``
+   count to the byte); step times, the collectives' share of a timed
+   step and the peak a rank are printed.  No port kernel launches
+   there.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -280,6 +297,9 @@ PATH_PREFILL = [(4, 128, 12, 2, 128), (1, 128, 12, 2, 128)]  # (B,S,H,K,dh)
 PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
 # the reference's other dense LMs, served at full width by the archs phase
 OTHER_ARCHS = ("antglm-10b", "phi3-mini-3.8b", "phi3-medium-14b")
+# the archs and moe phases serve each arch at full width with its depth cut
+# to half (PR 27: the dist phase's train worlds need the time)
+ARCH_DEPTH_DIV = 2
 # its MoE LMs, served at full width by the moe phase
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 # moe_ref in bf16 at one layer's full width against a per-token f32
@@ -2941,8 +2961,11 @@ def serve_arch(name):
     from repro_torch.core.request import SamplingParams
     from repro_torch.models.params import init_params
     from repro_torch.serving.api import EngineConfig
-    cfg = dataclasses.replace(get_arch(name).full_config(), dtype="bfloat16",
-                              param_dtype="bfloat16")
+    full = get_arch(name).full_config()
+    cfg = dataclasses.replace(full, dtype="bfloat16", param_dtype="bfloat16",
+                              n_layers=full.n_layers // ARCH_DEPTH_DIV)
+    print(f"  [{name}: depth cut to {cfg.n_layers} of {full.n_layers} "
+          "layers]")
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -3684,11 +3707,13 @@ def recsys_phase(gen):
 
 
 # ---------------------------------------------------------------- training
-TRAIN_CLI_STEPS = 20          # the CLI run; it checkpoints at its last step
+TRAIN_CLI_STEPS = (4, 6)      # the CLI run, then its resumed run (the
+                              # one-device side of dist's (f), which reuses
+                              # them in the same process)
+TRAIN_CLI_EVERY = 2           # a checkpoint every 2 steps
 TRAIN_CLI_LAYERS = 4          # the CLI run's depth cut 28 -> 4: its f32
                               # checkpoint (weights and both AdamW moments)
                               # 18.5 -> 5.0 GB
-TRAIN_RESUME_STEPS = 2        # steps the resumed CLI run takes
 # leaves of the checkpoint compared bit for bit with the trained state
 CKPT_SPOT_KEYS = ("p/embed", "p/ln_f", "p/layers/wq", "p/layers/bq", "o/0",
                   "o/1/embed", "o/2/layers/w_down")
@@ -3767,78 +3792,87 @@ def lm_rate(cfg, tokens, secs):
         / ms / 1e9
 
 
-def train_cli_cell():
-    """Qwen2-1.5B at full width through ``launch/train.main`` with its
-    defaults (f32, batch 8, seq 128, dense, lr 3e-4), its depth cut to
-    TRAIN_CLI_LAYERS (the arch module's ``full_config`` patched for the
-    two calls): TRAIN_CLI_STEPS steps and a checkpoint at the last, whose
-    CKPT_SPOT_KEYS arrays must be the trained state's bits; a second
-    ``main`` resumes from it (its restore checks the sha256 of every array
-    it reads against the manifest's, taken from the saved arrays) and
-    takes TRAIN_RESUME_STEPS more.
-    Then the CLI's step on one repeated batch at full depth: the loss must
-    fall by OVERFIT_MARGIN, and these steps are timed."""
+# the train CLI's one-device runs (``one_device_cli``), once a process
+ONE_DEVICE_CLI = {}
+
+
+def one_device_cli():
+    """The train CLI's two calls on one device in this process
+    (``train_cli_cut``, its defaults: f32, batch 8, seq 128, dense, lr
+    3e-4): TRAIN_CLI_STEPS[0] steps with a checkpoint every
+    TRAIN_CLI_EVERY, whose CKPT_SPOT_KEYS arrays at the last must be the
+    trained state's bits, then a second ``main`` that resumes from it (its
+    restore checks the sha256 of every array it reads against the
+    manifest's) to TRAIN_CLI_STEPS[1].  Run once a process: the train
+    phase's CLI cell and dist's (f) share them; the checkpoints stay
+    until the process exits.  Returns each run's numbers and the
+    checkpoint directory."""
+    if ONE_DEVICE_CLI:
+        return ONE_DEVICE_CLI
+    import atexit
     import shutil
     import tempfile
-
-    from repro_torch.configs import qwen2_1_5b
-    from repro_torch.configs.qwen2_1_5b import full_config
-    from repro_torch.launch import train as train_cli
-    from repro_torch.models import transformer as tx
-    from repro_torch.models.params import init_params
-    from repro_torch.training.data import lm_train_batches
-    from repro_torch.training.optimizer import adamw_init
-    from repro_torch.training.train_step import make_train_step
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    qwen2_1_5b.full_config = lambda: dataclasses.replace(
-        full_config(), n_layers=TRAIN_CLI_LAYERS)
-    print(f"  [train CLI: depth cut to {TRAIN_CLI_LAYERS} of 28 layers]")
-    try:
-        argv = ["--device", "cuda", "--ckpt-dir", ckpt, "--ckpt-every",
-                str(TRAIN_CLI_STEPS)]
+    atexit.register(shutil.rmtree, ckpt, True)
+    argv = ["--device", "cuda", "--ckpt-dir", ckpt, "--ckpt-every",
+            str(TRAIN_CLI_EVERY)]
+    runs = []
+    for steps in TRAIN_CLI_STEPS:
         free_card()
-        t0 = time.perf_counter()
-        first = train_cli.main(argv + ["--steps", str(TRAIN_CLI_STEPS)])
-        wall = time.perf_counter() - t0
-        losses = first["losses"]
-        check(sorted(losses) == [1, 10, 20]
-              and all(np.isfinite(v) for v in losses.values()),
-              f"train CLI losses {losses}")
-        path = os.path.join(ckpt, f"step_{TRAIN_CLI_STEPS:010d}")
-        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
-        print(f"  train CLI: {TRAIN_CLI_STEPS} steps in {wall:.1f} s, "
-              f"peak {peak_gb():.2f} GB, loss {losses[1]:.4f} (step 1) "
-              f"{losses[20]:.4f} (step 20); checkpoint {nbytes / 1e9:.2f} "
-              f"GB: pulled in {first['pull_s']:.2f} s, written (the wait "
-              f"at exit) in {first['write_wait_s']:.2f} s")
-        # the saved arrays are the trained state's bits (the restore below
-        # verifies the sha256 of everything it reads against the manifest)
+        run = train_cli_cut(argv + ["--steps", str(steps)])
+        path = os.path.join(ckpt, f"step_{steps:010d}")
+        keep = ("losses", "start", "wall_s", "restore_s", "pull_s",
+                "write_wait_s")
+        runs.append(dict({k: run[k] for k in keep}, peak_gb=peak_gb(),
+                         opt_step=int(run["opt"].step),
+                         ckpt_bytes=os.path.getsize(os.path.join(
+                             path, "arrays.npz"))))
+        # the saved arrays are the trained state's bits
         with np.load(os.path.join(path, "arrays.npz")) as npz:
-            state = {"p": first["params"], "o": first["opt"]}
+            state = {"p": run["params"], "o": run["opt"]}
             for key in CKPT_SPOT_KEYS:
                 leaf = state
                 for part in key.split("/"):
                     leaf = leaf[int(part) if part.isdigit() else part]
                 check(np.array_equal(npz[key], leaf.cpu().numpy()),
                       f"checkpoint {key} differs from the trained state")
-        del state, first
-        free_card()
-        second = train_cli.main(
-            argv + ["--steps", str(TRAIN_CLI_STEPS + TRAIN_RESUME_STEPS)])
-        check(second["start"] == TRAIN_CLI_STEPS
-              and int(second["opt"].step) == TRAIN_CLI_STEPS
-              + TRAIN_RESUME_STEPS
-              and np.isfinite(second["losses"][TRAIN_CLI_STEPS + 1]),
-              f"resume: start {second['start']}, losses "
-              f"{second['losses']}")
-        print(f"  resumed at step {second['start']}: restored (read, "
-              f"verified, on the card) in {second['restore_s']:.2f} s, "
-              f"loss {second['losses'][TRAIN_CLI_STEPS + 1]:.4f} at step "
-              f"{TRAIN_CLI_STEPS + 1}")
-        del second
-    finally:
-        qwen2_1_5b.full_config = full_config
-        shutil.rmtree(ckpt, ignore_errors=True)
+        del state, run
+    free_card()
+    ONE_DEVICE_CLI.update(runs=runs, dir=ckpt)
+    return ONE_DEVICE_CLI
+
+
+def train_cli_cell():
+    """Qwen2-1.5B at full width through ``launch/train.main`` with its
+    defaults, its depth cut to TRAIN_CLI_LAYERS: ``one_device_cli``'s two
+    calls (a checkpoint every TRAIN_CLI_EVERY steps, resumed).
+    Then the CLI's step on one repeated batch at full depth: the loss must
+    fall by OVERFIT_MARGIN, and these steps are timed."""
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import lm_train_batches
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    print(f"  [train CLI: depth cut to {TRAIN_CLI_LAYERS} of 28 layers]")
+    first, second = one_device_cli()["runs"]
+    n0, n1 = TRAIN_CLI_STEPS
+    check(sorted(first["losses"]) == [1] and first["start"] == 0
+          and np.isfinite(first["losses"][1]), f"train CLI: losses "
+                                               f"{first['losses']}")
+    print(f"  train CLI: {n0} steps in {first['wall_s']:.1f} s, peak "
+          f"{first['peak_gb']:.2f} GB, loss {first['losses'][1]:.4f} (step "
+          f"1); checkpoints every {TRAIN_CLI_EVERY} steps, "
+          f"{first['ckpt_bytes'] / 1e9:.2f} GB: the last pulled in "
+          f"{first['pull_s']:.2f} s, written (the wait at exit) in "
+          f"{first['write_wait_s']:.2f} s")
+    check(second["start"] == n0 and second["opt_step"] == n1
+          and np.isfinite(second["losses"][n0 + 1]),
+          f"resume: start {second['start']}, losses {second['losses']}")
+    print(f"  resumed at step {second['start']}: restored (read, verified, "
+          f"on the card) in {second['restore_s']:.2f} s, loss "
+          f"{second['losses'][n0 + 1]:.4f} at step {n0 + 1}; {n1 - n0} "
+          f"steps and a checkpoint in {second['wall_s']:.1f} s")
 
     free_card()
     cfg = dataclasses.replace(full_config(), prefill_backend="dense")
@@ -4969,6 +5003,21 @@ DIST_STATE_STEPS = 3          # (d), (e): guided session steps before the
                               # unguided one whose logits are held
 DIST_MOE_TP_LAYERS = 4        # (c)'s serve-rules step: Qwen3-MoE's depth
                               # cut 48 -> 4
+# (f) against one device, both f32.  The losses (steps 1 and 5) to a
+# relative 1e-5: the same sums in another order differ by ~1e-7, and after
+# 4 updates of lr 3e-4 a lost or doubled update moves the loss by ~1e-4
+# relative or more.  The final checkpoint's moments to an RMS difference of
+# 1e-3 of their RMS: they follow the gradients (~1e-6 apart), and a clip
+# factor or a gradient wrong on some blocks moves them by its error.  Its
+# parameters to an RMS difference of 1e-2 of the most the updates can move
+# them (lr x steps, Adam's step being at most ~lr an element): they differ
+# only where Adam's lr * g / (|g| + eps) turns on a gradient near eps,
+# while a missed or doubled update moves them by ~lr a step (Adam's step
+# does not see a gradient's scale: the moments check the clip)
+DIST_TRAIN_LOSS_RTOL = 1e-5
+DIST_TRAIN_MOMENT_RTOL = 1e-3
+DIST_TRAIN_PARAM_FRAC = 1e-2
+DIST_TRAIN_LR = 3e-4          # the CLI's default
 
 
 def dist_rank(rank, name, world, backend, directory, *args):
@@ -4987,15 +5036,16 @@ def dist_rank(rank, name, world, backend, directory, *args):
         rank=rank, world_size=world,
         device_id=torch.device("cuda:0") if backend == "nccl" else None)
     try:
-        out = globals()[name](rank)
+        out = globals()[name](rank, *args)
         torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def dist_spawn(name, world, backend):
-    """Spawn ``world`` ranks running ``name`` (see ``dist_rank``) once the
-    parent's cached memory is freed; returns each rank's result."""
+def dist_spawn(name, world, backend, *args):
+    """Spawn ``world`` ranks running ``name(rank, *args)`` (see
+    ``dist_rank``) once the parent's cached memory is freed; returns each
+    rank's result."""
     import shutil
     import tempfile
     import torch.multiprocessing as tmp
@@ -5005,7 +5055,7 @@ def dist_spawn(name, world, backend):
     t0 = time.perf_counter()
     try:
         tmp.start_processes(dist_rank, args=(name, world, backend,
-                                             directory),
+                                             directory) + args,
                             nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(directory, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]
@@ -5855,6 +5905,215 @@ def state_rule(label, res):
     return out
 
 
+def train_cli_cut(argv):
+    """``launch/train.main(argv)`` on Qwen2-1.5B at full width, its depth
+    cut to TRAIN_CLI_LAYERS (the arch module's ``full_config`` patched for
+    the call); the result with its wall seconds."""
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.launch import train as train_cli
+    full = qwen2_1_5b.full_config
+    qwen2_1_5b.full_config = lambda: dataclasses.replace(
+        full(), n_layers=TRAIN_CLI_LAYERS)
+    try:
+        t0 = time.perf_counter()
+        out = train_cli.main(argv)
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        qwen2_1_5b.full_config = full
+
+
+def dist_train_world(rank, data, model, steps, ckpt):
+    """(f): a world of data x model gloo ranks, every rank on cuda:0, runs
+    the train CLI inside ``sharding_ctx`` under the train_4k rules
+    (``train_cli_cut``: ``steps`` steps, a checkpoint every
+    TRAIN_CLI_EVERY into ``ckpt``, resuming from its latest); returns its
+    losses, the state bytes this rank holds beside the count its
+    ``placement`` gives, the peak, the kernel launches (none: training
+    runs the dense attention), and on mesh (2, 2) one more step on the
+    returned state, timed to a synchronize, its collectives timed (each
+    then synchronizes the card before and after)."""
+    from repro_torch import kernels
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.distributed.sharding import (DEFAULT_RULES, placement,
+                                                  sharding_ctx)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tx
+    from repro_torch.training.data import lm_train_batches
+    from repro_torch.training.train_step import make_train_step
+    mesh = make_host_mesh(data=data, model=model, device="cuda:0")
+    rules = DEFAULT_RULES.override(residual_seq=("model",))
+    cfg = dataclasses.replace(qwen2_1_5b.full_config(),
+                              n_layers=TRAIN_CLI_LAYERS,
+                              prefill_backend="dense")
+    free_card()
+    before = kernels.snapshot()
+    with sharding_ctx(mesh, rules):
+        run = train_cli_cut(["--device", "cuda", "--steps", str(steps),
+                             "--ckpt-every", str(TRAIN_CLI_EVERY),
+                             "--ckpt-dir", ckpt])
+        out = {"losses": run["losses"], "start": run["start"],
+               "wall_s": run["wall_s"], "restore_s": run["restore_s"],
+               "pull_s": run["pull_s"], "write_wait_s": run["write_wait_s"]}
+        state = [run["params"], run["opt"]]
+        del run
+        out["peak_gb"] = peak_gb()
+        out["state_bytes"] = sum(
+            t.numel() * t.element_size() for t in tree_leaves(
+                {"p": state[0], "mu": state[1].mu, "nu": state[1].nu})
+        ) + state[1].step.numel() * state[1].step.element_size()
+        axes = dict(train_leaves(tx.param_logical_axes(cfg)))
+        shapes = dict(train_leaves(tx.param_shapes(cfg)))
+        out["placement_bytes"] = 3 * sum(
+            4 * int(np.prod(placement(mesh, axes[k], shapes[k], rules
+                                      ).shard_shape(shapes[k])))
+            for k in axes) + 4
+        out["launches"] = kernels.diff(kernels.snapshot(), before)
+        if data > 1:
+            step = make_train_step(
+                lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"]),
+                lr=3e-4, axes=tx.param_logical_axes(cfg),
+                shapes=tx.param_shapes(cfg))
+            batch = to_cuda(next(lm_train_batches(cfg.vocab_size, 8, 128,
+                                                  seed=steps)))
+            mesh.barrier()
+            torch.cuda.synchronize()
+            mesh.timing, mesh.collective_s = True, 0.0
+            t0 = time.perf_counter()
+            state[0], state[1], m = step(*state, batch)
+            float(m["loss"])
+            out["step_s"] = time.perf_counter() - t0
+            out["collective_share"] = mesh.collective_s / out["step_s"]
+            mesh.timing = False
+            out["peak_gb"] = max(out["peak_gb"], peak_gb())
+        del state
+    free_card()
+    mesh.barrier()
+    return out
+
+
+def train_leaves(tree, prefix=""):
+    """(key, leaf) of a nested dict whose leaves are tuples (logical axes,
+    shapes)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from train_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def dist_train_phase():
+    """(f): the two worlds of ``dist_train_world``, then the same two CLI
+    calls on one device in this process; returns every result for
+    ``dist_train_rule``."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import qwen2_1_5b
+    cut = dataclasses.replace(qwen2_1_5b.full_config(),
+                              n_layers=TRAIN_CLI_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"  [(f): Qwen2-1.5B's depth cut to {TRAIN_CLI_LAYERS} of 28 "
+              f"layers (f32 parameters and both moments "
+              f"{cut.n_params() * 12 / 1e9:.2f} GB); {free / 1e9:.0f} GB "
+              f"free under {tempfile.gettempdir()}]")
+        mesh_dir = os.path.join(root, "mesh")
+        w4 = dist_spawn("dist_train_world", 4, "gloo", 2, 2,
+                        TRAIN_CLI_STEPS[0], mesh_dir)
+        w2 = dist_spawn("dist_train_world", 2, "gloo", 1, 2,
+                        TRAIN_CLI_STEPS[1], mesh_dir)
+        last = f"step_{TRAIN_CLI_STEPS[1]:010d}"
+        for name in os.listdir(mesh_dir):      # keep the final one alone
+            if name != last:
+                shutil.rmtree(os.path.join(mesh_dir, name))
+        reused = bool(ONE_DEVICE_CLI)
+        one = one_device_cli()
+        one_dir = one["dir"]
+        print(f"  [(f)'s one-device CLI calls: "
+              f"{'the train phase' + chr(39) + 's' if reused else 'run here'}]")
+        one = one["runs"]
+        diffs = {}
+        with np.load(os.path.join(mesh_dir, last, "arrays.npz")) as a, \
+                np.load(os.path.join(one_dir, last, "arrays.npz")) as b:
+            check(sorted(a.files) == sorted(b.files),
+                  "(f): the final checkpoints hold other keys")
+            for k in sorted(b.files):
+                x, y = (torch.from_numpy(z[k]).cuda().double()
+                        for z in (a, b))
+                d = x - y
+                diffs[k] = dict(rms=d.pow(2).mean().sqrt().item(),
+                                max=d.abs().max().item() if d.numel() else 0.0,
+                                ref_rms=y.pow(2).mean().sqrt().item())
+                del x, y, d
+        return dict(w4=w4, w2=w2, one=one, diffs=diffs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dist_train_rule(res):
+    """(f)'s checks (the rationale above DIST_TRAIN_LOSS_RTOL): every
+    rank's printed losses alike and within DIST_TRAIN_LOSS_RTOL of one
+    device's; each moment of the final checkpoint within an RMS
+    difference of DIST_TRAIN_MOMENT_RTOL of its RMS on one device, each
+    parameter within DIST_TRAIN_PARAM_FRAC x lr x steps, the step equal,
+    the RMS and largest difference of each kind printed; the state bytes
+    a rank equal to its ``placement`` count; no port kernel launched."""
+    w4, w2, one = res["w4"], res["w2"], res["one"]
+    want = {**one[0]["losses"], **one[1]["losses"]}
+    for label, world in (("mesh (2, 2)", w4), ("mesh (1, 2)", w2)):
+        for r, x in enumerate(world):
+            check(x["losses"] == world[0]["losses"],
+                  f"(f) {label} rank {r}: losses {x['losses']} differ from "
+                  f"rank 0's {world[0]['losses']}")
+            check(x["state_bytes"] == x["placement_bytes"],
+                  f"(f) {label} rank {r}: state {x['state_bytes']} bytes, "
+                  f"placement {x['placement_bytes']}")
+            check(not any(x["launches"].values()),
+                  f"(f) {label} rank {r}: port kernels launched "
+                  f"{x['launches']}")
+            timed = ""
+            if "step_s" in x:
+                timed = (f"; a step {x['step_s']:.2f} s, the collectives "
+                         f"{x['collective_share']:.4f} of it")
+            print(f"  (f) {label} rank {r}: state {x['state_bytes'] / 1e9:.4f}"
+                  f" GB (= placement's {x['placement_bytes']} bytes), peak "
+                  f"{x['peak_gb']:.2f} GB; CLI from step {x['start']}: "
+                  f"{x['wall_s']:.1f} s (restore {x['restore_s'] or 0:.1f} s,"
+                  f" last pull {x['pull_s'] or 0:.1f} s, write wait "
+                  f"{x['write_wait_s']:.1f} s){timed}")
+    got = {**w4[0]["losses"], **w2[0]["losses"]}
+    check(sorted(got) == sorted(want), f"(f): loss steps {sorted(got)}, one "
+                                       f"device {sorted(want)}")
+    for k in sorted(want):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        print(f"  (f) loss at step {k}: mesh {got[k]:.6f}, one device "
+              f"{want[k]:.6f} (relative {rel:.3e}, limit "
+              f"{DIST_TRAIN_LOSS_RTOL:g})")
+        check(np.isfinite(got[k]) and rel <= DIST_TRAIN_LOSS_RTOL,
+              f"(f) loss at step {k}: {got[k]} against {want[k]}")
+    kinds = {}
+    moved = DIST_TRAIN_LR * TRAIN_CLI_STEPS[1]
+    for k, d in res["diffs"].items():
+        kind = {"o/1": "mu", "o/2": "nu", "o/0": "step"}.get(k[:3], "params")
+        limit = (DIST_TRAIN_PARAM_FRAC * moved if kind == "params" else
+                 DIST_TRAIN_MOMENT_RTOL * d["ref_rms"])
+        check(d["rms"] <= limit, f"(f) checkpoint {k}: RMS difference "
+                                 f"{d['rms']:.4e} over {limit:.4e}")
+        worst = kinds.setdefault(kind, dict(ratio=0.0, max=0.0))
+        worst["ratio"] = max(worst["ratio"],
+                             d["rms"] / limit if limit else 0.0)
+        worst["max"] = max(worst["max"], d["max"])
+    for kind, w in kinds.items():
+        print(f"  (f) final checkpoint (step {TRAIN_CLI_STEPS[1]}), "
+              f"{kind}: largest RMS difference / its limit {w['ratio']:.3e}"
+              f", largest |difference| {w['max']:.3e}")
+    print(f"  (f) one device: CLI {one[0]['wall_s']:.1f} s + resumed "
+          f"{one[1]['wall_s']:.1f} s, peak {one[0]['peak_gb']:.2f} / "
+          f"{one[1]['peak_gb']:.2f} GB")
+    return dict(losses=got, one_losses=want, kinds=kinds)
+
+
 def moe_world_rule(w2, w1, ref, what):
     """World 2's no-drop step against world 1's ``moe_local`` at the same
     capacity factor, in bf16: the RMS difference of the prefill's and the
@@ -5903,8 +6162,8 @@ def moe_world_rule(w2, w1, ref, what):
 
 
 def dist_phase(card):
-    """``--phases dist``: the multi-rank paths (ROADMAP A16) on the one
-    card, each world's ranks spawned on cuda:0.  Returns the kernels'
+    """``--phases dist``: the multi-rank paths (ROADMAP A16, A16b) on the
+    one card, each world's ranks spawned on cuda:0.  Returns the kernels'
     launches on the worlds' paths."""
     launches = {}
 
@@ -5987,6 +6246,9 @@ def dist_phase(card):
     count(res)
     dist_tp_rule(f"(e) Qwen2-1.5B cut to {DIST_TP_E_LAYERS} of 28 layers, "
                  "mesh (data 2, model 2), DEFAULT_RULES", res)
+    res = dist_train_phase()
+    count(res["w4"] + res["w2"])
+    dist_train_rule(res)
     return launches
 
 
@@ -6123,7 +6385,7 @@ def main(argv=None) -> int:
             ("moe", MOE_ARCHS, "the MoE LMs")):
         if phase not in phases:
             continue
-        print(f"{what} at full width, bf16:")
+        print(f"{what} at full width, bf16, depth cut to 1/{ARCH_DEPTH_DIV}:")
         for name, arch in archs_phase(names).items():
             for kern, n in (
                     ("tree_attention", arch["dense"]["launches"]
@@ -6153,7 +6415,8 @@ def main(argv=None) -> int:
         phase_done("cost")
     if "dist" in phases:
         print("multi-rank paths (flash decode, moe_ep, sharded argmax, the "
-              "dense LM's placement) on the one card:")
+              "dense LM's placement, the train step under a mesh) on the "
+              "one card:")
         for name, n in dist_phase(smi[0]).items():
             launches[name] = launches.get(name, 0) + n
         phase_done("dist")

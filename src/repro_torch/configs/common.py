@@ -4,9 +4,10 @@
 A cell's arguments are ``meta`` tensors: shapes and dtypes with no storage,
 as the reference's ``jax.ShapeDtypeStruct``s are.  ``launch.dryrun`` runs
 ``cell.fn(*cell.args)`` on them to count its products, bytes and live
-memory.  Shardings, logical axes and their rules wait for the multi-GPU
-slice (ROADMAP A16); the port updates its caches in place, so a cell
-donates nothing.
+memory, on one device: a cell carries no shardings (the port places its
+tensors under ``sharding_ctx`` by their logical axes, whose tree for the
+optimizer state is ``opt_state_axes``).  The port updates its caches in
+place, so a cell donates nothing.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
+
+from repro_torch.training.optimizer import AdamWState
 
 
 def abstract(shape: Sequence[int], dtype) -> torch.Tensor:
@@ -27,6 +30,12 @@ def abstract(shape: Sequence[int], dtype) -> torch.Tensor:
 
 def pad_to_multiple(n: int, mult: int) -> int:
     return -(-n // mult) * mult
+
+
+def opt_state_axes(param_axes: Any) -> AdamWState:
+    """Logical axes for ``AdamWState(step, mu, nu)``: the step whole, each
+    moment placed as its parameter (the reference's)."""
+    return AdamWState(step=(), mu=param_axes, nu=param_axes)
 
 
 def tensor_leaves(tree: Any):
@@ -71,4 +80,5 @@ class Cell:
         return sum(seen.values())
 
 
-__all__ = ["abstract", "pad_to_multiple", "tensor_leaves", "Cell"]
+__all__ = ["abstract", "pad_to_multiple", "opt_state_axes", "tensor_leaves",
+           "Cell"]

@@ -26,9 +26,13 @@ on those blocks: column-parallel products on the "tensor" block, a
 row-parallel product followed by ``reduce_sum`` over ``model``, a
 layer's "fsdp" blocks gathered over ``data`` before its products
 (``gather_blocks``), lanes split over the "batch" axes and gathered back
-where the host reads them.  Each of these moves is an
-``autograd.Function`` with its transpose.  The recsys tables and the GNN
-stay replicated (ROADMAP A16b).  ``constrain`` returns its tensor
+where the host reads them; on the train path under rules that map
+``residual_seq`` to live axes, the residual's sequence blocks gathered
+before the column-parallel products and the row-parallel partial sums
+reduce-scattered back to them (``reduce_scatter``: sequence
+parallelism).  Each of these moves is an ``autograd.Function`` with its
+transpose.  The recsys tables and the GNN stay replicated (ROADMAP
+A16b).  ``constrain`` returns its tensor
 unchanged: the model's activations are blocks by construction.
 
 A ``Mesh`` covers the initialized world (``init_process_group``), rank r
@@ -195,6 +199,21 @@ class Mesh:
         self._run(lambda o, i: dist.all_gather_into_tensor(o, i, group=g),
                   out, src)
         return out.view(x.dtype).view(len(ranks), *x.shape)
+
+    def gather_first(self, x: torch.Tensor, axes: Iterable[str]
+                     ) -> Optional[torch.Tensor]:
+        """(n, *x.shape): every member's ``x``, in group-rank order, on
+        the group's first rank; None on the others, which only send (the
+        checkpoint's save, on host tensors under gloo)."""
+        g, ranks = self.group(axes)
+        if len(ranks) == 1:
+            return x[None]
+        out = (x.new_empty((len(ranks),) + tuple(x.shape))
+               if self.rank == ranks[0] else None)
+        self._run(lambda o, i: dist.gather(
+            i, None if o is None else list(o.unbind(0)), dst=ranks[0],
+            group=g), out, x.contiguous())
+        return out
 
     def all_to_all(self, x: torch.Tensor, axes: Iterable[str]
                    ) -> torch.Tensor:
@@ -388,13 +407,19 @@ class NamedSharding:
         array; a view where slicing gives one)."""
         return x[self._slices(x.shape)]
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, first: bool = False
+               ) -> Optional[torch.Tensor]:
         """The global tensor from every rank's block ``x`` (an all-gather
-        over the spec's axes; replicated on each rank)."""
+        over the spec's axes; replicated on each rank).  With ``first``,
+        only the first rank of each group over those axes (rank 0's
+        group: rank 0) receives it, the others None."""
         axes = tuple(a for a in self.axes() if self.mesh.shape[a] > 1)
         if not axes:
             return x
-        parts = self.mesh.all_gather(x, axes)
+        parts = (self.mesh.gather_first(x, axes) if first
+                 else self.mesh.all_gather(x, axes))
+        if parts is None:
+            return None
         _, ranks = self.mesh.group(axes)
         shape = [s * n for s, n in zip(x.shape, self._blocks(x.dim()))]
         out = x.new_empty(shape)
@@ -513,19 +538,44 @@ class _ReduceSum(torch.autograd.Function):
 class _GatherBlocks(torch.autograd.Function):
     """The global tensor from the blocks, as ``_Unshard``, for a block
     that every rank then uses on its own share of the work (an FSDP
-    weight on each rank's lanes); the transpose is a reduce-scatter: the
-    ranks' gradients summed, each rank keeping its block."""
+    weight on each rank's lanes, the sequence blocks of the residual
+    before a column-parallel product); the transpose is a reduce-scatter:
+    the ranks' gradients summed over ``sum_axes``, each rank keeping its
+    block.  Ranks that differ only along an axis left out of ``sum_axes``
+    did the same work (lanes replicated over it): each already holds the
+    whole gradient, which a sum would count once a rank."""
 
     @staticmethod
-    def forward(ctx, x, sharding):
-        ctx.sharding = sharding
+    def forward(ctx, x, sharding, sum_axes):
+        ctx.sharding, ctx.sum_axes = sharding, sum_axes
         return sharding.gather(x)
 
     @staticmethod
     def backward(ctx, g):
         sh = ctx.sharding
-        total = sh.mesh.all_reduce(g.contiguous(), "sum", sh.axes())
-        return sh.local(total).contiguous(), None
+        total = sh.mesh.all_reduce(g.contiguous(), "sum", ctx.sum_axes)
+        return sh.local(total).contiguous(), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Per-rank partial sums of a global tensor summed over the
+    sharding's axes (in REDUCE_DTYPE, cast back), each rank keeping its
+    block: the reduce-scatter that ends a row-parallel product under
+    sequence parallelism.  It runs as an all-reduce and a slice: what
+    the model runs on CUDA tensors keeps to the four collectives that
+    gloo is checked to take there (``chip_smoke.py --phases dist``).  The
+    transpose is the all-gather of the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, sharding):
+        ctx.sharding = sharding
+        total = sharding.mesh.all_reduce(x.to(REDUCE_DTYPE), "sum",
+                                         sharding.axes())
+        return sharding.local(total).to(x.dtype).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sharding.gather(g.contiguous()), None
 
 
 def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
@@ -559,16 +609,50 @@ def reduce_sum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
     return _ReduceSum.apply(x, mesh, axes)
 
 
-def gather_blocks(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+def gather_blocks(x: torch.Tensor, sharding: NamedSharding,
+                  replicas: Sequence[str] = ()) -> torch.Tensor:
     """The global tensor from this rank's block (see ``_GatherBlocks``);
-    ``x`` itself where the sharding splits nothing."""
+    ``x`` itself where the sharding splits nothing.  ``replicas``: axes
+    along which the ranks use the gathered tensor on the same work, whose
+    gradients the transpose takes once instead of summing."""
     if not _live(sharding.mesh, sharding.axes()):
         return x
-    return _GatherBlocks.apply(x, sharding)
+    return _GatherBlocks.apply(x, sharding, tuple(
+        a for a in sharding.axes() if a not in replicas))
+
+
+def reduce_scatter(x: torch.Tensor, sharding: NamedSharding
+                   ) -> torch.Tensor:
+    """Partial sums of the global ``x`` summed over the ranks of the
+    sharding's axes, this rank's block of the total kept (see
+    ``_ReduceScatter``); ``x`` itself where the sharding splits
+    nothing."""
+    if not _live(sharding.mesh, sharding.axes()):
+        return x
+    return _ReduceScatter.apply(x, sharding)
+
+
+def block_sharding(what: str, shape: Sequence[int], axes: Sequence,
+                   global_shape: Sequence[int], mesh: Mesh,
+                   rules: ShardingRules) -> NamedSharding:
+    """``placement`` of a leaf with logical ``axes`` and ``global_shape``
+    on ``mesh``, checked against the leaf's ``shape``: a leaf that is not
+    this rank's block under the rules (a whole leaf where they split it,
+    a block placed under other rules) raises, naming it (``what``)."""
+    sh = placement(mesh, axes, tuple(global_shape), rules)
+    block = sh.shard_shape(global_shape)
+    if tuple(shape) != block:
+        raise ValueError(
+            f"{what} has shape {tuple(shape)}, not this rank's block "
+            f"{block} of {tuple(global_shape)} under {sh.spec!r} (the "
+            "active rules): pass the blocks placed inside the sharding_ctx "
+            "they were placed in")
+    return sh
 
 
 __all__ = ["Mesh", "PartitionSpec", "P", "NamedSharding", "ShardingRules",
            "DEFAULT_RULES", "sharding_ctx", "constrain", "active_mesh",
            "active_rules", "logical_spec", "named_sharding", "placement",
            "PLACED_AXES", "axis_size", "shard", "unshard", "sum_grad",
-           "reduce_sum", "REDUCE_DTYPE", "gather_blocks", "dim_axes"]
+           "reduce_sum", "REDUCE_DTYPE", "gather_blocks", "reduce_scatter",
+           "block_sharding", "dim_axes"]

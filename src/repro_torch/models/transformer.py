@@ -26,9 +26,12 @@ the dense and the paged KV layout.
     Inputs are global (every rank passes the same); the cache and the
     logits that come back are this rank's blocks (``cache_sharding``,
     ``Layout.logits``).  ``moe_impl`` "auto" runs the expert-parallel
-    ``moe_ep``.  ``lm_loss`` under a mesh takes this rank's lanes and
-    sums the loss over the lanes' ranks; every move has its transpose, so
-    each rank gets the gradient of its parameter blocks.
+    ``moe_ep``.  ``lm_loss`` under a mesh takes this rank's lanes (all of
+    them where the batch does not split) and sums the loss over the lanes'
+    ranks; under rules that map ``residual_seq`` to live axes (the
+    reference's train cells) the residual between the products is this
+    rank's sequence block (sequence parallelism).  Every move has its
+    transpose, so each rank gets the gradient of its parameter blocks.
   * the paged twins (``init_paged_cache``, ``prefill_paged``,
     ``prefill_into_slot_paged``, ``tree_step_paged``,
     ``commit_paged_cache``, ``reset_blocks``), whose KV lives in a block
@@ -58,8 +61,9 @@ from repro_torch.distributed.flash_decode import (cache_partition_spec,
 from repro_torch.distributed.sharding import (NamedSharding, P, active_mesh,
                                               active_rules, dim_axes,
                                               gather_blocks, logical_spec,
-                                              placement, reduce_sum, shard,
-                                              sum_grad, unshard)
+                                              placement, reduce_scatter,
+                                              reduce_sum, shard, sum_grad,
+                                              unshard)
 from repro_torch.models import attention as attn_backends
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ACTS, apply_rope, rms_norm,
@@ -235,29 +239,49 @@ class Layout:
     whole, each rank's on one KV head (H not divisible, or a rank's query
     heads spanning two KV heads), it raises (ROADMAP A16b).  A
     row-parallel product (``wo``, ``w_down``, the embedding lookup over a
-    vocab block) is followed by ``reduce_sum`` (in float32), and
-    the input of a product whose ranks do different work passes
-    ``fan_in``, whose transpose sums its gradient over them (Megatron's
-    f and g).
+    vocab block) is followed by ``rows`` (``reduce_sum`` in float32),
+    and the input of a product whose ranks do different work passes
+    ``columns`` (``fan_in``, whose transpose sums its gradient over
+    them: Megatron's f and g).
     ``weight`` turns a leaf into what this rank multiplies: its "tensor"
     block (sliced from a whole leaf, or gathered where the compute keeps
     the dim whole) with its "fsdp" dims gathered — the per-layer FSDP
     gather.  A leaf may be whole or this rank's block under the active
     rules; anything else raises.  Under autograd a weight's gradient is
     summed over the lanes' ranks (the FSDP gather's transpose, a
-    reduce-scatter, sums it over ``data``); an FSDP gather over an axis the
-    lanes are not split over (B not divisible) would count the gradient
-    once a rank, and raises instead (ROADMAP A16b).
+    reduce-scatter, sums it over ``data``).  Where the lanes are not split
+    over an axis that gathers a weight (a batch or microbatch that
+    ``data`` does not divide), every rank along it computes the same
+    lanes and the same gradient: the transpose takes it once there, as
+    GSPMD's partitioning of the replicated batch does, instead of adding
+    the replicas' copies.
 
-    The lanes: the dense layout splits them as the cache's ``batch`` dim
-    (``cache_sharding``), and ``local`` / ``gather`` move a global
-    lane-major array to this rank's lanes and back; the paged pool is
-    lane-agnostic, so every rank computes every lane there.  ``logits``
-    is the sharding of the (B, T, V) logits a call returns (lanes, then
-    the vocab block), None where nothing is split."""
+    A train call (``seq``, the sequence length, given) takes its lanes
+    from the "batch" axes and splits the residual stream along the
+    sequence over the live ``residual_seq`` axes where they divide
+    ``seq`` (Megatron's sequence parallelism, the reference's
+    ``constrain(h, "batch", "residual_seq", None)`` hooks): between the
+    products a rank keeps its (B_l, S/m, d) block (``residual``, what
+    remat saves), the norms run on it, ``columns`` all-gathers the normed
+    block before the column-parallel products (its transpose a
+    reduce-scatter) and ``rows`` reduce-scatters the row-parallel partial
+    sums along the sequence (its transpose an all-gather).  Over a whole
+    vocab the embedding looks up the rank's token block and the loss head
+    runs on the residual's block (``head_seq``).  It needs a dense FFN
+    whose products and a vocab block split over the same axes, and
+    raises otherwise (ROADMAP A16b).  A serving call under rules with a
+    live ``residual_seq`` raises (ROADMAP A16b).
+
+    The lanes of a serving call: the dense layout splits them as the
+    cache's ``batch`` dim (``cache_sharding``), and ``local`` / ``gather``
+    move a global lane-major array to this rank's lanes and back; the
+    paged pool is lane-agnostic, so every rank computes every lane there.
+    ``logits`` is the sharding of the (B, T, V) logits a call returns
+    (lanes, the sequence block where the head runs on it, then the vocab
+    block), None where nothing is split."""
 
     def __init__(self, cfg: TransformerConfig, batch: int,
-                 paged: bool = False):
+                 paged: bool = False, seq: Optional[int] = None):
         self.mesh, rules = active_mesh(), active_rules()
         H, K = cfg.n_heads, cfg.n_kv_heads
         self.q_heads, self.kv_heads = H, K
@@ -265,12 +289,22 @@ class Layout:
         self.q_gather: Tuple[str, ...] = ()
         self.wo_axes = self.ffn_axes = self.vocab_axes = ()
         self.lane_axes: Tuple[str, ...] = ()
+        self.seq_axes: Tuple[str, ...] = ()     # the residual's split
+        self.head_seq: Tuple[str, ...] = ()     # the loss head's rows' split
         self.v0 = 0
-        self.lanes = self.cache = self.logits = None
+        self.lanes = self.cache = self.logits = self.residual = None
+        self._seq_weights: frozenset = frozenset()
         self._whole: Dict[str, torch.Tensor] = {}
         if self.mesh is None:
             return
         mesh = self.mesh
+        split_res = tuple(a for a in dim_axes(logical_spec(
+            ("residual_seq",), None, mesh, rules)[0]) if mesh.shape[a] > 1)
+        if seq is None and split_res:
+            raise NotImplementedError(
+                f"a serving call under rules that split the residual over "
+                f"{split_res} (residual_seq): sequence parallelism is "
+                "ported for the train path only (ROADMAP A16b)")
         axes, shapes = param_logical_axes(cfg), param_shapes(cfg)
         flat_axes = dict(axes["layers"], **{k: v for k, v in axes.items()
                                             if k != "layers"})
@@ -319,22 +353,44 @@ class Layout:
                 else live(e) for a, e in zip(ax, stored[n]))
             self._prep[n] = (flat_shapes[n][lead:], stored[n][lead:],
                              keep[lead:], ax[lead:], bool(lead))
-        self.cache = (paged_sharding(cfg) if paged
-                      else cache_sharding(cfg, batch))
-        cache_heads = live(self.cache.spec[3])
-        if cache_heads != (ka if kv_local else ()):
-            raise NotImplementedError(
-                f"the cache's heads lie on {cache_heads} and wk's on "
-                f"{ka if kv_local else ()} under these rules: a layout "
-                "that moves heads between them is not ported")
-        if not paged:
-            self.lane_axes = tuple(a for a in dim_axes(self.cache.spec[1])
-                                   if mesh.shape[a] > 1)
+        if seq is not None:             # a train call: no cache
+            self.lane_axes, self.seq_axes = (live(e) for e in logical_spec(
+                ("batch", "residual_seq"), (batch, seq), mesh, rules))
+        else:
+            self.cache = (paged_sharding(cfg) if paged
+                          else cache_sharding(cfg, batch))
+            cache_heads = live(self.cache.spec[3])
+            if cache_heads != (ka if kv_local else ()):
+                raise NotImplementedError(
+                    f"the cache's heads lie on {cache_heads} and wk's on "
+                    f"{ka if kv_local else ()} under these rules: a layout "
+                    "that moves heads between them is not ported")
+            if not paged:
+                self.lane_axes = live(self.cache.spec[1])
+        if self.seq_axes:
+            sp = set(self.seq_axes)
+            if (cfg.moe or set(self.wo_axes) != sp
+                    or set(self.ffn_axes) != sp
+                    or self.vocab_axes and set(self.vocab_axes) != sp):
+                raise NotImplementedError(
+                    f"the residual split over {self.seq_axes} "
+                    f"(residual_seq), the row-parallel products over wo "
+                    f"{self.wo_axes}, FFN {self.ffn_axes}, vocab "
+                    f"{self.vocab_axes}{' (MoE)' if cfg.moe else ''}: "
+                    "sequence parallelism is ported for a dense FFN whose "
+                    "products split over the residual's axes (ROADMAP "
+                    "A16b)")
+            self.residual = NamedSharding(mesh, P(None, self.seq_axes))
+            self.head_seq = () if self.vocab_axes else self.seq_axes
+            self._seq_weights = frozenset(
+                {"ln1", "ln2", "ln_f"}
+                | (set() if self.vocab_axes else {"embed", "lm_head"}))
         if self.lane_axes:
             self.lanes = NamedSharding(mesh, P(self.lane_axes))
-        if self.lane_axes or self.vocab_axes:
-            self.logits = NamedSharding(mesh, P(self.lane_axes or None, None,
-                                                self.vocab_axes or None))
+        if self.lane_axes or self.vocab_axes or self.head_seq:
+            self.logits = NamedSharding(mesh, P(
+                self.lane_axes or None, self.head_seq or None,
+                self.vocab_axes or None))
 
     # ------------------------------------------------------------ lanes
     def local(self, x: torch.Tensor) -> torch.Tensor:
@@ -344,6 +400,12 @@ class Layout:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global (batch, ...) array from every rank's lanes."""
         return x if self.lanes is None else unshard(x, self.lanes)
+
+    def head_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's sequence block of a (B_l, S, ...) array where the
+        embedding and the loss head run on the residual's blocks
+        (``head_seq``); ``x`` itself otherwise."""
+        return x if not self.head_seq else self.residual.local(x)
 
     def logits_sharding(self, ndim: int) -> Optional[NamedSharding]:
         """The sharding of the (batch, [T,] V) logits a call returns."""
@@ -382,33 +444,44 @@ class Layout:
                     f"block under the active rules ({P(*stored)!r}); place "
                     "parameters inside the sharding_ctx they are served "
                     "in (init_params(mesh=) / shard_params)")
-        grad = w.requires_grad and torch.is_grad_enabled()
-        if grad and not fsdp <= set(self.lane_axes):
-            raise NotImplementedError(
-                f"the gradient of {name!r} under a mesh whose lanes are not "
-                f"split over {sorted(fsdp)}: every rank there computes the "
-                "same lanes, and the FSDP gather's reduce-scatter would add "
-                "their gradients (ROADMAP A16b); use a batch that the data "
-                "axes divide")
-        if any(gat):
-            w = gather_blocks(w, NamedSharding(self.mesh, P(*gat)))
+        if any(gat):      # lanes not split over an FSDP axis: replicas
+            w = gather_blocks(w, NamedSharding(self.mesh, P(*gat)),
+                              tuple(fsdp - set(self.lane_axes)))
         if any(cut):
             w = shard(w, NamedSharding(self.mesh, P(*cut)))
-        if grad:
+        if w.requires_grad and torch.is_grad_enabled():
+            # each rank's share of the work: its lanes (an FSDP gather
+            # sums those itself) and, used on the residual's blocks, its
+            # sequence block
             w = sum_grad(w, self.mesh, [a for a in self.lane_axes
-                                        if a not in fsdp])
+                                        if a not in fsdp] + list(
+                self.seq_axes if name in self._seq_weights else ()))
         if not layered:
             self._whole[name] = w
         return w
 
-    def fan_in(self, x: torch.Tensor, axes: Tuple[str, ...]
-               ) -> torch.Tensor:
-        """``x``, replicated over ``axes``, as the input of work that
-        differs between their ranks: the identity, whose transpose sums
-        the gradient over them."""
+    def columns(self, x: torch.Tensor, axes: Tuple[str, ...]
+                ) -> torch.Tensor:
+        """``x``, the (B, T, d) residual, as the input of column-parallel
+        work that differs between the ranks of ``axes``: the identity,
+        whose transpose sums the gradient over them; under sequence
+        parallelism the all-gather of the ranks' sequence blocks, whose
+        transpose is the reduce-scatter of that sum."""
         if self.mesh is None or not axes:
             return x
+        if self.residual is not None:
+            return gather_blocks(x, self.residual)
         return sum_grad(x, self.mesh, axes)
+
+    def rows(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """Row-parallel partial sums over ``axes`` summed; under sequence
+        parallelism reduce-scattered, this rank keeping its sequence
+        block."""
+        if self.mesh is None or not axes:
+            return x
+        if self.residual is not None:
+            return reduce_scatter(x, self.residual)
+        return reduce_sum(x, self.mesh, axes)
 
     def reduce(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
         """Partial sums over ``axes`` (a row-parallel product) summed."""
@@ -420,7 +493,7 @@ class Layout:
         """(B, T, heads, dh) attention output through this rank's rows of
         ``wo``, summed over the ranks."""
         B, T = attn.shape[:2]
-        return self.reduce(attn.reshape(B, T, -1) @ wo, self.wo_axes)
+        return self.rows(attn.reshape(B, T, -1) @ wo, self.wo_axes)
 
     def attend_kw(self) -> Dict[str, "Layout"]:
         """The backends' ``layout=`` keyword: under a mesh only, so that
@@ -441,10 +514,10 @@ def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
     """This rank's query and KV heads (``lay.q_heads``, ``lay.kv_heads``;
     ``lay`` defaults to the call's ``Layout``, as in every function
     below)."""
-    B, T, _ = h.shape
-    lay = lay or Layout(cfg, B)
+    lay = lay or Layout(cfg, h.shape[0])
     dh = cfg.dh
-    h = lay.fan_in(h, lay.wo_axes)
+    h = lay.columns(h, lay.wo_axes)        # the whole sequence under SP
+    B, T, _ = h.shape
     q = h @ lp["wq"]
     k = h @ lp["wk"]
     v = h @ lp["wv"]
@@ -462,8 +535,8 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
     act = ACTS[cfg.act]
     lay = lay or Layout(cfg, h.shape[0])
     if not cfg.moe:
-        return lay.reduce(swiglu(lay.fan_in(h, lay.ffn_axes), lp["w_gate"],
-                                 lp["w_up"], lp["w_down"], act), lay.ffn_axes)
+        return lay.rows(swiglu(lay.columns(h, lay.ffn_axes), lp["w_gate"],
+                               lp["w_up"], lp["w_down"], act), lay.ffn_axes)
     B, T, d = h.shape
     x = h.reshape(B * T, d)
     mesh = active_mesh()
@@ -487,9 +560,9 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
                             lp["we_down"], cfg.top_k, act)
     y = y.reshape(B, T, d)
     if cfg.n_shared_experts:
-        y = y + lay.reduce(swiglu(lay.fan_in(h, lay.ffn_axes), lp["ws_gate"],
-                                  lp["ws_up"], lp["ws_down"], act),
-                           lay.ffn_axes)
+        y = y + lay.rows(swiglu(lay.columns(h, lay.ffn_axes), lp["ws_gate"],
+                                lp["ws_up"], lp["ws_down"], act),
+                         lay.ffn_axes)
     return y
 
 
@@ -549,25 +622,28 @@ def _layer_params(cfg: TransformerConfig, params: Params, i: int,
 def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
            lay: Optional[Layout] = None) -> torch.Tensor:
     """The embedding lookup; over a vocab block, rows outside it give 0
-    and the ranks' lookups are summed."""
+    and the ranks' lookups are summed (under sequence parallelism
+    reduce-scattered to the rank's sequence block; over a whole vocab the
+    rank looks up its token block)."""
     lay = lay or Layout(cfg, tokens.shape[0])
     emb = lay.weight("embed", params["embed"]).to(cfg.adtype)
     if not lay.vocab_axes:
-        return emb[tokens.long()]
+        return emb[lay.head_block(tokens).long()]
     ids = tokens.long() - lay.v0
     inside = (ids >= 0) & (ids < emb.shape[0])
     x = emb[ids.clamp(0, emb.shape[0] - 1)]
     x = torch.where(inside[..., None], x, torch.zeros_like(x))
-    return lay.reduce(x, lay.vocab_axes)
+    return lay.rows(x, lay.vocab_axes)
 
 
 def _unembed(cfg: TransformerConfig, params: Params, h: torch.Tensor,
              lay: Optional[Layout] = None) -> torch.Tensor:
     """Logits over this rank's vocab block (the whole vocab without a
-    mesh)."""
+    mesh; under sequence parallelism over a vocab block, of the gathered
+    sequence, else of the residual's block)."""
     lay = lay or Layout(cfg, h.shape[0])
-    h = lay.fan_in(rms_norm(h, lay.weight("ln_f", params["ln_f"]),
-                            cfg.norm_eps), lay.vocab_axes)
+    h = lay.columns(rms_norm(h, lay.weight("ln_f", params["ln_f"]),
+                             cfg.norm_eps), lay.vocab_axes)
     if cfg.tie_embeddings:
         w = lay.weight("embed", params["embed"]).t()
     else:
@@ -608,13 +684,15 @@ def _train_hidden(cfg: TransformerConfig, params: Params,
                   tokens: torch.Tensor, lay: Optional[Layout] = None
                   ) -> torch.Tensor:
     """Embed and run every layer causally over (B, S) tokens (this rank's
-    lanes under a mesh), no padding, no cache.  Each stacked weight is
-    unbound once, so its gradient is one stack of the layers' gradients;
-    with ``cfg.remat`` each layer's body is checkpointed (the reference's
+    lanes under a mesh), no padding, no cache; returns the last hidden
+    states (under sequence parallelism this rank's (B, S/m, d) block of
+    them, as between the layers).  Each stacked weight is unbound once,
+    so its gradient is one stack of the layers' gradients; with
+    ``cfg.remat`` each layer's body is checkpointed (the reference's
     ``jax.checkpoint``) and recomputed in the backward pass, its FSDP
     gathers with it."""
     B, S = tokens.shape
-    lay = lay or Layout(cfg, B)
+    lay = lay or Layout(cfg, B, seq=S)
     h = _embed(cfg, params, tokens, lay)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     len_mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
@@ -642,8 +720,8 @@ def _train_hidden(cfg: TransformerConfig, params: Params,
 def train_logits(cfg: TransformerConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V); plain causal, no padding mask.
-    Under a mesh: this rank's lanes and vocab block (``Layout.logits``)."""
-    lay = Layout(cfg, tokens.shape[0])
+    Under a mesh: this rank's block of them (``Layout.logits``)."""
+    lay = Layout(cfg, tokens.shape[0], seq=tokens.shape[1])
     return _unembed(cfg, params, _train_hidden(cfg, params,
                                                lay.local(tokens), lay), lay)
 
@@ -658,16 +736,19 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     too: the (B, S, V) f32 logits are recomputed in the backward pass, not
     kept.
 
-    Under a mesh each rank runs its lanes, gathers its lanes' logits over
-    the vocab, and the NLL sum and the weight over the lanes' ranks
-    (``reduce_sum``): every rank returns the global loss, and backward
-    gives each rank the gradient of its parameter blocks."""
-    B = tokens.shape[0]
-    lay = Layout(cfg, B)
+    Under a mesh each rank runs its lanes (every rank the whole batch
+    where the "batch" axes do not divide it), gathers its rows' logits
+    over the vocab, and the NLL sum and the weight over the ranks of the
+    rows (``reduce_sum``: the lanes' and, where the head runs on the
+    residual's sequence blocks, theirs): every rank returns the global
+    loss, and backward gives each rank the gradient of its parameter
+    blocks."""
+    B, S = tokens.shape
+    lay = Layout(cfg, B, seq=S)
     h = _train_hidden(cfg, params, lay.local(tokens), lay)
-    labels = lay.local(labels)
+    labels = lay.head_block(lay.local(labels))
     if loss_mask is not None:
-        loss_mask = lay.local(loss_mask)
+        loss_mask = lay.head_block(lay.local(loss_mask))
     vocab = (None if not lay.vocab_axes else NamedSharding(
         lay.mesh, P(None, None, lay.vocab_axes)))
 
@@ -683,7 +764,8 @@ def lm_loss(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
             return (nll * mask).sum() / mask.sum().clamp_min(1.0)
         if mask is None:
             mask = torch.ones_like(nll)
-        total, weight = (lay.reduce(x.reshape(1), lay.lane_axes)
+        total, weight = (lay.reduce(x.reshape(1),
+                                    lay.lane_axes + lay.head_seq)
                          for x in ((nll * mask).sum(), mask.sum().float()))
         return (total / weight.clamp_min(1.0))[0]
 

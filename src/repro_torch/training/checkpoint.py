@@ -16,7 +16,10 @@ rules (``sharding_ctx``; ``DEFAULT_RULES`` outside one, as in the
 reference: the "fsdp", "tensor" and "expert" dims split, a dim the axes
 do not divide whole), whatever mesh saved it; ``save(mesh=)`` takes such
 blocks with their global shapes, gathers them from the ranks, and rank 0
-writes the whole arrays.
+writes the whole arrays.  A train state's moments are placed like their
+parameters: save it with ``{"p": axes, "o": opt_state_axes(axes)}``
+(``configs.common``), which the manifest records per key (``o/0``, the
+step, as ``[]``: whole).
 
 Tensors are pulled to host numpy in ``save``, before a non-blocking write's
 thread starts (as the reference's ``_flatten`` does), so the caller may go
@@ -39,7 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import Mesh, active_rules, placement
+from repro_torch.distributed.sharding import (Mesh, active_rules,
+                                              block_sharding, placement)
 
 _NUMPY_DTYPES = (torch.float64, torch.float32, torch.float16, torch.int64,
                  torch.int32, torch.int16, torch.int8, torch.uint8,
@@ -87,10 +91,13 @@ def _unflatten(flat: Dict[str, np.ndarray], template: Any, prefix: str = ""
 
 
 def _digest(flat: Dict[str, np.ndarray]) -> str:
+    """sha256 over each key and its array's C-order bytes, in key order
+    (the reference's); the bytes are hashed in place, not copied."""
     digest = hashlib.sha256()
     for k in sorted(flat):
         digest.update(k.encode())
-        digest.update(np.ascontiguousarray(flat[k]).tobytes())
+        digest.update(np.ascontiguousarray(flat[k]).reshape(-1).view(
+            np.uint8))
     return digest.hexdigest()
 
 
@@ -108,14 +115,15 @@ class CheckpointManager:
              blocking: bool = True) -> str:
         """Write ``tree``; ``logical_axes`` (a tree of per-dim names beside
         it, e.g. ``{"p": param_logical_axes(cfg), "o": None}``) goes into
-        the manifest.  With ``mesh``, every rank calls this, and
-        ``shapes`` (a tree of global shapes beside ``tree``, e.g.
-        ``{"p": param_shapes(cfg)}``) gives each leaf with axes its global
-        shape: the leaf must be this rank's block of it under
-        ``placement`` on the mesh by the active rules (as
-        ``init_params(mesh=)`` and ``shard_params`` place parameters), and
-        anything else raises; the blocks are gathered and rank 0 writes,
-        the other ranks wait for it when ``blocking``."""
+        the manifest.  With ``mesh``, every rank calls this, every array
+        leaf needs logical axes (a whole leaf: ``None`` for each dim),
+        and ``shapes`` (a tree of global shapes beside ``tree``, e.g.
+        ``{"p": param_shapes(cfg)}``) gives each leaf its global shape:
+        the leaf must be this rank's block of it under ``placement`` on
+        the mesh by the active rules (as ``init_params(mesh=)`` and
+        ``shard_params`` place parameters), and anything else raises
+        before any rank gathers or writes; the blocks are gathered and
+        rank 0 writes, the other ranks wait for it when ``blocking``."""
         if mesh is not None:
             tree = _gather_blocks(tree, _flatten_axes(logical_axes), mesh,
                                   _flatten_axes(shapes) or {})
@@ -149,11 +157,18 @@ class CheckpointManager:
             tmp = os.path.join(self.dir, f"tmp.{step}")
             final = os.path.join(self.dir, f"step_{step:010d}")
             os.makedirs(tmp, exist_ok=True)
+            # the digest on a thread beside the write: hashing and the
+            # zip's CRC and file writes release the GIL
+            digest: List[str] = []
+            hasher = threading.Thread(
+                target=lambda: digest.append(_digest(flat)), daemon=True)
+            hasher.start()
             np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+            hasher.join()
             manifest = {
                 "step": step,
                 "keys": sorted(flat.keys()),
-                "digest": _digest(flat),
+                "digest": digest[0],
                 "logical_axes": _flatten_axes(logical_axes),
             }
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -214,15 +229,20 @@ class CheckpointManager:
             placed = {}
             for key, leaf in _flatten(tree).items():
                 ax = axes.get(key)
-                placed[key] = leaf if ax is None else np.ascontiguousarray(
-                    placement(mesh, ax, leaf.shape, rules).local(leaf))
+                # a 0-d leaf (the optimizer's step) is whole: kept as it is
+                placed[key] = leaf if ax is None or leaf.ndim == 0 else \
+                    np.ascontiguousarray(placement(mesh, ax, leaf.shape,
+                                                   rules).local(leaf))
             tree = _unflatten(placed, template)
         return tree, step
 
 
 def _flatten_axes(axes: Any) -> Optional[Dict[str, Any]]:
     """The reference's flattening of a logical-axes tree: ``{path: list of
-    names}``, a subtree of None as one None entry."""
+    names}``, a subtree of None as one None entry.  A NamedTuple
+    (``opt_state_axes``' ``AdamWState``) is a node, its fields numbered
+    as ``_flatten`` numbers the state's; the reference's flattening keeps
+    it as one entry, which its restore without a mesh ignores."""
     if axes is None:
         return None
     flat = {}
@@ -231,9 +251,9 @@ def _flatten_axes(axes: Any) -> Optional[Dict[str, Any]]:
         if isinstance(t, dict):
             for k in sorted(t):
                 rec(t[k], f"{prefix}{k}/")
-        elif isinstance(t, (list,)) or (isinstance(t, tuple)
-                                        and t and isinstance(t[0], (dict,
-                                                                    list))):
+        elif isinstance(t, (list,)) or hasattr(t, "_fields") or (
+                isinstance(t, tuple) and t and isinstance(t[0], (dict,
+                                                                 list))):
             for i, v in enumerate(t):
                 rec(v, f"{prefix}{i}/")
         else:
@@ -245,32 +265,40 @@ def _flatten_axes(axes: Any) -> Optional[Dict[str, Any]]:
 
 def _gather_blocks(tree: Any, axes: Optional[Dict[str, Any]], mesh: Mesh,
                    shapes: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """The flat global arrays of ``tree``, whose leaves with axes are this
-    rank's blocks of the global ``shapes`` under ``placement`` by the
-    active rules: all ranks gather each split block (in key order).  A
-    leaf without its global shape, or of another shape than its block,
-    raises."""
+    """The flat global arrays of ``tree``, whose leaves are this rank's
+    blocks of the global ``shapes`` under ``placement`` by their logical
+    axes and the active rules: all ranks gather each split block (in key
+    order).  An array leaf without axes (a rank's block or a whole array:
+    nothing tells which) or without its global shape, or of another shape
+    than its block, raises before anything is gathered."""
     rules = active_rules()
-    out = {}
-    for key, leaf in _flatten(tree).items():
+    flat = _flatten(tree)
+    placed = {}
+    for key, leaf in flat.items():
+        if key.endswith("#none"):
+            continue
         ax = (axes or {}).get(key)
-        if ax is not None:
-            glob = shapes.get(key)
-            if glob is None:
-                raise ValueError(f"checkpoint leaf {key!r}: save(mesh=) "
-                                 "needs its global shape in shapes= (e.g. "
-                                 "param_shapes(cfg))")
-            sh = placement(mesh, ax, tuple(glob), rules)
-            if tuple(leaf.shape) != sh.shard_shape(glob):
-                raise ValueError(
-                    f"checkpoint leaf {key!r} has shape {tuple(leaf.shape)}"
-                    f", not this rank's block {sh.shard_shape(glob)} of "
-                    f"{tuple(glob)} under {sh.spec!r} (the active rules): "
-                    "save the blocks placed inside the sharding_ctx they "
-                    "were placed in")
-            if sh.axes():
-                block = torch.as_tensor(leaf, device=mesh.device)
-                leaf = sh.gather(block).cpu().numpy()
+        if ax is None:
+            raise ValueError(f"checkpoint leaf {key!r} has no logical axes: "
+                             "save(mesh=) needs them for every array (None "
+                             "for each dim of a whole one; a train state's "
+                             "moments: opt_state_axes)")
+        glob = shapes.get(key)
+        if glob is None:
+            raise ValueError(f"checkpoint leaf {key!r}: save(mesh=) "
+                             "needs its global shape in shapes= (e.g. "
+                             "param_shapes(cfg))")
+        placed[key] = block_sharding(f"checkpoint leaf {key!r}", leaf.shape,
+                                     ax, glob, mesh, rules)
+    # the blocks are host arrays already: gloo gathers them there (an NCCL
+    # mesh gathers on its device), and only to rank 0, which writes
+    dev = "cpu" if mesh.backend == "gloo" else mesh.device
+    out = {}
+    for key, leaf in flat.items():
+        sh = placed.get(key)
+        if sh is not None and sh.axes():
+            whole = sh.gather(torch.as_tensor(leaf, device=dev), first=True)
+            leaf = whole.cpu().numpy() if mesh.rank == 0 else None
         out[key] = leaf
     return out
 

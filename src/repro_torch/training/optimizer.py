@@ -12,12 +12,23 @@ The update is out of place: it returns new tensors and never writes the
 ones it was given, as the JAX step (which donates nothing) does.
 ``run_with_timeout`` abandons a slow step on its thread and retries from
 the same parameters; an update in place could then be applied twice.
+
+Under a mesh (``sharding_ctx``) the parameters, gradients and moments are
+this rank's blocks (``distributed.sharding.placement``), so the moments
+are placed like the parameters (ZeRO-style sharding of the optimizer
+state, as the reference's jit gives it).  The update is elementwise on
+the blocks; only the global norm crosses ranks: each leaf's sum of
+squares is summed over the ranks that hold distinct blocks of it, a
+replicated leaf counted once (``adamw_update(axes=, shapes=)``).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import (active_mesh, active_rules,
+                                              block_sharding)
 
 
 class AdamWState(NamedTuple):
@@ -60,13 +71,53 @@ def adamw_init(params: Any) -> AdamWState:
                                                        zeros))
 
 
-def _norm_and_scale(grads: Any, max_norm: float
+def _placed(grads: Any, axes: Any, shapes: Any, path: str = ""):
+    """(key, gradient, logical axes, global shape) of each leaf, in
+    ``tree_leaves`` order; ``axes`` and ``shapes`` are trees beside
+    ``grads`` (``param_logical_axes`` / ``param_shapes``)."""
+    if isinstance(grads, dict):
+        for k in sorted(grads):
+            yield from _placed(grads[k], axes[k], shapes[k], f"{path}{k}/")
+    elif grads is not None:
+        yield path[:-1], grads, axes, shapes
+
+
+def split_axes(grads: Any, axes: Any, shapes: Any) -> List[Tuple[str, ...]]:
+    """Under the active mesh, the mesh axes (of size > 1) that split each
+    leaf of ``grads`` (in ``tree_leaves`` order), from its ``placement``
+    by its logical ``axes`` and global ``shapes`` under the active rules;
+    a leaf that is not this rank's block raises, naming it."""
+    mesh, rules = active_mesh(), active_rules()
+    out = []
+    for key, g, ax, shape in _placed(grads, axes, shapes):
+        sh = block_sharding(f"gradient {key!r}", g.shape, ax, shape, mesh,
+                            rules)
+        out.append(tuple(a for a in sh.axes() if mesh.shape[a] > 1))
+    return out
+
+
+def _norm_and_scale(grads: Any, max_norm: float,
+                    split: Optional[List[Tuple[str, ...]]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 global norm (a Python sum of per-leaf sums of squares, in
     leaf order) and the clip factor ``min(1, max_norm / max(gn, 1e-12))``,
-    both 0-d tensors on the card (no host sync)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in tree_leaves(grads)))
+    both 0-d tensors on the card (no host sync).  ``split`` (under a mesh,
+    ``split_axes``): the leaves are summed in groups of the axes that
+    split them, and each group's sum over those axes' ranks (one f32
+    all-reduce a group), so a split leaf counts all of its blocks and a
+    replicated one counts once; every rank gets the same norm."""
+    leaves = tree_leaves(grads)
+    if split is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in leaves))
+    else:
+        groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for g, ax in zip(leaves, split):
+            sq = torch.sum(torch.square(g.float()))
+            groups[ax] = groups[ax] + sq if ax in groups else sq
+        mesh = active_mesh()
+        gn = torch.sqrt(sum(mesh.all_reduce(s, "sum", ax) if ax else s
+                            for ax, s in groups.items()))
     return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
 
 
@@ -83,13 +134,25 @@ def clip_by_global_norm(grads: Any, max_norm: float
 def adamw_update(params: Any, grads: Any, state: AdamWState, *,
                  lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.01,
-                 max_grad_norm: Optional[float] = 1.0
+                 max_grad_norm: Optional[float] = 1.0, axes: Any = None,
+                 shapes: Any = None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step; returns (new params, new state, {"grad_norm"}).  The
     clip factor is applied leaf by leaf inside the update (the values of
-    ``clip_by_global_norm`` without holding every clipped leaf at once)."""
+    ``clip_by_global_norm`` without holding every clipped leaf at once).
+    Under a mesh the global norm needs each leaf's placement: ``axes``
+    and ``shapes``, its logical axes and global shape in trees beside
+    ``params`` (``param_logical_axes(cfg)``, ``param_shapes(cfg)``);
+    without them it raises.  Without a mesh they are not read."""
+    split = None
+    if max_grad_norm is not None and active_mesh() is not None:
+        if axes is None or shapes is None:
+            raise ValueError("adamw_update under a mesh clips by the global "
+                             "norm of the gradients' blocks: pass axes= and "
+                             "shapes= (param_logical_axes / param_shapes)")
+        split = split_axes(grads, axes, shapes)
     if max_grad_norm is not None:
-        gn, scale = _norm_and_scale(grads, max_grad_norm)
+        gn, scale = _norm_and_scale(grads, max_grad_norm, split)
     else:
         gn = scale = None
     step = state.step + 1
@@ -127,4 +190,4 @@ def adamw_update(params: Any, grads: Any, state: AdamWState, *,
 
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
-           "tree_leaves", "tree_map"]
+           "split_axes", "tree_leaves", "tree_map"]

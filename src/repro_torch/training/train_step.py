@@ -6,6 +6,16 @@ The step runs eagerly: the reference jits it, and a captured train step is
 a later item (ROADMAP §A).  It returns its metrics as tensors on the
 parameters' device and pulls nothing to the host; the caller pulls the loss
 when it prints it.
+
+Under a mesh (``sharding_ctx``, the parameters and the AdamW state this
+rank's blocks: ``init_params(mesh=)``, ``shard_params`` or
+``CheckpointManager.restore(mesh=)``) every rank calls the step with the
+same global batch, as the reference's jitted step takes it: each
+microbatch is a global slice of it, whose lanes the loss takes
+(``lm_loss`` runs this rank's lanes, or all of them where ``data`` does
+not divide the microbatch); the gradients are this rank's blocks, the
+``grad_dtype`` cast applies to them, and ``adamw_update`` clips by the
+norm over every block (``axes`` / ``shapes``) and updates the blocks.
 """
 from __future__ import annotations
 
@@ -19,7 +29,8 @@ from .optimizer import AdamWState, adamw_update, tree_leaves, tree_map
 def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor], *,
                     lr: float = 1e-3, weight_decay: float = 0.01,
                     max_grad_norm: float = 1.0, accum_steps: int = 1,
-                    grad_dtype: Optional[str] = None) -> Callable:
+                    grad_dtype: Optional[str] = None, axes: Any = None,
+                    shapes: Any = None) -> Callable:
     """loss_fn(params, batch) -> scalar tensor.
 
     Returns step(params, opt_state, batch) -> (params, opt_state, metrics)
@@ -31,7 +42,9 @@ def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor], *,
     and divided, and so are their losses, as the reference's ``lax.scan``
     does.  ``grad_dtype`` (e.g. "bfloat16") casts the gradients before the
     update (round to nearest even, as JAX's cast).  Nothing is updated in
-    place: the step returns new parameters and state.
+    place: the step returns new parameters and state.  ``axes`` /
+    ``shapes`` (the parameters' logical axes and global shapes) place the
+    gradients for the global norm under a mesh (``adamw_update``).
     """
 
     def grads_of(params, batch):
@@ -69,7 +82,7 @@ def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor], *,
                              else g, grads)
         params, opt_state, om = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay,
-            max_grad_norm=max_grad_norm)
+            max_grad_norm=max_grad_norm, axes=axes, shapes=shapes)
         return params, opt_state, {"loss": loss, **om}
 
     return step

@@ -13,8 +13,13 @@ Auto axes (``jax.make_mesh`` builds Explicit axes under jax 0.9, where the
 reference's own 8-device tests fail): its ``shard_map`` programs, and its
 prefill, tree step and fused step partitioned by GSPMD from parameters
 placed with ``named_sharding`` under ``DEFAULT_RULES`` or the serve cells'
-``override(fsdp=())``.  A second spawn of 4 ranks restores the checkpoint
-the first saved, and one the JAX package saved, onto (data 2, model 2).
+``override(fsdp=())``, and its ``make_train_step`` jitted with the
+``in_shardings`` of ``tree_shardings`` under the train_4k cells' rules
+(the residual split along the sequence over ``model``).  A second spawn
+of 4 ranks restores the checkpoints the first saved (parameters, and a
+train state it then steps on), and one the JAX package saved, onto (data
+2, model 2), and runs the train CLI inside ``sharding_ctx``; a third of 2
+ranks resumes that CLI run on (data 1, model 2).
 """
 import dataclasses
 import json
@@ -273,6 +278,52 @@ JAX_REFS = """
         for key, a in zip(("pre_logits", "pre_k", "pre_v", "tree_logits",
                            "packed", "k", "v"), got):
             out[f"{name}/{key}"] = np.asarray(a)
+    # the train step as the reference's dry-run compiles train_4k: jitted
+    # with in_shardings from tree_shardings (the moments by opt_state_axes)
+    # on an Auto mesh, under the rules, two steps from adamw_init
+    from repro.configs.common import opt_state_axes, tree_shardings
+    from repro.training.optimizer import adamw_init
+    from repro.training.train_step import make_train_step
+    rule_sets["train"] = DEFAULT_RULES.override(residual_seq=("model",))
+    def flat(prefix, t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                flat(f"{prefix}/{k}", v)
+            else:
+                out[f"{prefix}/{k}"] = np.asarray(v)
+    ttoks = d["train/toks"]
+    for name, (data, model, rname, K, accum, gdt, remat) in json.loads(
+            str(d["train/cases"])).items():
+        mesh = Mesh(np.array(jax.devices()).reshape(data, model),
+                    ("data", "model"))
+        rules = rule_sets[rname]
+        cfg = tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                   n_kv_heads=K, d_ff=128, vocab_size=96,
+                                   max_seq_len=64, remat=remat)
+        params = tree(f"w96_{K}/params")
+        opt = adamw_init(params)
+        step = make_train_step(
+            lambda p, b, cfg=cfg: tx.lm_loss(cfg, p, b["tokens"],
+                                             b["labels"]),
+            lr=3e-4, grad_dtype=gdt, accum_steps=accum)
+        batches = [{"tokens": jnp.asarray(t[:, :-1]),
+                    "labels": jnp.asarray(t[:, 1:])} for t in ttoks]
+        p_axes = tx.param_logical_axes(cfg)
+        shardings = tree_shardings(
+            mesh, (params, opt, batches[0]),
+            (p_axes, opt_state_axes(p_axes),
+             {"tokens": ("batch", None), "labels": ("batch", None)}), rules)
+        with sharding_ctx(mesh, rules):
+            fn = jax.jit(step, in_shardings=shardings)
+            for i, b in enumerate(batches):
+                params, opt = jax.device_put((params, opt), shardings[:2])
+                params, opt, m = fn(params, opt, b)
+                out[f"train/{name}/loss{i}"] = np.asarray(m["loss"])
+                out[f"train/{name}/norm{i}"] = np.asarray(m["grad_norm"])
+        flat(f"train/{name}/p", params)
+        flat(f"train/{name}/mu", opt.mu)
+        flat(f"train/{name}/nu", opt.nu)
+        out[f"train/{name}/step"] = np.asarray(opt.step)
     np.savez(sys.argv[2], **out)
 """
 
@@ -399,6 +450,8 @@ def _inputs():
     d["argmax/logits"] = logits
     _placement_inputs(d, rng)
     _guide_inputs(d, rng)
+    d["train/toks"] = rng.randint(1, 96, (2, 8, 17)).astype(np.int32)
+    d["train/cases"] = np.array(json.dumps(ranks.TRAIN_CASES))
     return d
 
 
@@ -477,6 +530,8 @@ def spawned(tmp_path_factory):
                             join=True, start_method="spawn")
         tmp.start_processes(ranks.world4, args=(directory,), nprocs=4,
                             join=True, start_method="spawn")
+        tmp.start_processes(ranks.world2, args=(directory,), nprocs=2,
+                            join=True, start_method="spawn")
         out, err = jax_proc.communicate(timeout=300)
     finally:
         if jax_proc.poll() is None:
@@ -488,7 +543,9 @@ def spawned(tmp_path_factory):
                                 weights_only=False) for r in range(8)],
                 restored=[torch.load(os.path.join(directory,
                                                   f"restored{r}.pt"),
-                                     weights_only=False) for r in range(4)])
+                                     weights_only=False) for r in range(4)],
+                cli=[torch.load(os.path.join(directory, f"cli{r}.pt"),
+                                weights_only=False) for r in range(2)])
 
 
 @pytest.mark.parametrize("case,spec", [
@@ -805,28 +862,180 @@ def test_greedy_streams_under_the_mesh_equal_one_device_and_jax(
     assert primed < first
 
 
-@pytest.mark.parametrize("case", list(ranks.GRAD_CASES))
+REPLICATED_LANES = "r42"       # GRAD_CASES' B 2 on data 4
+
+
+@pytest.mark.parametrize("case", [c for c in ranks.GRAD_CASES
+                                  if c != REPLICATED_LANES])
 def test_lm_loss_gradient_under_the_mesh_equals_one_device(spawned, case):
     """``lm_loss`` under the mesh (its lanes over ``data``, the heads, FFN
     and vocab over ``model``; (data 4, model 2) with ``DEFAULT_RULES``'
     FSDP and a loss mask, (data 2, model 4) with the serve rules, a split
-    head and remat): every rank's loss is the single-device loss and its
-    gradient of each parameter block is its block of the single-device
-    gradient, within 3e-5."""
+    head and remat, and (data 4, model 2) under the train_4k rules, whose
+    residual is split along the sequence over ``model``, the loss head
+    gathering it back at V 96 and running on the blocks at V 97): every
+    rank's loss is the single-device loss and its gradient of each
+    parameter block is its block of the single-device gradient, within
+    3e-5."""
     for r in spawned["res"]:
         one, mesh = r[f"{case}/loss"]
         assert abs(one - mesh) < 3e-5
         assert r[f"{case}/grad_err"] < 3e-5
         assert r[f"{case}/grad_scale"] > 1e-3
+    lanes, seq, head = spawned["res"][0][f"{case}/split"]
+    sp = ranks.GRAD_CASES[case][2] == "train"
+    assert seq == (("model",) if sp else ())
+    assert head == (("model",) if sp and ranks.GRAD_CASES[case][5] == 97
+                    else ())
 
 
-def test_lm_loss_refuses_an_fsdp_gradient_without_split_lanes(spawned):
-    """Where the batch does not split over ``data`` every data rank runs
-    the same lanes, and the FSDP gather's reduce-scatter would add their
-    gradients: ``lm_loss`` raises and names ROADMAP A16b instead of a
-    gradient that is silently wrong."""
+def test_lm_loss_gradient_with_replicated_lanes_equals_one_device(spawned):
+    """B 2 on (data 4, model 2): ``data`` does not divide the batch, so
+    every data rank runs both lanes; the FSDP gather's transpose takes the
+    replicas' gradient once (GSPMD's result for a replicated batch)
+    instead of adding the 4 copies, and every rank's loss and gradient
+    blocks equal the single device's within 3e-5."""
+    case = REPLICATED_LANES
     for r in spawned["res"]:
-        assert "A16b" in r["lm_loss_refusal"]
+        one, mesh = r[f"{case}/loss"]
+        assert abs(one - mesh) < 3e-5
+        assert r[f"{case}/grad_err"] < 3e-5
+        assert r[f"{case}/grad_scale"] > 1e-3
+        assert r[f"{case}/split"] == ((), (), ())
+
+
+def test_serving_under_a_live_residual_seq_raises(spawned):
+    """Sequence parallelism is ported for the train path only: a prefill
+    under the train_4k rules raises, naming ROADMAP A16b."""
+    for r in spawned["res"]:
+        assert "A16b" in r["serve_sp_refusal"]
+
+
+def test_train_residual_is_the_ranks_sequence_block(spawned):
+    """Under the train_4k rules at S 16 on model 2 each rank's residual
+    between layers is its (B/4, S/2, d) block, equal (atol 3e-5, checked
+    on each rank) to that block of the single-device hidden states; at S
+    15, which model 2 does not divide, the residual stays whole."""
+    for r in spawned["res"]:
+        assert r["train/residual"] == ((2, 8, 64), ("model",))
+        assert r["train/odd_seq"] == ()
+
+
+def test_global_norm_counts_each_block_once(spawned):
+    """A (8, 8) leaf of ones split over model and data and a (4,) leaf of
+    twos replicated on all 8 ranks: the norm is sqrt(64 + 16) on every
+    rank (the split leaf over all of its blocks, the replicated one
+    once); a whole leaf where the rules split it, and ``adamw_update``
+    under the mesh without ``axes``/``shapes``, raise."""
+    for r in spawned["res"]:
+        assert r["norm/split"] == [("data", "model"), ()]
+        assert abs(r["norm/value"] - np.sqrt(80.0)) < 1e-6
+        assert "'a'" in r["norm/whole_refused"]
+        assert "(4, 2)" in r["norm/whole_refused"]
+        assert "axes=" in r["norm/no_axes_refused"]
+
+
+# Parameters and moments after two steps, mesh against the reference and
+# against one device (f32).  The gradients agree to ~1e-8 relative (their
+# sums run in another order), so the moments agree to ~1e-10.  AdamW's
+# update lr * m / (sqrt(v) + eps) moves with the gradient by at most
+# lr * |dg| / eps, reached where |g| is near eps = 1e-8: an element's
+# |dg| of 2e-10 moves it 3e-4 * 2e-10 / 1e-8 = 6e-6 (the largest
+# difference measured here is 6.8e-6, microbatches on replicated lanes
+# against the reference); a wrong update (a halved lr, a missing bias
+# correction, a norm counted once a rank) moves entries by lr / 2 or more.
+STATE_ATOL = 1e-5
+
+
+def _state_err(got, want):
+    """{key: max |got - want|} over the flat gathered state."""
+    return {k: float(np.abs(np.asarray(got[k], np.float64)
+                            - np.asarray(want[k], np.float64)).max())
+            for k in want}
+
+
+@pytest.fixture(scope="module")
+def one_device_train(spawned):
+    """Each TRAIN_CASES model's two steps by the port's single-device
+    ``make_train_step`` on the whole parameters; ``mu1/...``: ``mu``
+    after the first."""
+    from repro_torch.models.params import params_from_jax
+    from repro_torch.training.optimizer import adamw_init
+    d, out = spawned["inputs"], {}
+    for name, (_, _, _, K, accum, gdt, remat) in ranks.TRAIN_CASES.items():
+        cfg = ranks.train_cfg(K, remat)
+        params = params_from_jax(cfg, {k: v for k, v in ranks._tree(
+            d, f"w96_{K}/params").items()}, device="cpu")
+        opt = adamw_init(params)
+        step, metrics = ranks.train_step(cfg, accum, gdt), []
+        for i in range(2):
+            params, opt, m = step(params, opt, ranks.train_batch(d, i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                mu1 = {f"mu1/{k}": a for k, a in ranks._leaves(opt.mu)}
+        state = dict(mu1, step=opt.step)
+        for tag, tree in (("p", params), ("mu", opt.mu), ("nu", opt.nu)):
+            state.update({f"{tag}/{k}": a for k, a in ranks._leaves(tree)})
+        out[name] = (metrics, state)
+    return out
+
+
+@pytest.mark.parametrize("case", list(ranks.TRAIN_CASES))
+def test_train_step_under_the_mesh_equals_the_reference(
+        spawned, one_device_train, case):
+    """Two train steps under the mesh (``ranks.TRAIN_CASES``: the train_4k
+    rules with SP at K 4, the same with bf16 gradients and remat, (data 2,
+    model 4) under ``DEFAULT_RULES`` at K 2 with a split head and 2
+    microbatches, and 4 microbatches of 2 lanes replicated over data 4)
+    against the reference's ``make_train_step`` jitted with the
+    ``tree_shardings`` of the parameters, ``opt_state_axes`` and the
+    batch on an Auto mesh under the same rules, and against the port's
+    single-device step: each step's loss and grad_norm within 3e-5 (alike
+    on every rank), the gathered parameters and moments within
+    STATE_ATOL; with bf16 gradients ``mu`` within (1 - b1) times one
+    bf16 ulp of each step's gradient it carries, elementwise (either
+    step's f32 gradient may round to the neighbouring bf16 value)."""
+    refs = spawned["refs"]
+    one_metrics, one_state = one_device_train[case]
+    res = spawned["res"]
+    for r in res:
+        assert r[f"train/{case}/metrics"] == res[0][f"train/{case}/metrics"]
+    for i, (loss, norm) in enumerate(res[0][f"train/{case}/metrics"]):
+        for want in (float(refs[f"train/{case}/loss{i}"]),
+                     one_metrics[i][0]):
+            assert abs(loss - want) < 3e-5
+        for want in (float(refs[f"train/{case}/norm{i}"]),
+                     one_metrics[i][1]):
+            assert abs(norm - want) < 3e-5
+    got = res[0][f"train/{case}/state"]
+    assert int(got["step"]) == int(refs[f"train/{case}/step"]) == 2
+    want_ref = {k: refs[f"train/{case}/{k}"] for k in got if k != "step"}
+    want_one = {k: one_state[k] for k in want_ref}
+    bf16 = ranks.TRAIN_CASES[case][5] == "bfloat16"
+    for want in (want_ref, want_one):
+        err = _state_err(got, want)
+        worst = max(err, key=err.get)
+        if not bf16:
+            assert err[worst] <= STATE_ATOL, (worst, err[worst])
+            continue
+        for k, e in err.items():
+            if not k.startswith("mu/"):
+                assert e <= STATE_ATOL, (k, e)
+        # mu = b1 (1 - b1) g1 + (1 - b1) g2, the clipped bf16 gradients
+        # taken from the single device's mu after each step; one bf16 ulp
+        # of |g| is at most 2^-7 |g|, and the clip factors differ by ~1e-7
+        b1 = 0.9
+        for k, w in want.items():
+            if k.startswith("mu/"):
+                m1, m2 = (np.asarray(one_state[p + k[2:]], np.float64)
+                          for p in ("mu1", "mu"))
+                g1, g2 = m1 / (1 - b1), (m2 - b1 * m1) / (1 - b1)
+                ulps = (1 - b1) * 2.0 ** -7 * (b1 * np.abs(g1) + np.abs(g2))
+                diff = np.abs(np.asarray(got[k], np.float64)
+                              - np.asarray(w, np.float64))
+                assert (diff <= ulps + 1e-6 * np.abs(m2)).all(), k
+    print(case, {tag: max(_state_err(got, w).values())
+                 for tag, w in (("ref", want_ref), ("one", want_one))})
 
 
 @pytest.mark.parametrize("heads,model", [((12, 2), 8), ((12, 3), 2)],
@@ -866,3 +1075,133 @@ def test_sharding_ctx_without_a_mesh_changes_nothing():
         tx.prefill(moe_cfg, params, torch.ones((1, 8), dtype=torch.int32),
                    torch.tensor([8], dtype=torch.int32),
                    tx.init_cache(moe_cfg, 1))
+
+
+def test_train_state_saved_on_8_ranks_resumes_on_4(spawned):
+    """The train state after step 1 on (data 4, model 2), saved through
+    the CLI's ``save_state`` (the moments with their parameters' axes),
+    restored by ``restore(mesh=)`` onto (data 2, model 2), where each
+    moment is its parameter's block: step 2 there equals step 2 on 8
+    ranks (loss and grad_norm within 3e-5, parameters and moments within
+    STATE_ATOL)."""
+    case = ranks.TRAIN_CKPT_CASE
+    r8 = spawned["res"][0]
+    for r in spawned["restored"]:
+        t = r["train"]
+        assert t["saved"] == 1
+        assert t["mu_block"] == (2, 32, 32)       # wq's block at (2, 2)
+        loss, norm = r8[f"train/{case}/metrics"][1]
+        assert abs(t["metrics"][0] - loss) < 3e-5
+        assert abs(t["metrics"][1] - norm) < 3e-5
+    assert r8[f"train/{case}/mu_block"] == (2, 16, 32)   # at (4, 2)
+    err = _state_err(spawned["restored"][0]["train"]["state"],
+                     {k: v for k, v in r8[f"train/{case}/state"].items()
+                      if k != "step"})
+    assert max(err.values()) <= STATE_ATOL, max(err, key=err.get)
+
+
+def test_reference_restores_the_sharded_train_state(spawned, tmp_path):
+    """The file the 8 ranks wrote holds the keys and bytes (the same
+    digest) of a one-device save of the gathered state through the same
+    call; its manifest records the moments' axes (``o/1/...``,
+    ``o/2/...``; the step ``o/0`` whole), where the reference's CLI writes
+    null, and the JAX package's ``CheckpointManager.restore`` without a
+    mesh ignores them: it reads the gathered state bit for bit."""
+    from repro.training.checkpoint import CheckpointManager as JaxCkpt
+    from repro.training.optimizer import adamw_init as jax_adamw_init
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import AdamWState
+    state = spawned["res"][0]["train/ckpt_state"]
+    _, _, _, K, _, _, remat = ranks.TRAIN_CASES[ranks.TRAIN_CKPT_CASE]
+    cfg = ranks.train_cfg(K, remat)
+
+    def tree(tag):
+        return ranks._tree(state, tag)
+
+    opt = AdamWState(step=state["step"], mu=tree("mu"), nu=tree("nu"))
+    train_cli.save_state(CheckpointManager(str(tmp_path)), 1, cfg, tree("p"),
+                         opt)
+    step_dir = "step_0000000001"
+    mesh_dir = os.path.join(spawned["dir"], "train_ckpt", step_dir)
+    man = [json.load(open(os.path.join(p, "manifest.json")))
+           for p in (mesh_dir, str(tmp_path / step_dir))]
+    assert man[0]["keys"] == man[1]["keys"]
+    assert man[0]["digest"] == man[1]["digest"]
+    axes = man[0]["logical_axes"]
+    assert axes == man[1]["logical_axes"]
+    assert axes["o/0"] == []
+    assert axes["o/1/layers/wq"] == axes["o/2/layers/wq"] == [
+        None, "fsdp", "tensor"]
+    jcfg = ref_tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                    n_kv_heads=K, d_ff=128, vocab_size=96,
+                                    max_seq_len=64)
+    jp = ref_tx.init_params(jcfg, jax.random.key(0))
+    got, step = JaxCkpt(os.path.join(spawned["dir"], "train_ckpt")).restore(
+        {"p": jp, "o": jax_adamw_init(jp)})
+    assert step == 1
+    flat = {"step": got["o"].step}
+    for tag, t in (("p", got["p"]), ("mu", got["o"].mu),
+                   ("nu", got["o"].nu)):
+        flat.update({f"{tag}/{k}": v for k, v in ranks._leaves(t)})
+    assert sorted(flat) == sorted(state)
+    for k, v in state.items():
+        np.testing.assert_array_equal(np.asarray(flat[k]), v.numpy(),
+                                      err_msg=k)
+
+
+def test_save_refuses_a_train_state_without_moment_axes(spawned):
+    """``save(mesh=)`` of the 8 ranks' train state with ``"o": None`` (the
+    CLI's call before the moments had axes, which would write rank 0's
+    moment blocks as whole arrays): it raises naming the first such key,
+    and nothing is written."""
+    for r in spawned["res"]:
+        assert "'o/0'" in r["train/unplaced"]
+        assert "no logical axes" in r["train/unplaced"]
+        assert r["train/unplaced_written"] == []
+
+
+@pytest.fixture(scope="module")
+def one_process_cli(tmp_path_factory):
+    """The train CLI's two calls of the spawned worlds in this process,
+    without a mesh."""
+    from repro_torch.launch import train as train_cli
+    ckpt = str(tmp_path_factory.mktemp("cli_one"))
+    runs = [train_cli.main(ranks.CLI_ARGS + [
+        "--steps", str(n), "--ckpt-every", str(n), "--ckpt-dir", ckpt])
+        for n in ranks.CLI_STEPS]
+    return ckpt, runs
+
+
+def test_train_cli_under_a_mesh_resumes_on_another_world(spawned,
+                                                         one_process_cli):
+    """``launch/train.main`` inside ``sharding_ctx`` (no mesh flag): 3
+    steps with a checkpoint on 4 ranks at (data 2, model 2) under the
+    train_4k rules, resumed on 2 ranks at (1, 2) to step 5 with a
+    checkpoint there.  Every rank prints the same losses, within 3e-5 of
+    the one-process CLI's (steps 1 and 4), the resumed ranks hold blocks,
+    and the step-5 checkpoint's arrays are within STATE_ATOL of the
+    one-process CLI's."""
+    ckpt, (first, second) = one_process_cli
+    n0, n1 = ranks.CLI_STEPS
+    for r in spawned["restored"]:
+        assert r["cli"]["start"] == 0
+        assert r["cli"]["losses"] == spawned["restored"][0]["cli"]["losses"]
+    for r in spawned["cli"]:
+        assert r["start"] == n0
+        assert r["losses"] == spawned["cli"][0]["losses"]
+        assert r["wq"] == r["mu_wq"] == (2, 64, 32)
+    got = {**spawned["restored"][0]["cli"]["losses"],
+           **spawned["cli"][0]["losses"]}
+    want = {**first["losses"], **second["losses"]}
+    assert sorted(got) == sorted(want) == [1, n0 + 1]
+    for k in want:
+        assert abs(got[k] - want[k]) < 3e-5, (k, got[k], want[k])
+    step_dir = f"step_{n1:010d}"
+    with np.load(os.path.join(spawned["dir"], "cli", step_dir,
+                              "arrays.npz")) as a, \
+            np.load(os.path.join(ckpt, step_dir, "arrays.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            assert np.abs(a[k].astype(np.float64) - b[k]).max() \
+                <= STATE_ATOL, k

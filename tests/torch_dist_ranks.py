@@ -4,8 +4,10 @@ step's commit, prefill, ``moe_ep`` and its gradient, ``_sharded_argmax``,
 the dense LM's placement over (data 4, model 2) and (data 2, model 4) —
 prefill, tree step and the session's fused step on both KV layouts, and
 guided serving through the engine — the parameter blocks of
-``init_params``/``shard_params``, and checkpoints saved under one mesh or
-by the JAX package and restored under another), check what they can
+``init_params``/``shard_params``, checkpoints saved under one mesh or
+by the JAX package and restored under another, and the train step under
+the mesh: ``make_train_step`` on placed parameters and AdamW state, its
+checkpoint, and the train CLI inside ``sharding_ctx``), check what they can
 against the port's single-device paths, and leave their outputs in
 ``<dir>/rank<r>.pt`` for the test to hold against the JAX package's
 sharded functions.  Imports torch and the port only, so a spawned rank
@@ -27,6 +29,7 @@ from repro_torch.core.request import SamplingParams
 from repro_torch.distributed.flash_decode import cache_partition_spec
 from repro_torch.distributed.sharding import (DEFAULT_RULES, NamedSharding,
                                               P, placement, sharding_ctx)
+from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe
 from repro_torch.models import transformer as tx
@@ -36,13 +39,19 @@ from repro_torch.serving import api
 from repro_torch.serving.sampler import _sharded_argmax
 from repro_torch.serving.session import make_session_fns
 from repro_torch.training.checkpoint import CheckpointManager
+from repro_torch.training.optimizer import (_norm_and_scale, adamw_init,
+                                            adamw_update, split_axes,
+                                            tree_map)
+from repro_torch.training.train_step import make_train_step
 
 ATOL = 3e-5           # flash decode against dense, as the reference's test
 MOE_ATOL = 1e-4
 COMMIT_ARGS = ("lens", "toks", "pos", "mask", "parent", "n_live")
 TREE_ARGS = ("ctoks", "pos", "mask", "parent", "n_live")
+TRAIN_RULES = DEFAULT_RULES.override(residual_seq=("model",))  # train_4k's
 RULES = {"default": DEFAULT_RULES,
-         "serve": DEFAULT_RULES.override(fsdp=())}   # the serve cells'
+         "serve": DEFAULT_RULES.override(fsdp=()),   # the serve cells'
+         "train": TRAIN_RULES}
 # The dense LM's placement cases: mesh (data, model), rules, V, K, KV
 # layout, decode backend.  V 97 keeps the vocab whole, V 96 splits it; K 2
 # at model 4 splits a head of wk/wv (each rank computes every KV head).
@@ -378,25 +387,46 @@ def _serve_case(meshes, ins, name, res):
     res[f"serve/{name}/steps"] = steps
 
 
-GRAD_CASES = {       # mesh (data, model), rules, remat, with a loss mask
-    "g42": (4, 2, "default", False, True),
-    "g24": (2, 4, "serve", True, False),
+GRAD_CASES = {  # mesh (data, model), rules, remat, with a loss mask, V, B
+    "g42": (4, 2, "default", False, True, 96, 4),
+    "g24": (2, 4, "serve", True, False, 96, 4),
+    # the train_4k rules: the residual split over model (SP), the vocab
+    # split (the head gathers the sequence) or whole (the head on blocks)
+    "s42": (4, 2, "train", False, True, 96, 4),
+    "s42v": (4, 2, "train", True, False, 97, 4),
+    # B 2 on data 4: every data rank runs both lanes (replicated lanes)
+    "r42": (4, 2, "default", False, True, 96, 2),
 }
+# The train step under a mesh: mesh (data, model), rules, K, microbatches,
+# grad_dtype, remat; the reference's train_4k step (lr 3e-4) on the
+# placement cases' V 96 weights, 2 steps of B 8 x S 16
+TRAIN_CASES = {
+    "t42": (4, 2, "train", 4, 1, None, False),
+    "b42": (4, 2, "train", 4, 1, "bfloat16", True),
+    "t24": (2, 4, "default", 2, 2, None, False),
+    "a42": (4, 2, "train", 4, 4, None, False),   # microbatches of 2 lanes
+}
+TRAIN_LR = 3e-4
+TRAIN_CKPT_CASE = "t42"    # saved after step 1 on 8 ranks, resumed on 4
+# the train CLI on Qwen2's smoke config (K 1: a head of wk split at model
+# 2): 3 steps and a checkpoint on mesh (2, 2), resumed to step 5 on (1, 2)
+CLI_ARGS = ["--smoke", "--device", "cpu", "--seq", "32", "--accum", "2"]
+CLI_STEPS = (3, 5)
 
 
 def _grad_case(meshes, ins, name, res):
-    """``lm_loss`` and its gradient under the mesh (4 lanes of 16 tokens,
+    """``lm_loss`` and its gradient under the mesh (B lanes of 16 tokens,
     the dense attention): each rank's gradient of each of its parameter
     blocks against its block of the single-device gradient, and the loss
     against the single-device loss."""
-    data, model, rname, remat, masked = GRAD_CASES[name]
+    data, model, rname, remat, masked, V, B = GRAD_CASES[name]
     mesh, rules = meshes[(data, model)], RULES[rname]
-    cfg = dataclasses.replace(tp_cfg(96, 2), prefill_backend="dense",
+    cfg = dataclasses.replace(tp_cfg(V, 2), prefill_backend="dense",
                               remat=remat)
-    whole = params_from_jax(cfg, _tree(ins, "w96_2/params"), device="cpu")
-    toks = torch.from_numpy(ins["tp/toks"][:, :17])
+    whole = params_from_jax(cfg, _tree(ins, f"w{V}_2/params"), device="cpu")
+    toks = torch.from_numpy(ins["tp/toks"][:B, :17])
     mask = (torch.arange(16)[None, :] < torch.tensor([[16], [9], [12], [5]])
-            ).float() if masked else None
+            [:B]).float() if masked else None
 
     def grads(params):
         params = {k: ({n: a.detach().clone().requires_grad_()
@@ -416,21 +446,147 @@ def _grad_case(meshes, ins, name, res):
     res[f"{name}/loss"] = (float(loss1), float(loss2))
     res[f"{name}/grad_err"] = err
     res[f"{name}/grad_scale"] = max(g.abs().max().item() for g in g1.values())
+    with sharding_ctx(mesh, rules):
+        lay = tx.Layout(cfg, B, seq=16)
+    res[f"{name}/split"] = (lay.lane_axes, lay.seq_axes, lay.head_seq)
 
 
 def _refusals(meshes, res):
-    """``lm_loss``'s gradient where the FSDP gather's axis does not split
-    the lanes (B 2 on data 4): it raises, naming ROADMAP A16b."""
-    cfg = dataclasses.replace(tp_cfg(96, 2), prefill_backend="dense")
+    """A serving call under the train_4k rules (a live ``residual_seq``)
+    raises, naming ROADMAP A16b."""
+    cfg = tp_cfg(96, 2)
     params = init_params(cfg, seed=0, device="cpu")
-    toks = torch.ones((2, 8), dtype=torch.int32)
-    with sharding_ctx(meshes[(4, 2)]):
+    toks = torch.ones((2, cfg.max_seq_len), dtype=torch.int32)
+    with sharding_ctx(meshes[(4, 2)], TRAIN_RULES):
         params = shard_params(cfg, params, meshes[(4, 2)])
-        params["embed"].requires_grad_()
         try:
-            tx.lm_loss(cfg, params, toks, toks)
+            tx.prefill(cfg, params, toks, torch.tensor([8, 8]))
         except NotImplementedError as exc:
-            res["lm_loss_refusal"] = str(exc)
+            res["serve_sp_refusal"] = str(exc)
+
+
+def train_cfg(K: int, remat: bool) -> tx.TransformerConfig:
+    """The placement cases' model at V 96 and K KV heads, trained through
+    the dense attention."""
+    return dataclasses.replace(tp_cfg(96, K), prefill_backend="dense",
+                               remat=remat)
+
+
+def train_batch(ins, i):
+    """Step i's global batch: 8 rows of 16 tokens and their labels."""
+    t = torch.from_numpy(ins["train/toks"][i])
+    return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+
+
+def train_step(cfg, accum, grad_dtype):
+    return make_train_step(
+        lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"]),
+        lr=TRAIN_LR, accum_steps=accum, grad_dtype=grad_dtype,
+        axes=tx.param_logical_axes(cfg), shapes=tx.param_shapes(cfg))
+
+
+def gathered_state(mesh, cfg, params, opt, rules):
+    """The whole parameters and moments (``p/...``, ``mu/...``,
+    ``nu/...``) and the step, gathered from this rank's blocks."""
+    axes = dict(_leaves(tx.param_logical_axes(cfg)))
+    shapes = dict(_leaves(tx.param_shapes(cfg)))
+    out = {"step": opt.step.clone()}
+    for tag, tree in (("p", params), ("mu", opt.mu), ("nu", opt.nu)):
+        for k, a in _leaves(tree):
+            out[f"{tag}/{k}"] = placement(mesh, axes[k], shapes[k],
+                                          rules).gather(a)
+    return out
+
+
+def _residual_case(mesh, ins, whole, cfg, res):
+    """Under the train_4k rules a rank's residual after the layers (what
+    remat saves between them) is its (B/4, S/2, d) block of lanes and
+    sequence, equal to that block of the single-device hidden states."""
+    toks = train_batch(ins, 0)["tokens"]
+    one = tx._train_hidden(cfg, whole, toks)
+    with sharding_ctx(mesh, TRAIN_RULES):
+        lay = tx.Layout(cfg, toks.shape[0], seq=toks.shape[1])
+        h = tx._train_hidden(cfg, shard_params(cfg, whole, mesh),
+                             lay.local(toks), lay)
+    B, S = toks.shape
+    assert tuple(h.shape) == (B // 4, S // 2, cfg.d_model), h.shape
+    torch.testing.assert_close(h, lay.residual.local(lay.local(one)),
+                               atol=ATOL, rtol=0)
+    res["train/residual"] = (tuple(h.shape), lay.seq_axes)
+    with sharding_ctx(mesh, TRAIN_RULES):        # model 2 does not divide 15
+        res["train/odd_seq"] = tx.Layout(cfg, B, seq=S - 1).seq_axes
+
+
+def _train_case(meshes, ins, name, directory, res):
+    """Two train steps under the mesh (``TRAIN_CASES``) from the placed
+    parameters and ``adamw_init`` of them: each step's loss and grad_norm
+    (alike on every rank), then the gathered parameters and moments.  The
+    checkpoint case saves the state after step 1 through the CLI's save
+    call, and refuses the save the CLI made before moments had axes."""
+    data, model, rname, K, accum, gdt, remat = TRAIN_CASES[name]
+    mesh, rules = meshes[(data, model)], RULES[rname]
+    cfg = train_cfg(K, remat)
+    whole = params_from_jax(cfg, _tree(ins, f"w96_{K}/params"), device="cpu")
+    if name == TRAIN_CKPT_CASE:
+        _residual_case(mesh, ins, whole, cfg, res)
+    step = train_step(cfg, accum, gdt)
+    metrics = []
+    with sharding_ctx(mesh, rules):
+        params = shard_params(cfg, whole, mesh)
+        opt = adamw_init(params)
+        for i in range(2):
+            params, opt, m = step(params, opt, train_batch(ins, i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0 and name == TRAIN_CKPT_CASE:
+                train_cli.save_state(CheckpointManager(os.path.join(
+                    directory, "train_ckpt")), 1, cfg, params, opt)
+                saved = gathered_state(mesh, cfg, params, opt, rules)
+                if mesh.rank == 0:
+                    res["train/ckpt_state"] = saved
+                _unplaced_save(mesh, cfg, params, opt, directory, res)
+        state = gathered_state(mesh, cfg, params, opt, rules)
+    res[f"train/{name}/metrics"] = metrics
+    res[f"train/{name}/mu_block"] = tuple(opt.mu["layers"]["wq"].shape)
+    if mesh.rank == 0:
+        res[f"train/{name}/state"] = state
+
+
+def _unplaced_save(mesh, cfg, params, opt, directory, res):
+    """``save(mesh=)`` of the train state with the moments' axes None (as
+    the CLI saved before): the moment blocks would be written as whole
+    arrays, so it raises naming the key, and nothing is written."""
+    axes, shapes = tx.param_logical_axes(cfg), tx.param_shapes(cfg)
+    bad = CheckpointManager(os.path.join(directory, "train_unplaced"))
+    try:
+        bad.save(1, {"p": params, "o": opt}, logical_axes={"p": axes,
+                                                           "o": None},
+                 shapes={"p": shapes, "o": None}, mesh=mesh)
+    except ValueError as exc:
+        res["train/unplaced"] = str(exc)
+    res["train/unplaced_written"] = bad.all_steps()
+
+
+def _norm_case(mesh, res):
+    """The global norm under ``DEFAULT_RULES`` on (data 4, model 2): a
+    (8, 8) leaf of ones split over model and data (each rank's (4, 2)
+    block) and a (4,) leaf of twos replicated on every rank give
+    sqrt(64 + 16); a whole leaf where the rules split it raises, and so
+    does ``adamw_update`` under the mesh without the placements."""
+    axes = {"a": ("tensor", "fsdp"), "b": (None,)}
+    shapes = {"a": (8, 8), "b": (4,)}
+    grads = {"a": torch.ones(4, 2), "b": torch.full((4,), 2.0)}
+    with sharding_ctx(mesh):
+        split = split_axes(grads, axes, shapes)
+        res["norm/split"] = split
+        res["norm/value"] = float(_norm_and_scale(grads, 1.0, split)[0])
+        try:
+            split_axes(dict(grads, a=torch.ones(8, 8)), axes, shapes)
+        except ValueError as exc:
+            res["norm/whole_refused"] = str(exc)
+        try:
+            adamw_update(grads, grads, adamw_init(grads))
+        except ValueError as exc:
+            res["norm/no_axes_refused"] = str(exc)
 
 
 def _checkpoint_saves(mesh, directory, res):
@@ -498,6 +654,9 @@ def world8(rank: int, directory: str) -> None:
             _grad_case(meshes, ins, name, res)
         _refusals(meshes, res)
         _checkpoint_saves(mesh, directory, res)
+        _norm_case(mesh, res)
+        for name in TRAIN_CASES:
+            _train_case(meshes, ins, name, directory, res)
         torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -554,10 +713,57 @@ def world4(rank: int, directory: str) -> None:
                                           torch.device("cpu"))))
         jsame = sorted(jgot) == sorted(jwant) and all(
             torch.equal(jgot[k], jwant[k]) for k in jwant)
-        torch.save({"w": out["w"], "step": saved, "coords": mesh.coords(),
-                    "we_gate": tuple(params["layers"]["we_gate"].shape),
-                    "logits": got, "jax_step": jstep, "jax_equal": jsame,
-                    "jax_wq": tuple(jgot["layers/wq"].shape)},
-                   os.path.join(directory, f"restored{rank}.pt"))
+        res = {"w": out["w"], "step": saved, "coords": mesh.coords(),
+               "we_gate": tuple(params["layers"]["we_gate"].shape),
+               "logits": got, "jax_step": jstep, "jax_equal": jsame,
+               "jax_wq": tuple(jgot["layers/wq"].shape)}
+        _resumed_train(mesh, ins, directory, res)
+        with sharding_ctx(mesh, TRAIN_RULES):
+            cli = train_cli.main(CLI_ARGS + [
+                "--steps", str(CLI_STEPS[0]), "--ckpt-every",
+                str(CLI_STEPS[0]), "--ckpt-dir", os.path.join(directory,
+                                                               "cli")])
+        res["cli"] = {"losses": cli["losses"], "start": cli["start"]}
+        torch.save(res, os.path.join(directory, f"restored{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _resumed_train(mesh, ins, directory, res):
+    """The train state that ``world8`` saved after step 1 on (data 4,
+    model 2), restored onto (data 2, model 2) by ``restore(mesh=)`` (the
+    moments placed as their parameters), takes step 2."""
+    data, model, rname, K, accum, gdt, remat = TRAIN_CASES[TRAIN_CKPT_CASE]
+    rules, cfg = RULES[rname], train_cfg(K, remat)
+    with sharding_ctx(mesh, rules):
+        blocks = init_params(cfg, device="cpu", mesh=mesh)
+        state, saved = CheckpointManager(os.path.join(
+            directory, "train_ckpt")).restore(
+                {"p": blocks, "o": adamw_init(blocks)}, mesh=mesh)
+        state = tree_map(lambda a: tree_to_torch(a, torch.device("cpu")),
+                         state)
+        params, opt, m = train_step(cfg, accum, gdt)(
+            state["p"], state["o"], train_batch(ins, 1))
+        state = gathered_state(mesh, cfg, params, opt, rules)
+        res["train"] = {"saved": saved, "metrics": (float(m["loss"]),
+                                                    float(m["grad_norm"])),
+                        "mu_block": tuple(opt.mu["layers"]["wq"].shape),
+                        "state": state if mesh.rank == 0 else None}
+
+
+def world2(rank: int, directory: str) -> None:
+    """The train CLI's run of ``world4`` resumed on mesh (data 1, model 2)
+    under the train_4k rules to step CLI_STEPS[1], checkpointing there."""
+    _init(rank, 2, os.path.join(directory, "store2"))
+    try:
+        with sharding_ctx(make_host_mesh(data=1, model=2), TRAIN_RULES):
+            cli = train_cli.main(CLI_ARGS + [
+                "--steps", str(CLI_STEPS[1]), "--ckpt-every",
+                str(CLI_STEPS[1]), "--ckpt-dir", os.path.join(directory,
+                                                               "cli")])
+        torch.save({"losses": cli["losses"], "start": cli["start"],
+                    "wq": tuple(cli["params"]["layers"]["wq"].shape),
+                    "mu_wq": tuple(cli["opt"].mu["layers"]["wq"].shape)},
+                   os.path.join(directory, f"cli{rank}.pt"))
     finally:
         dist.destroy_process_group()
