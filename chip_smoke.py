@@ -221,8 +221,9 @@ Phases, in order; any failure exits non-zero:
    against the dense f32 path (``moe_ref``; ``moe_tp_rule``).  (b) also
    profiles one ep and one local step and prints the ops where ep spends
    more.  (d) 2 gloo ranks, mesh (data 1, model 2), the serve rules
-   (tensor parallelism): Qwen2-1.5B at full width and depth, bf16, each
-   rank holding its blocks of the dense weights (heads, FFN, vocab),
+   (tensor parallelism): Qwen2-1.5B at full width cut to
+   DIST_TP_D_LAYERS, bf16, each rank holding its blocks of the dense
+   weights (heads, FFN, vocab),
    DIST_TP_PROMPTS guided requests served twice through ``build_engine``
    inside ``sharding_ctx`` on the dense and the paged layout (the second
    pass, drafting from the first's outputs, in fewer steps), their tokens
@@ -257,7 +258,21 @@ Phases, in order; any failure exits non-zero:
    of one device's, the state a rank holds equal to its ``placement``
    count to the byte); step times, the collectives' share of a timed
    step and the peak a rank are printed.  No port kernel launches
-   there.
+   there.  (f)'s MoE (``dist_moe_train_world``): Moonlight-16B-A3B at
+   full width cut to DIST_MOE_TRAIN_LAYERS, f32, on 4 gloo ranks at (2,
+   2) under the train_4k rules (``moe_ep`` on the reference's token
+   groups, gathered from the residual's sequence blocks; the shared
+   experts' products on those blocks), DIST_MOE_TRAIN_STEPS steps at
+   capacity factor E / top_k (losses and grad norms within
+   DIST_TRAIN_LOSS_RTOL of one device's ``moe_ref``, no row dropped) and
+   at 1.25 (the rows dropped and the step seconds printed), the state a
+   rank equal to its ``placement`` count.  (g) query heads that split off one KV head
+   (``dist_heads_world``): 8 gloo ranks, mesh (data 1, model 8), the
+   serve rules, Qwen2-1.5B (H 12: q gathered, every rank attends with
+   all heads) then Phi-3-medium (5 heads a rank in runs on two KV
+   heads), each cut to DIST_HEADS_LAYERS, (d)'s checks without the
+   session state, B1, B2 and B3 held at each (query, KV) head shape of
+   a rank's attention calls, once a shape (``heads_holds``).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -298,8 +313,8 @@ PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
 # the reference's other dense LMs, served at full width by the archs phase
 OTHER_ARCHS = ("antglm-10b", "phi3-mini-3.8b", "phi3-medium-14b")
 # the archs and moe phases serve each arch at full width with its depth cut
-# to half (PR 27: the dist phase's train worlds need the time)
-ARCH_DEPTH_DIV = 2
+# to a quarter, which leaves the dist phase's worlds the script's time
+ARCH_DEPTH_DIV = 4
 # its MoE LMs, served at full width by the moe phase
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 # moe_ref in bf16 at one layer's full width against a per-token f32
@@ -3707,13 +3722,13 @@ def recsys_phase(gen):
 
 
 # ---------------------------------------------------------------- training
-TRAIN_CLI_STEPS = (4, 6)      # the CLI run, then its resumed run (the
+TRAIN_CLI_STEPS = (2, 4)      # the CLI run, then its resumed run (the
                               # one-device side of dist's (f), which reuses
                               # them in the same process)
 TRAIN_CLI_EVERY = 2           # a checkpoint every 2 steps
-TRAIN_CLI_LAYERS = 4          # the CLI run's depth cut 28 -> 4: its f32
+TRAIN_CLI_LAYERS = 2          # the CLI run's depth cut 28 -> 2: its f32
                               # checkpoint (weights and both AdamW moments)
-                              # 18.5 -> 5.0 GB
+                              # 18.5 -> 3.9 GB
 # leaves of the checkpoint compared bit for bit with the trained state
 CKPT_SPOT_KEYS = ("p/embed", "p/ln_f", "p/layers/wq", "p/layers/bq", "o/0",
                   "o/1/embed", "o/2/layers/w_down")
@@ -4992,10 +5007,11 @@ DIST_MOE_NS = (132, 512)      # moe_ep rows: a decode step's 4 x 33, a
 DIST_MOE_CF = 1.25            # Qwen3-MoE-30B-A3B's capacity factor
 DIST_STEPS = 3                # timed fused steps a world
 DIST_TURNS = 6                # world 1's ep and local steps timed in turns
-DIST_MOE_LAYERS = 12          # (b), (c): Qwen3-MoE's depth cut 48 -> 12
+DIST_MOE_LAYERS = 6           # (b), (c): Qwen3-MoE's depth cut 48 -> 6
 DIST_TP_PROMPTS = 6           # (d), (e): guided requests on 4 lanes
 DIST_TP_NEW = 32              # their new tokens each
-DIST_TP_E_LAYERS = 8          # (e): Qwen2-1.5B's depth cut 28 -> 8,
+DIST_TP_D_LAYERS = 8          # (d): Qwen2-1.5B's depth cut 28 -> 8
+DIST_TP_E_LAYERS = 4          # (e): Qwen2-1.5B's depth cut 28 -> 4,
 DIST_TP_E_PROMPTS = 4         # its requests (one cohort)
 DIST_TP_E_NEW = 12            # and their new tokens: its FSDP gathers move
                               # ~0.8 GB a step a rank through gloo
@@ -5003,9 +5019,17 @@ DIST_STATE_STEPS = 3          # (d), (e): guided session steps before the
                               # unguided one whose logits are held
 DIST_MOE_TP_LAYERS = 4        # (c)'s serve-rules step: Qwen3-MoE's depth
                               # cut 48 -> 4
-# (f) against one device, both f32.  The losses (steps 1 and 5) to a
+DIST_HEADS_ARCHS = ("qwen2-1.5b", "phi3-medium-14b")   # (g), mesh (1, 8):
+                              # H 12 (q gathered), 5 heads a rank on 2 KV
+DIST_HEADS_LAYERS = 2         # (g): depth cut 28 / 40 -> 2
+DIST_HEADS_PROMPTS = 4        # (g): guided requests (one cohort)
+DIST_HEADS_NEW = 12           # and their new tokens
+DIST_MOE_TRAIN_LAYERS = 2     # (f)'s Moonlight: depth cut 48 -> 2
+DIST_MOE_TRAIN_BATCH = (4, 128)   # (B, S): 2 lanes a data rank at (2, 2)
+DIST_MOE_TRAIN_STEPS = 2
+# (f) against one device, both f32.  The losses (steps 1 and 3) to a
 # relative 1e-5: the same sums in another order differ by ~1e-7, and after
-# 4 updates of lr 3e-4 a lost or doubled update moves the loss by ~1e-4
+# 2 updates of lr 3e-4 a lost or doubled update moves the loss by ~1e-4
 # relative or more.  The final checkpoint's moments to an RMS difference of
 # 1e-3 of their RMS: they follow the gradients (~1e-6 apart), and a clip
 # factor or a gradient wrong on some blocks moves them by its error.  Its
@@ -5013,7 +5037,10 @@ DIST_MOE_TP_LAYERS = 4        # (c)'s serve-rules step: Qwen3-MoE's depth
 # them (lr x steps, Adam's step being at most ~lr an element): they differ
 # only where Adam's lr * g / (|g| + eps) turns on a gradient near eps,
 # while a missed or doubled update moves them by ~lr a step (Adam's step
-# does not see a gradient's scale: the moments check the clip)
+# does not see a gradient's scale: the moments check the clip).  (f)'s MoE
+# holds each step's grad_norm to the same 1e-5: summed in another order
+# it moves by ~1e-7, and a leaf's gradient scaled by a constant (which the
+# loss after an Adam step does not see) moves it by far more
 DIST_TRAIN_LOSS_RTOL = 1e-5
 DIST_TRAIN_MOMENT_RTOL = 1e-3
 DIST_TRAIN_PARAM_FRAC = 1e-2
@@ -5658,9 +5685,10 @@ def session_state(cfg, params, layout, ins):
 
 
 def dist_tp_world(rank, data, model, rules_name, n_layers=None,
-                  n_prompts=DIST_TP_PROMPTS, n_new=DIST_TP_NEW):
+                  n_prompts=DIST_TP_PROMPTS, n_new=DIST_TP_NEW,
+                  arch="qwen2-1.5b", state=True):
     """A world of data x model gloo ranks, every rank on cuda:0, serving
-    Qwen2-1.5B (bf16, the cuda backends, random weights from seed 0,
+    ``arch`` (bf16, the cuda backends, random weights from seed 0,
     ``n_layers`` deep or at full depth) placed over mesh (data, model)
     under the rules named (``DEFAULT_RULES`` or the serve cells'
     ``override(fsdp=())``): ``init_params(mesh=)`` draws each rank's
@@ -5669,19 +5697,18 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
     and on the paged one, twice each (``serve``; kernel counters read
     around the four passes); the
     prefill and step logits of ``model_inputs`` through ``tx.prefill`` and
-    ``tx.tree_step`` under the mesh, gathered; B1 at this rank's heads
-    against its plain version; ``session_state`` on both layouts.  Then
-    rank 0 alone, every other rank waiting: the single-device session's
-    tokens (captured), the single-device logits (the cuda backends in
-    bf16, the dense backend in bf16 and in f32) and ``session_state`` (in
-    bf16 on both layouts, in f32 on the dense one) on the same weights."""
-    from repro_torch import kernels
-    from repro_torch.configs import qwen2_1_5b
+    ``tx.tree_step`` under the mesh, gathered; B1, B2 and B3 at this
+    rank's head shapes that no lower rank has, against their plain
+    versions (``heads_holds``); with
+    ``state``, ``session_state`` on both layouts.  Then rank 0 alone,
+    every other rank waiting: the single-device session's tokens
+    (captured), the single-device logits (the cuda backends in bf16, the
+    dense backend in bf16 and in f32) and, with ``state``,
+    ``session_state`` (in bf16 on both layouts, in f32 on the dense one)
+    on the same weights."""
+    from repro_torch import configs, kernels
     from repro_torch.core.request import SamplingParams
     from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
-    from repro_torch.kernels.timing import path_mask
-    from repro_torch.kernels.tree_attention.ops import (
-        tree_attention, tree_attention_reference)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as tx
     from repro_torch.models.params import init_params
@@ -5689,8 +5716,8 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
     mesh = make_host_mesh(data=data, model=model, device="cuda:0")
     rules = (DEFAULT_RULES if rules_name == "default"
              else DEFAULT_RULES.override(fsdp=()))
-    cfg = dataclasses.replace(qwen2_1_5b.full_config(), dtype="bfloat16",
-                              param_dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_arch(arch).full_config(),
+                              dtype="bfloat16", param_dtype="bfloat16")
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     V = cfg.vocab_size
@@ -5740,21 +5767,14 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
         step = tx.tree_step(cfg, params, cache, lens, tree, pos, tm)[1]
         out["pre"] = whole(lay.logits_sharding(2), pre).float().cpu()
         out["step"] = whole(lay.logits, step).float().cpu()
-        out["heads"] = (lay.q_heads, lay.kv_heads)
-        B, T, _, _, dh, S = PATH_TREE
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(rank)
-        q = randn(gen, (B, T, lay.q_heads, dh), torch.bfloat16)
-        k, v = (randn(gen, (B, S, lay.kv_heads, dh), torch.bfloat16)
-                for _ in range(2))
-        mask = path_mask(B, T, S, max_new=MAX_NEW)
-        out["b1_err"] = hold(
-            f"rank {rank} tree_attention at its heads", tree_attention(
-                q, k, v, mask), tree_attention_reference(q, k, v, mask),
-            torch.bfloat16, (B, T, lay.q_heads, lay.kv_heads, dh, S))
-        del cache, q, k, v
-        out["state"] = {layout: session_state(cfg, params, layout, ins)
-                        for layout in ("dense", "paged")}
+        out["heads"] = (lay.q_heads, lay.kv_heads, lay.kv_runs,
+                        lay.q_gather, lay.q_block)
+        del cache
+        out["holds"] = heads_holds(rank, lay, cfg.dh,
+                                   cfg.n_heads // cfg.n_kv_heads)
+        if state:
+            out["state"] = {layout: session_state(cfg, params, layout, ins)
+                            for layout in ("dense", "paged")}
         kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
         del params
     free_card()
@@ -5767,15 +5787,17 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
         out["one_cuda"] = [x.cpu() for x in model_logits(cfg, p16, ins,
                                                          "cuda")]
         out["d16"] = [x.cpu() for x in model_logits(cfg, p16, ins, "dense")]
-        out["state_one"] = {layout: session_state(cfg, p16, layout, ins)
-                            for layout in ("dense", "paged")}
+        if state:
+            out["state_one"] = {layout: session_state(cfg, p16, layout, ins)
+                                for layout in ("dense", "paged")}
         p32 = tree_map(lambda t: t.float(), p16)
         del p16
         c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
         out["ref"] = [x.cpu() for x in model_logits(c32, p32, ins, "dense")]
-        out["state_ref"] = session_state(dataclasses.replace(
-            c32, prefill_backend="dense", decode_backend="dense"), p32,
-            "dense", ins)
+        if state:
+            out["state_ref"] = session_state(dataclasses.replace(
+                c32, prefill_backend="dense", decode_backend="dense"), p32,
+                "dense", ins)
         del p32
         free_card()
         kernels.add(kernels.diff(kernels.snapshot(), cmp0), -1)
@@ -5783,10 +5805,90 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
     return out
 
 
+def head_shapes(lay, G, rank):
+    """The (query heads, KV heads) of each attention call of ``rank``
+    under the mesh (``lay``, the model's ``Layout``; G query heads a KV
+    head): each run of query heads on the one KV head it reads
+    (``kv_runs``), else all the rank's query and KV heads."""
+    from repro_torch.models import transformer as tx
+    if lay.kv_runs is None:
+        return {(lay.q_heads, lay.kv_heads)}
+    c, i = lay.mesh.coords(rank), 0
+    for a in lay.q_block:               # the rank's block of query heads
+        i = i * lay.mesh.shape[a] + c[a]
+    return {(b - a, 1) for a, b, _ in tx._kv_runs(i * lay.q_heads,
+                                                   lay.q_heads, G)}
+
+
+def heads_holds(rank, lay, dh, G):
+    """B1, B2 and B3 at each of this rank's ``head_shapes`` that no lower
+    rank has, at the path's shapes on random bf16 inputs, each against
+    its plain version (TOL): the shapes held and the largest max|err| by
+    kernel."""
+    from repro_torch.kernels.flash_prefill.ops import (flash_prefill,
+                                                       flash_prefill_ref)
+    from repro_torch.kernels.timing import path_mask
+    from repro_torch.kernels.tree_attention.ops import (
+        tree_attention, tree_attention_reference)
+    from repro_torch.kernels.tree_attention.paged import (
+        paged_tree_attention, paged_tree_attention_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(rank)
+    dt = torch.bfloat16
+    heads = sorted(head_shapes(lay, G, rank).difference(
+        *(head_shapes(lay, G, r) for r in range(rank))))
+    B, T, _, _, _, S = PATH_TREE
+    Bp, Tp, _, _, _, bs, bpl = PATH_PAGED
+    Bf, Sf = PATH_PREFILL[0][:2]
+    errs = dict.fromkeys(("tree_attention", "paged_tree_attention",
+                          "flash_prefill"), 0.0)
+    for H, K in heads:
+        q, k, v = (randn(gen, shp, dt) for shp in
+                   ((B, T, H, dh), (B, S, K, dh), (B, S, K, dh)))
+        mask = path_mask(B, T, S, max_new=MAX_NEW)
+        e1 = hold(f"rank {rank} tree_attention", tree_attention(
+            q, k, v, mask), tree_attention_reference(q, k, v, mask), dt,
+            (B, T, H, K, dh, S))
+        q, kp, vp, bt, mask = paged_case(gen, Bp, Tp, H, K, dh, bs, bpl, dt,
+                                         path_mask(Bp, Tp, bs * bpl,
+                                                   max_new=MAX_NEW))
+        e2 = hold(f"rank {rank} paged_tree_attention", paged_tree_attention(
+            q, kp, vp, bt, mask), paged_tree_attention_reference(
+            q, kp, vp, bt, mask), dt, (Bp, Tp, H, K, dh, bs, bpl))
+        q, k, v = (randn(gen, shp, dt) for shp in
+                   ((Bf, Sf, H, dh), (Bf, Sf, K, dh), (Bf, Sf, K, dh)))
+        e3 = hold(f"rank {rank} flash_prefill", flash_prefill(q, k, v),
+                  flash_prefill_ref(q, k, v), dt, (Bf, Sf, H, K, dh))
+        for name, e in zip(errs, (e1, e2, e3)):
+            errs[name] = max(errs[name], e)
+    return heads, errs
+
+
+def dist_heads_world(rank):
+    """(g): each of DIST_HEADS_ARCHS on mesh (data 1, model 8), the serve
+    rules, its depth cut to DIST_HEADS_LAYERS: query heads that split off
+    one KV head (``dist_tp_world`` without the session state)."""
+    return {arch: dist_tp_world(rank, 1, 8, "serve", DIST_HEADS_LAYERS,
+                                DIST_HEADS_PROMPTS, DIST_HEADS_NEW,
+                                arch=arch, state=False)
+            for arch in DIST_HEADS_ARCHS}
+
+
+def dist_heads_phase():
+    """(g): ``dist_heads_world``, each arch held by ``dist_tp_rule``;
+    returns each arch's results a rank."""
+    res = dist_spawn("dist_heads_world", 8, "gloo")
+    out = {arch: [r[arch] for r in res] for arch in DIST_HEADS_ARCHS}
+    for arch, ranks in out.items():
+        dist_tp_rule(f"(g) {arch} cut to {DIST_HEADS_LAYERS} layers, mesh "
+                     "(data 1, model 8), serve rules", ranks)
+    return out
+
+
 def dist_tp_serve(rank):
-    """(d): Qwen2-1.5B at full depth on mesh (data 1, model 2), the serve
-    rules (tensor parallelism only)."""
-    return dist_tp_world(rank, 1, 2, "serve")
+    """(d): Qwen2-1.5B cut to DIST_TP_D_LAYERS layers on mesh (data 1,
+    model 2), the serve rules (tensor parallelism only)."""
+    return dist_tp_world(rank, 1, 2, "serve", DIST_TP_D_LAYERS)
 
 
 def dist_tp_fsdp(rank):
@@ -5830,13 +5932,20 @@ def dist_tp_rule(label, res):
             f"{layout} {x[layout][0][1]:.1f} s ({x[layout][0][2]} steps), "
             f"primed {x[layout][1][1]:.1f} s ({x[layout][1][2]} steps)"
             for layout in ("dense", "paged"))
-        print(f"  {label} rank {r}: heads {x['heads']}, dense weights "
+        q_heads, kv_heads, kv_runs, q_gather, _ = x["heads"]
+        held, errs = x["holds"]
+        heads = (f"all {q_heads} query heads (q gathered over {q_gather})"
+                 if q_gather else f"{q_heads} query heads on "
+                 + (f"KV runs {kv_runs}" if kv_runs
+                    else f"{kv_heads} KV heads"))
+        print(f"  {label} rank {r}: {heads}, weights "
               f"{x['weight_bytes'] / 1e9:.3f} GB of "
               f"{x['whole_bytes'] / 1e9:.3f} whole, peak "
               f"{x['peak_gb']:.2f} GB; {runs}; launches B1 "
               f"{n['tree_attention']}, B2 {n['paged_tree_attention']}, B3 "
-              f"{n['flash_prefill']}; B1 at its heads max|err| "
-              f"{x['b1_err']:.3e}")
+              f"{n['flash_prefill']}; held at (query, KV) heads {held} "
+              "(the shapes no lower rank held) max|err| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
     one = r0["one_device"]
     print(f"  {label}: {r0['layers']} layers; tokens = the single-device "
           f"session's on both layouts, both passes ({sum(map(len, want))} "
@@ -5857,7 +5966,8 @@ def dist_tp_rule(label, res):
         check(bool(torch.isfinite(got).all()) and e_got <= limit,
               f"{label} {name} logits: RMS err {e_got} over {limit}")
         rule[name] = dict(rms=e_got, dense=e_dense, one=e_one)
-    rule["session"] = state_rule(label, res)
+    if "state" in r0:
+        rule["session"] = state_rule(label, res)
     return rule
 
 
@@ -5935,8 +6045,7 @@ def dist_train_world(rank, data, model, steps, ckpt):
     then synchronizes the card before and after)."""
     from repro_torch import kernels
     from repro_torch.configs import qwen2_1_5b
-    from repro_torch.distributed.sharding import (DEFAULT_RULES, placement,
-                                                  sharding_ctx)
+    from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as tx
     from repro_torch.training.data import lm_train_batches
@@ -5962,12 +6071,7 @@ def dist_train_world(rank, data, model, steps, ckpt):
             t.numel() * t.element_size() for t in tree_leaves(
                 {"p": state[0], "mu": state[1].mu, "nu": state[1].nu})
         ) + state[1].step.numel() * state[1].step.element_size()
-        axes = dict(train_leaves(tx.param_logical_axes(cfg)))
-        shapes = dict(train_leaves(tx.param_shapes(cfg)))
-        out["placement_bytes"] = 3 * sum(
-            4 * int(np.prod(placement(mesh, axes[k], shapes[k], rules
-                                      ).shard_shape(shapes[k])))
-            for k in axes) + 4
+        out["placement_bytes"] = state_placement_bytes(cfg, mesh, rules)
         out["launches"] = kernels.diff(kernels.snapshot(), before)
         if data > 1:
             step = make_train_step(
@@ -6114,6 +6218,178 @@ def dist_train_rule(res):
     return dict(losses=got, one_losses=want, kinds=kinds)
 
 
+def moe_train_cfg():
+    """(f)'s MoE: Moonlight-16B-A3B at full width (64 experts of d_ff
+    1,408, top 6, two shared experts, whose products run on the residual's
+    blocks under sequence parallelism), its depth cut to
+    DIST_MOE_TRAIN_LAYERS, f32, the dense attention."""
+    from repro_torch.configs import moonshot_v1_16b_a3b
+    return dataclasses.replace(moonshot_v1_16b_a3b.full_config(),
+                               n_layers=DIST_MOE_TRAIN_LAYERS,
+                               prefill_backend="dense")
+
+
+def state_placement_bytes(cfg, mesh, rules):
+    """The f32 parameters' and both moments' bytes a rank holds under
+    ``placement`` (the whole count without a mesh), and the step's 4."""
+    from repro_torch.distributed.sharding import placement
+    from repro_torch.models import transformer as tx
+    axes = dict(train_leaves(tx.param_logical_axes(cfg)))
+    shapes = dict(train_leaves(tx.param_shapes(cfg)))
+    return 3 * sum(
+        4 * int(np.prod(shapes[k] if mesh is None else placement(
+            mesh, axes[k], shapes[k], rules).shard_shape(shapes[k])))
+        for k in axes) + 4
+
+
+def moe_train_steps(cfg, mesh=None):
+    """DIST_MOE_TRAIN_STEPS train steps of ``cfg`` (lr 3e-4) from seed 0's
+    parameters (this rank's blocks under the active mesh, whose MoE runs
+    ``moe_ep``; ``moe_ref`` without one) on ``lm_train_batches`` of
+    DIST_MOE_TRAIN_BATCH: each step's loss, grad_norm and seconds (from a
+    barrier to its loss on the host; the last with the collectives timed),
+    the rows ``moe_local`` dropped on this rank (``moe_local.dropped``),
+    the state bytes and the peak."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import lm_train_batches
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    free_card()
+    params = init_params(cfg, seed=0, device="cuda", mesh=mesh)
+    opt = adamw_init(params)
+    step = make_train_step(
+        lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"]),
+        lr=DIST_TRAIN_LR, axes=tx.param_logical_axes(cfg),
+        shapes=tx.param_shapes(cfg))
+    batches = lm_train_batches(cfg.vocab_size, *DIST_MOE_TRAIN_BATCH, seed=0)
+    out = {"losses": [], "norms": [], "step_s": []}
+    moe.moe_local.dropped = drops = []
+    try:
+        for i in range(DIST_MOE_TRAIN_STEPS):
+            batch = to_cuda(next(batches))
+            if mesh is not None:
+                mesh.barrier()
+                mesh.timing = i == DIST_MOE_TRAIN_STEPS - 1
+                mesh.collective_s = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            out["losses"].append(float(m["loss"]))
+            out["step_s"].append(time.perf_counter() - t0)
+            out["norms"].append(float(m["grad_norm"]))
+        if mesh is not None:
+            out["collective_share"] = mesh.collective_s / out["step_s"][-1]
+            mesh.timing = False
+    finally:
+        moe.moe_local.dropped = None
+    out["dropped"] = int(sum(int(d) for d in drops))
+    out["state_bytes"] = sum(
+        t.numel() * t.element_size() for t in tree_leaves(
+            {"p": params, "mu": opt.mu, "nu": opt.nu})) + 4
+    out["peak_gb"] = peak_gb()
+    del params, opt
+    free_card()
+    return out
+
+
+def dist_moe_train_world(rank):
+    """(f)'s MoE world: 4 gloo ranks on cuda:0, mesh (data 2, model 2),
+    the train_4k rules (FSDP, TP, the residual split along the sequence
+    over ``model``, ``moe_ep`` on the reference's token groups), each
+    capacity factor's ``moe_train_steps``: E / top_k, where nothing drops,
+    then the arch's 1.25."""
+    from repro_torch import kernels
+    from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tx
+    mesh = make_host_mesh(data=2, model=2, device="cuda:0")
+    rules = DEFAULT_RULES.override(residual_seq=("model",))
+    cfg = moe_train_cfg()
+    before = kernels.snapshot()
+    out = {}
+    with sharding_ctx(mesh, rules):
+        for cf in (no_drop_cf(cfg), cfg.capacity_factor):
+            out[cf] = moe_train_steps(dataclasses.replace(
+                cfg, capacity_factor=cf), mesh)
+        lay = tx.Layout(cfg, DIST_MOE_TRAIN_BATCH[0],
+                        seq=DIST_MOE_TRAIN_BATCH[1])
+        out["split"] = (lay.lane_axes, lay.seq_axes, lay.ffn_axes)
+        out["placement_bytes"] = state_placement_bytes(cfg, mesh, rules)
+    out["launches"] = kernels.diff(kernels.snapshot(), before)
+    mesh.barrier()
+    return out
+
+
+def dist_moe_train_phase():
+    """(f)'s MoE: ``dist_moe_train_world``, then the same steps at E /
+    top_k on one device in this process (``moe_ref``); returns both for
+    ``dist_moe_train_rule``."""
+    cfg = moe_train_cfg()
+    print(f"  [(f) MoE: Moonlight-16B-A3B's depth cut to "
+          f"{DIST_MOE_TRAIN_LAYERS} of 48 layers, f32, batch "
+          f"{DIST_MOE_TRAIN_BATCH} (parameters and both moments "
+          f"{cfg.n_params() * 12 / 1e9:.2f} GB whole)]")
+    res = dist_spawn("dist_moe_train_world", 4, "gloo")
+    one = moe_train_steps(dataclasses.replace(
+        cfg, capacity_factor=no_drop_cf(cfg)))
+    return dict(mesh=res, one=one)
+
+
+def dist_moe_train_rule(res):
+    """(f)'s MoE checks: every rank's losses alike at both capacity
+    factors; at E / top_k no row dropped and each step's loss and
+    grad_norm within DIST_TRAIN_LOSS_RTOL of one device's (``moe_ref``: the
+    same function, its sums in another order); the state bytes a rank
+    equal to its
+    ``placement`` count; no port kernel launched.  Prints the rows dropped
+    at 1.25 (the reference's token groups decide which), each step's
+    seconds, the collectives' share, the state and the peak a rank."""
+    ranks, one = res["mesh"], res["one"]
+    cfg = moe_train_cfg()
+    nd, cf = no_drop_cf(cfg), cfg.capacity_factor
+    print(f"  (f) MoE split (lanes, sequence, shared experts' products): "
+          f"{ranks[0]['split']}")
+    for r, x in enumerate(ranks):
+        for c in (nd, cf):
+            check(x[c]["losses"] == ranks[0][c]["losses"],
+                  f"(f) MoE rank {r} cf {c:g}: losses {x[c]['losses']} "
+                  f"differ from rank 0's {ranks[0][c]['losses']}")
+            check(x[c]["state_bytes"] == x["placement_bytes"],
+                  f"(f) MoE rank {r}: state {x[c]['state_bytes']} bytes, "
+                  f"placement {x['placement_bytes']}")
+            print(f"  (f) MoE rank {r} cf {c:g}: steps "
+                  f"{[round(t, 3) for t in x[c]['step_s']]} s (collectives "
+                  f"{x[c]['collective_share']:.4f} of the last), rows "
+                  f"dropped {x[c]['dropped']}, state "
+                  f"{x[c]['state_bytes'] / 1e9:.4f} GB (= placement's), "
+                  f"peak {x[c]['peak_gb']:.2f} GB")
+        check(x[nd]["dropped"] == 0,
+              f"(f) MoE rank {r}: {x[nd]['dropped']} rows dropped at cf "
+              f"{nd:g}")
+        check(not any(x["launches"].values()),
+              f"(f) MoE rank {r}: port kernels launched {x['launches']}")
+    got = ranks[0][nd]["losses"]
+    for key, what in (("losses", "loss"), ("norms", "grad_norm")):
+        for i, (a, b) in enumerate(zip(ranks[0][nd][key], one[key])):
+            rel = abs(a - b) / abs(b)
+            print(f"  (f) MoE {what} at step {i + 1}, cf {nd:g}: mesh "
+                  f"{a:.6f}, one device (moe_ref) {b:.6f} (relative "
+                  f"{rel:.3e}, limit {DIST_TRAIN_LOSS_RTOL:g})")
+            check(np.isfinite(a) and rel <= DIST_TRAIN_LOSS_RTOL,
+                  f"(f) MoE {what} at step {i + 1}: {a} against {b}")
+    dropped = sum(x[cf]["dropped"] for x in ranks)
+    print(f"  (f) MoE cf {cf:g}: {dropped} rows dropped over the ranks in "
+          f"{DIST_MOE_TRAIN_STEPS} steps, losses {ranks[0][cf]['losses']}; "
+          f"one device: steps {[round(t, 3) for t in one['step_s']]} s, "
+          f"state {one['state_bytes'] / 1e9:.4f} GB, peak "
+          f"{one['peak_gb']:.2f} GB")
+    return dict(losses=got, one_losses=one["losses"],
+                norms=ranks[0][nd]["norms"], one_norms=one["norms"],
+                dropped=dropped, cf_losses=ranks[0][cf]["losses"])
+
+
 def moe_world_rule(w2, w1, ref, what):
     """World 2's no-drop step against world 1's ``moe_local`` at the same
     capacity factor, in bf16: the RMS difference of the prefill's and the
@@ -6241,7 +6517,8 @@ def dist_phase(card):
     moe_tp_rule(res)
     res = dist_spawn("dist_tp_serve", 2, "gloo")
     count(res)
-    dist_tp_rule("(d) Qwen2-1.5B, mesh (data 1, model 2), serve rules", res)
+    dist_tp_rule(f"(d) Qwen2-1.5B cut to {DIST_TP_D_LAYERS} of 28 layers, "
+                 "mesh (data 1, model 2), serve rules", res)
     res = dist_spawn("dist_tp_fsdp", 4, "gloo")
     count(res)
     dist_tp_rule(f"(e) Qwen2-1.5B cut to {DIST_TP_E_LAYERS} of 28 layers, "
@@ -6249,6 +6526,11 @@ def dist_phase(card):
     res = dist_train_phase()
     count(res["w4"] + res["w2"])
     dist_train_rule(res)
+    res = dist_moe_train_phase()
+    count(res["mesh"])
+    dist_moe_train_rule(res)
+    for res in dist_heads_phase().values():
+        count(res)
     return launches
 
 
@@ -6415,8 +6697,8 @@ def main(argv=None) -> int:
         phase_done("cost")
     if "dist" in phases:
         print("multi-rank paths (flash decode, moe_ep, sharded argmax, the "
-              "dense LM's placement, the train step under a mesh) on the "
-              "one card:")
+              "dense LM's placement, the train step under a mesh, an MoE "
+              "under SP, query heads off one KV head) on the one card:")
         for name, n in dist_phase(smi[0]).items():
             launches[name] = launches.get(name, 0) + n
         phase_done("dist")

@@ -22,10 +22,11 @@ in f32 as the reference does.  q, k_new and v_new arrive as the model
 computes them under the mesh (``models/transformer.Layout``): this rank's
 lanes, which are the cache block's, and its heads where the cache splits
 heads.  Where the cache keeps every head (K not divisible by ``model``)
-but the rank's query heads are a block, q is gathered over ``model``
-first and the output cut back to the block, since the sequence shards
-combine every head.  The local attention is the reference's einsum, not a
-kernel: plain torch.
+but the rank's query heads are a block (``Layout.q_block``), q is
+gathered over ``model`` first and the output cut back to the block, since
+the sequence shards combine every head; where H does not divide either,
+q arrives with every head (``Layout.q_gather``).  The local attention is
+the reference's einsum, not a kernel: plain torch.
 """
 from __future__ import annotations
 
@@ -223,7 +224,7 @@ class FlashDecodeBackend:
         return make_flash_attend(mesh, cache_lens, tree_mask,
                                  layout.cache.spec,
                                  score_f32=cfg.attn_score_f32,
-                                 q_axes=layout.q_gather)
+                                 q_axes=layout.q_block)
 
     def make_paged_tree_attend(self, cfg, block_tables, cache_lens,
                                tree_mask, slot_valid=None, layout=None):

@@ -18,9 +18,10 @@ A backend implements the two serving phases:
     block pool reached through each lane's block table.
 
 ``layout`` is the model's ``transformer.Layout`` of the call (None without
-a mesh): where a rank computes every KV head but its query heads read one
-of them (a ``model`` axis that splits a head), the closure writes every
-head and attends against ``layout.kv_for_attention`` of the cache.
+a mesh): where a rank computes every KV head but its query heads read
+some of them (a ``model`` axis that splits a head), the closure writes
+every head and attends through ``layout.per_kv_head``: each run of query
+heads on the one cache head it reads.
 
 Registered here:
 
@@ -107,12 +108,13 @@ def dense_prefill_attention(cfg, q: torch.Tensor, k: torch.Tensor,
     return gqa_attention(q, k, v, causal_prefill_mask(positions, len_mask))
 
 
-def _reader(layout) -> Callable:
-    """The cache heads a rank's queries read (``layout.kv_for_attention``;
-    every head without a layout)."""
+def _per_kv_head(layout) -> Callable:
+    """``by(attend, q, k, v)``: ``layout.per_kv_head`` (each run of a
+    rank's query heads against the KV head it reads), ``attend(q, k, v)``
+    without a layout."""
     if layout is None:
-        return lambda x: x
-    return layout.kv_for_attention
+        return lambda attend, q, k, v: attend(q, k, v)
+    return layout.per_kv_head
 
 
 # ---------------------------------------------------------------- backends
@@ -129,12 +131,13 @@ class AttentionBackend:
                          tree_mask: torch.Tensor, S_max: int,
                          layout=None) -> Callable:
         full_mask = build_full_tree_mask(cache_lens, tree_mask, S_max)
-        read = _reader(layout)
+        by = _per_kv_head(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv(k_cache, v_cache, cache_lens, k, v)
-            return gqa_attention(q, read(k_cache), read(v_cache), full_mask,
-                                 softmax_in_f32=cfg.attn_score_f32)
+            return by(lambda q, k, v: gqa_attention(
+                q, k, v, full_mask, softmax_in_f32=cfg.attn_score_f32),
+                q, k_cache, v_cache)
 
         return attend
 
@@ -177,7 +180,7 @@ class AttentionBackend:
         all_pos = torch.arange(S_virtual, device=full_mask.device)
         flat = paged_row_index(block_tables, all_pos[None].expand(
             B, S_virtual), cfg.kv_block_size).reshape(-1)
-        read = _reader(layout)
+        by = _per_kv_head(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv_paged(k_cache, v_cache, slot_rows, k, v)
@@ -186,8 +189,9 @@ class AttentionBackend:
                                                             dh)
             vg = v_cache.view(nb * bs, K, dh)[flat].reshape(B, S_virtual, K,
                                                             dh)
-            return gqa_attention(q, read(kg), read(vg), full_mask,
-                                 softmax_in_f32=cfg.attn_score_f32)
+            return by(lambda q, k, v: gqa_attention(
+                q, k, v, full_mask, softmax_in_f32=cfg.attn_score_f32),
+                q, kg, vg)
 
         return attend
 
@@ -214,11 +218,12 @@ class CudaBackend(AttentionBackend):
                          layout=None):
         from repro_torch.kernels.tree_attention.ops import tree_attention
         full_mask = build_full_tree_mask(cache_lens, tree_mask, S_max)
-        read = _reader(layout)
+        by = _per_kv_head(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv(k_cache, v_cache, cache_lens, k, v)
-            return tree_attention(q, read(k_cache), read(v_cache), full_mask)
+            return by(lambda q, k, v: tree_attention(q, k, v, full_mask),
+                      q, k_cache, v_cache)
 
         return attend
 
@@ -231,12 +236,12 @@ class CudaBackend(AttentionBackend):
             paged_tree_attention
         full_mask, slot_rows = self._paged_geometry(
             cfg, block_tables, cache_lens, tree_mask, slot_valid)
-        read = _reader(layout)
+        by = _per_kv_head(layout)
 
         def attend(q, k, v, k_cache, v_cache):
             scatter_kv_paged(k_cache, v_cache, slot_rows, k, v)
-            return paged_tree_attention(q, read(k_cache), read(v_cache),
-                                        block_tables, full_mask)
+            return by(lambda q, k, v: paged_tree_attention(
+                q, k, v, block_tables, full_mask), q, k_cache, v_cache)
 
         return attend
 

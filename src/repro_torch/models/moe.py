@@ -146,6 +146,8 @@ def moe_local(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
 
     rw, ridx = router_topk(x, w_router, top_k)
     buf, src, dest, wflat = _dispatch_local(x, rw, ridx, E, C)
+    if moe_local.dropped is not None:       # rows sent to the drop slot
+        moe_local.dropped.append((dest == E * C).sum())
     if ep_group is not None:
         # (E, C, D) -> (E/ep, ep*C, D): each rank keeps its expert slice,
         # receiving that slice's rows from every peer (peer j at rows j*C)
@@ -163,6 +165,11 @@ def moe_local(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     order = torch.argsort(ridx.reshape(-1), stable=True)
     per_slot = torch.empty_like(contrib).index_copy_(0, order, contrib)
     return per_slot.view(n, top_k, D).sum(dim=1)
+
+
+# A list that a caller sets to log each call's count of dropped rows in
+# (a tensor: no host sync; read after the run); None logs nothing.
+moe_local.dropped = None
 
 
 def moe_ep(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,

@@ -234,10 +234,19 @@ class Layout:
     divides as well.  Where ``wk``'s block would split a head (``model``
     divides K·dh but not K), ``wk``/``wv`` are gathered whole and every
     rank computes all K heads (the cache's ``kv_heads`` dim is then whole
-    by the same rule), its query heads reading ``kv_read`` of them.
-    Where ``wq``'s columns split but its heads do not fall on the ranks
-    whole, each rank's on one KV head (H not divisible, or a rank's query
-    heads spanning two KV heads), it raises (ROADMAP A16b).  A
+    by the same rule).  A rank's query heads then read the KV heads
+    ``kv_runs`` names: runs of local heads that read one KV head each
+    (global query head i reads KV head i // G, so a rank's heads may span
+    two KV heads), each run attending on its own (``per_kv_head``; the
+    kernels map head i to KV head i // G within a call); the
+    ``flash_decode`` backend, whose sequence shards combine every head,
+    gathers q over ``q_block`` inside its attend and keeps this rank's
+    heads of the output.  Where H does not divide (a rank's ``wq``
+    columns hold a part of a head), the rank's columns of q are
+    all-gathered over ``q_gather`` for every call (the transpose a
+    reduce-scatter): every rank attends with all H heads, and
+    ``attn_out`` takes the columns of the output that its rows of ``wo``
+    multiply, as GSPMD partitions the reference.  A
     row-parallel product (``wo``, ``w_down``, the embedding lookup over a
     vocab block) is followed by ``rows`` (``reduce_sum`` in float32),
     and the input of a product whose ranks do different work passes
@@ -254,7 +263,12 @@ class Layout:
     ``data`` does not divide), every rank along it computes the same
     lanes and the same gradient: the transpose takes it once there, as
     GSPMD's partitioning of the replicated batch does, instead of adding
-    the replicas' copies.
+    the replicas' copies.  The MoE's router and experts under ``moe_ep``
+    are summed by ``moe_ep`` alone; under ``moe_ref`` or ``moe_local``
+    every rank holds every expert (gathered), runs them on its tokens and
+    sums their gradients over the axes that split the tokens, and
+    ``moe_local``, whose capacity couples the tokens, routes every token
+    of the call (gathered over ``tokens``) and keeps its own.
 
     A train call (``seq``, the sequence length, given) takes its lanes
     from the "batch" axes and splits the residual stream along the
@@ -267,10 +281,15 @@ class Layout:
     reduce-scatter) and ``rows`` reduce-scatters the row-parallel partial
     sums along the sequence (its transpose an all-gather).  Over a whole
     vocab the embedding looks up the rank's token block and the loss head
-    runs on the residual's block (``head_seq``).  It needs a dense FFN
-    whose products and a vocab block split over the same axes, and
-    raises otherwise (ROADMAP A16b).  A serving call under rules with a
-    live ``residual_seq`` raises (ROADMAP A16b).
+    runs on the residual's block (``head_seq``).  ``moe_ep`` takes the
+    reference's token groups, not the residual's blocks: the normed
+    residual is all-gathered along the sequence, ``moe_ep`` splits this
+    rank's lanes' (lane, position)-ordered tokens over the mesh axes the
+    lanes do not split, and the rank keeps its sequence block of the
+    output.  It needs the row-parallel products (``wo``, a dense or
+    shared-expert FFN) and a vocab block to split over the residual's
+    axes, and raises otherwise (ROADMAP A16b).  A serving call under
+    rules with a live ``residual_seq`` raises (ROADMAP A16b).
 
     The lanes of a serving call: the dense layout splits them as the
     cache's ``batch`` dim (``cache_sharding``), and ``local`` / ``gather``
@@ -285,19 +304,30 @@ class Layout:
         self.mesh, rules = active_mesh(), active_rules()
         H, K = cfg.n_heads, cfg.n_kv_heads
         self.q_heads, self.kv_heads = H, K
-        self.kv_read: Optional[Tuple[int, int]] = None
-        self.q_gather: Tuple[str, ...] = ()
+        # (first local query head, end, the KV head they read) a run
+        self.kv_runs: Optional[Tuple[Tuple[int, int, int], ...]] = None
+        self.q_gather: Tuple[str, ...] = ()     # q gathered, all H heads
+        self.q_block: Tuple[str, ...] = ()      # whole heads, every KV head
         self.wo_axes = self.ffn_axes = self.vocab_axes = ()
         self.lane_axes: Tuple[str, ...] = ()
         self.seq_axes: Tuple[str, ...] = ()     # the residual's split
         self.head_seq: Tuple[str, ...] = ()     # the loss head's rows' split
         self.v0 = 0
         self.lanes = self.cache = self.logits = self.residual = None
-        self._seq_weights: frozenset = frozenset()
+        self.tokens: Optional[NamedSharding] = None   # (lanes, sequence)
+        self._token_weights: frozenset = frozenset()
+        self._ep_weights: frozenset = frozenset()
         self._whole: Dict[str, torch.Tensor] = {}
         if self.mesh is None:
             return
         mesh = self.mesh
+        # the MoE's leaves: moe_ep sums their gradients itself; the other
+        # impls run on this rank's tokens with every expert (gathered)
+        moe_w = frozenset({"router", "we_gate", "we_up", "we_down"}
+                          if cfg.moe else ())
+        ep = bool(moe_w) and moe_impl(cfg, mesh) == "ep"
+        self._ep_weights = moe_w if ep else frozenset()
+        self._token_weights = frozenset() if ep else moe_w
         split_res = tuple(a for a in dim_axes(logical_spec(
             ("residual_seq",), None, mesh, rules)[0]) if mesh.shape[a] > 1)
         if seq is None and split_res:
@@ -322,19 +352,14 @@ class Layout:
         qa, ka = split("wq", 2), split("wk", 2)
         n_q = _axes_size(mesh, qa)
         kv_local = bool(qa) and ka == qa and K % n_q == 0
-        if qa and (H % n_q or not kv_local and (H // K) % (H // n_q)):
-            raise NotImplementedError(
-                f"wq's heads split over {qa} at H {H}, K {K}: a rank's "
-                "query heads are not whole heads on one KV head; placing "
-                "them so is not ported (ROADMAP A16b)")
-        if qa:
-            self.q_heads = H // n_q
         if kv_local:
-            self.kv_heads = K // n_q
-        elif qa:             # the one KV head its query heads read
-            first = _block_index(mesh, qa) * self.q_heads // (H // K)
-            self.kv_read = (first, first + 1)
-            self.q_gather = qa
+            self.q_heads, self.kv_heads = H // n_q, K // n_q
+        elif qa and H % n_q:
+            self.q_gather = qa               # every rank attends with all H
+        elif qa:
+            self.q_heads, self.q_block = H // n_q, qa
+            self.kv_runs = _kv_runs(_block_index(mesh, qa) * self.q_heads,
+                                    self.q_heads, H // K)
         self.wo_axes = split("wo", 1)
         self.ffn_axes = split("ws_down" if cfg.moe else "w_down", 1)
         head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -350,6 +375,7 @@ class Layout:
             keep = tuple(
                 () if a == "fsdp" or (a == "tensor"
                                       and not heads_split.get(n, True))
+                or (a == "expert" and not ep)
                 else live(e) for a, e in zip(ax, stored[n]))
             self._prep[n] = (flat_shapes[n][lead:], stored[n][lead:],
                              keep[lead:], ax[lead:], bool(lead))
@@ -369,24 +395,27 @@ class Layout:
                 self.lane_axes = live(self.cache.spec[1])
         if self.seq_axes:
             sp = set(self.seq_axes)
-            if (cfg.moe or set(self.wo_axes) != sp
-                    or set(self.ffn_axes) != sp
+            dense_ffn = not cfg.moe or cfg.n_shared_experts
+            if (set(self.wo_axes) != sp
+                    or dense_ffn and set(self.ffn_axes) != sp
                     or self.vocab_axes and set(self.vocab_axes) != sp):
                 raise NotImplementedError(
                     f"the residual split over {self.seq_axes} "
                     f"(residual_seq), the row-parallel products over wo "
                     f"{self.wo_axes}, FFN {self.ffn_axes}, vocab "
-                    f"{self.vocab_axes}{' (MoE)' if cfg.moe else ''}: "
-                    "sequence parallelism is ported for a dense FFN whose "
-                    "products split over the residual's axes (ROADMAP "
-                    "A16b)")
+                    f"{self.vocab_axes}: sequence parallelism is ported "
+                    "for row-parallel products split over the residual's "
+                    "axes (ROADMAP A16b)")
             self.residual = NamedSharding(mesh, P(None, self.seq_axes))
             self.head_seq = () if self.vocab_axes else self.seq_axes
-            self._seq_weights = frozenset(
+            self._token_weights |= frozenset(
                 {"ln1", "ln2", "ln_f"}
                 | (set() if self.vocab_axes else {"embed", "lm_head"}))
         if self.lane_axes:
             self.lanes = NamedSharding(mesh, P(self.lane_axes))
+        if self.lane_axes or self.seq_axes:
+            self.tokens = NamedSharding(mesh, P(self.lane_axes or None,
+                                                self.seq_axes or None))
         if self.lane_axes or self.vocab_axes or self.head_seq:
             self.logits = NamedSharding(mesh, P(
                 self.lane_axes or None, self.head_seq or None,
@@ -444,18 +473,26 @@ class Layout:
                     f"block under the active rules ({P(*stored)!r}); place "
                     "parameters inside the sharding_ctx they are served "
                     "in (init_params(mesh=) / shard_params)")
-        if any(gat):      # lanes not split over an FSDP axis: replicas
+        # moe_ep's weights: its transpose sums their gradients over every
+        # axis that splits the tokens, so each rank's is already the total
+        total = name in self._ep_weights
+        # a weight used on this rank's tokens (its lanes and, under SP, its
+        # sequence block), the same work on the ranks of the other axes
+        if name in self._token_weights:
+            split = set(self.lane_axes) | set(self.seq_axes)
+            fsdp = {a for g in gat if g for a in g}     # every gathered axis
+        else:
+            split = set(self.lane_axes)
+        if any(gat):      # the ranks that do the same work: replicas
             w = gather_blocks(w, NamedSharding(self.mesh, P(*gat)),
-                              tuple(fsdp - set(self.lane_axes)))
+                              self.mesh.axis_names if total
+                              else tuple(fsdp - split))
         if any(cut):
             w = shard(w, NamedSharding(self.mesh, P(*cut)))
-        if w.requires_grad and torch.is_grad_enabled():
-            # each rank's share of the work: its lanes (an FSDP gather
-            # sums those itself) and, used on the residual's blocks, its
-            # sequence block
-            w = sum_grad(w, self.mesh, [a for a in self.lane_axes
-                                        if a not in fsdp] + list(
-                self.seq_axes if name in self._seq_weights else ()))
+        if w.requires_grad and torch.is_grad_enabled() and not total:
+            # each rank's share of the work (a gather sums those itself)
+            w = sum_grad(w, self.mesh, [a for a in self.mesh.axis_names
+                                        if a in split and a not in fsdp])
         if not layered:
             self._whole[name] = w
         return w
@@ -491,20 +528,56 @@ class Layout:
 
     def attn_out(self, attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
         """(B, T, heads, dh) attention output through this rank's rows of
-        ``wo``, summed over the ranks."""
+        ``wo``, summed over the ranks.  Where every rank attended with all
+        H heads (``q_gather``), the columns its rows multiply."""
         B, T = attn.shape[:2]
-        return self.rows(attn.reshape(B, T, -1) @ wo, self.wo_axes)
+        x = attn.reshape(B, T, -1)
+        if self.q_gather and self.wo_axes:
+            n = x.shape[-1] // _axes_size(self.mesh, self.wo_axes)
+            i = _block_index(self.mesh, self.wo_axes)
+            x = x[..., i * n:(i + 1) * n]
+        return self.rows(x @ wo, self.wo_axes)
+
+    def gather_q(self, q: torch.Tensor) -> torch.Tensor:
+        """(B, T, columns) of this rank's ``wq`` block as the (B, T, H·dh)
+        of every query head where ``q_gather`` says so (the transpose sums
+        the ranks' gradients, each from its own output columns, and keeps
+        this rank's block); ``q`` itself otherwise."""
+        if not self.q_gather:
+            return q
+        return gather_blocks(q, NamedSharding(self.mesh,
+                                              P(None, None, self.q_gather)))
 
     def attend_kw(self) -> Dict[str, "Layout"]:
         """The backends' ``layout=`` keyword: under a mesh only, so that
         a backend written for one device needs none."""
         return {} if self.mesh is None else {"layout": self}
 
-    def kv_for_attention(self, x: torch.Tensor) -> torch.Tensor:
-        """The K or V heads (dim -2) that this rank's query heads read."""
-        if self.kv_read is None:
-            return x
-        return x[..., self.kv_read[0]:self.kv_read[1], :].contiguous()
+    def per_kv_head(self, attend: Callable, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+        """``attend(q, k, v)`` of this rank's query heads (dim 2 of q)
+        against the K/V heads (dim -2 of k and v) they read: one call, or
+        where ``kv_runs`` says so one call a run on the run's KV head,
+        the outputs concatenated along the heads."""
+        if self.kv_runs is None:
+            return attend(q, k, v)
+        outs = [attend(q[:, :, a:b].contiguous(),
+                       k[..., kv:kv + 1, :].contiguous(),
+                       v[..., kv:kv + 1, :].contiguous())
+                for a, b, kv in self.kv_runs]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _kv_runs(h0: int, n: int, G: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Query heads h0 .. h0+n-1 (global; head i reads KV head i // G) as
+    runs (first local head, end, KV head) that read one KV head each."""
+    runs, i = [], 0
+    while i < n:
+        kv = (h0 + i) // G
+        j = min(n, (kv + 1) * G - h0)
+        runs.append((i, j, kv))
+        i = j
+    return tuple(runs)
 
 
 # ------------------------------------------------------------------- layer fwd
@@ -525,9 +598,18 @@ def _qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
+    q = lay.gather_q(q)
     K = lay.kv_heads
     return (q.reshape(B, T, lay.q_heads, dh), k.reshape(B, T, K, dh),
             v.reshape(B, T, K, dh))
+
+
+def moe_impl(cfg: TransformerConfig, mesh=None) -> str:
+    """``cfg.moe_impl`` with "auto" resolved: ``moe_ep`` under a mesh with
+    a ``model`` axis, ``moe_ref`` otherwise."""
+    if cfg.moe_impl != "auto":
+        return cfg.moe_impl
+    return "ep" if mesh is not None and "model" in mesh.shape else "ref"
 
 
 def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
@@ -540,25 +622,36 @@ def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
     B, T, d = h.shape
     x = h.reshape(B * T, d)
     mesh = active_mesh()
-    impl = cfg.moe_impl
-    if impl == "auto":
-        impl = "ep" if (mesh is not None and "model" in mesh.shape) else "ref"
+    impl = moe_impl(cfg, mesh)
     if impl == "ep":
         if mesh is None or "model" not in mesh.shape:
             raise ValueError("moe_impl='ep' needs an active mesh with a "
                              "'model' axis (sharding_ctx); without a mesh "
                              "use 'auto', 'ref' or 'local'")
-        y = moe_lib.moe_ep(x, lp["router"], lp["we_gate"], lp["we_up"],
-                           lp["we_down"], cfg.top_k, cfg.capacity_factor,
-                           mesh, act, lanes=lay.lane_axes)
+        # the reference's token groups: under SP this rank's lanes' whole
+        # sequence (the rank keeps its block of the output), split by
+        # moe_ep in (lane, position) order
+        sp = lay.residual
+        x = h if sp is None else unshard(h, sp)
+        y = moe_lib.moe_ep(x.reshape(-1, d), lp["router"], lp["we_gate"],
+                           lp["we_up"], lp["we_down"], cfg.top_k,
+                           cfg.capacity_factor, mesh, act,
+                           lanes=lay.lane_axes).reshape(x.shape)
+        if sp is not None:
+            y = shard(y, sp)
     elif impl == "local":
-        y = moe_lib.moe_local(x, lp["router"], lp["we_gate"], lp["we_up"],
-                              lp["we_down"], cfg.top_k, cfg.capacity_factor,
-                              act)
+        # capacity couples the tokens: the reference's one group is every
+        # token of the call, of which this rank keeps its own
+        tok = lay.tokens
+        xs = h if tok is None else gather_blocks(h, tok)
+        y = moe_lib.moe_local(xs.reshape(-1, d), lp["router"], lp["we_gate"],
+                              lp["we_up"], lp["we_down"], cfg.top_k,
+                              cfg.capacity_factor, act).reshape(xs.shape)
+        if tok is not None:
+            y = tok.local(y)
     else:
         y = moe_lib.moe_ref(x, lp["router"], lp["we_gate"], lp["we_up"],
-                            lp["we_down"], cfg.top_k, act)
-    y = y.reshape(B, T, d)
+                            lp["we_down"], cfg.top_k, act).reshape(B, T, d)
     if cfg.n_shared_experts:
         y = y + lay.rows(swiglu(lay.columns(h, lay.ffn_axes), lp["ws_gate"],
                                 lp["ws_up"], lp["ws_down"], act),
@@ -579,9 +672,8 @@ def _layer_self(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     backend = attn_backends.get_backend(cfg.prefill_backend)
-    attn = backend.prefill_attention(cfg, q, lay.kv_for_attention(k),
-                                     lay.kv_for_attention(v), positions,
-                                     len_mask)
+    attn = lay.per_kv_head(lambda q, k, v: backend.prefill_attention(
+        cfg, q, k, v, positions, len_mask), q, k, v)
     h = h + lay.attn_out(attn, lp["wo"])
     h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), lay)
     return h, ((k, v) if want_kv else None)

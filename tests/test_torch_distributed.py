@@ -4,8 +4,9 @@ the CPU, against the JAX package's sharded functions.
 
 The rule translation (``logical_spec``, ``_derive_axes``,
 ``cache_partition_spec``) is held against the reference's on stand-in
-meshes that have only ``.shape``.  The sharded programs run in one spawn of
-8 gloo ranks on (data 4, model 2) and (data 2, model 4) meshes
+meshes that have only ``.shape`` (and, for ``Layout``, a rank's
+coordinates).  The sharded programs run in one spawn of 8 gloo ranks on
+(data 4, model 2), (data 2, model 4) and (data 1, model 8) meshes
 (``tests/torch_dist_ranks.py``), which checks them against the port's
 single-device paths; their outputs are then held against the reference's
 programs, run once in a JAX subprocess with 8 host devices on meshes with
@@ -13,13 +14,15 @@ Auto axes (``jax.make_mesh`` builds Explicit axes under jax 0.9, where the
 reference's own 8-device tests fail): its ``shard_map`` programs, and its
 prefill, tree step and fused step partitioned by GSPMD from parameters
 placed with ``named_sharding`` under ``DEFAULT_RULES`` or the serve cells'
-``override(fsdp=())``, and its ``make_train_step`` jitted with the
-``in_shardings`` of ``tree_shardings`` under the train_4k cells' rules
-(the residual split along the sequence over ``model``).  A second spawn
-of 4 ranks restores the checkpoints the first saved (parameters, and a
-train state it then steps on), and one the JAX package saved, onto (data
-2, model 2), and runs the train CLI inside ``sharding_ctx``; a third of 2
-ranks resumes that CLI run on (data 1, model 2).
+``override(fsdp=())`` (also with query heads that split off one KV
+head), and its ``make_train_step`` jitted with the ``in_shardings`` of
+``tree_shardings`` under the train_4k cells' rules (the residual split
+along the sequence over ``model``; dense and MoE through ``moe_ep``).  A
+second spawn of 4 ranks restores the checkpoints the first saved
+(parameters, and a train state it then steps on), and one the JAX
+package saved, onto (data 2, model 2), and runs the train CLI inside
+``sharding_ctx``; a third of 2 ranks resumes that CLI run on (data 1,
+model 2).
 """
 import dataclasses
 import json
@@ -230,14 +233,16 @@ JAX_REFS = """
     rule_sets = {"default": DEFAULT_RULES,
                  "serve": DEFAULT_RULES.override(fsdp=())}
     tp = {n: jnp.asarray(d["tp/" + n]) for n in ("toks", "lens", "tables")}
-    for name, (data, model, rname, V, K, layout, backend) in json.loads(
+    for name, (data, model, rname, V, K, layout, backend, H) in json.loads(
             str(d["tp/cases"])).items():
         mesh = Mesh(np.array(jax.devices()).reshape(data, model),
                     ("data", "model"))
         rules = rule_sets[rname]
+        key = f"w{V}_{K}" if H == 8 else f"w{V}_{K}h{H}"
         cfg = tx.TransformerConfig(
-            n_layers=2, d_model=64, n_heads=8, n_kv_heads=K, d_ff=128,
-            vocab_size=V, max_seq_len=64, kv_layout=layout, kv_block_size=16,
+            n_layers=2, d_model=64, n_heads=H, head_dim=8, n_kv_heads=K,
+            d_ff=128, vocab_size=V, max_seq_len=64, kv_layout=layout,
+            kv_block_size=16,
             decode_backend="flash_decode" if backend == "flash_decode"
             else "dense")
 
@@ -246,8 +251,8 @@ JAX_REFS = """
                 return {k: place(t[k], ax[k]) for k in t}
             return jax.device_put(t, named_sharding(mesh, ax, t.shape,
                                                     rules))
-        params = place(tree(f"w{V}_{K}/params"), tx.param_logical_axes(cfg))
-        args = [jnp.asarray(d[f"w{V}_{K}/{n}"])
+        params = place(tree(f"{key}/params"), tx.param_logical_axes(cfg))
+        args = [jnp.asarray(d[f"{key}/{n}"])
                 for n in ("ctoks", "pos", "mask", "parent", "n_live")]
 
         def run(params, toks, lens, tables, ctoks, pos, mask, parent,
@@ -292,15 +297,10 @@ JAX_REFS = """
             else:
                 out[f"{prefix}/{k}"] = np.asarray(v)
     ttoks = d["train/toks"]
-    for name, (data, model, rname, K, accum, gdt, remat) in json.loads(
-            str(d["train/cases"])).items():
+    def train_ref(tag, cfg, params, data, model, rname, accum, gdt):
         mesh = Mesh(np.array(jax.devices()).reshape(data, model),
                     ("data", "model"))
         rules = rule_sets[rname]
-        cfg = tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
-                                   n_kv_heads=K, d_ff=128, vocab_size=96,
-                                   max_seq_len=64, remat=remat)
-        params = tree(f"w96_{K}/params")
         opt = adamw_init(params)
         step = make_train_step(
             lambda p, b, cfg=cfg: tx.lm_loss(cfg, p, b["tokens"],
@@ -318,12 +318,30 @@ JAX_REFS = """
             for i, b in enumerate(batches):
                 params, opt = jax.device_put((params, opt), shardings[:2])
                 params, opt, m = fn(params, opt, b)
-                out[f"train/{name}/loss{i}"] = np.asarray(m["loss"])
-                out[f"train/{name}/norm{i}"] = np.asarray(m["grad_norm"])
-        flat(f"train/{name}/p", params)
-        flat(f"train/{name}/mu", opt.mu)
-        flat(f"train/{name}/nu", opt.nu)
-        out[f"train/{name}/step"] = np.asarray(opt.step)
+                out[f"{tag}/loss{i}"] = np.asarray(m["loss"])
+                out[f"{tag}/norm{i}"] = np.asarray(m["grad_norm"])
+        flat(f"{tag}/p", params)
+        flat(f"{tag}/mu", opt.mu)
+        flat(f"{tag}/nu", opt.nu)
+        out[f"{tag}/step"] = np.asarray(opt.step)
+    for name, (data, model, rname, K, accum, gdt, remat) in json.loads(
+            str(d["train/cases"])).items():
+        cfg = tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                   n_kv_heads=K, d_ff=128, vocab_size=96,
+                                   max_seq_len=64, remat=remat)
+        train_ref(f"train/{name}", cfg, tree(f"w96_{K}/params"), data,
+                  model, rname, accum, gdt)
+    # the MoE cases: moe_ep inside the GSPMD step (its shard_map takes the
+    # global (lane, position)-ordered tokens over data x model)
+    for name, (data, model, rname, shared, cf, impl) in json.loads(
+            str(d["moe_train/cases"])).items():
+        cfg = tx.TransformerConfig(
+            n_layers=2, d_model=64, n_heads=8, n_kv_heads=4, d_ff=0,
+            vocab_size=96, max_seq_len=64, moe=True, n_experts=8, top_k=2,
+            moe_d_ff=32, n_shared_experts=shared, capacity_factor=cf,
+            moe_impl=impl)
+        train_ref(f"moe_train/{name}", cfg, tree(f"moe{shared}/params"),
+                  data, model, rname, 1, None)
     np.savez(sys.argv[2], **out)
 """
 
@@ -353,8 +371,8 @@ def _tree_mask(parent):
 
 def _placement_inputs(d, rng):
     """The placement cases' inputs: the reference's ``init_params`` at each
-    (V, K), 4 prompts of 64 tokens (lens 40, 23, 33, 58), the paged block
-    tables (4 blocks of 16 a lane), and per (V, K) a tree step at
+    (V, K, H), 4 prompts of 64 tokens (lens 40, 23, 33, 58), the paged
+    block tables (4 blocks of 16 a lane), and per (V, K, H) a tree step at
     cache_lens = lens whose tokens the port's single-device step accepts
     along slots 0, 1, 3 (slot 2 takes a token it does not choose; lane 3
     is idle)."""
@@ -368,18 +386,22 @@ def _placement_inputs(d, rng):
     T = len(TREE_PARENT)
     pos = d["tp/lens"][:, None] + np.array([0, 1, 1, 2, 2], np.int32)
     mask = np.stack([_tree_mask(TREE_PARENT)] * 4)
-    for V, K in sorted({(c[3], c[4]) for c in ranks.TP_CASES.values()}):
-        jcfg = ref_tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
-                                        n_kv_heads=K, d_ff=128, vocab_size=V,
-                                        max_seq_len=64)
+    for V, K, H in sorted({(c[3], c[4], c[7])
+                           for c in ranks.TP_CASES.values()}):
+        jcfg = ref_tx.TransformerConfig(n_layers=2, d_model=64, n_heads=H,
+                                        head_dim=8, n_kv_heads=K, d_ff=128,
+                                        vocab_size=V, max_seq_len=64)
+        seed = V + K + H - 8          # H 8: the keys these cases always had
         params = jax.tree.map(np.asarray, jax.jit(
-            ref_tx.init_params, static_argnums=0)(jcfg,
-                                                  jax.random.key(V + K)))
-        _put(d, f"w{V}_{K}/params", params)
-        cfg = ranks.tp_cfg(V, K)
+            ref_tx.init_params, static_argnums=0)(jcfg, jax.random.key(seed)))
+        key = ranks.wkey(V, K, H)
+        _put(d, f"{key}/params", params)
+        cfg = ranks.tp_cfg(V, K, H=H)
         tp = params_from_jax(cfg, params, device="cpu")
         cache, _ = tx.prefill(cfg, tp, torch.from_numpy(d["tp/toks"]), lens)
-        toks = rng.randint(1, V, (4, T)).astype(np.int32)
+        # H 8's tokens from the shared stream, the others' from their own
+        draw = rng if H == 8 else np.random.RandomState(V + K + H)
+        toks = draw.randint(1, V, (4, T)).astype(np.int32)
         for _ in range(3):
             step = {n: c.clone() for n, c in cache.items()}
             ch = tx.tree_step(cfg, tp, step, lens, torch.from_numpy(toks),
@@ -390,7 +412,7 @@ def _placement_inputs(d, rng):
         for n, a in (("ctoks", toks), ("pos", pos), ("mask", mask),
                      ("parent", np.array([TREE_PARENT] * 4, np.int32)),
                      ("n_live", np.array([T, T, T, 0], np.int32))):
-            d[f"w{V}_{K}/{n}"] = a
+            d[f"{key}/{n}"] = a
 
 
 def _guide_inputs(d, rng, vocab=96, phase=2):
@@ -452,6 +474,15 @@ def _inputs():
     _guide_inputs(d, rng)
     d["train/toks"] = rng.randint(1, 96, (2, 8, 17)).astype(np.int32)
     d["train/cases"] = np.array(json.dumps(ranks.TRAIN_CASES))
+    d["moe_train/cases"] = np.array(json.dumps(ranks.MOE_TRAIN_CASES))
+    for shared in (0, 1):
+        jcfg = ref_tx.TransformerConfig(
+            n_layers=2, d_model=64, n_heads=8, n_kv_heads=4, d_ff=0,
+            vocab_size=96, max_seq_len=64, moe=True, n_experts=8, top_k=2,
+            moe_d_ff=32, n_shared_experts=shared)
+        _put(d, f"moe{shared}/params", jax.tree.map(np.asarray, jax.jit(
+            ref_tx.init_params, static_argnums=0)(jcfg,
+                                                  jax.random.key(11))))
     return d
 
 
@@ -755,15 +786,22 @@ def _rows_below(cache, limit):
 @pytest.mark.parametrize("case", list(ranks.TP_CASES))
 def test_dense_placement_equals_the_reference(spawned, case):
     """The dense LM placed over the mesh (``ranks.TP_CASES``: (data 4,
-    model 2) and (data 2, model 4), ``DEFAULT_RULES`` and the serve rules,
-    V 97 whole and V 96 split, K 2 at model 4 splitting a head, the dense
-    and paged layouts, flash decode under TP): every rank holds each leaf
-    as its ``placement`` block, and rank 0's gathered prefill logits and
-    cache, tree-step logits and the session's fused step (packed result
-    and committed cache) equal the reference's jitted functions on the
-    Auto mesh with GSPMD-placed parameters, within 3e-5 (the packed
-    result exactly, and alike on every rank)."""
-    data, model, rname, V, K, layout, backend = ranks.TP_CASES[case]
+    model 2), (data 2, model 4) and (data 1, model 8), ``DEFAULT_RULES``
+    and the serve rules, V 97 whole and V 96 split, K 2 at model 4
+    splitting a head, the dense and paged layouts, flash decode under TP;
+    H 12 at model 8, whose wq block holds a head and a half, and H 12, K 3
+    at model 2, a rank's 6 query heads on two KV heads): every rank holds
+    each leaf as its ``placement`` block, and rank 0's gathered prefill
+    logits and cache, tree-step logits and the session's fused step
+    (packed result and committed cache) equal the reference's jitted
+    functions on the Auto mesh with GSPMD-placed parameters, within 3e-5
+    (the packed result exactly, and alike on every rank); on the paged
+    layout each rank's suffix prefill (a prefix-cache hit) equals the
+    single-device port's within 3e-5.  Where H does not divide, every
+    rank attends with all H heads (q gathered); where a rank's heads read
+    some of the K heads, its runs say which, and flash decode gathers q
+    inside its attend (``_check_heads``)."""
+    data, model, rname, V, K, layout, backend, H = ranks.TP_CASES[case]
     res, refs = spawned["res"], spawned["refs"]
     assert all(r[f"{case}/shapes_ok"] for r in res)
     r0 = res[0]
@@ -784,15 +822,39 @@ def test_dense_placement_equals_the_reference(spawned, case):
     np.testing.assert_array_equal(r0[f"{case}/packed"].numpy(),
                                   refs[f"{case}/packed"])
     assert r0[f"{case}/packed"][:3, 0].tolist() == [3, 3, 3]
-    H = 8
-    q_heads, kv_heads, kv_read = r0[f"{case}/heads"]
-    assert q_heads == H // model
-    if K % model:             # a head of wk split: every KV head computed
-        assert kv_heads == K and kv_read is not None
-    else:
-        assert kv_heads == K // model and kv_read is None
+    for rank, r in enumerate(res):
+        _check_heads(r[f"{case}/heads"], H, K, model, rank % model)
+        if layout == "paged":       # the suffix prefill of a prefix hit
+            assert r[f"{case}/suffix_err"] < 3e-5
+    if (H, K, model) == (12, 3, 2):     # 6 heads a rank over two KV heads
+        assert [len(r[f"{case}/heads"][2]) for r in res] == [2] * 8
     vocab = r0[f"{case}/logits_spec"]
     assert (vocab is not None and vocab[-1] == "model") == (V % model == 0)
+
+
+def _check_heads(heads, H, K, model, index):
+    """``Layout``'s heads on model rank ``index``: (query heads, KV heads,
+    runs, q's gather axes, the axes of a block of whole heads).  Where K
+    divides, each rank's block of both; where H does not, all H gathered
+    for every call; else runs covering the rank's H / model heads in
+    order, each on the KV head i // G of its global heads i (flash
+    decode's attend gathers q over ``q_block``)."""
+    q_heads, kv_heads, runs, q_gather, q_block = heads
+    if K % model == 0:
+        assert (q_heads, kv_heads, runs, q_gather, q_block) == (
+            H // model, K // model, None, (), ())
+    elif H % model:
+        assert (q_heads, kv_heads, runs, tuple(q_gather), q_block) == (
+            H, K, None, ("model",), ())
+    else:
+        h0, G = index * q_heads, H // K
+        assert (q_heads, kv_heads, tuple(q_gather), tuple(q_block)) == (
+            H // model, K, (), ("model",))
+        assert [h for a, b, _ in runs for h in range(a, b)] == list(
+            range(q_heads))
+        assert all(kv == (h0 + h) // G for a, b, kv in runs
+                   for h in range(a, b))
+        assert len(runs) == len({(h0 + h) // G for h in range(q_heads)})
 
 
 @pytest.fixture(scope="module")
@@ -873,10 +935,12 @@ def test_lm_loss_gradient_under_the_mesh_equals_one_device(spawned, case):
     FSDP and a loss mask, (data 2, model 4) with the serve rules, a split
     head and remat, and (data 4, model 2) under the train_4k rules, whose
     residual is split along the sequence over ``model``, the loss head
-    gathering it back at V 96 and running on the blocks at V 97): every
-    rank's loss is the single-device loss and its gradient of each
-    parameter block is its block of the single-device gradient, within
-    3e-5."""
+    gathering it back at V 96 and running on the blocks at V 97; H 12 at
+    (data 1, model 8) under the train_4k rules, q gathered from a head and
+    a half a rank, and H 12, K 3 at (data 4, model 2) with remat, a rank's
+    heads on two KV heads): every rank's loss is the single-device loss
+    and its gradient of each parameter block is its block of the
+    single-device gradient, within 3e-5."""
     for r in spawned["res"]:
         one, mesh = r[f"{case}/loss"]
         assert abs(one - mesh) < 3e-5
@@ -956,16 +1020,23 @@ def _state_err(got, want):
 
 @pytest.fixture(scope="module")
 def one_device_train(spawned):
-    """Each TRAIN_CASES model's two steps by the port's single-device
-    ``make_train_step`` on the whole parameters; ``mu1/...``: ``mu``
+    """Each TRAIN_CASES and MOE_TRAIN_CASES model's two steps by the
+    port's single-device ``make_train_step`` on the whole parameters (the
+    MoE's through ``moe_ref``, which drops nothing); ``mu1/...``: ``mu``
     after the first."""
     from repro_torch.models.params import params_from_jax
     from repro_torch.training.optimizer import adamw_init
     d, out = spawned["inputs"], {}
-    for name, (_, _, _, K, accum, gdt, remat) in ranks.TRAIN_CASES.items():
-        cfg = ranks.train_cfg(K, remat)
-        params = params_from_jax(cfg, {k: v for k, v in ranks._tree(
-            d, f"w96_{K}/params").items()}, device="cpu")
+    cases = {name: (ranks.train_cfg(K, remat), f"w96_{K}", accum, gdt)
+             for name, (_, _, _, K, accum, gdt, remat)
+             in ranks.TRAIN_CASES.items()}
+    cases.update({name: (ranks.moe_train_cfg(shared, cf, "ref"),
+                         f"moe{shared}", 1, None)
+                  for name, (_, _, _, shared, cf, _)
+                  in ranks.MOE_TRAIN_CASES.items()})
+    for name, (cfg, key, accum, gdt) in cases.items():
+        params = params_from_jax(cfg, ranks._tree(d, f"{key}/params"),
+                                 device="cpu")
         opt = adamw_init(params)
         step, metrics = ranks.train_step(cfg, accum, gdt), []
         for i in range(2):
@@ -1038,22 +1109,115 @@ def test_train_step_under_the_mesh_equals_the_reference(
                  for tag, w in (("ref", want_ref), ("one", want_one))})
 
 
-@pytest.mark.parametrize("heads,model", [((12, 2), 8), ((12, 3), 2)],
-                         ids=["H12_model8", "G4_span_two_kv"])
-def test_layout_refuses_query_heads_off_one_kv_head(heads, model):
-    """Where ``wq``'s columns split over ``model`` but a rank's query
-    heads are not whole heads on one KV head (H 12 at model 8; H 12, K 3
-    at model 2, 6 query heads a rank over two KV heads), ``Layout``
-    raises, naming ROADMAP A16b: no rank gathers ``wq`` whole."""
+@pytest.mark.parametrize("case", list(ranks.MOE_TRAIN_CASES))
+def test_moe_train_step_under_sp_equals_the_reference(
+        spawned, one_device_train, case):
+    """Two train steps of an MoE (8 experts, top 2, with and without a
+    shared expert) under the train_4k rules on (data 4, model 2): the
+    residual split along the sequence over ``model``, 2 lanes a data
+    rank, ``moe_ep`` on the reference's token groups (a rank's chunk of
+    its lanes' (lane, position) order, gathered from the residual's
+    sequence blocks), the shared expert's products on the residual's
+    blocks.  Against the reference's GSPMD train step on the Auto mesh:
+    each step's loss and grad_norm within 3e-5 (alike on every rank), the
+    gathered parameters and moments within STATE_ATOL.  At capacity factor
+    1.25 rows drop (some rank counted more than 0), so the groups decide
+    the result; at E / top_k nothing drops, and the port's single-device
+    step (``moe_ref``) agrees as closely.  ``moe_ref`` under the mesh
+    (every expert on a rank's tokens, their gradients summed over the
+    token axes alone) drops nothing and equals one device as well;
+    ``moe_local`` routes all of the call's tokens, as the reference's one
+    token group, and drops rows."""
+    data, model, rname, shared, cf, impl = ranks.MOE_TRAIN_CASES[case]
+    refs, res = spawned["refs"], spawned["res"]
+    dropped = [r[f"moe_train/{case}/dropped"] for r in res]
+    cfg = ranks.moe_train_cfg(shared, cf, impl)
+    no_drop = impl == "ref" or cf >= cfg.n_experts / cfg.top_k
+    assert (sum(dropped) == 0) == no_drop, dropped
+    assert res[0][f"moe_train/{case}/split"] == (
+        ("data",), ("model",), ("model",) if shared else ())
+    one_metrics, one_state = one_device_train[case]
+    metrics = res[0][f"moe_train/{case}/metrics"]
+    for r in res:
+        assert r[f"moe_train/{case}/metrics"] == metrics
+    for i, (loss, norm) in enumerate(metrics):
+        want = [(float(refs[f"moe_train/{case}/loss{i}"]),
+                 float(refs[f"moe_train/{case}/norm{i}"]))]
+        if no_drop:
+            want.append(one_metrics[i])
+        for w_loss, w_norm in want:
+            assert abs(loss - w_loss) < 3e-5 and abs(norm - w_norm) < 3e-5
+    got = res[0][f"moe_train/{case}/state"]
+    assert int(got["step"]) == int(refs[f"moe_train/{case}/step"]) == 2
+    wants = [{k: refs[f"moe_train/{case}/{k}"] for k in got if k != "step"}]
+    if no_drop:
+        wants.append({k: one_state[k] for k in wants[0]})
+    for want in wants:
+        err = _state_err(got, want)
+        worst = max(err, key=err.get)
+        assert err[worst] <= STATE_ATOL, (worst, err[worst])
+    print(case, "dropped", dropped, {
+        tag: max(_state_err(got, w).values())
+        for tag, w in zip(("ref", "one"), wants)})
+
+
+class _RankShape(_Shape):
+    """A stand-in mesh with this rank's coordinates (row-major, as
+    ``Mesh.coords``), which ``Layout`` reads for a rank's heads and vocab
+    block."""
+
+    def __init__(self, rank, **shape):
+        super().__init__(**shape)
+        self.axis_names, self.rank = tuple(shape), rank
+
+    def coords(self, rank=None):
+        idx = np.unravel_index(self.rank if rank is None else rank,
+                               tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_layout_places_every_lm_cell_of_the_reference(arch):
+    """Every cell of the arch (its four shapes, each with the reference
+    cell's config and rules: train_4k's ``residual_seq=("model",)``, the
+    decode cells' ``fsdp=()`` and flash decode) gets a ``Layout`` on the
+    reference's production mesh (data 16, model 16) and on (data 1, model
+    8), at a rank whose heads span two KV heads where any does: Qwen2's H
+    12 at model 8 and 16 (q gathered), Phi-3-medium's 40 heads of G 4
+    (runs on two KV heads), the MoE archs' train_4k under sequence
+    parallelism."""
+    from repro_torch.configs import lm_common
     from repro_torch.distributed.sharding import sharding_ctx
     from repro_torch.models import transformer as tx
-    H, K = heads
-    cfg = tx.TransformerConfig(n_layers=1, d_model=96, n_heads=H,
-                               n_kv_heads=K, d_ff=128, vocab_size=96,
-                               max_seq_len=16)
-    with sharding_ctx(_Shape(data=1, model=model)):
-        with pytest.raises(NotImplementedError, match="A16b"):
-            tx.Layout(cfg, 4)
+    base = configs.get_arch(arch).full_config()
+    cells = {
+        "train_4k": (lm_common.train_4k_config(base),
+                     DEFAULT_RULES.override(residual_seq=("model",)),
+                     dict(batch=256, seq=4096)),
+        "prefill_32k": (dataclasses.replace(
+            base, max_seq_len=32768, prefill_backend="dense"),
+            DEFAULT_RULES, dict(batch=32)),
+    }
+    for shape, B in (("decode_32k", 128), ("long_500k", 1)):
+        cells[shape] = (dataclasses.replace(
+            base, max_seq_len=524288 if B == 1 else 32768,
+            prefill_backend="dense", decode_backend="flash_decode"),
+            DEFAULT_RULES.override(fsdp=()), dict(batch=B))
+    assert sorted(cells) == sorted(lm_common.SHAPES)
+    H, K = base.n_heads, base.n_kv_heads
+    for shape in (dict(data=16, model=16), dict(data=1, model=8)):
+        for name, (cfg, rules, kw) in cells.items():
+            with sharding_ctx(_RankShape(1, **shape), rules):
+                lay = tx.Layout(cfg, **kw)
+            _check_heads((lay.q_heads, lay.kv_heads, lay.kv_runs,
+                          lay.q_gather, lay.q_block), H, K, shape["model"],
+                         1)
+            assert lay.seq_axes == (("model",) if name == "train_4k"
+                                    else ()), (shape, name)
+    if arch == "phi3_medium_14b":       # rank 1's heads 5-9 at model 8
+        with sharding_ctx(_RankShape(1, data=1, model=8), DEFAULT_RULES):
+            assert tx.Layout(cells["prefill_32k"][0], 32).kv_runs == (
+                (0, 3, 1), (3, 5, 2))
 
 
 def test_sharding_ctx_without_a_mesh_changes_nothing():

@@ -1,14 +1,16 @@
 """Rank bodies of ``tests/test_torch_distributed.py``: spawned gloo ranks
 on the CPU that run the port's sharded paths (flash decode, the fused
 step's commit, prefill, ``moe_ep`` and its gradient, ``_sharded_argmax``,
-the dense LM's placement over (data 4, model 2) and (data 2, model 4) —
-prefill, tree step and the session's fused step on both KV layouts, and
-guided serving through the engine — the parameter blocks of
+the dense LM's placement over (data 4, model 2), (data 2, model 4) and
+(data 1, model 8) — prefill, tree step and the session's fused step on
+both KV layouts, query heads that split off one KV head, and guided
+serving through the engine — the parameter blocks of
 ``init_params``/``shard_params``, checkpoints saved under one mesh or
 by the JAX package and restored under another, and the train step under
 the mesh: ``make_train_step`` on placed parameters and AdamW state, its
-checkpoint, and the train CLI inside ``sharding_ctx``), check what they can
-against the port's single-device paths, and leave their outputs in
+checkpoint, the train CLI inside ``sharding_ctx``, and an MoE's train step
+under sequence parallelism), check what they can against the port's
+single-device paths, and leave their outputs in
 ``<dir>/rank<r>.pt`` for the test to hold against the JAX package's
 sharded functions.  Imports torch and the port only, so a spawned rank
 does not import JAX."""
@@ -53,17 +55,24 @@ RULES = {"default": DEFAULT_RULES,
          "serve": DEFAULT_RULES.override(fsdp=()),   # the serve cells'
          "train": TRAIN_RULES}
 # The dense LM's placement cases: mesh (data, model), rules, V, K, KV
-# layout, decode backend.  V 97 keeps the vocab whole, V 96 splits it; K 2
-# at model 4 splits a head of wk/wv (each rank computes every KV head).
+# layout, decode backend, H.  V 97 keeps the vocab whole, V 96 splits it; K
+# 2 at model 4 splits a head of wk/wv (each rank computes every KV head).
+# H 12 at model 8: a rank's wq columns hold a head and a half (q gathered,
+# every rank attends with all heads); H 12, K 3 at model 2: a rank's 6
+# query heads read two KV heads (one attention call a run of heads).
 TP_CASES = {
-    "d42": (4, 2, "default", 97, 4, "dense", "cuda"),
-    "p42": (4, 2, "serve", 96, 4, "paged", "cuda"),
-    "d24": (2, 4, "default", 96, 2, "dense", "cuda"),
-    "p24": (2, 4, "serve", 97, 4, "paged", "cuda"),
-    "f24": (2, 4, "default", 96, 4, "dense", "flash_decode"),
-    "g24": (2, 4, "serve", 97, 2, "dense", "flash_decode"),
-    "s24": (2, 4, "default", 96, 2, "paged", "cuda"),
+    "d42": (4, 2, "default", 97, 4, "dense", "cuda", 8),
+    "p42": (4, 2, "serve", 96, 4, "paged", "cuda", 8),
+    "d24": (2, 4, "default", 96, 2, "dense", "cuda", 8),
+    "p24": (2, 4, "serve", 97, 4, "paged", "cuda", 8),
+    "f24": (2, 4, "default", 96, 4, "dense", "flash_decode", 8),
+    "g24": (2, 4, "serve", 97, 2, "dense", "flash_decode", 8),
+    "s24": (2, 4, "default", 96, 2, "paged", "cuda", 8),
+    "h18": (1, 8, "serve", 96, 2, "dense", "cuda", 12),
+    "h42": (4, 2, "default", 97, 3, "paged", "cuda", 12),
+    "f18": (1, 8, "serve", 97, 2, "dense", "flash_decode", 12),
 }
+WORLD8_MESHES = ((4, 2), (2, 4), (1, 8))   # (data, model) of world8
 TP_LANES, TP_BLOCKS = 4, 17         # 4 lanes of 4 blocks of 16, + NULL
 # guided serving under a mesh: (data, model), rules, KV layout, whether the
 # guide takes the vocab offset (else the session gathers the vocab for it)
@@ -101,14 +110,34 @@ def ckpt_cfg() -> tx.TransformerConfig:
 
 
 def tp_cfg(V: int, K: int, kv_layout: str = "dense",
-           backend: str = "cuda") -> tx.TransformerConfig:
-    """The flash test's model at vocab V and K KV heads, f32; the cuda
-    backends take their plain versions on the CPU."""
-    return tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
-                                n_kv_heads=K, d_ff=128, vocab_size=V,
-                                max_seq_len=64, prefill_backend="cuda",
+           backend: str = "cuda", H: int = 8) -> tx.TransformerConfig:
+    """The flash test's model at vocab V, K KV heads and H query heads of
+    8, f32; the cuda backends take their plain versions on the CPU."""
+    return tx.TransformerConfig(n_layers=2, d_model=64, n_heads=H,
+                                head_dim=8, n_kv_heads=K, d_ff=128,
+                                vocab_size=V, max_seq_len=64,
+                                prefill_backend="cuda",
                                 decode_backend=backend, kv_layout=kv_layout,
                                 kv_block_size=16)
+
+
+def wkey(V: int, K: int, H: int = 8) -> str:
+    """The inputs' key of ``tp_cfg``'s weights and tree-step arguments."""
+    return f"w{V}_{K}" if H == 8 else f"w{V}_{K}h{H}"
+
+
+def moe_train_cfg(shared: int, cf: float, impl: str = "auto"
+                  ) -> tx.TransformerConfig:
+    """The MoE train cases' model: 8 experts of d_ff 32, top 2, with
+    ``shared`` shared experts, capacity factor ``cf``, trained through the
+    dense attention and ``moe_impl`` ``impl`` ("auto": ``moe_ep`` under a
+    mesh)."""
+    return tx.TransformerConfig(n_layers=2, d_model=64, n_heads=8,
+                                n_kv_heads=4, d_ff=0, vocab_size=96,
+                                max_seq_len=64, moe=True, n_experts=8,
+                                top_k=2, moe_d_ff=32, n_shared_experts=shared,
+                                capacity_factor=cf, prefill_backend="dense",
+                                moe_impl=impl)
 
 
 def guided_bias(table: np.ndarray):
@@ -300,19 +329,20 @@ def _tp_case(meshes, ins, name, res):
     """One placement case (``TP_CASES``): the parameters cut by
     ``shard_params`` (every leaf's shape its ``placement`` block), the
     cohort prefill (the dense cache made by ``prefill(cache=None)``, the
-    paged pool through the block tables), a tree step on a copy of that
-    cache, and the session's fused step on it (greedy choice through
+    paged pool through the block tables), on the paged pool a suffix
+    prefill (``_suffix_err``), a tree step on a copy of that cache, and
+    the session's fused step on it (greedy choice through
     ``_sharded_argmax``, the sampled branch's vocab gather run alongside,
     its lanes greedy).  Logits and caches are gathered for the test."""
-    data, model, rname, V, K, layout, backend = TP_CASES[name]
+    data, model, rname, V, K, layout, backend, H = TP_CASES[name]
     mesh, rules = meshes[(data, model)], RULES[rname]
-    cfg = tp_cfg(V, K, layout, backend)
+    cfg = tp_cfg(V, K, layout, backend, H)
     paged = layout == "paged"
-    whole = params_from_jax(cfg, _tree(ins, f"w{V}_{K}/params"),
+    whole = params_from_jax(cfg, _tree(ins, f"{wkey(V, K, H)}/params"),
                             device="cpu")
     toks, lens, tables = (torch.from_numpy(ins[f"tp/{n}"])
                           for n in ("toks", "lens", "tables"))
-    tree = {n: ins[f"w{V}_{K}/{n}"] for n in TREE_ARGS}
+    tree = {n: ins[f"{wkey(V, K, H)}/{n}"] for n in TREE_ARGS}
     ct = {n: torch.from_numpy(a) for n, a in tree.items()}
     with sharding_ctx(mesh, rules):
         params = shard_params(cfg, whole, mesh)
@@ -340,6 +370,9 @@ def _tp_case(meshes, ins, name, res):
         _, l_tree = step(cfg, params, copy, lens, ct["ctoks"], ct["pos"],
                          ct["mask"])
         res[f"{name}/tree_logits"] = _whole(lay.logits, l_tree)
+        if paged:
+            res[f"{name}/suffix_err"] = _suffix_err(cfg, whole, params, cache,
+                                                    lay, toks, lens, tables)
         fns = make_session_fns(cfg, params, slots=ct["ctoks"].shape[1],
                                device="cpu")
         cache, packed = fns.fused_step(cache, ins["tp/lens"],
@@ -348,9 +381,38 @@ def _tp_case(meshes, ins, name, res):
         for n in ("k", "v"):
             res[f"{name}/{n}"] = held.gather(cache[n])
     res[f"{name}/shapes_ok"] = shapes_ok
-    res[f"{name}/heads"] = (lay.q_heads, lay.kv_heads, lay.kv_read)
+    res[f"{name}/heads"] = (lay.q_heads, lay.kv_heads, lay.kv_runs,
+                            lay.q_gather, lay.q_block)
     res[f"{name}/logits_spec"] = (None if lay.logits is None
                                   else tuple(lay.logits.spec))
+
+
+def _suffix_err(cfg, whole, params, cache, lay, toks, lens, tables):
+    """The suffix prefill (a prefix-cache hit: lane 1's last 8 prompt
+    tokens at their offset, on a copy of the pool the cohort prefill
+    filled) under the mesh against the single-device port's on the whole
+    parameters and pool: max |difference| of the logits, each rank's K/V
+    rows checked within ATOL too."""
+    n = int(lens[1])
+
+    def suffix(p, c):
+        c = dict(c, k=c["k"].clone(), v=c["v"].clone())
+        c, logits = tx.prefill_from_offset_paged(
+            cfg, p, c, 1, toks[1:2, n - 8:n].contiguous(), lens[1:2] - 8,
+            torch.tensor([8]), prefill_len=toks.shape[1])
+        return c, logits
+
+    blocks, got = suffix(params, cache)
+    got = _whole(lay.logits_sharding(2), got)
+    with sharding_ctx(None):
+        one = tx.init_paged_cache(cfg, TP_LANES, TP_BLOCKS, device="cpu")
+        one["block_tables"] = tables
+        one, _ = tx.prefill_paged(cfg, whole, toks, lens, one)
+        one, want = suffix(whole, one)
+    for k in ("k", "v"):
+        torch.testing.assert_close(tx.paged_sharding(cfg).gather(blocks[k]),
+                                   one[k], atol=ATOL, rtol=0)
+    return (got - want).abs().max().item()
 
 
 def _serve_case(meshes, ins, name, res):
@@ -387,15 +449,19 @@ def _serve_case(meshes, ins, name, res):
     res[f"serve/{name}/steps"] = steps
 
 
-GRAD_CASES = {  # mesh (data, model), rules, remat, with a loss mask, V, B
-    "g42": (4, 2, "default", False, True, 96, 4),
-    "g24": (2, 4, "serve", True, False, 96, 4),
+GRAD_CASES = {  # mesh (data, model), rules, remat, with a loss mask, V, B,
+    #              K, H
+    "g42": (4, 2, "default", False, True, 96, 4, 2, 8),
+    "g24": (2, 4, "serve", True, False, 96, 4, 2, 8),
     # the train_4k rules: the residual split over model (SP), the vocab
     # split (the head gathers the sequence) or whole (the head on blocks)
-    "s42": (4, 2, "train", False, True, 96, 4),
-    "s42v": (4, 2, "train", True, False, 97, 4),
+    "s42": (4, 2, "train", False, True, 96, 4, 2, 8),
+    "s42v": (4, 2, "train", True, False, 97, 4, 2, 8),
     # B 2 on data 4: every data rank runs both lanes (replicated lanes)
-    "r42": (4, 2, "default", False, True, 96, 2),
+    "r42": (4, 2, "default", False, True, 96, 2, 2, 8),
+    # TP_CASES' head shapes: q gathered (under SP), runs of heads
+    "h18": (1, 8, "train", False, True, 96, 4, 2, 12),
+    "h42": (4, 2, "default", True, False, 97, 4, 3, 12),
 }
 # The train step under a mesh: mesh (data, model), rules, K, microbatches,
 # grad_dtype, remat; the reference's train_4k step (lr 3e-4) on the
@@ -405,6 +471,24 @@ TRAIN_CASES = {
     "b42": (4, 2, "train", 4, 1, "bfloat16", True),
     "t24": (2, 4, "default", 2, 2, None, False),
     "a42": (4, 2, "train", 4, 4, None, False),   # microbatches of 2 lanes
+}
+# The MoE train cases: the train_4k rules on (data 4, model 2), the
+# placement cases' B 8 (2 lanes a data rank) x S 16, with or without a
+# shared expert, at capacity factor 1.25, where rows drop and the token
+# groups decide which (``moe_ep``'s are the reference's: a rank's chunk of
+# its lanes' (lane, position) order, not the residual's sequence block),
+# and at E / top_k = 4, where nothing drops and one device's ``moe_ref``
+# computes the same function.  ``moe_ref`` and ``moe_local`` under the mesh
+# run every expert on a rank's tokens (``moe_local`` routing all of the
+# call's, whose capacity decides which rows drop): mesh (data, model),
+# rules, shared experts, capacity factor, moe_impl
+MOE_TRAIN_CASES = {
+    "m42": (4, 2, "train", 1, 1.25, "auto"),
+    "n42": (4, 2, "train", 0, 1.25, "auto"),
+    "m42x": (4, 2, "train", 1, 4.0, "auto"),
+    "n42x": (4, 2, "train", 0, 4.0, "auto"),
+    "r42": (4, 2, "train", 1, 1.25, "ref"),
+    "l42": (4, 2, "train", 0, 1.25, "local"),
 }
 TRAIN_LR = 3e-4
 TRAIN_CKPT_CASE = "t42"    # saved after step 1 on 8 ranks, resumed on 4
@@ -419,11 +503,12 @@ def _grad_case(meshes, ins, name, res):
     the dense attention): each rank's gradient of each of its parameter
     blocks against its block of the single-device gradient, and the loss
     against the single-device loss."""
-    data, model, rname, remat, masked, V, B = GRAD_CASES[name]
+    data, model, rname, remat, masked, V, B, K, H = GRAD_CASES[name]
     mesh, rules = meshes[(data, model)], RULES[rname]
-    cfg = dataclasses.replace(tp_cfg(V, 2), prefill_backend="dense",
+    cfg = dataclasses.replace(tp_cfg(V, K, H=H), prefill_backend="dense",
                               remat=remat)
-    whole = params_from_jax(cfg, _tree(ins, f"w{V}_2/params"), device="cpu")
+    whole = params_from_jax(cfg, _tree(ins, f"{wkey(V, K, H)}/params"),
+                            device="cpu")
     toks = torch.from_numpy(ins["tp/toks"][:B, :17])
     mask = (torch.arange(16)[None, :] < torch.tensor([[16], [9], [12], [5]])
             [:B]).float() if masked else None
@@ -551,6 +636,37 @@ def _train_case(meshes, ins, name, directory, res):
         res[f"train/{name}/state"] = state
 
 
+def _moe_train_case(meshes, ins, name, res):
+    """Two train steps of an MoE (``MOE_TRAIN_CASES``) under the mesh
+    from its placed parameters: each step's loss and grad_norm, the
+    gathered state, and the rows ``moe_local`` dropped on this rank
+    (``moe_local.dropped``)."""
+    data, model, rname, shared, cf, impl = MOE_TRAIN_CASES[name]
+    mesh, rules = meshes[(data, model)], RULES[rname]
+    cfg = moe_train_cfg(shared, cf, impl)
+    whole = params_from_jax(cfg, _tree(ins, f"moe{shared}/params"),
+                            device="cpu")
+    step, metrics = train_step(cfg, 1, None), []
+    moe.moe_local.dropped = drops = []
+    try:
+        with sharding_ctx(mesh, rules):
+            params = shard_params(cfg, whole, mesh)
+            opt = adamw_init(params)
+            for i in range(2):
+                params, opt, m = step(params, opt, train_batch(ins, i))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            state = gathered_state(mesh, cfg, params, opt, rules)
+            lay = tx.Layout(cfg, 8, seq=16)
+    finally:
+        moe.moe_local.dropped = None
+    res[f"moe_train/{name}/metrics"] = metrics
+    res[f"moe_train/{name}/dropped"] = int(sum(drops))
+    res[f"moe_train/{name}/split"] = (lay.lane_axes, lay.seq_axes,
+                                      lay.ffn_axes)
+    if mesh.rank == 0:
+        res[f"moe_train/{name}/state"] = state
+
+
 def _unplaced_save(mesh, cfg, params, opt, directory, res):
     """``save(mesh=)`` of the train state with the moments' axes None (as
     the CLI saved before): the moment blocks would be written as whole
@@ -645,7 +761,9 @@ def world8(rank: int, directory: str) -> None:
         _moe_case(mesh, ins, res)
         _argmax_case(mesh, ins, res)
         _params_case(mesh, res)
-        meshes = {(4, 2): mesh, (2, 4): make_host_mesh(data=2, model=4)}
+        meshes = {(4, 2): mesh}
+        meshes.update({(d, m): make_host_mesh(data=d, model=m)
+                       for d, m in WORLD8_MESHES if (d, m) not in meshes})
         for name in TP_CASES:
             _tp_case(meshes, ins, name, res)
         for name in SERVE_CASES:
@@ -657,6 +775,8 @@ def world8(rank: int, directory: str) -> None:
         _norm_case(mesh, res)
         for name in TRAIN_CASES:
             _train_case(meshes, ins, name, directory, res)
+        for name in MOE_TRAIN_CASES:
+            _moe_train_case(meshes, ins, name, res)
         torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
