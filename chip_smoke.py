@@ -240,9 +240,15 @@ Phases, in order; any failure exits non-zero:
    session's RMS error against the f32 session (``state_rule``).  (e)
    the same on 4 gloo ranks, mesh (data
    2, model 2), ``DEFAULT_RULES`` (each layer's FSDP blocks gathered over
-   ``data``, the lanes split over it on the dense layout), Qwen2-1.5B cut
+   ``data``, the lanes split over it on both layouts), Qwen2-1.5B cut
    to DIST_TP_E_LAYERS layers, DIST_TP_E_PROMPTS requests of DIST_TP_E_NEW
-   tokens.  B1 and B3 launch on (b) to (e), B2 on (d) and (e), on every
+   tokens; its paged pass also prints the lanes each model forward ran a
+   rank (half the engine's), checks the pools of the ranks that hold the
+   same KV heads bit-equal after it (the NULL block excepted) and holds
+   the collectives a rank's ``Mesh`` handed gloo for one paged fused step
+   against what a ``TracedMesh`` at that rank records for the same call on
+   meta tensors, to the byte by kind and group (``paged_count``).  B1 and
+   B3 launch on (b) to (e), B2 on (d) and (e), on every
    rank.  (f) the train step under a mesh (``dist_train_world``): the
    train CLI (``launch/train.main``, Qwen2-1.5B at full width cut to
    TRAIN_CLI_LAYERS, f32, its batch 8 x 128) inside ``sharding_ctx`` on 4
@@ -280,7 +286,9 @@ no result line.  The script imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -313,8 +321,8 @@ PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
 # the reference's other dense LMs, served at full width by the archs phase
 OTHER_ARCHS = ("antglm-10b", "phi3-mini-3.8b", "phi3-medium-14b")
 # the archs and moe phases serve each arch at full width with its depth cut
-# to a quarter, which leaves the dist phase's worlds the script's time
-ARCH_DEPTH_DIV = 4
+# to an eighth, which leaves the dist phase's worlds the script's time
+ARCH_DEPTH_DIV = 8
 # its MoE LMs, served at full width by the moe phase
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 # moe_ref in bf16 at one layer's full width against a per-token f32
@@ -5684,9 +5692,76 @@ def session_state(cfg, params, layout, ins):
                 accepted=accepted)
 
 
+@contextlib.contextmanager
+def forward_lanes(log):
+    """Add to the set ``log`` the rows of the token block of each model
+    forward run inside: ``tx._self_forward`` (the prefills) and
+    ``tx._tree_forward`` (the tree steps, the suffix prefill), i.e. the
+    lanes the rank ran."""
+    from repro_torch.models import transformer as tx
+    saved = tx._self_forward, tx._tree_forward
+
+    def wrap(fn, i):
+        def run(*a, **k):
+            log.add(int(a[i].shape[0]))
+            return fn(*a, **k)
+        return run
+    tx._self_forward, tx._tree_forward = wrap(saved[0], 2), wrap(saved[1], 3)
+    try:
+        yield log
+    finally:
+        tx._self_forward, tx._tree_forward = saved
+
+
+def pool_digest(cache):
+    """sha256 of this rank's paged K and V bytes, the NULL block (garbage,
+    never attended) excepted."""
+    kv = torch.stack([cache["k"][:, 1:], cache["v"][:, 1:]]).contiguous()
+    return hashlib.sha256(kv.view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def paged_count(cfg, params, ins, mesh, rules):
+    """One paged fused step (``lm_common._serve_fn``) on ``model_inputs``'
+    prompts, prefilled first, a chain of the tree's slots: the collectives
+    this rank's ``mesh`` hands gloo for the step, and what a
+    ``TracedMesh`` of the same shape at this rank records for the same
+    call on meta copies of the arguments."""
+    from repro_torch.configs import lm_common
+    from repro_torch.distributed.sharding import TracedMesh, sharding_ctx
+    from repro_torch.models import transformer as tx
+    toks, lens, tree, pos, tm = ins
+    B, T = tree.shape
+    pcfg = dataclasses.replace(cfg, kv_layout="paged",
+                               kv_block_size=PATH_PAGED[5])
+    bpl = tx.blocks_per_lane(pcfg)
+    parent = (torch.arange(T, device="cuda") - 1).expand(B, T).int()
+    n_live = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    with sharding_ctx(mesh, rules):
+        cache = tx.init_paged_cache(pcfg, B, device="cuda")
+        cache["block_tables"] = shuffled_tables([bpl] * B, bpl, seed=3)
+        cache, _ = tx.prefill_paged(pcfg, params, toks, lens, cache)
+    args = [params, cache, lens, tree, pos, tm, parent, n_live]
+
+    def meta(x):
+        if isinstance(x, dict):
+            return {k: meta(v) for k, v in x.items()}
+        return x.to("meta")
+
+    out = {}
+    for tag, m, on in (("real", mesh, lambda x: x),
+                       ("traced", TracedMesh(mesh.shape, mesh.rank), meta)):
+        with sharding_ctx(m, rules):
+            m.reset_counts()
+            lm_common._serve_fn(pcfg)(*(on(a) for a in args))
+            out[tag] = m.collective_records()
+    torch.cuda.synchronize()
+    return out
+
+
 def dist_tp_world(rank, data, model, rules_name, n_layers=None,
                   n_prompts=DIST_TP_PROMPTS, n_new=DIST_TP_NEW,
-                  arch="qwen2-1.5b", state=True):
+                  arch="qwen2-1.5b", state=True, paged_checks=False):
     """A world of data x model gloo ranks, every rank on cuda:0, serving
     ``arch`` (bf16, the cuda backends, random weights from seed 0,
     ``n_layers`` deep or at full depth) placed over mesh (data, model)
@@ -5705,7 +5780,9 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
     (captured), the single-device logits (the cuda backends in bf16, the
     dense backend in bf16 and in f32) and, with ``state``,
     ``session_state`` (in bf16 on both layouts, in f32 on the dense one)
-    on the same weights."""
+    on the same weights.  With ``paged_checks``: the lanes each model
+    forward of the paged passes ran (``forward_lanes``), the rank's pool
+    after them (``pool_digest``) and ``paged_count``."""
     from repro_torch import configs, kernels
     from repro_torch.core.request import SamplingParams
     from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
@@ -5725,26 +5802,34 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
     sp = SamplingParams(max_new_tokens=n_new)
     ins = model_inputs(V)
 
-    def serve(params, layout):
+    def serve(params, layout, probe=None):
         """The requests served twice by one engine: the second pass drafts
         from the first's outputs in the trie, so its steps accept several
-        tokens.  Returns [(tokens, wall s, decode steps)] a pass."""
+        tokens.  Returns [(tokens, wall s, decode steps)] a pass; with
+        ``probe`` (a dict), the lanes the forwards ran, the engine's lanes
+        and the pool's digest after the passes go into it."""
         engine = build_engine(EngineConfig(kv_layout=layout,
                                            default_params=sp),
                               cfg, params, logits_transform=guided_transform(
                                   V), device="cuda")
-        passes = []
-        for _ in range(2):
-            steps = engine.stats.decode_steps
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            hs = [engine.submit(list(p), max_new_tokens=n_new)
-                  for p in prompts]
-            engine.run()
-            torch.cuda.synchronize()
-            passes.append(([[int(t) for t in h.result().tokens] for h in hs],
-                           time.perf_counter() - t0,
-                           engine.stats.decode_steps - steps))
+        passes, ran = [], set()
+        with (forward_lanes(ran) if probe is not None
+              else contextlib.nullcontext()):
+            for _ in range(2):
+                steps = engine.stats.decode_steps
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hs = [engine.submit(list(p), max_new_tokens=n_new)
+                      for p in prompts]
+                engine.run()
+                torch.cuda.synchronize()
+                passes.append(([[int(t) for t in h.result().tokens]
+                                for h in hs], time.perf_counter() - t0,
+                               engine.stats.decode_steps - steps))
+        if probe is not None:
+            cache = engine.scheduler.cache
+            probe.update(ran=sorted(ran), lanes=tx.cache_batch(cache),
+                         pool=pool_digest(cache))
         return passes
 
     out = {"layers": cfg.n_layers, "whole_bytes": cfg.n_params() * 2}
@@ -5754,9 +5839,13 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
                                   for t in tree_leaves(params))
         free_card()
         before = kernels.snapshot()
+        probe = {} if paged_checks else None
         for layout in ("dense", "paged"):
-            out[layout] = serve(params, layout)
+            out[layout] = serve(params, layout,
+                                probe if layout == "paged" else None)
         out["launches"] = kernels.diff(kernels.snapshot(), before)
+        if paged_checks:
+            out["paged_probe"] = dict(probe, mesh=(data, model))
         out["peak_gb"] = peak_gb()
         cmp0 = kernels.snapshot()
         toks, lens, tree, pos, tm = ins
@@ -5772,6 +5861,9 @@ def dist_tp_world(rank, data, model, rules_name, n_layers=None,
         del cache
         out["holds"] = heads_holds(rank, lay, cfg.dh,
                                    cfg.n_heads // cfg.n_kv_heads)
+        if paged_checks:
+            out["paged_probe"]["count"] = paged_count(cfg, params, ins,
+                                                      mesh, rules)
         if state:
             out["state"] = {layout: session_state(cfg, params, layout, ins)
                             for layout in ("dense", "paged")}
@@ -5895,7 +5987,7 @@ def dist_tp_fsdp(rank):
     """(e): Qwen2-1.5B cut to DIST_TP_E_LAYERS layers on mesh (data 2,
     model 2), ``DEFAULT_RULES`` (the FSDP gathers over ``data``)."""
     return dist_tp_world(rank, 2, 2, "default", DIST_TP_E_LAYERS,
-                         DIST_TP_E_PROMPTS, DIST_TP_E_NEW)
+                         DIST_TP_E_PROMPTS, DIST_TP_E_NEW, paged_checks=True)
 
 
 def dist_tp_rule(label, res):
@@ -5968,7 +6060,45 @@ def dist_tp_rule(label, res):
         rule[name] = dict(rms=e_got, dense=e_dense, one=e_one)
     if "state" in r0:
         rule["session"] = state_rule(label, res)
+    if "paged_probe" in r0:
+        rule["paged"] = paged_rule(label, res)
     return rule
+
+
+def paged_rule(label, res):
+    """The paged pass under a mesh whose ``data`` splits the lanes
+    (``paged_checks``): every model forward of every rank ran the
+    engine's lanes / data; the ranks that hold the same KV heads (one
+    ``model`` index) ended with bit-equal pools, the NULL block excepted;
+    and every rank's ``TracedMesh`` recorded the collectives its ``Mesh``
+    handed gloo for one paged fused step, to the byte by kind and
+    group."""
+    from repro_torch.distributed.sharding import ring_bytes
+    data, model = res[0]["paged_probe"]["mesh"]
+    for r, x in enumerate(res):
+        p = x["paged_probe"]
+        want = p["lanes"] // data
+        print(f"  {label} paged rank {r}: lanes a forward {p['ran']} of the "
+              f"engine's {p['lanes']}, pool sha256 {p['pool'][:16]}")
+        check(p["ran"] == [want], f"{label} rank {r}: paged forwards ran "
+                                  f"{p['ran']} lanes, not {want}")
+        twin = res[r % model]["paged_probe"]["pool"]
+        check(p["pool"] == twin, f"{label}: rank {r}'s pool differs from "
+                                 f"rank {r % model}'s (the same KV heads)")
+        real, traced = p["count"]["real"], p["count"]["traced"]
+        check(bool(real) and real == traced,
+              f"{label} rank {r}: the traced mesh counted {traced}, gloo "
+              f"was handed {real}")
+    total, kinds = ring_bytes(res[0]["paged_probe"]["count"]["real"])
+    calls = {(x["kind"], x["group"]): (x["calls"], x["bytes"])
+             for x in res[0]["paged_probe"]["count"]["real"]}
+    print(f"  {label} paged: pools equal across data on every model index "
+          f"(the NULL block excepted); one paged fused step, rank 0 "
+          f"handed gloo (calls, bytes) by (kind, group) {calls} = the "
+          f"traced mesh's to the byte; ring traffic {total / 1e6:.3f} MB "
+          + ", ".join(f"{k} {v / 1e6:.3f}" for k, v in kinds.items() if v))
+    return dict(lanes=[x["paged_probe"]["ran"] for x in res],
+                ring_bytes=total, calls=calls)
 
 
 def state_rule(label, res):

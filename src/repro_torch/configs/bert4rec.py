@@ -54,6 +54,11 @@ def train_cell(cfg: model.Bert4RecConfig = None,
 cell_meta = rc.sequence_meta
 
 
-def build_cell(shape: str) -> Cell:
+# The logical axes the reference's cells place, by shape: the port keeps
+# them whole on every rank of a mesh (ROADMAP A16b 6.3).
+WHOLE_AXES = dict.fromkeys(rc.SHAPES, ("batch", "table_rows", "tensor"))
+
+
+def build_cell(shape: str, mesh=None) -> Cell:
     """The dry-run cell (``recsys_common.build_cell``)."""
-    return rc.build_cell(sys.modules[__name__], shape)
+    return rc.build_cell(sys.modules[__name__], shape, mesh)

@@ -85,13 +85,19 @@ def train_cell(shape: str, cfg: model.EquiformerConfig = None) -> TrainCell:
                                      grad_dtype="bfloat16"), tuple(inputs))
 
 
-def build_cell(shape: str) -> Cell:
+# The logical axes the reference's cells place: the port keeps them whole
+# on every rank of a mesh (ROADMAP A16b 6.3).
+WHOLE_AXES = ("edges", "tensor")
+
+
+def build_cell(shape: str, mesh=None) -> Cell:
     """The dry-run cell: one train step over meta parameters, their AdamW
     state and the batch, with the reference's meta.  ogb_products gets the
     edge-chunk corrections although its E is no multiple of its
     edge_chunk and it runs dense, as in the reference (ROADMAP §C);
     ``launch.roofline`` adds no correction (the port's trace runs every
-    chunk)."""
+    chunk).  Under ``mesh`` the arguments stay whole and the cell names
+    ``WHOLE_AXES``."""
     c = CELLS[shape]
     cfg = full_config(shape)
     N, E = c["n_nodes"], c["n_edges"]
@@ -108,7 +114,7 @@ def build_cell(shape: str) -> Cell:
         meta["bytes_correction"] = (nc - 1) / nc * (
             4.0 * E * cfg.lsq * cfg.channels * 2 * 6)
     return train_dryrun_cell(ARCH, shape, cfg, model, train_cell(shape, cfg),
-                             meta)
+                             meta, WHOLE_AXES if mesh is not None else ())
 
 
 def model_flops(cfg: model.EquiformerConfig, E: int) -> int:
@@ -134,6 +140,6 @@ def bytes_floor(cfg: model.EquiformerConfig, N: int, E: int) -> float:
                  + cfg.n_layers * N * cfg.lsq * cfg.channels * 2 * 8)
 
 
-__all__ = ["ARCH", "SHAPES", "CELLS", "full_config", "smoke_config",
-           "train_cell", "build_cell", "model_flops", "bytes_floor",
-           "pad_to_multiple"]
+__all__ = ["ARCH", "SHAPES", "CELLS", "WHOLE_AXES", "full_config",
+           "smoke_config", "train_cell", "build_cell", "model_flops",
+           "bytes_floor", "pad_to_multiple"]

@@ -17,11 +17,13 @@ config and step that ``chip_smoke.py`` runs at a cut batch.
 The decode cells take the ``flash_decode`` tree backend, as the
 reference's: it shards the KV sequence over a mesh's ranks
 (``repro_torch.distributed.flash_decode``) and is the ``dense`` backend
-without one, so the dry-run's traces (no mesh) count the dense program.
-The reference's ``REPRO_SERVE_FSDP`` switch is a sharding rule and has no
+without one, so the dry-run's one-card traces count the dense program.
+Each cell carries the reference cell's rules (``cell_rules``); the
+reference's ``REPRO_SERVE_FSDP`` switch is a sharding rule and has no
 counterpart.  MoE archs keep ``moe_impl="auto"``, which one device serves
 as ``moe_ref`` (every expert computes every token) and a mesh with a
-``model`` axis as ``moe_ep``; the counted FLOPs show the former.
+``model`` axis as ``moe_ep``; the one-card counts show the former, the
+mesh legs the latter.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.common import Cell, abstract
+from repro_torch.configs.common import Cell, abstract, opt_state_axes
+from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
+                                              sharding_ctx)
 from repro_torch.models import transformer as tx
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import TransformerConfig
@@ -42,6 +46,8 @@ from repro_torch.training.train_step import make_train_step
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 LA_SLOTS = 65              # 1 + decoding_length(64); ≤ CDL (paper Fig. 1)
 TRAIN_4K = {"batch": 256, "seq": 4096}      # the reference's global batch
+CELL_BATCH = {"train_4k": TRAIN_4K["batch"], "prefill_32k": 32,
+              "decode_32k": 128, "long_500k": 1}
 
 
 def smoke_config(base: TransformerConfig) -> TransformerConfig:
@@ -71,10 +77,13 @@ def train_4k_config(base: TransformerConfig) -> TransformerConfig:
 def train_4k_step(cfg: TransformerConfig, accum_steps: int = 1):
     """The train_4k cell's step, ``step(params, opt_state, {"tokens",
     "labels"})``: lr 3e-4, bf16 gradients (the reference's memory build
-    runs 4 microbatches, its cost build 1)."""
+    runs 4 microbatches, its cost build 1), the parameters' axes and
+    shapes given for the global norm under a mesh."""
     loss = lambda p, b: tx.lm_loss(cfg, p, b["tokens"], b["labels"])  # noqa: E731
     return make_train_step(loss, lr=3e-4, grad_dtype="bfloat16",
-                           accum_steps=accum_steps)
+                           accum_steps=accum_steps,
+                           axes=tx.param_logical_axes(cfg),
+                           shapes=tx.param_shapes(cfg))
 
 
 def _serve_fn(cfg: TransformerConfig):
@@ -150,58 +159,107 @@ def decode_args(cfg: TransformerConfig, B: int, T: int, device="meta"):
             z((B, T)), z((B,)))
 
 
-def build_cell(arch: str, base: TransformerConfig, shape: str) -> Cell:
-    """The (arch, shape) cell over meta tensors, on the reference's
-    backends (``dense``; ``flash_decode``, dense without a mesh, for the
-    decode cells), as in the reference's dry-run.  train_4k counts its cost on the whole
-    batch at once and its memory on the 4 microbatches that run
-    (``memory_fn``; the reference's cost and ``fast`` builds)."""
+def cell_rules(shape: str) -> ShardingRules:
+    """The reference cell's sharding rules: train_4k's residual split
+    along the sequence over ``model`` (Megatron's sequence parallelism),
+    the decode cells' weights without FSDP (``fsdp=()``: at TP 16 the
+    serve weights fit, and FSDP would only add gathers), prefill_32k's
+    ``DEFAULT_RULES``."""
     if shape == "train_4k":
-        cfg = _perf_overrides(train_4k_config(base))
-        B, S = TRAIN_4K["batch"], TRAIN_4K["seq"]
-        params = init_params(cfg, device="meta")
-        opt = adamw_init(params)
-        batch = {"tokens": abstract((B, S), "int32"),
-                 "labels": abstract((B, S), "int32")}
-        meta = _meta(cfg, tokens_per_step=B * S, kind="train", seq=S, batch=B)
-        meta.update(_attn_scan_correction(cfg, B, S, "train"))
-        return Cell(arch, shape, "train", train_4k_step(cfg, accum_steps=1),
-                    (params, opt, batch), meta,
-                    memory_fn=train_4k_step(cfg, accum_steps=4))
+        return DEFAULT_RULES.override(residual_seq=("model",))
+    if shape in ("decode_32k", "long_500k"):
+        return DEFAULT_RULES.override(fsdp=())
+    return DEFAULT_RULES
 
+
+def cell_config(base: TransformerConfig, shape: str) -> TransformerConfig:
+    """The cell's config on the reference's backends (``dense``;
+    ``flash_decode`` for the decode cells), before any
+    ``REPRO_PERF_OVERRIDES``."""
+    if shape == "train_4k":
+        return train_4k_config(base)
     if shape == "prefill_32k":
-        cfg = dataclasses.replace(base, dtype="bfloat16",
-                                  param_dtype="bfloat16", q_chunk=1024,
-                                  max_seq_len=32768, moe_impl="auto",
-                                  prefill_backend="dense")
-        cfg = _perf_overrides(cfg)
-        B, S = 32, 32768
-        params = init_params(cfg, device="meta")
-        # cache=None: the stacked per-layer KV IS the returned cache
-        args = (params, {"tokens": abstract((B, S), "int32")},
-                abstract((B,), "int32"))
+        return dataclasses.replace(base, dtype="bfloat16",
+                                   param_dtype="bfloat16", q_chunk=1024,
+                                   max_seq_len=32768, moe_impl="auto",
+                                   prefill_backend="dense")
+    if shape in ("decode_32k", "long_500k"):
+        return dataclasses.replace(
+            base, dtype="bfloat16", param_dtype="bfloat16",
+            max_seq_len=524288 if shape == "long_500k" else 32768,
+            prefill_backend="dense", decode_backend="flash_decode",
+            moe_impl="auto")
+    raise KeyError(shape)
+
+
+def build_cell(arch: str, base: TransformerConfig, shape: str,
+               mesh=None) -> Cell:
+    """The (arch, shape) cell over meta tensors, on the reference's
+    backends and rules, as in the reference's dry-run.  train_4k counts
+    its cost on the whole batch at once and its memory on the 4
+    microbatches that run (``memory_fn``; the reference's cost and
+    ``fast`` builds).  With ``mesh`` (a ``TracedMesh`` rank of the
+    production mesh) the arguments are that rank's blocks, made by the
+    port's own calls under ``sharding_ctx(mesh, cell.rules)``: the
+    parameters by ``init_params(mesh=)``, the AdamW state from them, the
+    cache by ``init_cache`` (its ``cache_sharding`` block), the inputs
+    whole; the cell's function must then run in that context."""
+    cfg = _perf_overrides(cell_config(base, shape))
+    rules = cell_rules(shape)
+    B = CELL_BATCH[shape]
+    p_axes = tx.param_logical_axes(cfg)
+
+    def arguments(m):
+        with sharding_ctx(m, rules):
+            params = init_params(cfg, device="meta", mesh=m)
+            if shape == "train_4k":
+                S = TRAIN_4K["seq"]
+                return (params, adamw_init(params),
+                        {"tokens": abstract((B, S), "int32"),
+                         "labels": abstract((B, S), "int32")})
+            if shape == "prefill_32k":
+                # cache=None: the stacked per-layer KV IS the returned cache
+                return (params,
+                        {"tokens": abstract((B, cfg.max_seq_len), "int32")},
+                        abstract((B,), "int32"))
+            return (params,) + decode_args(cfg, B, LA_SLOTS)
+
+    args = arguments(None)
+    if shape == "train_4k":
+        S = TRAIN_4K["seq"]
+        meta = _meta(cfg, tokens_per_step=B * S, kind="train", seq=S,
+                     batch=B)
+        meta.update(_attn_scan_correction(cfg, B, S, "train"))
+        axes = (p_axes, opt_state_axes(p_axes),
+                {"tokens": ("batch", None), "labels": ("batch", None)})
+        cell = Cell(arch, shape, "train", train_4k_step(cfg, accum_steps=1),
+                    args, meta, memory_fn=train_4k_step(cfg, accum_steps=4),
+                    axes=axes, rules=rules)
+    elif shape == "prefill_32k":
+        S = cfg.max_seq_len
         fn = lambda p, b, l: _prefill_fn(cfg)(p, b["tokens"], l, None)  # noqa: E731
         meta = _meta(cfg, tokens_per_step=B * S, kind="prefill", seq=S,
                      batch=B)
         meta.update(_attn_scan_correction(cfg, B, S, "prefill"))
-        return Cell(arch, shape, "prefill", fn, args, meta)
-
-    if shape in ("decode_32k", "long_500k"):
-        long = shape == "long_500k"
-        cfg = dataclasses.replace(
-            base, dtype="bfloat16", param_dtype="bfloat16",
-            max_seq_len=524288 if long else 32768, prefill_backend="dense",
-            decode_backend="flash_decode", moe_impl="auto")
-        cfg = _perf_overrides(cfg)
-        B = 1 if long else 128
-        T = LA_SLOTS
-        params = init_params(cfg, device="meta")
-        args = (params,) + decode_args(cfg, B, T)
-        meta = _meta(cfg, tokens_per_step=B * T, kind="decode",
+        cell = Cell(arch, shape, "prefill", fn, args, meta,
+                    axes=(p_axes, {"tokens": ("batch", None)}, ("batch",)),
+                    rules=rules)
+    else:
+        meta = _meta(cfg, tokens_per_step=B * LA_SLOTS, kind="decode",
                      seq=cfg.max_seq_len, batch=B)
-        return Cell(arch, shape, "decode", _serve_fn(cfg), args, meta)
-
-    raise KeyError(shape)
+        cache_axes = tx.cache_logical_axes(cfg)
+        if mesh is not None:
+            with sharding_ctx(mesh, rules):
+                spec = tx.cache_sharding(cfg, B).spec
+            cache_axes = {"k": spec, "v": spec}
+        axes = (p_axes, cache_axes, ("batch",), ("batch", None),
+                ("batch", None), ("batch", None, None), ("batch", None),
+                ("batch",))                      # draft parents, n_live
+        cell = Cell(arch, shape, "decode", _serve_fn(cfg), args, meta,
+                    axes=axes, rules=rules)
+    if mesh is not None:
+        cell.args = arguments(mesh)
+    return cell
 
 
 def _meta(cfg: TransformerConfig, tokens_per_step: int, kind: str,
@@ -249,5 +307,6 @@ def _meta(cfg: TransformerConfig, tokens_per_step: int, kind: str,
     }
 
 
-__all__ = ["SHAPES", "LA_SLOTS", "TRAIN_4K", "smoke_config",
-           "train_4k_config", "train_4k_step", "build_cell", "decode_args"]
+__all__ = ["SHAPES", "LA_SLOTS", "TRAIN_4K", "CELL_BATCH", "smoke_config",
+           "train_4k_config", "train_4k_step", "cell_rules", "cell_config",
+           "build_cell", "decode_args"]

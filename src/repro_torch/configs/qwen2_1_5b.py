@@ -19,6 +19,7 @@ def smoke_config() -> TransformerConfig:
     return lm_common.smoke_config(full_config())
 
 
-def build_cell(shape: str):
-    """The dry-run cell (``lm_common.build_cell``)."""
-    return lm_common.build_cell(ARCH, full_config(), shape)
+def build_cell(shape: str, mesh=None):
+    """The dry-run cell (``lm_common.build_cell``; with ``mesh``, a rank's
+    blocks)."""
+    return lm_common.build_cell(ARCH, full_config(), shape, mesh)

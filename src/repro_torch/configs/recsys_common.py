@@ -7,7 +7,11 @@ gives every serve cell as a plain function and its inputs' shapes
 (``serve_cell``), and its train_batch cell as a train step and its batch's
 shapes (``train_cell``), and its cell meta (``cell_meta``); ``build_cell``
 makes either a dry-run ``Cell`` over meta tensors (the reference's
-``serve_cell`` / ``train_cell``; shardings wait for ROADMAP A16).
+``serve_cell`` / ``train_cell``).  The port does not place the recsys
+cells on a mesh yet (ROADMAP A16b 6.3): under one each rank holds every
+argument whole and runs the whole cell, and the cell names the logical
+axes the reference places there (``whole_axes``, from each config's
+``WHOLE_AXES``).
 """
 from __future__ import annotations
 
@@ -64,32 +68,36 @@ def abstract_inputs(inputs: Tuple[Input, ...]) -> Tuple:
 
 
 def train_dryrun_cell(arch: str, shape: str, cfg, model, train: TrainCell,
-                      meta: dict) -> Cell:
+                      meta: dict, whole_axes=()) -> Cell:
     """``train.step(params, opt_state, batch)`` over meta parameters, their
-    AdamW state and the batch."""
+    AdamW state and the batch; ``whole_axes`` as ``Cell``'s."""
     params = model.init_params(cfg, device="meta")
     batch = dict(zip((i.name for i in train.inputs),
                      abstract_inputs(train.inputs)))
     return Cell(arch, shape, "train", train.step,
-                (params, adamw_init(params), batch), meta)
+                (params, adamw_init(params), batch), meta,
+                whole_axes=whole_axes)
 
 
-def build_cell(mod, shape: str) -> Cell:
+def build_cell(mod, shape: str, mesh=None) -> Cell:
     """The dry-run cell of the recsys config module ``mod`` (its ``ARCH``,
-    ``model``, ``full_config``, ``serve_cell``, ``train_cell`` and
-    ``cell_meta``): the train step at train_batch, else the serve function
-    over meta parameters (``model.init_params(cfg, device="meta")``) and
-    inputs."""
+    ``model``, ``full_config``, ``serve_cell``, ``train_cell``,
+    ``cell_meta`` and ``WHOLE_AXES``): the train step at train_batch, else
+    the serve function over meta parameters (``model.init_params(cfg,
+    device="meta")``) and inputs.  Under ``mesh`` the arguments stay
+    whole and the cell names the axes left so (ROADMAP A16b 6.3)."""
     cfg = mod.full_config()
     meta = mod.cell_meta(cfg, shape)
+    whole = mod.WHOLE_AXES[shape] if mesh is not None else ()
     if shape == "train_batch":
         return train_dryrun_cell(mod.ARCH, shape, cfg, mod.model,
-                                 mod.train_cell(cfg), meta)
+                                 mod.train_cell(cfg), meta, whole)
     serve = mod.serve_cell(shape, cfg)
     params = mod.model.init_params(cfg, device="meta")
     fn = lambda p, *a: serve.fn(cfg, p, *a)  # noqa: E731
     return Cell(mod.ARCH, shape, "score", fn,
-                (params,) + abstract_inputs(serve.inputs), meta)
+                (params,) + abstract_inputs(serve.inputs), meta,
+                whole_axes=whole)
 
 
 def sequence_meta(cfg, shape: str) -> dict:

@@ -73,9 +73,15 @@ def cell_meta(cfg: model.TwoTowerConfig, shape: str) -> dict:
             "batch": B, "weight_bytes": cfg.n_params() * 4}
 
 
-def build_cell(shape: str) -> Cell:
+# The logical axes the reference's cells place, by shape: the port keeps
+# them whole on every rank of a mesh (ROADMAP A16b 6.3).
+WHOLE_AXES = dict(dict.fromkeys(rc.SHAPES, ("batch", "table_rows")),
+                  retrieval_cand=("candidates", "table_rows"))
+
+
+def build_cell(shape: str, mesh=None) -> Cell:
     """The dry-run cell (``recsys_common.build_cell``)."""
-    return rc.build_cell(sys.modules[__name__], shape)
+    return rc.build_cell(sys.modules[__name__], shape, mesh)
 
 
 def _flops(cfg, B, shape):

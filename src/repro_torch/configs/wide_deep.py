@@ -66,9 +66,14 @@ def cell_meta(cfg: model.WideDeepConfig, shape: str) -> dict:
                 + (cfg.n_params() * 16 if mult == 3 else 0))}
 
 
-def build_cell(shape: str) -> Cell:
+# The logical axes the reference's cells place, by shape: the port keeps
+# them whole on every rank of a mesh (ROADMAP A16b 6.3).
+WHOLE_AXES = dict.fromkeys(rc.SHAPES, ("batch", "table_rows"))
+
+
+def build_cell(shape: str, mesh=None) -> Cell:
     """The dry-run cell (``recsys_common.build_cell``)."""
-    return rc.build_cell(sys.modules[__name__], shape)
+    return rc.build_cell(sys.modules[__name__], shape, mesh)
 
 
 def _flops(cfg, B, train):

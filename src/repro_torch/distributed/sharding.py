@@ -45,6 +45,15 @@ tensors for every collective used here (``all_reduce`` SUM and MAX,
 ``all_gather_into_tensor``, ``all_to_all_single``; ``chip_smoke.py
 --phases dist`` checks it), so several gloo ranks can share one card; an
 NCCL mesh needs a card a rank.
+
+Every collective goes through ``Mesh._run``, which counts it: the calls
+and the bytes handed to the backend, by kind and group (``counts``,
+``collective_records``).  A ``TracedMesh`` is one rank of a world that
+need not exist: it builds no process group, its collectives call nothing
+and return tensors of the shapes the real ones return (so the model runs
+on ``meta`` tensors under it), and it counts the same calls and bytes.
+``ring_bytes`` turns the counts into each rank's ring traffic with the
+reference's formulas (``repro.launch.roofline``).
 """
 from __future__ import annotations
 
@@ -86,6 +95,40 @@ def dim_axes(entry: Axes) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+# The kinds a collective is counted under: the reference's HLO names
+# (``repro.launch.roofline``), and "gather" for ``gather_first`` (one rank
+# receives), which the reference's programs do not call.
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute", "gather")
+
+
+def ring_traffic(kind: str, group: int, nbytes: float) -> float:
+    """One rank's ring traffic for a collective over ``group`` ranks that
+    is handed ``nbytes`` (the operand's bytes; an all-gather's and a
+    gather's: the result's), by the reference's formulas: all-reduce
+    2(g-1)/g of the operand, all-gather (g-1)/g of the result,
+    reduce-scatter and all-to-all (g-1)/g of the operand, a
+    collective-permute the operand; a gather as an all-gather."""
+    if group <= 1:
+        return 0.0
+    frac = (group - 1) / group
+    if kind == "all-reduce":
+        return 2 * frac * nbytes
+    if kind == "collective-permute":
+        return float(nbytes)
+    return frac * nbytes
+
+
+def ring_bytes(records: Iterable[Dict]) -> Tuple[float, Dict[str, float]]:
+    """(bytes a rank, bytes by kind) of ``collective_records``' records
+    under ``ring_traffic``: the reference's ``parse_collectives`` totals."""
+    per_kind = {k: 0.0 for k in COLLECTIVE_KINDS}
+    for r in records:
+        per_kind[r["kind"]] += ring_traffic(r["kind"], r["group"],
+                                            r["bytes"])
+    return sum(per_kind.values()), per_kind
+
+
 class Mesh:
     """A named grid over the ranks of the initialized ``torch.distributed``
     world.  ``shape`` maps axis name to size, in order (the reference's
@@ -99,17 +142,20 @@ class Mesh:
         if not dist.is_initialized():
             raise RuntimeError("Mesh needs an initialized torch.distributed "
                                "world (init_process_group)")
-        self.shape: Dict[str, int] = dict(shape)
-        self.axis_names = tuple(self.shape)
-        self.size = math.prod(self.shape.values())
+        backend = dist.get_backend()
+        if device is None:
+            device = "cuda" if backend == "nccl" else "cpu"
+        self._setup(shape, dist.get_rank(), backend, device)
         world = dist.get_world_size()
         if self.size != world:
             raise ValueError(f"mesh {self.shape} has {self.size} ranks; the "
                              f"world has {world}")
-        self.rank = dist.get_rank()
-        self.backend = dist.get_backend()
-        if device is None:
-            device = "cuda" if self.backend == "nccl" else "cpu"
+
+    def _setup(self, shape, rank: int, backend: str, device) -> None:
+        self.shape: Dict[str, int] = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        self.rank, self.backend = rank, backend
         self.device = torch.device(device)
         self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
         self._coords: Dict[int, Dict[str, int]] = {}
@@ -117,10 +163,12 @@ class Mesh:
         # set (each call then synchronizes the device before and after)
         self.timing = False
         self.collective_s = 0.0
+        # (kind, the group's global ranks) -> [calls, bytes handed over]
+        self.counts: Dict[Tuple[str, Tuple[int, ...]], List[int]] = {}
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape}, backend={self.backend}, "
-                f"device={self.device})")
+        return (f"{type(self).__name__}({self.shape}, rank={self.rank}, "
+                f"backend={self.backend}, device={self.device})")
 
     def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
         """Axis name -> index of ``rank`` (default: this rank)."""
@@ -134,33 +182,62 @@ class Mesh:
     def axis_index(self, name: str) -> int:
         return self.coords()[name]
 
+    def _partition(self, key: Tuple[str, ...]) -> List[List[int]]:
+        """The groups over the axes ``key``: the global ranks that share
+        their coordinates on every other axis, each in rank order."""
+        others = [a for a in self.axis_names if a not in key]
+        blocks: Dict[Tuple[int, ...], List[int]] = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            blocks.setdefault(tuple(c[a] for a in others), []).append(r)
+        return list(blocks.values())
+
+    def _key(self, axes: Iterable[str]) -> Tuple[str, ...]:
+        axes = {axes} if isinstance(axes, str) else set(axes)
+        return tuple(a for a in self.axis_names if a in axes)
+
     def group(self, axes: Iterable[str]) -> Tuple[object, List[int]]:
         """(process group, its global ranks) over ``axes`` through this
         rank.  Every rank builds every group of the partition in the same
         order the first time any rank asks (``new_group`` is collective
         over the world), so all ranks must ask for the same axes in the
         same order — which SPMD code does."""
-        axes = {axes} if isinstance(axes, str) else set(axes)
-        key = tuple(a for a in self.axis_names if a in axes)
+        key = self._key(axes)
         if key not in self._groups:
-            others = [a for a in self.axis_names if a not in key]
-            blocks: Dict[Tuple[int, ...], List[int]] = {}
-            for r in range(self.size):
-                c = self.coords(r)
-                blocks.setdefault(tuple(c[a] for a in others), []).append(r)
             mine = None
-            for ranks in blocks.values():
+            for ranks in self._partition(key):
                 g = dist.new_group(ranks)
                 if self.rank in ranks:
                     mine = (g, ranks)
             self._groups[key] = mine
         return self._groups[key]
 
+    # ------------------------------------------------------------- counts
+    def reset_counts(self) -> None:
+        self.counts = {}
+
+    def _count(self, kind: str, ranks: Sequence[int], nbytes: int) -> None:
+        c = self.counts.setdefault((kind, tuple(ranks)), [0, 0])
+        c[0] += 1
+        c[1] += int(nbytes)
+
+    def collective_records(self) -> List[Dict]:
+        """The counts as records: kind, the group's size and global ranks,
+        calls, and the bytes handed to the backend (an all-gather's and a
+        gather's result, else the operand), summed over the calls."""
+        return [{"kind": kind, "group": len(ranks), "ranks": list(ranks),
+                 "calls": calls, "bytes": nbytes}
+                for (kind, ranks), (calls, nbytes)
+                in sorted(self.counts.items())]
+
     # ------------------------------------------------------------ collectives
-    def _run(self, fn, out: torch.Tensor, *ins: torch.Tensor
-             ) -> torch.Tensor:
-        """Run collective ``fn(out, *ins)``; time it while ``timing`` is
-        set."""
+    def _run(self, kind: str, ranks: Sequence[int], nbytes: int, fn,
+             out: Optional[torch.Tensor], *ins: torch.Tensor
+             ) -> Optional[torch.Tensor]:
+        """Count collective ``fn(out, *ins)`` (``kind`` over the group of
+        ``ranks``, handed ``nbytes``), then run it; time it while
+        ``timing`` is set."""
+        self._count(kind, ranks, nbytes)
         if self.timing and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -183,8 +260,9 @@ class Mesh:
         if len(ranks) == 1:
             return x.clone()
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        return self._run(lambda o: dist.all_reduce(o, op=red, group=g),
-                         x.contiguous().clone())
+        out = x.contiguous().clone()
+        return self._run("all-reduce", ranks, _nbytes(out),
+                         lambda o: dist.all_reduce(o, op=red, group=g), out)
 
     def all_gather(self, x: torch.Tensor, axes: Iterable[str]
                    ) -> torch.Tensor:
@@ -196,7 +274,8 @@ class Mesh:
         src = x.contiguous().view(-1).view(torch.uint8)
         out = torch.empty(len(ranks) * src.numel(), dtype=torch.uint8,
                           device=x.device)
-        self._run(lambda o, i: dist.all_gather_into_tensor(o, i, group=g),
+        self._run("all-gather", ranks, _nbytes(out),
+                  lambda o, i: dist.all_gather_into_tensor(o, i, group=g),
                   out, src)
         return out.view(x.dtype).view(len(ranks), *x.shape)
 
@@ -210,10 +289,10 @@ class Mesh:
             return x[None]
         out = (x.new_empty((len(ranks),) + tuple(x.shape))
                if self.rank == ranks[0] else None)
-        self._run(lambda o, i: dist.gather(
-            i, None if o is None else list(o.unbind(0)), dst=ranks[0],
-            group=g), out, x.contiguous())
-        return out
+        return self._run("gather", ranks, len(ranks) * _nbytes(x),
+                         lambda o, i: dist.gather(
+                             i, None if o is None else list(o.unbind(0)),
+                             dst=ranks[0], group=g), out, x.contiguous())
 
     def all_to_all(self, x: torch.Tensor, axes: Iterable[str]
                    ) -> torch.Tensor:
@@ -229,7 +308,8 @@ class Mesh:
                              f"multiple of the group's {n} ranks")
         src = x.contiguous().view(-1).view(torch.uint8)
         out = torch.empty_like(src)
-        self._run(lambda o, i: dist.all_to_all_single(o, i, group=g),
+        self._run("all-to-all", ranks, _nbytes(src),
+                  lambda o, i: dist.all_to_all_single(o, i, group=g),
                   out, src)
         return out.view(x.dtype).view(x.shape)
 
@@ -239,6 +319,46 @@ class Mesh:
             dist.barrier(group=g, device_ids=[self.device.index or 0])
         else:
             dist.barrier(group=g)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class TracedMesh(Mesh):
+    """Rank ``rank`` of a mesh of ``shape`` with no world behind it: the
+    dry-run's production meshes (``launch.mesh.make_production_mesh(
+    rank=)``), whose 256 or 512 ranks no host has.  It builds no process
+    group and its collectives call nothing: each returns a tensor of the
+    shape the real one returns (an all-reduce this rank's values, the
+    others uninitialized), so the model runs under it on ``meta`` tensors
+    (``device``) and every rank's program is this rank's.  It counts each
+    call as ``Mesh`` does, so its ``collective_records`` are what the real
+    rank would hand its backend."""
+
+    def __init__(self, shape: Union[Dict[str, int],
+                                    Sequence[Tuple[str, int]]],
+                 rank: int = 0, device: Union[str, torch.device] = "meta"):
+        self._setup(shape, int(rank), "traced", device)
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {rank} is not in the mesh {self.shape} "
+                             f"of {self.size} ranks")
+
+    def group(self, axes: Iterable[str]) -> Tuple[object, List[int]]:
+        """(None, the global ranks of this rank's group over ``axes``)."""
+        key = self._key(axes)
+        if key not in self._groups:
+            self._groups[key] = next((None, ranks)
+                                     for ranks in self._partition(key)
+                                     if self.rank in ranks)
+        return self._groups[key]
+
+    def _run(self, kind, ranks, nbytes, fn, out, *ins):
+        self._count(kind, ranks, nbytes)
+        return out
+
+    def barrier(self) -> None:
+        pass
 
 
 @dataclass(frozen=True)
@@ -650,7 +770,8 @@ def block_sharding(what: str, shape: Sequence[int], axes: Sequence,
     return sh
 
 
-__all__ = ["Mesh", "PartitionSpec", "P", "NamedSharding", "ShardingRules",
+__all__ = ["Mesh", "TracedMesh", "COLLECTIVE_KINDS", "ring_traffic",
+           "ring_bytes", "PartitionSpec", "P", "NamedSharding", "ShardingRules",
            "DEFAULT_RULES", "sharding_ctx", "constrain", "active_mesh",
            "active_rules", "logical_spec", "named_sharding", "placement",
            "PLACED_AXES", "axis_size", "shard", "unshard", "sum_grad",

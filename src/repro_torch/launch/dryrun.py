@@ -3,11 +3,26 @@ record its counted cost, its live memory and its H100 roofline terms (the
 counterpart of ``repro.launch.dryrun``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
-      --shape decode_32k [--out build/dryrun_results.json]
+      --shape decode_32k [--single-pod | --multi-pod | --both-meshes] \\
+      [--rank R] [--out build/dryrun_results.json]
 
 Without ``--arch``: sweeps the 40 assigned cells (``--include-antglm`` adds
 AntGLM-10B's four), writing after each cell so an interrupted sweep resumes
 where it stopped (a key already ``ok`` is skipped).
+
+The legs: one card (``1xH100``, the default), and the reference's
+production meshes, (data 16, model 16) (``--single-pod``, key
+``arch/shape/16x16``) and (pod 2, data 16, model 16) (``--multi-pod``,
+``2x16x16``); ``--both-meshes`` runs the two.  A mesh leg traces one rank
+(``--rank``, 0 by default) of the mesh with no world behind it
+(``launch.mesh.make_production_mesh(rank=)``, a ``TracedMesh``): the cell's
+arguments are that rank's blocks (``build_cell(shape, mesh)``), its
+function runs under ``sharding_ctx(mesh, cell.rules)``, and the mesh
+records each collective the rank would call, which the roofline prices
+(``collective_s``).  Memory, cost and the collectives are that rank's.  A
+cell the port does not place yet (the recsys and GNN cells, ROADMAP A16b
+6.3) runs whole on the rank: its record says ``placed: false`` and names
+the axes left whole, and its roofline is the whole cell's on one card.
 
 Nothing runs on a device.  The reference lowers and compiles each cell on
 abstract values and reads XLA's cost and memory analyses; the port runs the
@@ -25,7 +40,7 @@ import os
 import time
 import traceback
 from collections import defaultdict
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -35,10 +50,12 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch import configs as cfgreg
 from repro_torch.configs.common import Cell, tensor_leaves
-from repro_torch.launch.mesh import HBM_PER_CHIP
+from repro_torch.distributed.sharding import sharding_ctx
+from repro_torch.launch.mesh import HBM_PER_CHIP, make_production_mesh
 from repro_torch.launch.roofline import roofline
 
 MESH = "1xH100"
+MESHES = {"16x16": False, "2x16x16": True}    # leg -> multi_pod
 aten = torch.ops.aten
 
 # ops that keep their input's values (a copy, a selection, a reshape), so
@@ -212,59 +229,91 @@ def _trace_cell(cell: Cell, fn=None) -> Dict:
             "peak_memory_in_bytes": live.peak}
 
 
-def run_cell(arch: str, shape: str) -> Dict:
+def record_roofline(rec: Dict, meta: Dict) -> Dict:
+    """The roofline of a record's counts: per card over its ``n_chips``
+    where the cell is placed, the whole cell's on one card where it runs
+    whole on every rank (``placed`` false), with the rank's collectives."""
+    n = rec["n_chips"] if rec.get("placed", True) else 1
+    return roofline(rec["cost"], n, meta=meta,
+                    collectives=rec.get("collectives", ()))
+
+
+def run_cell(arch: str, shape: str, mesh: Optional[str] = None,
+             rank: int = 0) -> Dict:
     """Trace a cell's cost on ``cell.fn`` and its memory on the program
     that runs, ``cell.memory_fn`` where the cell has one (train_4k's 4
     microbatches; the reference compiles a ``fast`` build for that), else
-    on the same trace."""
+    on the same trace.  ``mesh``: None for one card, or a leg of
+    ``MESHES``, traced at ``rank``; the collectives are the cost
+    program's."""
     t0 = time.time()
-    cell = cfgreg.get_arch(arch).build_cell(shape)
-    tr = _trace_cell(cell)
-    mem = _trace_cell(cell, cell.memory_fn) if cell.memory_fn else tr
+    traced = None if mesh is None else make_production_mesh(
+        multi_pod=MESHES[mesh], rank=rank)
+    cell = cfgreg.get_arch(arch).build_cell(shape, traced)
+    placed = traced is not None and not cell.whole_axes
+    with sharding_ctx(traced if placed else None, cell.rules):
+        tr = _trace_cell(cell)
+        records = traced.collective_records() if placed else []
+        mem = _trace_cell(cell, cell.memory_fn) if cell.memory_fn else tr
     cost = {k: tr[k] for k in ("flops", "bytes accessed", "flops_by_dtype",
                                "n_ops")}
     memory = {k: mem[k] for k in ("argument_size_in_bytes",
                                   "output_size_in_bytes",
                                   "peak_memory_in_bytes")}
-    return {
-        "arch": arch, "shape": shape, "mesh": MESH, "n_chips": 1,
+    rec = {
+        "arch": arch, "shape": shape, "mesh": mesh or MESH,
+        "n_chips": traced.size if traced is not None else 1,
         "ok": True,
         "trace_s": round(time.time() - t0, 1),
         "memory": memory,
         "fits_80gb": memory["peak_memory_in_bytes"] < HBM_PER_CHIP,
         "cost": cost,
-        "roofline": roofline(cost, 1, meta=cell.meta),
         "meta": cell.meta,
     }
+    if traced is not None:
+        rec.update(rank=rank, placed=placed, collectives=records)
+        if not placed:
+            rec["whole_axes"] = list(cell.whole_axes)
+    rec["roofline"] = record_roofline(rec, cell.meta)
+    return rec
 
 
-def sweep(cells: Iterable, out: str) -> Dict[str, Dict]:
-    """Run ``cells`` ((arch, shape) pairs), resuming from ``out``."""
+def sweep(cells: Iterable, out: str, meshes: Sequence[Optional[str]] = (
+        None,), rank: int = 0) -> Dict[str, Dict]:
+    """Run ``cells`` ((arch, shape) pairs) on each leg of ``meshes`` (None:
+    one card), resuming from ``out``."""
     results: Dict[str, Dict] = {}
     if os.path.exists(out):
         with open(out) as f:
             results = json.load(f)
     for arch, shape in cells:
-        key = f"{arch}/{shape}/{MESH}"
-        if results.get(key, {}).get("ok"):
-            print(f"[skip] {key}")
-            continue
-        print(f"[run ] {key} ...", flush=True)
-        try:
-            rec = run_cell(arch, shape)
-            print(f"[ ok ] {key}: trace={rec['trace_s']}s "
-                  f"bottleneck={rec['roofline']['bottleneck']} "
-                  f"peak={rec['memory']['peak_memory_in_bytes'] / 1e9:.2f}GB",
-                  flush=True)
-        except Exception as e:  # noqa: BLE001
-            rec = {"arch": arch, "shape": shape, "ok": False, "mesh": MESH,
-                   "error": f"{type(e).__name__}: {e}",
-                   "trace": traceback.format_exc()[-2000:]}
-            print(f"[FAIL] {key}: {rec['error'][:200]}", flush=True)
-        results[key] = rec
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "w") as f:
-            json.dump(results, f, indent=1)
+        for mesh in meshes:
+            key = f"{arch}/{shape}/{mesh or MESH}"
+            if results.get(key, {}).get("ok"):
+                print(f"[skip] {key}")
+                continue
+            print(f"[run ] {key} ...", flush=True)
+            try:
+                rec = run_cell(arch, shape, mesh, rank)
+                rf = rec["roofline"]
+                print(f"[ ok ] {key}: trace={rec['trace_s']}s "
+                      f"bottleneck={rf['bottleneck']} "
+                      f"peak={rec['memory']['peak_memory_in_bytes'] / 1e9:.2f}"
+                      f"GB collective="
+                      f"{rf['collective_bytes_per_chip'] / 1e9:.3f}GB"
+                      + ("" if rec.get("placed", True) else
+                         f" unplaced (whole: {rec['whole_axes']})"),
+                      flush=True)
+            except Exception as e:  # noqa: BLE001
+                rec = {"arch": arch, "shape": shape, "ok": False,
+                       "mesh": mesh or MESH,
+                       "error": f"{type(e).__name__}: {e}",
+                       "trace": traceback.format_exc()[-2000:]}
+                print(f"[FAIL] {key}: {rec['error'][:200]}", flush=True)
+            results[key] = rec
+            os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+            with open(out, "w") as f:
+                json.dump(results, f, indent=1)
     return results
 
 
@@ -274,6 +323,14 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--out", default="dryrun_results.json")
     ap.add_argument("--include-antglm", action="store_true")
+    ap.add_argument("--single-pod", action="store_true",
+                    help="the (16, 16) mesh leg alone")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) mesh leg alone")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="both mesh legs")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the mesh rank a mesh leg traces")
     args = ap.parse_args(argv)
     if args.arch:
         shapes = [args.shape] if args.shape else \
@@ -284,7 +341,12 @@ def main(argv=None) -> None:
         if args.include_antglm:
             cells += [("antglm_10b", s)
                       for s in cfgreg.get_arch("antglm_10b").SHAPES]
-    results = sweep(cells, args.out)
+    meshes = ([m for m, on in (("16x16", args.single_pod),
+                               ("2x16x16", args.multi_pod)) if on]
+              or [None])
+    if args.both_meshes:
+        meshes = list(MESHES)
+    results = sweep(cells, args.out, meshes, args.rank)
     n_ok = sum(1 for r in results.values() if r.get("ok"))
     print(f"\n{n_ok}/{len(results)} cells OK -> {args.out}")
 

@@ -1,7 +1,7 @@
 """Recompute the roofline terms of existing dry-run records after a change
-to the metric model (floors, peaks) — from the stored counts and a fresh
-meta, with no retrace (the counterpart of
-``repro.launch.fixup_rooflines``).
+to the metric model (floors, peaks, link rates) — from the stored counts,
+a mesh leg's stored collectives and a fresh meta, with no retrace (the
+counterpart of ``repro.launch.fixup_rooflines``).
 
     PYTHONPATH=src python -m repro_torch.launch.fixup_rooflines build/dryrun_results.json
 """
@@ -12,7 +12,7 @@ import sys
 from typing import Dict
 
 from repro_torch import configs as cfgreg
-from repro_torch.launch.roofline import roofline
+from repro_torch.launch.dryrun import record_roofline
 
 
 def fixup(results: Dict) -> Dict:
@@ -25,8 +25,7 @@ def fixup(results: Dict) -> Dict:
         if mk not in metas:
             metas[mk] = cfgreg.get_arch(mk[0]).build_cell(mk[1]).meta
         rec["meta"] = metas[mk]
-        rec["roofline"] = roofline(rec["cost"], rec["n_chips"],
-                                   meta=rec["meta"])
+        rec["roofline"] = record_roofline(rec, rec["meta"])
     return results
 
 

@@ -1,5 +1,7 @@
 """Render the dry-run's memory and roofline tables from its results file
-(the counterpart of ``repro.launch.report``).
+(the counterpart of ``repro.launch.report``): the one-card leg's, then
+each mesh leg's (per rank, with the collective term; the cells the port
+does not place yet listed apart, with the axes they leave whole).
 
     PYTHONPATH=src python -m repro_torch.launch.report build/dryrun_results.json
 """
@@ -9,7 +11,7 @@ import json
 import sys
 from typing import Dict
 
-from repro_torch.launch.dryrun import MESH
+from repro_torch.launch.dryrun import MESH, MESHES
 from repro_torch.launch.roofline import bound_seconds
 
 
@@ -83,6 +85,68 @@ def render(results: Dict) -> str:
                "handed back per step: decode cells the fused step's packed "
                "(B,1+2T) accept array.  bound: max(compute, floor) (compute "
                "alone without a floor).")
+    for mesh in MESHES:
+        legs = {k: v for k, v in results.items() if v.get("mesh") == mesh}
+        if legs:
+            out.append(render_mesh(mesh, legs))
+    return "\n".join(out)
+
+
+def render_mesh(mesh: str, cells: Dict) -> str:
+    """A mesh leg's tables: per rank, the counts of one traced rank."""
+    ok = [v for v in cells.values() if v.get("ok")]
+    placed = [v for v in ok if v.get("placed", True)]
+    whole = [v for v in ok if not v.get("placed", True)]
+    n = ok[0]["n_chips"] if ok else 0
+    out = [f"\n### Mesh {mesh} ({n} ranks; one traced rank's counts, not "
+           "times)\n",
+           f"- **{len(ok)}/{len(cells)}** cells traced OK: {len(placed)} "
+           f"placed, {sum(v['fits_80gb'] for v in placed)} of them fit "
+           f"80 GB a rank; {len(whole)} not placed yet (every rank holds "
+           "and runs the whole cell, ROADMAP A16b 6.3)"]
+    fails = [(k, v.get("error", "")) for k, v in cells.items()
+             if not v.get("ok")]
+    for k, e in fails:
+        out.append(f"- `{k}`: {e[:160]}")
+    out.append(f"\n#### Placed cells ({mesh}, per rank)\n")
+    out.append("| arch | shape | rank | peak | fits 80GB | args | "
+               "collective | all-reduce | all-gather | all-to-all | "
+               "compute | memory(floor) | collective_s | bottleneck | "
+               "bound |")
+    out.append("|---|---|---:|---:|:--:|---:|---:|---:|---:|---:|---:|---:|"
+               "---:|---|---:|")
+    for v in placed:
+        m, r = v["memory"], v["roofline"]
+        kind = r["collective_by_kind"]
+        out.append(
+            f"| {v['arch']} | {v['shape']} | {v.get('rank', 0)} | "
+            f"{fmt_b(m['peak_memory_in_bytes'])} | "
+            f"{'✓' if v['fits_80gb'] else '✗'} | "
+            f"{fmt_b(m['argument_size_in_bytes'])} | "
+            f"{fmt_b(r['collective_bytes_per_chip'])} | "
+            f"{fmt_b(kind['all-reduce'])} | {fmt_b(kind['all-gather'])} | "
+            f"{fmt_b(kind['all-to-all'])} | {fmt_s(r['compute_s'])} | "
+            f"{fmt_s(r['memory_s'])} | {fmt_s(r['collective_s'])} | "
+            f"{r['bottleneck']} | {fmt_s(bound_seconds(r))} |")
+    out.append("\ncollective: the rank's ring traffic (the reference's "
+               "formulas), priced at NVLink's rate for a group inside one "
+               "node of 8 ranks and at the network's for any other "
+               "(launch/mesh.py).  memory(floor): the cell's floor over "
+               "the mesh's ranks, as the reference divides it.")
+    if whole:
+        out.append(f"\n#### Not placed yet ({mesh}: every rank runs the "
+                   "whole cell; its terms are one card's)\n")
+        out.append("| arch | shape | axes left whole | peak | fits 80GB | "
+                   "compute | memory(floor) |")
+        out.append("|---|---|---|---:|:--:|---:|---:|")
+        for v in whole:
+            r = v["roofline"]
+            out.append(
+                f"| {v['arch']} | {v['shape']} | "
+                f"{', '.join(v['whole_axes'])} | "
+                f"{fmt_b(v['memory']['peak_memory_in_bytes'])} | "
+                f"{'✓' if v['fits_80gb'] else '✗'} | "
+                f"{fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} |")
     return "\n".join(out)
 
 

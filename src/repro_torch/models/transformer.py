@@ -21,8 +21,11 @@ the dense and the paged KV layout.
     vocab-parallel embedding lookup and vocab-sharded logits.  The dense
     KV cache is this rank's ``batch`` × ``kv_heads`` block
     (``cache_logical_axes``; the ``flash_decode`` backend's is its block
-    of ``cache_partition_spec``) and the step runs on this rank's lanes;
-    the paged pool is this rank's ``kv_heads`` block, its lanes whole.
+    of ``cache_partition_spec``) and the step runs on this rank's lanes.
+    The paged pool is this rank's ``kv_heads`` block, whole over ``data``
+    (the prefix cache shares blocks between lanes); a paged call runs
+    this rank's lanes too, and the ranks of the lanes' axes then exchange
+    the pool rows each wrote, so their pools stay alike.
     Inputs are global (every rank passes the same); the cache and the
     logits that come back are this rank's blocks (``cache_sharding``,
     ``Layout.logits``).  ``moe_impl`` "auto" runs the expert-parallel
@@ -292,9 +295,11 @@ class Layout:
     rules with a live ``residual_seq`` raises (ROADMAP A16b).
 
     The lanes of a serving call: the dense layout splits them as the
-    cache's ``batch`` dim (``cache_sharding``), and ``local`` / ``gather``
-    move a global lane-major array to this rank's lanes and back; the
-    paged pool is lane-agnostic, so every rank computes every lane there.
+    cache's ``batch`` dim (``cache_sharding``), the paged layout as
+    ``logical_spec(("batch",), (batch,))`` (its pool has no lane dim), and
+    ``local`` / ``gather`` move a global lane-major array to this rank's
+    lanes and back.  A batch the lanes' axes do not divide (one lane)
+    stays whole: every rank then computes every lane.
     ``logits`` is the sharding of the (B, T, V) logits a call returns
     (lanes, the sequence block where the head runs on it, then the vocab
     block), None where nothing is split."""
@@ -391,8 +396,9 @@ class Layout:
                     f"the cache's heads lie on {cache_heads} and wk's on "
                     f"{ka if kv_local else ()} under these rules: a layout "
                     "that moves heads between them is not ported")
-            if not paged:
-                self.lane_axes = live(self.cache.spec[1])
+            self.lane_axes = live(
+                logical_spec(("batch",), (batch,), mesh, rules)[0] if paged
+                else self.cache.spec[1])
         if self.seq_axes:
             sp = set(self.seq_axes)
             dense_ffn = not cfg.moe or cfg.n_shared_experts
@@ -1112,10 +1118,13 @@ def fused_step(cfg: TransformerConfig, params: Params, cache: Cache,
     gathered over the lanes, so every rank's host reads the same."""
     paged = cfg.kv_layout == "paged"
     T = tokens.shape[1]
-    step = tree_step_paged if paged else tree_step
-    cache, logits = step(cfg, params, cache, cache_lens, tokens, positions,
-                         tree_mask)
     lay = Layout(cfg, tokens.shape[0], paged)
+    if paged:
+        logits = _tree_step_paged(cfg, params, cache, lay, cache_lens,
+                                  tokens, positions, tree_mask)
+    else:
+        cache, logits = tree_step(cfg, params, cache, cache_lens, tokens,
+                                  positions, tree_mask)
     tok = lay.local(tokens)
     chosen = choose(logits, tok, lay.local(positions), lay)
     n_acc, acc_tok, kv_slots = verify_accept_device(
@@ -1123,7 +1132,10 @@ def fused_step(cfg: TransformerConfig, params: Params, cache: Cache,
     packed = lay.gather(pack_step_result(n_acc, acc_tok, kv_slots))
     n_acc, kv_slots = packed[:, 0], packed[:, 1 + T:]
     if paged:
-        cache, _ = commit_paged_cache(cfg, cache, cache_lens, kv_slots, n_acc)
+        # the draft rows and the commit's land on the same T rows a lane:
+        # one exchange after both
+        _share_paged_rows(cache, lay, _commit_paged(cfg, cache, lay,
+                                                    cache_lens, kv_slots))
     else:
         cache, _ = commit_cache(cache, cache_lens, kv_slots, n_acc, lay.cache)
     return cache, packed
@@ -1259,21 +1271,49 @@ def _scatter_paged_rows(cache: Cache, layer: int, rows: torch.Tensor,
         buf[flat] = new.reshape(-1, K, dh).to(buf.dtype)
 
 
+def _share_paged_rows(cache: Cache, lay: Layout, rows: torch.Tensor
+                      ) -> None:
+    """After a paged call that ran this rank's lanes: every rank of the
+    lanes' axes writes the pool rows each of them wrote into its own pool,
+    so that theirs stay alike.  ``rows`` holds the flat rows this rank
+    wrote (a NULL-block row where it wrote nothing); their K and V, read
+    back from the pool, are all-gathered with them and written in the
+    ranks' order, which is the lanes' order.  Only NULL-block garbage
+    differs between the ranks after it.  Nothing happens where the lanes
+    are whole."""
+    if not lay.lane_axes:
+        return
+    mesh = lay.mesh
+    L, nb, bs, K, dh = cache["k"].shape
+    flat = rows.reshape(-1)
+    mine = torch.stack([cache[n].view(L, nb * bs, K, dh)[:, flat]
+                        for n in ("k", "v")])               # (2, L, N, K, dh)
+    idx = mesh.all_gather(flat, lay.lane_axes).reshape(-1)
+    kv = mesh.all_gather(mine, lay.lane_axes).movedim(0, 2)  # (2, L, n, ...)
+    for i, name in enumerate(("k", "v")):
+        cache[name].view(L, nb * bs, K, dh)[:, idx] = kv[i].reshape(
+            L, -1, K, dh)
+
+
 def prefill_paged(cfg: TransformerConfig, params: Params,
                   tokens: torch.Tensor, lens: torch.Tensor, cache: Cache
                   ) -> Tuple[Cache, torch.Tensor]:
     """Batched causal prefill into a paged cache: row p of lane b lands at
     the physical row its block table maps p to.  Rows past a lane's
     allocated coverage (prompt padding, lanes without a request) resolve to
-    the NULL block — garbage, never attended (I3)."""
+    the NULL block — garbage, never attended (I3).  Under a mesh each rank
+    runs its lanes (``Layout.local``; the logits are its lanes' block) and
+    the ranks then exchange the rows they wrote (``_share_paged_rows``)."""
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    rows = paged_row_index(cache["block_tables"], positions,
-                           cfg.kv_block_size)
+    lay = Layout(cfg, B, paged=True)
+    tables = lay.local(cache["block_tables"])
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(
+        tables.shape[0], S)
+    rows = paged_row_index(tables, positions, cfg.kv_block_size)
     logits = _self_forward(
-        cfg, params, tokens, lens,
-        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v),
-        Layout(cfg, B, paged=True))
+        cfg, params, lay.local(tokens), lay.local(lens),
+        lambda i, k, v: _scatter_paged_rows(cache, i, rows, k, v), lay)
+    _share_paged_rows(cache, lay, rows)
     return cache, logits
 
 
@@ -1284,20 +1324,29 @@ def prefill_into_slot_paged(cfg: TransformerConfig, params: Params,
     """Paged twin of ``prefill_into_slot`` (the same (1, S) or padded
     (B, S) batch): one request's KV scatters through lane ``slot``'s block
     table; every other lane's blocks are untouched (block ownership is
-    exclusive)."""
+    exclusive).  Under a mesh the padded batch runs as the cohort prefill
+    does, each rank its lanes: the rank that holds lane ``slot`` writes its
+    rows and hands them to the others (``_share_paged_rows``), and the
+    logits are gathered over the lanes.  The (1, S) form's one lane is
+    whole: every rank computes and writes it."""
     B, S = tokens.shape
+    lay = Layout(cfg, B, paged=True)
     slot = lane_index(slot, tokens.device)
-    row = slot if B > 1 else torch.zeros_like(slot)
+    out_row = slot if B > 1 else torch.zeros_like(slot)
+    lane, mine = _local_lane(lay.lanes, B, slot)
+    row = lane if B > 1 else out_row
     bt_row = cache["block_tables"].index_select(0, slot)
     positions = torch.arange(S, device=tokens.device)[None, :]
     rows = paged_row_index(bt_row, positions, cfg.kv_block_size)
+    if mine is not None:        # another rank's lane: write the NULL block
+        rows = torch.where(mine[:, None], rows, torch.zeros_like(rows))
     logits = _self_forward(
-        cfg, params, tokens, lens,
+        cfg, params, lay.local(tokens), lay.local(lens),
         lambda i, k, v: _scatter_paged_rows(cache, i, rows,
                                             k.index_select(0, row),
-                                            v.index_select(0, row)),
-        Layout(cfg, B, paged=True))
-    return cache, logits.index_select(0, row)
+                                            v.index_select(0, row)), lay)
+    _share_paged_rows(cache, lay, rows)
+    return cache, lay.gather(logits).index_select(0, out_row)
 
 
 def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
@@ -1328,30 +1377,40 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
     depends on its shape, so only this gives the tail's K/V and logits the
     admission's bits (a sampled draw can rest on them); attention alone runs
     on the (1, Sb) suffix slots.
+
+    Under a mesh the block is this rank's lanes' rows, as the admission's
+    is: the rank that holds lane ``slot`` computes the suffix and writes
+    its rows, then hands them to the others (``_share_paged_rows``); on
+    the other ranks every slot is a pad slot (nothing written but the NULL
+    block), and the logits are gathered over the lanes.
     """
     B, Sb = tokens.shape
     assert B == 1, "prefill_from_offset admits one request at a time"
     dev = tokens.device
     slot = lane_index(slot, dev)
     lanes = cache["block_tables"].shape[0]
+    lay = Layout(cfg, lanes, paged=True)
+    lane, mine = _local_lane(lay.lanes, lanes, slot)
+    Bl = lay.local(cache["block_tables"]).shape[0]
     Sp = int(prefill_len or cfg.max_seq_len)
-    n_rows = lanes * Sp
+    n_rows = Bl * Sp
     bt_row = cache["block_tables"].index_select(0, slot)
     ar = torch.arange(Sb, device=dev)
     positions = offset.int()[:, None] + ar.int()[None, :]        # (1, Sb)
     causal = torch.ones((Sb, Sb), dtype=torch.bool,
                         device=dev).tril().expand(B, Sb, Sb)
     valid = ar[None, :] < lens.long()[:, None]
-    # suffix slot i <-> flat row slot*Sp + offset + i of the padded block;
+    if mine is not None:
+        valid = valid & mine[:, None]
+    # suffix slot i <-> flat row lane*Sp + offset + i of the padded block;
     # pad slots read the row of column Sp-1 (their results are discarded)
     # and write to a spare row past the block
     col = positions[0].long()
-    src = slot * Sp + col.clamp(max=Sp - 1)
-    dst = torch.where(valid[0], slot * Sp + col, n_rows)
+    src = lane * Sp + col.clamp(max=Sp - 1)
+    dst = torch.where(valid[0], lane * Sp + col, n_rows)
     block = torch.zeros((n_rows + 1,), dtype=tokens.dtype, device=dev)
     block[dst] = tokens[0]
     block_pos = torch.arange(Sp, device=dev)[None, :]    # as the admission's
-    lay = Layout(cfg, lanes, paged=True)
     backend = attn_backends.get_backend(cfg.decode_backend)
     attend = backend.make_paged_tree_attend(cfg, bt_row, offset, causal,
                                             valid, **lay.attend_kw())
@@ -1363,12 +1422,16 @@ def prefill_from_offset_paged(cfg: TransformerConfig, params: Params,
         full[dst] = out[0]
         return full[:n_rows].view(q.shape)
 
-    h = _tree_forward(cfg, params, cache, block[:n_rows].view(lanes, Sp),
-                      block_pos.expand(lanes, Sp), attend_suffix, lay)
-    last = slot * Sp + offset.long() + lens.long() - 1              # (1,)
-    h_last = torch.zeros((lanes, h.shape[-1]), dtype=h.dtype, device=dev)
-    h_last.index_copy_(0, slot, h.reshape(n_rows, -1)[last])
-    return cache, _unembed(cfg, params, h_last, lay).index_select(0, slot)
+    h = _tree_forward(cfg, params, cache, block[:n_rows].view(Bl, Sp),
+                      block_pos.expand(Bl, Sp), attend_suffix, lay)
+    last = lane * Sp + offset.long() + lens.long() - 1              # (1,)
+    h_last = torch.zeros((Bl, h.shape[-1]), dtype=h.dtype, device=dev)
+    h_last.index_copy_(0, lane, h.reshape(n_rows, -1)[last])
+    logits = lay.gather(_unembed(cfg, params, h_last, lay))
+    rows = paged_row_index(bt_row, positions, cfg.kv_block_size)
+    _share_paged_rows(cache, lay, torch.where(valid, rows,
+                                              torch.zeros_like(rows)))
+    return cache, logits.index_select(0, slot)
 
 
 def copy_paged_block(cache: Cache, src: Index, dst: Index) -> Cache:
@@ -1384,6 +1447,33 @@ def copy_paged_block(cache: Cache, src: Index, dst: Index) -> Cache:
     return cache
 
 
+def _tree_step_paged(cfg: TransformerConfig, params: Params, cache: Cache,
+                     lay: Layout, cache_lens: torch.Tensor,
+                     tokens: torch.Tensor, positions: torch.Tensor,
+                     tree_mask: torch.Tensor) -> torch.Tensor:
+    """``tree_step_paged`` on this rank's lanes (their inputs given
+    global), its rows not yet shared: the logits."""
+    tables, cache_lens, tokens, positions, tree_mask = (
+        lay.local(x) for x in (cache["block_tables"], cache_lens, tokens,
+                               positions, tree_mask))
+    backend = attn_backends.get_backend(cfg.decode_backend)
+    attend = backend.make_paged_tree_attend(cfg, tables, cache_lens,
+                                            tree_mask, **lay.attend_kw())
+    h = _tree_forward(cfg, params, cache, tokens, positions, attend, lay)
+    return _unembed(cfg, params, h, lay)
+
+
+def _slot_rows(cfg: TransformerConfig, lay: Layout, cache: Cache,
+               cache_lens: torch.Tensor, T: int) -> torch.Tensor:
+    """The flat pool rows of this rank's lanes' positions cache_lens +
+    [0, T): where a tree step writes its draft slots and a commit moves
+    the accepted ones."""
+    lens = lay.local(cache_lens).long()[:, None]
+    return paged_row_index(lay.local(cache["block_tables"]),
+                           lens + torch.arange(T, device=lens.device),
+                           cfg.kv_block_size)
+
+
 def tree_step_paged(cfg: TransformerConfig, params: Params, cache: Cache,
                     cache_lens: torch.Tensor, tokens: torch.Tensor,
                     positions: torch.Tensor, tree_mask: torch.Tensor
@@ -1391,15 +1481,37 @@ def tree_step_paged(cfg: TransformerConfig, params: Params, cache: Cache,
     """Lookahead VA forward over the paged cache: the decode backend's
     ``make_paged_tree_attend`` scatters draft-slot KV through the block
     tables and attends against the blocks (dense: a gather; cuda: the
-    paged kernel).  Under a mesh every rank runs every lane on its heads;
-    the logits are its vocab block."""
+    paged kernel).  Under a mesh each rank runs its lanes on its heads
+    and the ranks exchange the draft rows they wrote; the logits are its
+    lanes' and vocab block (``Layout.logits``)."""
     lay = Layout(cfg, tokens.shape[0], paged=True)
-    backend = attn_backends.get_backend(cfg.decode_backend)
-    attend = backend.make_paged_tree_attend(cfg, cache["block_tables"],
-                                            cache_lens, tree_mask,
-                                            **lay.attend_kw())
-    h = _tree_forward(cfg, params, cache, tokens, positions, attend, lay)
-    return cache, _unembed(cfg, params, h, lay)
+    logits = _tree_step_paged(cfg, params, cache, lay, cache_lens, tokens,
+                              positions, tree_mask)
+    _share_paged_rows(cache, lay, _slot_rows(cfg, lay, cache, cache_lens,
+                                             tokens.shape[1]))
+    return cache, logits
+
+
+def _commit_paged(cfg: TransformerConfig, cache: Cache, lay: Layout,
+                  cache_lens: torch.Tensor, gather_idx: torch.Tensor
+                  ) -> torch.Tensor:
+    """``commit_paged_cache``'s moves on this rank's lanes, not yet
+    shared; returns the rows written (``_slot_rows``)."""
+    k, v = cache["k"], cache["v"]
+    L, nb, bs, K, dh = k.shape
+    T = gather_idx.shape[1]
+    lens = lay.local(cache_lens).long()[:, None]
+    tables = lay.local(cache["block_tables"])
+    src = lens + lay.local(gather_idx).long()                    # (B, T)
+    dst = _slot_rows(cfg, lay, cache, cache_lens, T)
+    src_rows = paged_row_index(tables, src, cfg.kv_block_size).reshape(-1)
+    kf = k.view(L, nb * bs, K, dh)
+    vf = v.view(L, nb * bs, K, dh)
+    kg = kf[:, src_rows]                                    # (L, B*T, K, dh)
+    vg = vf[:, src_rows]
+    kf[:, dst.reshape(-1)] = kg
+    vf[:, dst.reshape(-1)] = vg
+    return dst
 
 
 def commit_paged_cache(cfg: TransformerConfig, cache: Cache,
@@ -1408,21 +1520,11 @@ def commit_paged_cache(cfg: TransformerConfig, cache: Cache,
                        ) -> Tuple[Cache, torch.Tensor]:
     """Paged twin of ``commit_cache``: logical src/dst positions resolve
     through the block tables; every source row is gathered before any row
-    is written (a row may be the source of a later one)."""
-    k, v, bt = cache["k"], cache["v"], cache["block_tables"]
-    L, nb, bs, K, dh = k.shape
-    T = gather_idx.shape[1]
-    lens = cache_lens.long()[:, None]
-    src = lens + gather_idx.long()                               # (B, T)
-    dst = lens + torch.arange(T, device=k.device)[None, :]
-    src_rows = paged_row_index(bt, src, cfg.kv_block_size).reshape(-1)
-    dst_rows = paged_row_index(bt, dst, cfg.kv_block_size).reshape(-1)
-    kf = k.view(L, nb * bs, K, dh)
-    vf = v.view(L, nb * bs, K, dh)
-    kg = kf[:, src_rows]                                    # (L, B*T, K, dh)
-    vg = vf[:, src_rows]
-    kf[:, dst_rows] = kg
-    vf[:, dst_rows] = vg
+    is written (a row may be the source of a later one).  Under a mesh
+    each rank moves its lanes' rows and the ranks exchange them."""
+    lay = Layout(cfg, cache_lens.shape[0], paged=True)
+    rows = _commit_paged(cfg, cache, lay, cache_lens, gather_idx)
+    _share_paged_rows(cache, lay, rows)
     return cache, cache_lens + n_accept
 
 

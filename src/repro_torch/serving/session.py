@@ -514,7 +514,7 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
         session_defaults=defaults, sampling=sampling)
     if paged:
         return _paged_fns(cfg, params, dev, member, lane_inputs, choose,
-                          choose_last, common, n_blocks=n_blocks)
+                          choose_last, on_lanes, common, n_blocks=n_blocks)
 
     def stage_prefill(tokens, lens, lane_params=None):
         lens = i32(lens)
@@ -544,7 +544,7 @@ def make_session_fns(cfg: tx.TransformerConfig, params: tx.Params, *,
 
 
 def _paged_fns(cfg, params, dev, member, lane_inputs, choose, choose_last,
-               common, *, n_blocks) -> StepFns:
+               on_lanes, common, *, n_blocks) -> StepFns:
     """The paged layout's own members: the cohort prefill (which takes the
     block tables: the cache does not exist yet), the block scrub, and the
     prefix cache's suffix prefill and block copy; ``common`` holds the
@@ -562,9 +562,10 @@ def _paged_fns(cfg, params, dev, member, lane_inputs, choose, choose_last,
         cache["block_tables"] = block_tables
         cache, last_logits = tx.prefill_paged(cfg, params, tokens, lens,
                                               cache)
-        return cache, choose_last(tokens, lens, last_logits, lanes,
-                                  tx.Layout(cfg, tokens.shape[0],
-                                            True).logits)
+        lay = tx.Layout(cfg, tokens.shape[0], True)
+        tokens, lens, lanes = on_lanes(lay, tokens, lens, lanes)
+        return cache, lay.gather(choose_last(tokens, lens, last_logits,
+                                             lanes, lay.logits))
 
     def stage_reset_blocks(cache, block_ids):
         return cache, (i32(block_ids),)

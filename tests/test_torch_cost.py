@@ -9,6 +9,7 @@ Nothing here runs on a device: the traces run on PyTorch's meta device.
 """
 import dataclasses
 import json
+import math
 
 import numpy as np
 import pytest
@@ -337,3 +338,165 @@ def test_report_and_fixup_round_trip(tmp_path):
     assert fixed["roofline"] == want
     assert np.isclose(fixed["roofline"]["compute_s"],
                       sum(fixed["cost"]["flops_by_dtype"].values()) / 67e12)
+
+
+# ------------------------------------------------------- the mesh legs
+HLO = """
+  %ar = f32[8,128]{1,0} all-reduce(f32[8,128]{1,0} %x), replica_groups={{0,1,2,3}}, to_apply=%add
+  %ag = bf16[16,64]{1,0} all-gather(bf16[4,64]{1,0} %y), replica_groups={{0,1,2,3}}, dimensions={0}
+  %rs = f32[2,128]{1,0} reduce-scatter(f32[8,128]{1,0} %z), replica_groups={{0,1,2,3}}, dimensions={0}, to_apply=%add
+  %aa = bf16[32,64]{1,0} all-to-all(bf16[32,64]{1,0} %w), replica_groups={{0,1,2,3,4,5,6,7}}, dimensions={0}
+"""
+
+
+def test_ring_formulas_equal_the_references_parse_collectives():
+    """One op of each kind the port can count, written as the reference's
+    HLO and as the records a ``Mesh`` keeps (the bytes handed over: the
+    all-gather's result, else the operand): the same bytes by kind and in
+    all."""
+    from repro_torch.distributed.sharding import ring_bytes
+    total, per_kind, _ = ref_roofline.parse_collectives(HLO, 8)
+    records = [
+        {"kind": "all-reduce", "group": 4, "bytes": 8 * 128 * 4},
+        {"kind": "all-gather", "group": 4, "bytes": 16 * 64 * 2},
+        {"kind": "reduce-scatter", "group": 4, "bytes": 8 * 128 * 4},
+        {"kind": "all-to-all", "group": 8, "bytes": 32 * 64 * 2}]
+    mine_total, mine = ring_bytes(records)
+    assert all(per_kind[k] > 0 for k in per_kind
+               if k != "collective-permute")
+    for k, v in per_kind.items():
+        assert mine[k] == pytest.approx(v, rel=1e-12), k
+    assert mine_total == pytest.approx(total, rel=1e-12)
+
+
+def test_roofline_prices_each_group_at_its_link():
+    """A group inside one node of 8 ranks at NVLink's rate, any other at
+    the network's; the collective term enters the bound."""
+    from repro_torch.launch.mesh import NET_BW, NVLINK_BW, link_rate
+    from repro_torch.launch.roofline import bound_seconds
+    assert link_rate(range(8, 16)) == NVLINK_BW == 450e9
+    assert link_rate(range(4, 12)) == link_rate(range(0, 256, 16)) == \
+        NET_BW == 50e9
+    rf = roofline({"flops_by_dtype": {"bfloat16": 989e9},
+                   "bytes accessed": 0.0}, 2, collectives=[
+        {"kind": "all-reduce", "group": 8, "ranks": list(range(8)),
+         "calls": 1, "bytes": 450e9},
+        {"kind": "all-gather", "group": 2, "ranks": [0, 8], "calls": 1,
+         "bytes": 100e9}])
+    assert rf["collective_s"] == pytest.approx(2 * 7 / 8 + 0.5 * 100 / 50)
+    assert rf["bottleneck"] == "collective"
+    assert bound_seconds(rf) == rf["collective_s"]
+    assert rf["collective_bytes_per_chip"] == pytest.approx(
+        2 * 7 / 8 * 450e9 + 0.5 * 100e9)
+
+
+def _leaf_bytes(tree, shardings):
+    leaves = list(tensor_leaves(tree))
+    shs = [s for s in _sharding_leaves(shardings)]
+    assert len(leaves) == len(shs)
+    return sum(math.prod(sh.shard_shape(t.shape)) * t.element_size()
+               for t, sh in zip(leaves, shs))
+
+
+def _sharding_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _sharding_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _sharding_leaves(v)
+    else:
+        yield tree
+
+
+def test_mesh_leg_holds_the_ranks_blocks_at_full_width():
+    """Qwen2-1.5B's decode_32k traced at rank 5 of (16, 16): its argument
+    bytes are the blocks ``placement`` gives the parameters under the
+    serve rules, the cache's flash-decode block (``Cell.shardings``) and
+    the whole inputs;
+    the rank calls collectives over ``model`` (a group across two nodes,
+    priced at the network's rate) and the collective term is non-zero."""
+    from repro_torch.distributed.sharding import placement
+    from repro_torch.launch.mesh import NET_BW, make_production_mesh
+    rec = dryrun.run_cell("qwen2_1_5b", "decode_32k", "16x16", rank=5)
+    assert rec["ok"] and rec["placed"] and rec["n_chips"] == 256
+    mesh = make_production_mesh(rank=5)
+    cell = qwen2_1_5b.build_cell("decode_32k", mesh)
+    rules = lm_common.cell_rules("decode_32k")
+    cfg = lm_common.cell_config(qwen2_1_5b.full_config(), "decode_32k")
+    axes, shapes = tx.param_logical_axes(cfg), tx.param_shapes(cfg)
+    flat = [(axes[k], shapes[k]) for k in axes if k != "layers"] + [
+        (axes["layers"][k], shapes["layers"][k]) for k in axes["layers"]]
+    params = sum(math.prod(placement(mesh, a, s, rules).shard_shape(s)) * 2
+                 for a, s in flat)
+    want = _leaf_bytes(cell.global_args, cell.shardings(mesh))
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    assert cell.arg_bytes() == want
+    B, T, L, S = 128, lm_common.LA_SLOTS, cfg.n_layers, cfg.max_seq_len
+    # the serve rules keep the weights whole over data: a 16th of the
+    # heads, FFN and vocab a rank (wk/wv whole: 2 KV heads on 16 ranks)
+    assert params < cfg.n_params() * 2 / 8
+    # lens and n_live, tokens, positions and parents, the bool tree mask
+    inputs = B * 4 * 2 + B * T * 4 * 3 + B * T * T
+    # the flash-decode block: lanes over data, the sequence over model
+    assert cell.axes[1]["k"] == (None, "data", "model", None, None)
+    cache = 2 * L * B * S * cfg.n_kv_heads * cfg.dh * 2 // 256
+    assert want == params + cache + inputs
+    rf = rec["roofline"]
+    assert rf["collective_s"] > 0
+    groups = {len(x["ranks"]) for x in rec["collectives"]}
+    assert 16 in groups
+    assert all(g["rate"] == NET_BW for g in rf["collective_groups"])
+
+
+def test_recsys_and_gnn_under_a_mesh_name_the_axes_left_whole():
+    """The recsys and GNN cells are not placed yet (ROADMAP A16b 6.3):
+    under a mesh every rank runs the whole cell, the record says so and
+    names the axes the reference places, and its roofline is the one-card
+    leg's, no collective."""
+    one = dryrun.run_cell("sasrec", "serve_p99")
+    rec = dryrun.run_cell("sasrec", "serve_p99", "16x16")
+    assert rec["ok"] and rec["placed"] is False
+    assert rec["whole_axes"] == ["batch", "table_rows", "tensor"]
+    assert rec["collectives"] == [] and rec["n_chips"] == 256
+    assert rec["roofline"] == one["roofline"]
+    assert rec["memory"] == one["memory"]
+    assert configs.get_arch("two_tower_retrieval").build_cell(
+        "retrieval_cand", object()).whole_axes == ("candidates",
+                                                   "table_rows")
+    assert configs.get_arch("equiformer_v2").WHOLE_AXES == ("edges",
+                                                            "tensor")
+
+
+def test_dryrun_cli_runs_resumes_and_skips_the_mesh_legs(tmp_path, capsys):
+    """``--both-meshes`` writes the 16x16 and 2x16x16 keys, a second run
+    skips them, ``--single-pod`` alone finds its key done; the report
+    renders both legs and ``fixup_rooflines`` recomputes the collective
+    term from the stored records."""
+    out = tmp_path / "dry.json"
+    argv = ["--arch", "qwen2-1.5b", "--shape", "long_500k", "--out",
+            str(out)]
+    dryrun.main(argv + ["--both-meshes"])
+    first = capsys.readouterr().out
+    for leg in ("16x16", "2x16x16"):
+        assert f"[ ok ] qwen2-1.5b/long_500k/{leg}" in first
+    res = json.loads(out.read_text())
+    assert sorted(res) == ["qwen2-1.5b/long_500k/16x16",
+                           "qwen2-1.5b/long_500k/2x16x16"]
+    assert res["qwen2-1.5b/long_500k/2x16x16"]["n_chips"] == 512
+    dryrun.main(argv + ["--single-pod"])
+    assert "[skip] qwen2-1.5b/long_500k/16x16" in capsys.readouterr().out
+    dryrun.main(argv + ["--both-meshes"])
+    again = capsys.readouterr().out
+    assert again.count("[skip]") == 2 and "2/2 cells OK" in again
+    text = report.render(res)
+    assert "### Mesh 16x16 (256 ranks" in text
+    assert "### Mesh 2x16x16 (512 ranks" in text
+    want = res["qwen2-1.5b/long_500k/16x16"]["roofline"]["collective_s"]
+    assert want > 0
+    broken = json.loads(out.read_text())
+    broken["qwen2-1.5b/long_500k/16x16"]["roofline"]["collective_s"] = 0.0
+    out.write_text(json.dumps(broken))
+    fixup_rooflines.main(str(out))
+    fixed = json.loads(out.read_text())["qwen2-1.5b/long_500k/16x16"]
+    assert fixed["roofline"]["collective_s"] == want

@@ -45,7 +45,8 @@ from repro.distributed.sharding import DEFAULT_RULES as REF_RULES
 from repro.distributed.sharding import logical_spec as ref_logical_spec
 from repro_torch import configs
 from repro_torch.distributed import flash_decode as fd
-from repro_torch.distributed.sharding import DEFAULT_RULES, logical_spec
+from repro_torch.distributed.sharding import (DEFAULT_RULES, TracedMesh,
+                                              logical_spec, ring_bytes)
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 
@@ -140,6 +141,43 @@ def test_production_mesh_needs_its_world_size():
         make_production_mesh(multi_pod=True)
     with pytest.raises(RuntimeError, match="init_process_group"):
         make_host_mesh(data=1, model=1)
+
+
+def test_production_mesh_traces_a_rank_without_a_world():
+    """``make_production_mesh(rank=)``: that rank of (16, 16) or (2, 16,
+    16) as a ``TracedMesh``, with no world behind it: its coordinates and
+    groups are row-major, as a real mesh's; its collectives return the
+    real ones' shapes on meta tensors and count what they would hand the
+    backend, by kind and group."""
+    for multi_pod, rank, coords in ((False, 37, dict(data=2, model=5)),
+                                    (True, 300, dict(pod=1, data=2,
+                                                     model=12))):
+        m = make_production_mesh(multi_pod=multi_pod, rank=rank)
+        assert isinstance(m, TracedMesh)
+        assert (m.size, m.rank, m.coords()) == (512 if multi_pod else 256,
+                                                rank, coords)
+        row = rank - rank % 16
+        assert m.group("model") == (None, list(range(row, row + 16)))
+        pod = rank - rank % 256
+        assert m.group("data")[1] == [pod + rank % 16 + 16 * i
+                                      for i in range(16)]
+        x = torch.empty(4, 6, dtype=torch.bfloat16, device="meta")
+        assert m.all_gather(x, "data").shape == (16, 4, 6)
+        assert m.all_reduce(x, "sum", ("model",)).shape == (4, 6)
+        assert m.all_to_all(x.repeat(4, 1), ("model",)).shape == (16, 6)
+        assert m.all_reduce(x, "max", ()).shape == (4, 6)   # a group of one
+        got = {(r["kind"], r["group"], r["calls"], r["bytes"])
+               for r in m.collective_records()}
+        assert got == {("all-gather", 16, 1, 16 * 48),
+                       ("all-reduce", 16, 1, 48),
+                       ("all-to-all", 16, 1, 16 * 12)}
+        total, kind = ring_bytes(m.collective_records())
+        assert kind["all-gather"] == 15 / 16 * 16 * 48
+        assert kind["all-reduce"] == 2 * 15 / 16 * 48
+        assert total == kind["all-gather"] + kind["all-reduce"] + \
+            kind["all-to-all"]
+        m.reset_counts()
+        assert m.collective_records() == []
 
 
 def test_flash_decode_cells_count_the_dense_program(monkeypatch):
@@ -832,6 +870,49 @@ def test_dense_placement_equals_the_reference(spawned, case):
     assert (vocab is not None and vocab[-1] == "model") == (V % model == 0)
 
 
+PAGED_CASES = [c for c, v in ranks.TP_CASES.items() if v[5] == "paged"]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_calls_run_the_ranks_lanes_and_keep_the_pools_alike(spawned,
+                                                                  case):
+    """The paged layout's lanes over ``data`` (each case's mesh, (data 4,
+    model 2) or (data 2, model 4)): ``Layout(paged=True)`` splits them over
+    ``data``; each rank's cohort prefill, tree step, suffix prefill (its
+    (lanes, prefill_len) row block) and the session's fused step ran
+    TP_LANES / data lanes; and after each of those calls the pools of the
+    ranks that hold the same KV heads (one ``model`` index) are equal bit
+    for bit, the NULL block excepted."""
+    data, model = ranks.TP_CASES[case][:2]
+    res = spawned["res"]
+    for r in res:
+        assert r[f"{case}/lane_axes"] == ("data",)
+        assert r[f"{case}/lanes"] == dict.fromkeys(
+            ("prefill", "tree", "suffix", "fused"), [ranks.TP_LANES // data])
+        assert len(r[f"{case}/pools"]) == 4
+    for rank, r in enumerate(res):
+        twin = res[rank % model]        # data index 0, the same model index
+        for got, want in zip(r[f"{case}/pools"], twin[f"{case}/pools"]):
+            assert torch.equal(got, want), rank
+
+
+def test_traced_mesh_counts_what_the_real_mesh_hands_gloo(spawned):
+    """One paged fused step and one dense prefill at (data 4, model 2)
+    under ``DEFAULT_RULES``: on every rank the ``TracedMesh`` of that
+    rank, run on meta copies of the arguments, records what the real
+    ``Mesh`` handed gloo, to the byte and by kind and group; the paged
+    step's include an all-gather over ``data`` (the FSDP gathers and the
+    pool rows' exchange) and an all-reduce over ``model``."""
+    for rank, r in enumerate(spawned["res"]):
+        for name in ("paged_fused", "dense_prefill"):
+            real, traced = (r[f"count/{name}/{t}"] for t in ("real",
+                                                            "traced"))
+            assert real and real == traced, (rank, name)
+            assert ring_bytes(real) == ring_bytes(traced)
+        kinds = {(x["kind"], x["group"]) for x in r["count/paged_fused/real"]}
+        assert {("all-gather", 4), ("all-reduce", 2)} <= kinds, kinds
+
+
 def _check_heads(heads, H, K, model, index):
     """``Layout``'s heads on model rank ``index``: (query heads, KV heads,
     runs, q's gather axes, the axes of a block of whole heads).  Where K
@@ -1191,19 +1272,17 @@ def test_layout_places_every_lm_cell_of_the_reference(arch):
     from repro_torch.models import transformer as tx
     base = configs.get_arch(arch).full_config()
     cells = {
-        "train_4k": (lm_common.train_4k_config(base),
-                     DEFAULT_RULES.override(residual_seq=("model",)),
-                     dict(batch=256, seq=4096)),
-        "prefill_32k": (dataclasses.replace(
-            base, max_seq_len=32768, prefill_backend="dense"),
-            DEFAULT_RULES, dict(batch=32)),
-    }
-    for shape, B in (("decode_32k", 128), ("long_500k", 1)):
-        cells[shape] = (dataclasses.replace(
-            base, max_seq_len=524288 if B == 1 else 32768,
-            prefill_backend="dense", decode_backend="flash_decode"),
-            DEFAULT_RULES.override(fsdp=()), dict(batch=B))
-    assert sorted(cells) == sorted(lm_common.SHAPES)
+        name: (lm_common.cell_config(base, name), lm_common.cell_rules(name),
+               dict(batch=lm_common.CELL_BATCH[name],
+                    **({"seq": lm_common.TRAIN_4K["seq"]}
+                       if name == "train_4k" else {})))
+        for name in lm_common.SHAPES}
+    assert lm_common.cell_rules("train_4k") == DEFAULT_RULES.override(
+        residual_seq=("model",))
+    assert lm_common.cell_rules("prefill_32k") == DEFAULT_RULES
+    for name in ("decode_32k", "long_500k"):
+        assert lm_common.cell_rules(name) == DEFAULT_RULES.override(fsdp=())
+        assert cells[name][0].decode_backend == "flash_decode"
     H, K = base.n_heads, base.n_kv_heads
     for shape in (dict(data=16, model=16), dict(data=1, model=8)):
         for name, (cfg, rules, kw) in cells.items():

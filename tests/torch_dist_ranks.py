@@ -16,6 +16,7 @@ sharded functions.  Imports torch and the port only, so a spawned rank
 does not import JAX."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -30,7 +31,8 @@ from repro_torch.core import reference_decode
 from repro_torch.core.request import SamplingParams
 from repro_torch.distributed.flash_decode import cache_partition_spec
 from repro_torch.distributed.sharding import (DEFAULT_RULES, NamedSharding,
-                                              P, placement, sharding_ctx)
+                                              P, TracedMesh, placement,
+                                              sharding_ctx)
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe
@@ -325,6 +327,30 @@ def _params_case(mesh, res):
     res["params/we_gate_shape"] = res["params/moe/default/layers/we_gate"][0]
 
 
+@contextlib.contextmanager
+def _lanes_run(log):
+    """Append to ``log`` the lanes (rows of the token block) of each model
+    forward this rank runs: ``tx._self_forward`` (the prefills) and
+    ``tx._tree_forward`` (the tree steps and the suffix prefill)."""
+    saved = tx._self_forward, tx._tree_forward
+
+    def wrap(fn, i):
+        def run(*a, **k):
+            log.append(int(a[i].shape[0]))
+            return fn(*a, **k)
+        return run
+    tx._self_forward, tx._tree_forward = wrap(saved[0], 2), wrap(saved[1], 3)
+    try:
+        yield log
+    finally:
+        tx._self_forward, tx._tree_forward = saved
+
+
+def _pool(cache):
+    """A copy of this rank's paged K and V, the NULL block excepted."""
+    return torch.stack([cache["k"][:, 1:], cache["v"][:, 1:]]).clone()
+
+
 def _tp_case(meshes, ins, name, res):
     """One placement case (``TP_CASES``): the parameters cut by
     ``shard_params`` (every leaf's shape its ``placement`` block), the
@@ -333,7 +359,9 @@ def _tp_case(meshes, ins, name, res):
     prefill (``_suffix_err``), a tree step on a copy of that cache, and
     the session's fused step on it (greedy choice through
     ``_sharded_argmax``, the sampled branch's vocab gather run alongside,
-    its lanes greedy).  Logits and caches are gathered for the test."""
+    its lanes greedy).  Logits and caches are gathered for the test; on
+    the paged pool the lanes each call ran on this rank and the rank's
+    pool after each call that writes it are kept too."""
     data, model, rname, V, K, layout, backend, H = TP_CASES[name]
     mesh, rules = meshes[(data, model)], RULES[rname]
     cfg = tp_cfg(V, K, layout, backend, H)
@@ -344,6 +372,8 @@ def _tp_case(meshes, ins, name, res):
                           for n in ("toks", "lens", "tables"))
     tree = {n: ins[f"{wkey(V, K, H)}/{n}"] for n in TREE_ARGS}
     ct = {n: torch.from_numpy(a) for n, a in tree.items()}
+    lanes = {c: [] for c in ("prefill", "tree", "suffix", "fused")}
+    pools = []
     with sharding_ctx(mesh, rules):
         params = shard_params(cfg, whole, mesh)
         axes = dict(_leaves(tx.param_logical_axes(cfg)))
@@ -357,7 +387,10 @@ def _tp_case(meshes, ins, name, res):
             cache = tx.init_paged_cache(cfg, TP_LANES, TP_BLOCKS,
                                         device="cpu")
             cache["block_tables"] = tables
-            cache, l_pre = tx.prefill_paged(cfg, params, toks, lens, cache)
+            with _lanes_run(lanes["prefill"]):
+                cache, l_pre = tx.prefill_paged(cfg, params, toks, lens,
+                                                cache)
+            pools.append(_pool(cache))
             held, step = tx.paged_sharding(cfg), tx.tree_step_paged
         else:
             cache, l_pre = tx.prefill(cfg, params, toks, lens)
@@ -367,32 +400,44 @@ def _tp_case(meshes, ins, name, res):
         for n in ("k", "v"):
             res[f"{name}/pre_{n}"] = held.gather(cache[n])
         copy = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
-        _, l_tree = step(cfg, params, copy, lens, ct["ctoks"], ct["pos"],
-                         ct["mask"])
+        with _lanes_run(lanes["tree"]):
+            _, l_tree = step(cfg, params, copy, lens, ct["ctoks"],
+                             ct["pos"], ct["mask"])
         res[f"{name}/tree_logits"] = _whole(lay.logits, l_tree)
         if paged:
-            res[f"{name}/suffix_err"] = _suffix_err(cfg, whole, params, cache,
-                                                    lay, toks, lens, tables)
+            pools.append(_pool(copy))
+            res[f"{name}/suffix_err"] = _suffix_err(
+                cfg, whole, params, cache, lay, toks, lens, tables,
+                lanes["suffix"], pools)
         fns = make_session_fns(cfg, params, slots=ct["ctoks"].shape[1],
                                device="cpu")
-        cache, packed = fns.fused_step(cache, ins["tp/lens"],
-                                       *(tree[n] for n in TREE_ARGS))
+        with _lanes_run(lanes["fused"]):
+            cache, packed = fns.fused_step(cache, ins["tp/lens"],
+                                           *(tree[n] for n in TREE_ARGS))
         res[f"{name}/packed"] = packed
         for n in ("k", "v"):
             res[f"{name}/{n}"] = held.gather(cache[n])
+        if paged:
+            pools.append(_pool(cache))
+            res[f"{name}/lanes"] = lanes
+            res[f"{name}/pools"] = pools
     res[f"{name}/shapes_ok"] = shapes_ok
+    res[f"{name}/lane_axes"] = lay.lane_axes
     res[f"{name}/heads"] = (lay.q_heads, lay.kv_heads, lay.kv_runs,
                             lay.q_gather, lay.q_block)
     res[f"{name}/logits_spec"] = (None if lay.logits is None
                                   else tuple(lay.logits.spec))
 
 
-def _suffix_err(cfg, whole, params, cache, lay, toks, lens, tables):
+def _suffix_err(cfg, whole, params, cache, lay, toks, lens, tables, lanes,
+                pools):
     """The suffix prefill (a prefix-cache hit: lane 1's last 8 prompt
     tokens at their offset, on a copy of the pool the cohort prefill
     filled) under the mesh against the single-device port's on the whole
     parameters and pool: max |difference| of the logits, each rank's K/V
-    rows checked within ATOL too."""
+    rows checked within ATOL too, the NULL block's garbage excepted (a
+    rank that does not hold the lane writes its pad slots there).  The
+    mesh call's lanes go to ``lanes``, its pool to ``pools``."""
     n = int(lens[1])
 
     def suffix(p, c):
@@ -402,7 +447,9 @@ def _suffix_err(cfg, whole, params, cache, lay, toks, lens, tables):
             torch.tensor([8]), prefill_len=toks.shape[1])
         return c, logits
 
-    blocks, got = suffix(params, cache)
+    with _lanes_run(lanes):
+        blocks, got = suffix(params, cache)
+    pools.append(_pool(blocks))
     got = _whole(lay.logits_sharding(2), got)
     with sharding_ctx(None):
         one = tx.init_paged_cache(cfg, TP_LANES, TP_BLOCKS, device="cpu")
@@ -410,9 +457,57 @@ def _suffix_err(cfg, whole, params, cache, lay, toks, lens, tables):
         one, _ = tx.prefill_paged(cfg, whole, toks, lens, one)
         one, want = suffix(whole, one)
     for k in ("k", "v"):
-        torch.testing.assert_close(tx.paged_sharding(cfg).gather(blocks[k]),
-                                   one[k], atol=ATOL, rtol=0)
+        torch.testing.assert_close(
+            tx.paged_sharding(cfg).gather(blocks[k])[:, 1:], one[k][:, 1:],
+            atol=ATOL, rtol=0)
     return (got - want).abs().max().item()
+
+
+def _meta(tree):
+    """A copy of a dict of tensors (nested, a cache too) on the meta
+    device."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return tree.to("meta")
+
+
+def _count_case(mesh, ins, res):
+    """What this rank hands gloo (``Mesh.collective_records``) for one
+    paged fused step (``lm_common._serve_fn``: the FSDP gathers over
+    ``data``, the row-parallel sums over ``model``, the vocab argmax, the
+    pool rows' exchange over ``data``) and for one dense prefill, both
+    under ``DEFAULT_RULES`` at the world's mesh, and what a
+    ``TracedMesh`` of the same shape at this rank records for the same
+    calls on meta copies of the same arguments."""
+    traced = TracedMesh(mesh.shape, mesh.rank)
+    pcfg, dcfg = tp_cfg(96, 4, "paged"), tp_cfg(96, 4)
+    whole = params_from_jax(dcfg, _tree(ins, "w96_4/params"), device="cpu")
+    toks, lens, tables = (torch.from_numpy(ins[f"tp/{n}"])
+                          for n in ("toks", "lens", "tables"))
+    tree = [torch.from_numpy(ins[f"w96_4/{n}"]) for n in TREE_ARGS]
+    with sharding_ctx(mesh, DEFAULT_RULES):
+        params = shard_params(pcfg, whole, mesh)
+        pool = tx.init_paged_cache(pcfg, TP_LANES, TP_BLOCKS, device="cpu")
+        pool["block_tables"] = tables
+        pool, _ = tx.prefill_paged(pcfg, params, toks, lens, pool)
+
+    def paged_fused(on):
+        return lm_common._serve_fn(pcfg)(on(params), on(pool),
+                                         *(on(x) for x in [lens] + tree))
+
+    def dense_prefill(on):
+        return tx.prefill(dcfg, on(params), on(toks), on(lens),
+                          tx.init_cache(dcfg, TP_LANES,
+                                        device=on(lens).device))
+
+    for name, call in (("paged_fused", paged_fused),
+                       ("dense_prefill", dense_prefill)):
+        for tag, m, on in (("real", mesh, lambda x: x),
+                           ("traced", traced, _meta)):
+            with sharding_ctx(m, DEFAULT_RULES):
+                m.reset_counts()
+                call(on)
+                res[f"count/{name}/{tag}"] = m.collective_records()
 
 
 def _serve_case(meshes, ins, name, res):
@@ -766,6 +861,7 @@ def world8(rank: int, directory: str) -> None:
                        for d, m in WORLD8_MESHES if (d, m) not in meshes})
         for name in TP_CASES:
             _tp_case(meshes, ins, name, res)
+        _count_case(mesh, ins, res)
         for name in SERVE_CASES:
             _serve_case(meshes, ins, name, res)
         for name in GRAD_CASES:
