@@ -78,7 +78,8 @@ Phases, in order; any failure exits non-zero:
 8b. graphs: every serving phase runs its step functions as captured CUDA
    graphs (the session's default on the card); this phase holds them
    against the eager twin (``cuda_graphs=False``) on the guided dense and
-   paged cells and the mixed sampled cell — every member call (cohort
+   paged cells and the mixed sampled cell, Qwen2-1.5B's depth cut to
+   GRAPHS_LAYERS (its first layers) — every member call (cohort
    prefill, fused steps, the padded admission in each lane, each suffix
    bucket) gives the same outputs, step logits and K/V rows below each
    lane's length — serves each cell in turns (captured, eager, eager,
@@ -171,18 +172,20 @@ Phases, in order; any failure exits non-zero:
    dense one; the train cells full_graph_sm (a random geometric graph of
    2,708 nodes and ~10,550 edges), molecule (128 graphs of 30 nodes) and
    minibatch_lg (``sample_subgraph`` of 1,024 seeds, fanouts 15-10, from a
-   synthetic Reddit-sized graph with its in-degree cut to 50): each
-   forward timed, 3 train steps on one repeated batch (the loss must
+   synthetic Reddit-sized graph with its in-degree cut to 50, its depth
+   to GNN_LG_LAYERS): each forward timed, GNN_STEPS train steps on one
+   repeated batch (the loss must
    fall), median step, nodes/s, edges/s, TFLOP/s from ``model_flops``,
    the bound (``model_flops`` over 989 TFLOP/s or ``bytes_floor`` over
    3.35 TB/s), peak memory, a profiled step's idle share and launches and
    its device time by op class; the chunked path at full width
-   (ogb_products' d, classes and edge_chunk, two chunks) against the
+   (ogb_products' d, classes and edge_chunk, two chunks, its depth cut to
+   GNN_WIDE_LAYERS) against the
    dense path in f32 and both timed in bf16; ogb_products itself is not
    run (one line says why).  No kernel of the port launches on this path.
-14. the dry-run's roofline against the card (``--phases cost``): 16 cells
+14. the dry-run's roofline against the card (``--phases cost``): 15 cells
    (Wide & Deep's four, Two-Tower, SASRec and BERT4Rec at serve_p99 and
-   retrieval_cand, EquiformerV2's full_graph_sm and molecule steps,
+   retrieval_cand, EquiformerV2's molecule step (COST_GNN),
    Qwen2-1.5B's prefill and fused step at the serving shapes, its prefill
    of one 4,096-token prompt through B3, and the reference's long_500k
    step, B 1 at S 524,288 through B1, B1 held against its plain version at
@@ -278,7 +281,23 @@ Phases, in order; any failure exits non-zero:
    all heads) then Phi-3-medium (5 heads a rank in runs on two KV
    heads), each cut to DIST_HEADS_LAYERS, (d)'s checks without the
    session state, B1, B2 and B3 held at each (query, KV) head shape of
-   a rank's attention calls, once a shape (``heads_holds``).
+   a rank's attention calls, once a shape (``heads_holds``).  (h) the
+   recommenders placed (``dist_recsys_world``): 4 gloo ranks, mesh
+   (data 2, model 2), ``DEFAULT_RULES``, W&D, Two-Tower, SASRec and
+   BERT4Rec at their full configs in f32 (the tables' rows over
+   ``model``: B5 over a rank's window), each arch's serve_p99 and
+   retrieval_cand, W&D's serve_bulk once (gloo's share printed) and
+   DIST_RECSYS_TRAIN_STEPS W&D train_batch steps; rank 0 then alone
+   holds them against one device (``dist_recsys_rule``: W&D's scores and
+   first loss against float64, its losses and grad norms against one
+   device's, Two-Tower's looked-up rows bit for bit, its embeddings on
+   rank 0's rows bit for bit against one device's on those rows, on the
+   whole batch and its top-128 values within RECSYS_TOL and its indices
+   equal, SASRec's and
+   BERT4Rec's scores within RECSYS_TOL); B5 twice a W&D forward; one
+   serve_p99 forward's gloo records equal a ``TracedMesh``'s.  The
+   recsys phase also holds B5's window form (EB_WINDOW_MODELS) and runs
+   SASRec's serve_bulk once.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -322,7 +341,7 @@ PATH_PAGED = (4, 33, 12, 2, 128, 64, 8)
 OTHER_ARCHS = ("antglm-10b", "phi3-mini-3.8b", "phi3-medium-14b")
 # the archs and moe phases serve each arch at full width with its depth cut
 # to an eighth, which leaves the dist phase's worlds the script's time
-ARCH_DEPTH_DIV = 8
+ARCH_DEPTH_DIV = 16      # a sixteenth: cut from an eighth for (h)'s time
 # its MoE LMs, served at full width by the moe phase
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 # moe_ref in bf16 at one layer's full width against a per-token f32
@@ -576,7 +595,8 @@ def sass_phase(_build):
     hold tensor-core products (HMMA or HGMMA) and asynchronous copies
     (LDGSTS or UTMALDG), and spill nothing; then B5's registers, no
     spills."""
-    for name in ATTN_LIBS:
+    sass = sass_functions(*(_build.library_path(n) for n in ATTN_LIBS))
+    for name, funcs in zip(ATTN_LIBS, sass):
         lib = _build.library_path(name)
         report = ptxas_report(lib.with_suffix(".log").read_text())
         check(bool(report), f"{name}: no ptxas report in the build log")
@@ -590,7 +610,6 @@ def sass_phase(_build):
                .startswith("bf16")}
         check(bool(mma) and all(st == ld == 0 for _, st, ld in mma.values()),
               f"{name}: bf16 kernels missing or spilling: {mma}")
-        funcs = sass_functions(lib)
         bf16 = {fn: body for fn, body in funcs.items()
                 if attn_label(fn)[0].startswith("bf16")}
         check(len(bf16) == len(mma), f"{name}: {len(bf16)} bf16 kernels in "
@@ -613,17 +632,26 @@ def sass_phase(_build):
     b5_build_report(_build)
 
 
-def sass_functions(lib) -> dict:
-    """{mangled name: SASS text} of a built library (cuobjdump -sass)."""
+def sass_functions(*libs) -> list:
+    """[{mangled name: SASS text}] of built libraries (cuobjdump -sass, one
+    process a library, all started together)."""
     from repro_torch.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    funcs = {}
-    for part in sass.split("Function : ")[1:]:
-        fn, _, body = part.partition("\n")
-        funcs[fn.strip()] = body
-    return funcs
+    procs = [subprocess.Popen([cuobjdump, "-sass", str(lib)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for lib in libs]
+    out = []
+    for lib, proc in zip(libs, procs):
+        sass, err = proc.communicate()
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, cuobjdump,
+                                                sass, err)
+        funcs = {}
+        for part in sass.split("Function : ")[1:]:
+            fn, _, body = part.partition("\n")
+            funcs[fn.strip()] = body
+        out.append(funcs)
+    return out
 
 
 def loop_per_load(body: str) -> tuple:
@@ -1153,7 +1181,7 @@ def gumbel_phase(gen):
         + B * T * 4
     from repro_torch.kernels import _build
     fn, body = next((f, b) for f, b in sass_functions(
-        _build.library_path("gumbel_argmax")).items()
+        _build.library_path("gumbel_argmax"))[0].items()
         if "gumbel_partialI13__nv_bfloat16E" in f)
     n_ins, n_ld = loop_per_load(body)
     check(n_ld > 0, f"gumbel_partial: no loop with a global load in {fn}")
@@ -2454,7 +2482,8 @@ def profiled_ms(fn, calls=6):
 
 def serve_turns(label, ecfg, cfg, params, transform, prompts, sps):
     """One cell served by the captured session and its eager twin in
-    turns: a warm-up run each, then captured, eager, eager, captured.
+    turns: a warm-up run each, then captured, eager (one timed run a
+    side: cut from two for (h)'s time).
     Every run must give the same outputs and one decode sync a step.
     Returns (captured, eager) lists of (median fused_step ms, tokens/s,
     EDL), and the captured session."""
@@ -2463,7 +2492,7 @@ def serve_turns(label, ecfg, cfg, params, transform, prompts, sps):
                                 device="cuda", cuda_graphs=g)
            for g in (True, False)}
     first, runs = None, {True: [], False: []}
-    for i, graphs in enumerate((True, False, True, False, False, True)):
+    for i, graphs in enumerate((True, False, True, False)):
         engine = ServingEngine(fns[graphs], ecfg)
         outs, _, _, tps, edl, fused = serve_counted(engine.scheduler,
                                                     prompts, sps, {})
@@ -2479,6 +2508,35 @@ def serve_turns(label, ecfg, cfg, params, transform, prompts, sps):
     return runs[True], runs[False], fns[True]
 
 
+GRAPHS_LAYERS = 7             # the graphs phase's depth cut 28 -> 7 (time)
+
+
+def graphs_turns(label, ecfg, cfg, params, transform, ps, sps):
+    """One cell served in turns captured and eager (``serve_turns``) and a
+    profile of decode steps each way, printed; returns the captured
+    session."""
+    captured, eager, fns = serve_turns(label, ecfg, cfg, params, transform,
+                                       ps, sps)
+    prof = {g: profile_decode(ecfg, cfg, params, transform, ps,
+                              sps[:ecfg.lanes], cuda_graphs=g,
+                              label=f"{label}, ")
+            for g in (True, False)}
+    med = {g: float(np.median([r[0] for r in runs]))
+           for g, runs in ((True, captured), (False, eager))}
+    for g, runs in ((True, captured), (False, eager)):
+        print(f"  {label}, {'captured' if g else 'eager'} in turns: "
+              f"median fused_step {med[g]:.3f} ms (runs "
+              f"{', '.join(f'{r[0]:.3f}' for r in runs)}), tokens/s "
+              f"{', '.join(f'{r[1]:.1f}' for r in runs)}, EDL "
+              f"{runs[0][2]:.3f}; profile: busy {prof[g]['busy']:.3f} "
+              f"ms, idle {prof[g]['idle']:.3f}, "
+              f"{prof[g]['kernels']:.0f} device kernels and "
+              f"{prof[g]['host_launches']:.1f} host launch calls a step")
+    print(f"  {label}: captured / eager median fused_step "
+          f"{med[True] / med[False]:.3f}")
+    return fns
+
+
 def graphs_phase(cfg, params):
     """Captured members against the eager twin (``cuda_graphs=False``) on
     the guided dense and paged cells and the mixed sampled cell: member
@@ -2487,9 +2545,15 @@ def graphs_phase(cfg, params):
     each way (device busy, idle share, device kernels and host launch calls
     a step), each captured member's capture time and graph pool memory,
     and the prefill's device time with the prefix cache on (suffix
-    prefill) and off (padded admission) beside the cohort prefill's."""
+    prefill) and off (padded admission) beside the cohort prefill's; the
+    model's depth cut to GRAPHS_LAYERS (its first layers)."""
     from repro_torch.core.request import SamplingParams
     from repro_torch.serving.api import EngineConfig
+    print(f"  [graphs: depth cut to {GRAPHS_LAYERS} of {cfg.n_layers} "
+          "layers]")
+    cfg = dataclasses.replace(cfg, n_layers=GRAPHS_LAYERS)
+    params = dict(params, layers={k: v[:GRAPHS_LAYERS]
+                                  for k, v in params["layers"].items()})
     sp = SamplingParams(max_new_tokens=MAX_NEW)
     guided = guided_transform(cfg.vocab_size)
     prompts = path_prompts(cfg.vocab_size)
@@ -2508,25 +2572,7 @@ def graphs_phase(cfg, params):
         print(f"  {label}: {n} member calls bit-equal captured vs eager "
               "(outputs, step logits, K/V rows below each lane's length; "
               "the whole cache after copies and scrubs)")
-        captured, eager, fns = serve_turns(label, ecfg, cfg, params,
-                                           transform, ps, sps)
-        prof = {g: profile_decode(ecfg, cfg, params, transform, ps,
-                                  sps[:ecfg.lanes], cuda_graphs=g,
-                                  label=f"{label}, ")
-                for g in (True, False)}
-        med = {g: float(np.median([r[0] for r in runs]))
-               for g, runs in ((True, captured), (False, eager))}
-        for g, runs in ((True, captured), (False, eager)):
-            print(f"  {label}, {'captured' if g else 'eager'} in turns: "
-                  f"median fused_step {med[g]:.3f} ms (runs "
-                  f"{', '.join(f'{r[0]:.3f}' for r in runs)}), tokens/s "
-                  f"{', '.join(f'{r[1]:.1f}' for r in runs)}, EDL "
-                  f"{runs[0][2]:.3f}; profile: busy {prof[g]['busy']:.3f} "
-                  f"ms, idle {prof[g]['idle']:.3f}, "
-                  f"{prof[g]['kernels']:.0f} device kernels and "
-                  f"{prof[g]['host_launches']:.1f} host launch calls a step")
-        print(f"  {label}: captured / eager median fused_step "
-              f"{med[True] / med[False]:.3f}")
+        fns = graphs_turns(label, ecfg, cfg, params, transform, ps, sps)
         for name in ("prefill", "prefill_into_slot", "fused_step",
                      "tree_step", "commit", "prefill_suffix", "copy_block",
                      "reset_blocks", "reset_slot"):
@@ -3295,6 +3341,79 @@ def embedding_bag_phase(gen):
                                  f"{64 * F} bags NaN")
 
 
+# B5's row window (a table's rows split over ``model``, ROADMAP A16b 6.3):
+# held and timed at a rank's window of Wide & Deep's deep tables at these
+# model axis sizes (500,000 and 62,500 rows a field), serve_bulk's ids
+EB_WINDOW_MODELS = (2, 16)
+
+
+def eb_window_row(tables, bulk, n_model):
+    """B5's window form at the last rank's window of ``n_model`` over the
+    (F, V, D) tables, serve_bulk's ids and mask: bit for bit against its
+    plain version (NaN nowhere: every id is in range), the windows' sum
+    against the whole table's bags, device ms beside the whole-table
+    kernel's and the plain version's, and its bound: the ids' and mask's
+    bytes, the distinct rows the window holds and the output."""
+    from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fused,
+                                                       embedding_bag_ref)
+    from repro_torch.kernels.timing import device_ms
+    ids, mask, _ = bulk
+    F, V, D = tables.shape
+    Vl = V // n_model
+    r = n_model - 1
+    block = tables[:, r * Vl:(r + 1) * Vl].contiguous()
+    w = mask.float()
+
+    def kern(i):
+        return embedding_bag_fused(block, ids, mask, row_start=r * Vl,
+                                   n_rows=V)
+
+    def whole(i):
+        return embedding_bag_fused(tables, ids, mask)
+
+    def plain(i):
+        return embedding_bag_ref(block, ids, w, r * Vl, V)
+
+    out = kern(0)
+    err = eb_hold(out, plain(0), torch.float32,
+                  f"window {r} of model {n_model} ({Vl} rows a field), "
+                  f"serve_bulk ids {tuple(ids.shape)}")
+    check(not torch.isnan(out).any(), "the window form gave NaN")
+    if n_model == 2:
+        total = out + embedding_bag_fused(tables[:, :Vl].contiguous(), ids,
+                                          mask, row_start=0, n_rows=V)
+        full = whole(0)
+        diff = float((total - full).abs().max())
+        check(torch.allclose(total, full, rtol=1e-6, atol=1e-6),
+              f"the two windows' bags sum to the whole table's: {diff}")
+        print(f"  embedding_bag window form, model 2: the two windows' bags "
+              f"sum to the whole table's, max |diff| {diff:.3e}")
+        del total, full
+    del out
+    ms = device_ms(kern, 3, "embedding_bag_kernel")
+    whole_ms = device_ms(whole, 3, "embedding_bag_kernel")
+    plain_ms = device_ms(plain, 2)
+    idx = ids.long() % V - r * Vl
+    mine = (idx >= 0) & (idx < Vl)
+    flat = (idx + Vl * torch.arange(F, device="cuda")[:, None])[mine]
+    n_rows = int(torch.unique(flat).numel())
+    es = tables.element_size()
+    nbytes = (n_rows * D * es + ids.numel() * (4 + 1)
+              + ids.numel() // ids.shape[-1] * D * es)
+    b_ms, b_by = bound(nbytes, 2.0 * int(mine.sum()) * D, torch.float32)
+    print(f"  embedding_bag window form f32, model {n_model} (block "
+          f"{tuple(block.shape)}, rows from {r * Vl}), serve_bulk ids "
+          f"{tuple(ids.shape)}: device ms kernel {ms:.5f}, whole-table "
+          f"kernel {whole_ms:.5f}, plain {plain_ms:.5f}, bound {b_ms:.5f} "
+          f"({b_by}: {n_rows} distinct rows in the window, "
+          f"{int(mine.sum())} of {ids.numel()} slots); max|err| {err}")
+    del block
+    torch.cuda.empty_cache()
+    return dict(ms=ms, whole_ms=whole_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, rows=Vl, row_start=r * Vl,
+                unique_rows=n_rows)
+
+
 def time_calls(fn, n, warmup=2):
     """Median ms of ``n`` calls fn(i), each between its own pair of CUDA
     events (no host wait between calls)."""
@@ -3598,6 +3717,9 @@ def recsys_phase(gen):
                   f"{r['plain_call_ms']:.4f}, F.embedding_bag "
                   f"{r['library_call_ms']:.4f}")
     row = dict(rows.pop("deep_serve_p99"), **rows)
+    for n_model in EB_WINDOW_MODELS:
+        row[f"window_model{n_model}"] = eb_window_row(
+            params["tables"], bulk, n_model)
 
     # retrieval_cand: one user's 10^6 candidate contexts.  It runs after
     # B5's device timing above: on the H100, once this cell's profile had
@@ -3722,11 +3844,40 @@ def recsys_phase(gen):
                                          f"{tuple(got.shape)}")
         hold_scores(f"{cfg.name} retrieval_cand scores", got,
                     seq_serve64(cfg, params, causal, *one))
+        if mod is sasrec:
+            sasrec_bulk(cfg, params, seq_inputs, counted)
         del params, sets, one, got
         torch.cuda.empty_cache()
         print(f"  {cfg.name} peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return err, row, launches
+
+
+def sasrec_bulk(cfg, params, seq_inputs, counted):
+    """SASRec's serve_bulk once at full size (B 262,144, 512 candidates a
+    row): ms a call, its peak, and its first RECSYS_BULK_CHECK_ROWS rows'
+    scores against float64."""
+    from repro_torch.configs import sasrec
+    from repro_torch.configs.recsys_common import BATCHES
+    B = BATCHES["serve_bulk"]
+    ins = seq_inputs(B, 450, True)
+    fn = sasrec.serve_cell("serve_bulk").fn
+    torch.cuda.reset_peak_memory_stats()
+    ms, n_l, _ = counted(lambda i: fn(cfg, params, *ins), 2)
+    check(n_l == 0, f"sasrec serve_bulk launched embedding_bag {n_l} times")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cell_line(cfg.name, f"serve_bulk (B {B:,}, {sasrec.N_CAND} candidates)",
+              ms, B)
+    n = RECSYS_BULK_CHECK_ROWS
+    got = fn(cfg, params, *ins)
+    check(got.shape == (B, sasrec.N_CAND), f"serve_bulk scores "
+                                           f"{tuple(got.shape)}")
+    hold_scores(f"{cfg.name} serve_bulk scores (first {n} of {B:,})",
+                got[:n], seq_serve64(cfg, params, True,
+                                     *(x[:n] for x in ins)))
+    print(f"  {cfg.name} serve_bulk: {ms:.2f} ms a call, peak {peak:.2f} GB "
+          "(parameters and inputs included)")
+    del got, ins
 
 
 # ---------------------------------------------------------------- training
@@ -3746,7 +3897,8 @@ OVERFIT_MARGIN = 0.5          # nats the loss must fall on one repeated batch
                               # test_overfit_single_batch)
 TRAIN_4K_BATCH = 8            # the train_4k cell's global batch 256, cut
 TRAIN_4K_ACCUM = 4            # microbatches (the reference's memory build)
-TRAIN_4K_TIMED = 3            # timed steps after one warm-up
+TRAIN_4K_TIMED = 1            # timed steps after one warm-up (cut from 3
+                              # for (h)'s time)
 REMAT_LAYERS = 4              # depth of the remat on/off peak comparison:
                               # off keeps ~4 GB of attention a layer at
                               # (2, 4096), which 28 layers would not fit
@@ -4144,7 +4296,8 @@ def train_phase():
 
 
 # --------------------------------------------------------------------- GNN
-GNN_STEPS = 3                 # train steps a cell on one repeated batch
+GNN_STEPS = 2                 # train steps a cell on one repeated batch
+                              # (cut from 3 for (h)'s time)
                               # (the first, cold, left out of the median)
 # card against CPU (smoke size, f32, TF32 off) and chunked against dense:
 # f32 sums in another order (index_add_ adds with atomics on the card);
@@ -4157,6 +4310,7 @@ GNN_WIDE_TOL = dict(rtol=1e-3, atol=1e-4)
 RGG_CUTOFF = 0.145            # random_geometric_graph(seed 0, 2,708 nodes,
                               # box 2): 10,552 directed edges (Cora 10,556)
 REDDIT_NODES, REDDIT_FEAT, REDDIT_CLASSES = 232_965, 602, 41
+GNN_LG_LAYERS = 4             # minibatch_lg's depth cut 12 -> 4 (time)
 REDDIT_DEGREE = 50            # in-edges a node of the base graph: cut from
                               # Reddit's ~492; the sampler draws with
                               # replacement, so its padded shapes do not
@@ -4165,6 +4319,7 @@ MB_SEEDS, MB_FANOUTS = 1024, [15, 10]
 WIDE_CHUNKS = 2               # the full-width chunked path: ogb_products'
                               # edge_chunk, two chunks of a synthetic graph
                               # with its mean in-degree
+GNN_WIDE_LAYERS = 4           # its depth cut 12 -> 4 (time)
 GNN_SPLIT = {                 # profiler range -> op class of the step split
     "gnn.wigner": "Wigner-D recursion (rotation_to_z, wigner_blocks)",
     "gnn.apply_blocks": "apply_blocks",
@@ -4360,17 +4515,22 @@ def gnn_profile(label, fn):
     return dict(wall=wall, busy=device, launches=n, split=split)
 
 
-def gnn_train_cell(shape, batch, cut=None):
+def gnn_train_cell(shape, batch, cut=None, layers=None):
     """One GNN train cell at full width (bf16, remat, random weights from
-    seed 0) on ``batch``: the forward timed (no grad), GNN_STEPS train
-    steps on the repeated batch (the loss must fall), their median, rates,
-    TFLOP/s, the bound, peak memory, a profile of a step and its device
-    time by op class.  Returns the cell's numbers."""
+    seed 0; its depth cut to ``layers`` where given) on ``batch``: the
+    forward timed (no grad), GNN_STEPS train steps on the repeated batch
+    (the loss must fall), their median, rates, TFLOP/s, the bound, peak
+    memory, a profile of a step and its device time by op class.  Returns
+    the cell's numbers."""
     from repro_torch.configs import equiformer_v2 as ecfg
     from repro_torch.models.gnn import equiformer as eq
     from repro_torch.training.optimizer import adamw_init
     free_card()
     cfg = ecfg.full_config(shape)
+    if layers is not None:
+        cut = (f"depth cut to {layers} of {cfg.n_layers} layers"
+               + (f", {cut}" if cut else ""))
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     c = ecfg.CELLS[shape]
     N, E = c["n_nodes"], c["n_edges"]
     check(batch["edges"].shape[0] == E and batch["node_feat"].shape[0] == N,
@@ -4466,7 +4626,8 @@ def gnn_chunked_cell():
     from repro_torch.models.gnn import equiformer as eq
     free_card()
     c = ecfg.CELLS["ogb_products"]
-    cfg = dataclasses.replace(ecfg.full_config("ogb_products"), remat=False)
+    cfg = dataclasses.replace(ecfg.full_config("ogb_products"), remat=False,
+                              n_layers=GNN_WIDE_LAYERS)
     E = WIDE_CHUNKS * cfg.edge_chunk
     N = round(E * c["n_nodes"] / c["n_edges"])
     gen = torch.Generator(device="cuda")
@@ -4495,7 +4656,8 @@ def gnn_chunked_cell():
                      [res[("float32", "chunked")][0]],
                      [res[("float32", "dense")][0]], GNN_WIDE_TOL)
     print(f"  chunked path at full width (ogb_products' d {cfg.d_feat_in}, "
-          f"{cfg.n_out} classes, edge_chunk {cfg.edge_chunk:,}; synthetic "
+          f"{cfg.n_out} classes, edge_chunk {cfg.edge_chunk:,}, depth cut "
+          f"to {cfg.n_layers} of 12 layers; synthetic "
           f"graph N {N:,}, E {E:,} = {WIDE_CHUNKS} chunks): chunked vs "
           f"dense f32 node_out {err:.2e} of max|ref| ({GNN_WIDE_TOL}); "
           f"forward peak over the weights f32 chunked "
@@ -4525,29 +4687,17 @@ def gnn_phase(card):
     launch on this path."""
     from repro_torch import kernels
     from repro_torch.configs import equiformer_v2 as ecfg
-    from repro_torch.training import data
     before = kernels.snapshot()
     gnn_card_cpu_cell()
     print(f"  bounds: model_flops over {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
           f" TFLOP/s (bf16) or bytes_floor over "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the larger; card and power "
           f"limit: {card}")
-    cells = {}
-    rng = np.random.RandomState(0)
-    c = ecfg.CELLS["full_graph_sm"]
-    g = data.random_geometric_graph(rng, c["n_nodes"], c["d_feat"],
-                                    cutoff=RGG_CUTOFF,
-                                    max_edges=c["n_edges"])
-    check(int(g["edge_mask"].sum()) < c["n_edges"],
-          "full_graph_sm: the cutoff fills the edge cap")
-    g["labels"] = rng.randint(0, c["n_out"], c["n_nodes"]).astype(np.int32)
-    cells["full_graph_sm"] = gnn_train_cell(
-        "full_graph_sm", gnn_batch(ecfg, "full_graph_sm", g))
-    g = data.batched_molecules(np.random.RandomState(1), 128, 30, 64, 64)
-    cells["molecule"] = gnn_train_cell("molecule",
-                                       gnn_batch(ecfg, "molecule", g))
+    cells = {shape: gnn_train_cell(shape, gnn_batch(ecfg, shape,
+                                                    gnn_graph(shape)))
+             for shape in ("full_graph_sm", "molecule")}
     cells["minibatch_lg"] = gnn_train_cell(
-        "minibatch_lg", reddit_like_batch(),
+        "minibatch_lg", reddit_like_batch(), layers=GNN_LG_LAYERS,
         cut=f"base graph in-degree {REDDIT_DEGREE}")
     gnn_chunked_cell()
     moved = kernels.diff(kernels.snapshot(), before)
@@ -4562,7 +4712,8 @@ COST_RECSYS = (("wide_deep", ("serve_p99", "serve_bulk", "retrieval_cand",
                ("two_tower_retrieval", ("serve_p99", "retrieval_cand")),
                ("sasrec", ("serve_p99", "retrieval_cand")),
                ("bert4rec", ("serve_p99", "retrieval_cand")))
-COST_GNN = ("full_graph_sm", "molecule")
+COST_GNN = ("molecule",)      # full_graph_sm cut for time (PERF.md keeps
+                              # its measured share)
 COST_CALLS = 5                # timed calls a cell (GNN and train: 2)
 COST_SHARE_MAX = 1.05         # bound / measured above this: the count
 #                               charges work the program does not do
@@ -4704,26 +4855,35 @@ def cost_recsys(rows):
         del params
 
 
-def cost_gnn(rows):
-    """EquiformerV2's full_graph_sm and molecule: one train step (bf16,
-    remat) on the graphs of the gnn phase."""
+def gnn_graph(shape):
+    """The host graph of the GNN cell ``shape`` (full_graph_sm or
+    molecule), as the gnn phase draws it."""
     from repro_torch.configs import equiformer_v2 as ecfg
-    from repro_torch.models.gnn import equiformer as eq
     from repro_torch.training import data
-    from repro_torch.training.optimizer import adamw_init
+    if shape == "molecule":
+        return data.batched_molecules(np.random.RandomState(1), 128, 30, 64,
+                                      64)
     rng = np.random.RandomState(0)
-    c = ecfg.CELLS["full_graph_sm"]
+    c = ecfg.CELLS[shape]
     g = data.random_geometric_graph(rng, c["n_nodes"], c["d_feat"],
                                     cutoff=RGG_CUTOFF,
                                     max_edges=c["n_edges"])
+    check(int(g["edge_mask"].sum()) < c["n_edges"],
+          f"{shape}: the cutoff fills the edge cap")
     g["labels"] = rng.randint(0, c["n_out"], c["n_nodes"]).astype(np.int32)
-    graphs = {"full_graph_sm": g,
-              "molecule": data.batched_molecules(np.random.RandomState(1),
-                                                 128, 30, 64, 64)}
+    return g
+
+
+def cost_gnn(rows):
+    """EquiformerV2's COST_GNN cells: one train step (bf16, remat) on the
+    graphs of the gnn phase."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.training.optimizer import adamw_init
     for shape in COST_GNN:
         free_card()
         cell = ecfg.build_cell(shape)
-        batch = gnn_batch(ecfg, shape, graphs[shape])
+        batch = gnn_batch(ecfg, shape, gnn_graph(shape))
         same_layout(f"equiformer-v2 {shape}", list(batch.values()),
                     [cell.args[2][k] for k in batch])
         params = eq.init_params(ecfg.full_config(shape), seed=0,
@@ -5015,13 +5175,18 @@ DIST_MOE_NS = (132, 512)      # moe_ep rows: a decode step's 4 x 33, a
 DIST_MOE_CF = 1.25            # Qwen3-MoE-30B-A3B's capacity factor
 DIST_STEPS = 3                # timed fused steps a world
 DIST_TURNS = 6                # world 1's ep and local steps timed in turns
-DIST_MOE_LAYERS = 6           # (b), (c): Qwen3-MoE's depth cut 48 -> 6
+DIST_MOE_LAYERS = 3           # (b), (c): Qwen3-MoE's depth cut 48 -> 6
+                              # -> 3 (for (h)'s time)
 DIST_TP_PROMPTS = 6           # (d), (e): guided requests on 4 lanes
-DIST_TP_NEW = 32              # their new tokens each
-DIST_TP_D_LAYERS = 8          # (d): Qwen2-1.5B's depth cut 28 -> 8
-DIST_TP_E_LAYERS = 4          # (e): Qwen2-1.5B's depth cut 28 -> 4,
+DIST_TP_NEW = 16              # their new tokens each (cut from 32 for
+                              # (h)'s time)
+DIST_TP_D_LAYERS = 4          # (d): Qwen2-1.5B's depth cut 28 -> 8 -> 4
+                              # (for (h)'s time)
+DIST_TP_E_LAYERS = 2          # (e): Qwen2-1.5B's depth cut 28 -> 4 -> 2
+                              # (for (h)'s time),
 DIST_TP_E_PROMPTS = 4         # its requests (one cohort)
-DIST_TP_E_NEW = 12            # and their new tokens: its FSDP gathers move
+DIST_TP_E_NEW = 8             # and their new tokens (cut from 12 for
+                              # (h)'s time): its FSDP gathers move
                               # ~0.8 GB a step a rank through gloo
 DIST_STATE_STEPS = 3          # (d), (e): guided session steps before the
                               # unguided one whose logits are held
@@ -5029,10 +5194,12 @@ DIST_MOE_TP_LAYERS = 4        # (c)'s serve-rules step: Qwen3-MoE's depth
                               # cut 48 -> 4
 DIST_HEADS_ARCHS = ("qwen2-1.5b", "phi3-medium-14b")   # (g), mesh (1, 8):
                               # H 12 (q gathered), 5 heads a rank on 2 KV
-DIST_HEADS_LAYERS = 2         # (g): depth cut 28 / 40 -> 2
+DIST_HEADS_LAYERS = 1         # (g): depth cut 28 / 40 -> 2 -> 1 (for
+                              # (h)'s time)
 DIST_HEADS_PROMPTS = 4        # (g): guided requests (one cohort)
-DIST_HEADS_NEW = 12           # and their new tokens
-DIST_MOE_TRAIN_LAYERS = 2     # (f)'s Moonlight: depth cut 48 -> 2
+DIST_HEADS_NEW = 8            # and their new tokens (cut from 12)
+DIST_MOE_TRAIN_LAYERS = 1     # (f)'s Moonlight: depth cut 48 -> 2 -> 1
+                              # (for (h)'s time)
 DIST_MOE_TRAIN_BATCH = (4, 128)   # (B, S): 2 lanes a data rank at (2, 2)
 DIST_MOE_TRAIN_STEPS = 2
 # (f) against one device, both f32.  The losses (steps 1 and 3) to a
@@ -5966,6 +6133,377 @@ def dist_heads_world(rank):
             for arch in DIST_HEADS_ARCHS}
 
 
+# (h) (ROADMAP A16b 6.3): the four recommenders placed over mesh (data 2,
+# model 2) on 4 gloo ranks sharing cuda:0, full configs in f32: the
+# tables' rows over model (a rank holds half of each: W&D's 2.56 GB, B5
+# over its window), the rows of the batch over data
+DIST_RECSYS_MESH = (2, 2)
+DIST_RECSYS_CALLS = 3          # timed calls a serve_p99 cell a rank
+DIST_RECSYS_TRAIN_STEPS = 2    # W&D train_batch (B 65,536)
+DIST_RECSYS_CAND_SEED = 7      # Two-Tower's unit candidates, drawn on the card
+WD_CANDIDATES = 1_000_000      # W&D retrieval_cand: one user's contexts
+
+
+def dist_timed(mesh, fn, n):
+    """(median host ms of ``n`` calls fn(), each from a barrier of the
+    mesh to a synchronize, the last call's result)."""
+    ms, out = [], None
+    for _ in range(n):
+        out = None
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), out
+
+
+def close_to(got, ref, **tol):
+    """(max |got - ref| in float64, allclose within ``tol`` and finite)."""
+    got, ref = got.double(), ref.double()
+    err = float((got - ref).abs().max())
+    return err, bool(torch.isfinite(got).all()) and torch.allclose(
+        got, ref, **(tol or RECSYS_TOL))
+
+
+def recsys_inputs(name, cfg, B, seed, cands=True):
+    """The cell inputs of recommender ``name`` for B rows from a numpy
+    seed, on the card: the same on every rank."""
+    from repro_torch import configs
+    from repro_torch.training import data
+    rng = np.random.RandomState(seed)
+    if name == "wide-deep":
+        b = to_cuda(data.wide_deep_batch(rng, B, cfg.n_sparse,
+                                         cfg.rows_per_table, cfg.multi_hot,
+                                         cfg.n_dense))
+        return b["sparse_ids"], b["sparse_mask"], b["dense"]
+    if name == "two-tower-retrieval":
+        b = to_cuda(data.two_tower_batch(rng, B, cfg.n_user_fields,
+                                         cfg.n_item_fields,
+                                         cfg.rows_per_table))
+        return b["user_ids"], b["item_ids"]
+    b = to_cuda(data.seq_rec_batch(rng, B, cfg.seq_len, cfg.n_items,
+                                   name == "sasrec"))
+    ins = (b["ids"], b["pad_mask"])
+    if cands:
+        ins += (torch.from_numpy(rng.randint(
+            2, cfg.n_items, (B, configs.get_arch(name).N_CAND)).astype(
+                np.int32)).cuda(),)
+    return ins
+
+
+def wd_train_batch(cfg, i):
+    """Step i's W&D train batch (B 65,536), the same on every rank."""
+    from repro_torch.configs.recsys_common import BATCHES
+    from repro_torch.training import data
+    return to_cuda(data.wide_deep_batch(
+        np.random.RandomState(300 + i), BATCHES["train_batch"],
+        cfg.n_sparse, cfg.rows_per_table, cfg.multi_hot, cfg.n_dense))
+
+
+def meta_tree(x):
+    """Meta copies of a tree's tensors (dicts, lists and tuples kept)."""
+    if isinstance(x, dict):
+        return {k: meta_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(meta_tree(v) for v in x)
+    return x.to("meta")
+
+
+def unit_candidates(n, d):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(DIST_RECSYS_CAND_SEED)
+    c = torch.randn((n, d), generator=gen, device="cuda")
+    return c / c.norm(dim=-1, keepdim=True)
+
+
+def dist_recsys_world(rank):
+    """(h): every recommender's serve_p99 and retrieval_cand, W&D's
+    serve_bulk once and DIST_RECSYS_TRAIN_STEPS W&D train steps, placed
+    over mesh (data 2, model 2) (``init_params(mesh=)``: each rank draws
+    the single device's numbers and keeps its blocks); B5 launched by the
+    W&D calls (the window form) and counted; the collectives of one W&D
+    serve_p99 forward on the real mesh and on a ``TracedMesh`` of the
+    same rank over meta copies; gloo's share of the bulk forward.  Then
+    rank 0 alone, the others waiting: the single device's results on the
+    whole parameters (the same seed and numbers), against which rank 0
+    holds the mesh's (nothing raises inside a rank: the parent checks)."""
+    from repro_torch import configs
+    from repro_torch.configs.recsys_common import BATCHES
+    from repro_torch.distributed.sharding import TracedMesh, sharding_ctx
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_fused
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.recsys.common import Lanes
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    mesh = make_host_mesh(*DIST_RECSYS_MESH, device="cuda:0")
+    N = RECSYS_BULK_CHECK_ROWS
+    torch.cuda.reset_peak_memory_stats()
+    res = {"ms": {}, "gb": {}, "checks": {}, "counts": {}}
+    got = {}
+    embedding_bag_fused.launches = 0
+    wd_calls = 0
+
+    def gb(tree):
+        return sum(a.numel() * a.element_size()
+                   for a in tree_leaves(tree)) / 1e9
+
+    # ---- Wide & Deep
+    wd = configs.get_arch("wide-deep")
+    cfg = wd.full_config()
+    fwd = wd.serve_cell("serve_p99").fn
+    with sharding_ctx(mesh):
+        params = wd.model.init_params(cfg, seed=0, mesh=mesh)
+        res["blocks"] = {"wide-deep": tuple(params["tables"].shape)}
+        res["gb"]["wide-deep"] = gb(params)
+        p99 = recsys_inputs("wide-deep", cfg, BATCHES["serve_p99"], 100)
+        ms, out = dist_timed(mesh, lambda: fwd(cfg, params, *p99),
+                             DIST_RECSYS_CALLS)
+        wd_calls += DIST_RECSYS_CALLS
+        res["ms"]["wide-deep serve_p99"] = ms
+        got["wd_p99"] = Lanes(BATCHES["serve_p99"]).gather(out)
+        mesh.reset_counts()
+        fwd(cfg, params, *p99)
+        wd_calls += 1
+        res["counts"]["real"] = mesh.collective_records()
+        traced = TracedMesh(mesh.shape, mesh.rank)
+        with sharding_ctx(traced):
+            fwd(cfg, meta_tree(params), *meta_tree(p99))
+        res["counts"]["traced"] = traced.collective_records()
+        bulk = recsys_inputs("wide-deep", cfg, BATCHES["serve_bulk"], 200)
+        mesh.reset_counts()
+        mesh.timing, mesh.collective_s = True, 0.0
+        ms, out = dist_timed(mesh, lambda: fwd(cfg, params, *bulk), 1)
+        mesh.timing = False
+        wd_calls += 1
+        res["bulk"] = dict(ms=ms, collective_s=mesh.collective_s,
+                           records=mesh.collective_records(),
+                           bags_gb=out.shape[0] * cfg.n_sparse
+                           * (cfg.embed_dim + 1) * 4 / 1e9)
+        got["wd_bulk"] = Lanes(BATCHES["serve_bulk"]).gather(out)[:N]
+        del bulk, out
+        cand = recsys_inputs("wide-deep", cfg, WD_CANDIDATES, 250)
+        ms, out = dist_timed(mesh, lambda: fwd(cfg, params, *cand), 1)
+        wd_calls += 1
+        res["ms"]["wide-deep retrieval_cand"] = ms
+        got["wd_cand"] = Lanes(WD_CANDIDATES).gather(out)[:N]
+        del cand, out
+        torch.cuda.empty_cache()
+        step = wd.train_cell(cfg).step
+        state = [params, adamw_init(params)]
+        del params
+        losses, secs = [], []
+        for i in range(DIST_RECSYS_TRAIN_STEPS):
+            b = wd_train_batch(cfg, i)
+            ms, (p, o, m) = dist_timed(mesh, lambda: step(*state, b), 1)
+            state = [p, o]
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+            secs.append(ms / 1e3)
+            wd_calls += 1
+            del p, o, m, b
+        res["wd_train"] = dict(losses=losses, secs=secs,
+                               state_gb=gb(state[0]) + gb(state[1].mu)
+                               + gb(state[1].nu))
+        del state
+    res["launches"] = {"embedding_bag": embedding_bag_fused.launches}
+    res["wd_forwards"] = wd_calls
+    torch.cuda.empty_cache()
+
+    # ---- Two-Tower, SASRec, BERT4Rec: serve_p99 and retrieval_cand
+    for name in ("two-tower-retrieval", "sasrec", "bert4rec"):
+        mod = configs.get_arch(name)
+        cfg = mod.full_config()
+        with sharding_ctx(mesh):
+            params = mod.model.init_params(cfg, seed=0, mesh=mesh)
+            res["gb"][name] = gb(params)
+            ins = recsys_inputs(name, cfg, BATCHES["serve_p99"], 400)
+            lanes = Lanes(BATCHES["serve_p99"])
+            fn = mod.serve_cell("serve_p99").fn
+            ms, out = dist_timed(mesh, lambda: fn(cfg, params, *ins),
+                                 DIST_RECSYS_CALLS)
+            res["ms"][f"{name} serve_p99"] = ms
+            got[f"{name}_p99"] = lanes.gather(out)
+            fn = mod.serve_cell("retrieval_cand").fn
+            if name == "two-tower-retrieval":
+                for key, tab, ids in (("user", "user_tables", ins[0]),
+                                      ("item", "item_tables", ins[1])):
+                    got[f"tt_{key}_rows"] = lanes.gather(
+                        mod.model.field_rows(cfg, params[tab], ids))
+                got["tt_user"] = lanes.gather(mod.model.user_embed(
+                    cfg, params, ins[0]))
+                got["tt_item"] = lanes.gather(mod.model.item_embed(
+                    cfg, params, ins[1]))
+                # this rank's rows of the batch, which its towers computed
+                got["tt_rows"] = (lanes.start,
+                                  lanes.local(ins[0]).shape[0])
+                one = (recsys_inputs(name, cfg, 1, 402)[0],
+                       unit_candidates(mod.N_CAND, cfg.tower_dims[-1]))
+            else:
+                one = recsys_inputs(name, cfg, 1, 500, cands=False)
+            ms, out = dist_timed(mesh, lambda: fn(cfg, params, *one),
+                                 DIST_RECSYS_CALLS)
+            res["ms"][f"{name} retrieval_cand"] = ms
+            got[f"{name}_cand"] = out
+            del params, out, one
+        torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    mesh.barrier()
+    if rank == 0:
+        res["checks"] = dist_recsys_one_device(got)
+    mesh.barrier()
+    return res
+
+
+def dist_recsys_one_device(got):
+    """Rank 0 alone: the single device's results on the whole parameters
+    (seed 0, the numbers the ranks' blocks hold) and float64 for W&D,
+    against the mesh's ``got``: {check: (max err, ok)}."""
+    from repro_torch import configs
+    from repro_torch.configs.recsys_common import BATCHES
+    from repro_torch.training.optimizer import adamw_init
+    N = RECSYS_BULK_CHECK_ROWS
+    out = {}
+    wd = configs.get_arch("wide-deep")
+    cfg = wd.full_config()
+    params = wd.model.init_params(cfg, seed=0)
+    for key, B, seed, rows in (("wd_p99", BATCHES["serve_p99"], 100, None),
+                               ("wd_bulk", BATCHES["serve_bulk"], 200, N),
+                               ("wd_cand", WD_CANDIDATES, 250, N)):
+        ins = [x[:rows] for x in recsys_inputs("wide-deep", cfg, B, seed)]
+        out[f"{key} vs float64"] = close_to(got[key],
+                                            wide_deep64(params, *ins))
+        del ins
+    step = wd.train_cell(cfg).step
+    state = [params, adamw_init(params)]
+    del params
+    losses = []
+    for i in range(DIST_RECSYS_TRAIN_STEPS):
+        b = wd_train_batch(cfg, i)
+        if i == 0:
+            z = wide_deep64(state[0], b["sparse_ids"], b["sparse_mask"],
+                            b["dense"])
+            y = b["labels"].double()
+            losses.append(float(torch.mean(
+                z.clamp_min(0) - z * y + torch.log1p(torch.exp(-z.abs())))))
+        p, o, m = step(*state, b)
+        state = [p, o]
+        out[f"wd train step {i} (loss, grad norm) one device"] = (
+            float(m["loss"]), float(m["grad_norm"]))
+        del p, o, m, b
+    out["wd train loss 0 float64"] = losses[0]
+    del state
+    torch.cuda.empty_cache()
+    tt = configs.get_arch("two-tower-retrieval")
+    cfg = tt.full_config()
+    params = tt.model.init_params(cfg, seed=0)
+    users, items = recsys_inputs(tt.ARCH, cfg, BATCHES["serve_p99"], 400)
+    lo, n = got["tt_rows"]
+    for key, fn, tab, ids in (
+            ("tt_user", tt.model.user_embed, "user_tables", users),
+            ("tt_item", tt.model.item_embed, "item_tables", items)):
+        one = tt.model.field_rows(cfg, params[tab], ids)
+        out[f"{key} field rows torch.equal"] = (
+            float((got[f"{key}_rows"] - one).abs().max()),
+            torch.equal(got[f"{key}_rows"], one))
+        # the towers on the rank's rows alone (the products' shapes the
+        # rank ran) give the rank's bits; the whole batch runs other
+        # products, so the whole is held at the recsys tolerance
+        mine, one = got[key][lo:lo + n], fn(cfg, params, ids[lo:lo + n])
+        out[f"{key} embeddings, rows [{lo}, {lo + n}), torch.equal to one "
+            f"device on those rows"] = (float((mine - one).abs().max()),
+                                        torch.equal(mine, one))
+        out[f"{key} embeddings vs one device"] = close_to(
+            got[key], fn(cfg, params, ids))
+    out["two-tower-retrieval_p99 vs one device"] = close_to(
+        got["two-tower-retrieval_p99"], tt.serve_cell("serve_p99").fn(
+            cfg, params, users, items))
+    user = recsys_inputs(tt.ARCH, cfg, 1, 402)[0]
+    cand = unit_candidates(tt.N_CAND, cfg.tower_dims[-1])
+    v, i = tt.serve_cell("retrieval_cand").fn(cfg, params, user, cand)
+    gv, gi = got["two-tower-retrieval_cand"]
+    out["tt top-128 values vs one device"] = close_to(gv, v)
+    out["tt top-128 indices equal (positions that differ)"] = (
+        int((gi != i).sum()), torch.equal(gi, i))
+    del params, cand
+    for name in ("sasrec", "bert4rec"):
+        mod = configs.get_arch(name)
+        cfg = mod.full_config()
+        params = mod.model.init_params(cfg, seed=0)
+        ins = recsys_inputs(name, cfg, BATCHES["serve_p99"], 400)
+        out[f"{name}_p99 vs one device"] = close_to(
+            got[f"{name}_p99"], mod.serve_cell("serve_p99").fn(cfg, params,
+                                                               *ins))
+        one = recsys_inputs(name, cfg, 1, 500, cands=False)
+        out[f"{name}_cand vs one device"] = close_to(
+            got[f"{name}_cand"], mod.serve_cell("retrieval_cand").fn(
+                cfg, params, *one))
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_recsys_rule(res):
+    """(h)'s checks on every rank's results (see ``dist_recsys_world``)."""
+    r0 = res[0]
+    print(f"  (h) the recommenders, 4 gloo ranks, mesh (data 2, model 2), "
+          f"DEFAULT_RULES, full configs, f32: W&D's tables a rank "
+          f"{r0['blocks']['wide-deep']} "
+          f"(weights a rank, GB: "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in r0['gb'].items())})")
+    for r, x in enumerate(res):
+        print(f"  (h) rank {r}: "
+              f"{', '.join(f'{k} {v:.2f} ms' for k, v in x['ms'].items())}; "
+              f"peak {x['peak_gb']:.2f} GB; B5 "
+              f"{x['launches']['embedding_bag']} launches for "
+              f"{x['wd_forwards']} W&D forwards")
+        check(x["launches"]["embedding_bag"] == 2 * x["wd_forwards"],
+              f"(h) rank {r}: B5 launched {x['launches']['embedding_bag']} "
+              f"times for {x['wd_forwards']} W&D forwards")
+        check(x["counts"]["real"] == x["counts"]["traced"] and
+              x["counts"]["real"], f"(h) rank {r}: gloo's records "
+                                   f"{x['counts']['real']} != traced "
+                                   f"{x['counts']['traced']}")
+        b = x["bulk"]
+        print(f"  (h) rank {r}: W&D serve_bulk once {b['ms']:.1f} ms, gloo "
+              f"{b['collective_s'] * 1e3:.1f} ms of it "
+              f"({b['collective_s'] * 1e3 / b['ms']:.3f}); handed "
+              f"{sum(c['bytes'] for c in b['records']) / 1e9:.3f} GB in "
+              f"{sum(c['calls'] for c in b['records'])} calls (the rank's "
+              f"bags {b['bags_gb']:.3f} GB); train steps "
+              f"{[round(t, 2) for t in x['wd_train']['secs']]} s, "
+              f"(loss, grad norm) {x['wd_train']['losses']}, state a rank "
+              f"{x['wd_train']['state_gb']:.3f} GB")
+        check(x["wd_train"]["losses"] == r0["wd_train"]["losses"],
+              f"(h) rank {r}'s train losses differ from rank 0's")
+    rec = r0["counts"]["real"]
+    kinds = ", ".join(f"{c['kind']} x{c['calls']} over {c['group']}"
+                      for c in rec)
+    print(f"  (h) one W&D serve_p99 forward hands gloo "
+          f"{sum(c['calls'] for c in rec)} calls, "
+          f"{sum(c['bytes'] for c in rec):,} B a rank ({kinds}) = the "
+          "traced mesh's count")
+    ch = r0["checks"]
+    for i in range(DIST_RECSYS_TRAIN_STEPS):
+        want = ch[f"wd train step {i} (loss, grad norm) one device"]
+        got = r0["wd_train"]["losses"][i]
+        ok = np.allclose(got, want, **RECSYS_TOL)
+        print(f"  (h) W&D train step {i}: (loss, grad norm) mesh {got}, one "
+              f"device {want} {'ok' if ok else 'FAIL'} ({RECSYS_TOL})")
+        check(ok, f"(h) W&D train step {i}: {got} vs one device {want}")
+    f64 = ch["wd train loss 0 float64"]
+    ok = np.isclose(r0["wd_train"]["losses"][0][0], f64, **RECSYS_TOL)
+    print(f"  (h) W&D train loss 0 vs float64 {f64:.8f}: "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"(h) W&D train loss 0 vs float64 {f64}")
+    for k, v in ch.items():
+        if k.startswith("wd train"):
+            continue
+        err, ok = v
+        what = f"{err}" if "positions" in k else f"max|err| {err:.3e}"
+        print(f"  (h) {k}: {what} {'ok' if ok else 'FAIL'}")
+        check(ok, f"(h) {k}: {err}")
+
+
 def dist_heads_phase():
     """(g): ``dist_heads_world``, each arch held by ``dist_tp_rule``;
     returns each arch's results a rank."""
@@ -6661,6 +7199,9 @@ def dist_phase(card):
     dist_moe_train_rule(res)
     for res in dist_heads_phase().values():
         count(res)
+    res = dist_spawn("dist_recsys_world", 4, "gloo")
+    count(res)
+    dist_recsys_rule(res)
     return launches
 
 
@@ -6705,7 +7246,9 @@ def main(argv=None) -> int:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(_build.SOURCES))})")
+    t0 = time.perf_counter()
     sass_phase(_build)
+    print(f"  [sass: {time.perf_counter() - t0:.1f} s]")
     # torch.profiler's first window in a process leaves a reference cycle
     # that holds its caller's frames: open it here, not under a phase whose
     # sessions it would keep on the card until the cycle collector runs

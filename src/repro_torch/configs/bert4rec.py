@@ -5,7 +5,8 @@ import sys
 
 from repro_torch.configs import recsys_common as rc
 from repro_torch.configs.common import Cell
-from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
+from repro_torch.configs.recsys_common import (ROW, Input, ServeCell,
+                                              TrainCell)
 from repro_torch.models.recsys import bert4rec as model
 
 ARCH = "bert4rec"
@@ -31,9 +32,10 @@ def serve_cell(shape: str, cfg: model.Bert4RecConfig = None) -> ServeCell:
     rc.check_serve_shape(shape)
     cfg = cfg or full_config()
     B, S = rc.BATCHES[shape], cfg.seq_len
-    ins = (Input("ids", (B, S), "int32"), Input("pad_mask", (B, S), "bool"))
+    ins = (Input("ids", (B, S), "int32", ROW),
+           Input("pad_mask", (B, S), "bool", ROW))
     if shape != "retrieval_cand":
-        ins += (Input("cand_ids", (B, N_CAND), "int32"),)
+        ins += (Input("cand_ids", (B, N_CAND), "int32", ROW),)
     return ServeCell(model.serve, ins)
 
 
@@ -43,20 +45,15 @@ def train_cell(cfg: model.Bert4RecConfig = None,
     sampled softmax against N_NEG negatives shared by the batch."""
     cfg = cfg or full_config()
     S, M = cfg.seq_len, cfg.seq_len // 5
-    return rc.train_cell(cfg, model.loss, (
-        Input("ids", (batch, S), "int32"),
-        Input("masked_pos", (batch, M), "int32"),
-        Input("masked_labels", (batch, M), "int32"),
+    return rc.train_cell(cfg, model, (
+        Input("ids", (batch, S), "int32", ROW),
+        Input("masked_pos", (batch, M), "int32", ROW),
+        Input("masked_labels", (batch, M), "int32", ROW),
         Input("negatives", (N_NEG,), "int32"),
-        Input("pad_mask", (batch, S), "bool")))
+        Input("pad_mask", (batch, S), "bool", ROW)))
 
 
 cell_meta = rc.sequence_meta
-
-
-# The logical axes the reference's cells place, by shape: the port keeps
-# them whole on every rank of a mesh (ROADMAP A16b 6.3).
-WHOLE_AXES = dict.fromkeys(rc.SHAPES, ("batch", "table_rows", "tensor"))
 
 
 def build_cell(shape: str, mesh=None) -> Cell:

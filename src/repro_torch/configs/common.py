@@ -9,8 +9,8 @@ and its ``rules``; ``build_cell(shape, mesh)`` makes its arguments one
 rank's blocks as the port keeps them under ``sharding_ctx(mesh, rules)``
 (``Cell.shardings``: the parameters by ``placement``, the optimizer state
 as its parameters (``opt_state_axes``), a cache by its sharding, the
-inputs whole).  A cell the port does not place yet (the recsys tables, the
-GNN: ROADMAP A16b 6.3) names in ``whole_axes`` the logical axes the
+inputs whole).  A cell the port does not place yet (the GNN: ROADMAP
+A16b 6.3b) names in ``whole_axes`` the logical axes the
 reference places and the port keeps whole on every rank.  The port updates
 its caches in place, so a cell donates nothing.
 """

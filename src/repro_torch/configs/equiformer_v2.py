@@ -86,7 +86,7 @@ def train_cell(shape: str, cfg: model.EquiformerConfig = None) -> TrainCell:
 
 
 # The logical axes the reference's cells place: the port keeps them whole
-# on every rank of a mesh (ROADMAP A16b 6.3).
+# on every rank of a mesh (ROADMAP A16b 6.3b).
 WHOLE_AXES = ("edges", "tensor")
 
 

@@ -3,35 +3,41 @@
 
 Shapes: train_batch 65,536 · serve_p99 512 · serve_bulk 262,144 ·
 retrieval_cand (batch=1 vs 1,000,000 candidates).  Each arch's config module
-gives every serve cell as a plain function and its inputs' shapes
-(``serve_cell``), and its train_batch cell as a train step and its batch's
-shapes (``train_cell``), and its cell meta (``cell_meta``); ``build_cell``
-makes either a dry-run ``Cell`` over meta tensors (the reference's
-``serve_cell`` / ``train_cell``).  The port does not place the recsys
-cells on a mesh yet (ROADMAP A16b 6.3): under one each rank holds every
-argument whole and runs the whole cell, and the cell names the logical
-axes the reference places there (``whole_axes``, from each config's
-``WHOLE_AXES``).
+gives every serve cell as a plain function and its inputs' shapes and
+logical axes (``serve_cell``), and its train_batch cell as a train step and
+its batch's (``train_cell``), and its cell meta (``cell_meta``);
+``build_cell`` makes either a dry-run ``Cell`` over meta tensors (the
+reference's ``serve_cell`` / ``train_cell``).  Under a mesh the cell's
+parameters are this rank's blocks (``init_params(mesh=)``: the tables'
+rows over ``model``, SASRec's and BERT4Rec's projections on "tensor"),
+the inputs whole (every rank passes them, and the models take their rows
+of "batch" and "candidates"), and the cell carries the reference's
+logical axes and ``DEFAULT_RULES``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
-from repro_torch.configs.common import Cell, abstract
+from repro_torch.configs.common import Cell, abstract, opt_state_axes
+from repro_torch.distributed.sharding import DEFAULT_RULES, sharding_ctx
 from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_step import make_train_step
 
 SHAPES = ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"]
 SERVE_SHAPES = ["serve_p99", "serve_bulk", "retrieval_cand"]
+ROW = ("batch", None)              # an input's logical axes: rows on batch
+BAG = ("batch", None, None)
 BATCHES = {"train_batch": 65536, "serve_p99": 512, "serve_bulk": 262144,
            "retrieval_cand": 1}
 
 
 class Input(NamedTuple):
-    """One argument of a serve cell: its name, shape and dtype name."""
+    """One argument of a cell: its name, shape, dtype name and the
+    reference's logical axes (None: every dim whole)."""
     name: str
     shape: Tuple[int, ...]
     dtype: str
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 class ServeCell(NamedTuple):
@@ -54,12 +60,15 @@ def check_serve_shape(shape: str) -> None:
                          "train_cell)")
 
 
-def train_cell(cfg, loss_fn: Callable, inputs: Tuple[Input, ...]
-               ) -> TrainCell:
-    """The reference's train step for ``loss_fn(cfg, params, batch)``: lr
-    1e-3, bf16 gradients, the whole batch at once."""
-    return TrainCell(make_train_step(lambda p, b: loss_fn(cfg, p, b),
-                                     lr=1e-3, grad_dtype="bfloat16"), inputs)
+def train_cell(cfg, model, inputs: Tuple[Input, ...]) -> TrainCell:
+    """The reference's train step for ``model.loss(cfg, params, batch)``:
+    lr 1e-3, bf16 gradients, the whole batch at once; under a mesh the
+    global norm over the blocks of ``model.param_logical_axes`` /
+    ``param_shapes``."""
+    return TrainCell(make_train_step(
+        lambda p, b: model.loss(cfg, p, b), lr=1e-3, grad_dtype="bfloat16",
+        axes=model.param_logical_axes(cfg), shapes=model.param_shapes(cfg)),
+        inputs)
 
 
 def abstract_inputs(inputs: Tuple[Input, ...]) -> Tuple:
@@ -68,36 +77,52 @@ def abstract_inputs(inputs: Tuple[Input, ...]) -> Tuple:
 
 
 def train_dryrun_cell(arch: str, shape: str, cfg, model, train: TrainCell,
-                      meta: dict, whole_axes=()) -> Cell:
-    """``train.step(params, opt_state, batch)`` over meta parameters, their
-    AdamW state and the batch; ``whole_axes`` as ``Cell``'s."""
-    params = model.init_params(cfg, device="meta")
-    batch = dict(zip((i.name for i in train.inputs),
-                     abstract_inputs(train.inputs)))
+                      meta: dict, whole_axes=(), params=None,
+                      p_axes=None, rules=None) -> Cell:
+    """``train.step(params, opt_state, batch)`` over meta parameters (the
+    whole ones unless ``params`` is given, a rank's blocks), their AdamW
+    state and the batch; ``whole_axes`` as ``Cell``'s (the GNN's cell).
+    With ``p_axes`` (the parameters' logical axes) the cell carries the
+    state's and the batch's ``axes`` and ``rules``."""
+    if params is None:
+        params = model.init_params(cfg, device="meta")
+    names = [i.name for i in train.inputs]
+    batch = dict(zip(names, abstract_inputs(train.inputs)))
+    axes = None if p_axes is None else (
+        p_axes, opt_state_axes(p_axes),
+        dict(zip(names, input_axes(train.inputs))))
     return Cell(arch, shape, "train", train.step,
-                (params, adamw_init(params), batch), meta,
-                whole_axes=whole_axes)
+                (params, adamw_init(params), batch), meta, axes=axes,
+                rules=rules, whole_axes=whole_axes)
+
+
+def input_axes(inputs: Tuple[Input, ...]) -> Tuple:
+    return tuple(i.axes or (None,) * len(i.shape) for i in inputs)
 
 
 def build_cell(mod, shape: str, mesh=None) -> Cell:
     """The dry-run cell of the recsys config module ``mod`` (its ``ARCH``,
-    ``model``, ``full_config``, ``serve_cell``, ``train_cell``,
-    ``cell_meta`` and ``WHOLE_AXES``): the train step at train_batch, else
-    the serve function over meta parameters (``model.init_params(cfg,
-    device="meta")``) and inputs.  Under ``mesh`` the arguments stay
-    whole and the cell names the axes left so (ROADMAP A16b 6.3)."""
+    ``model``, ``full_config``, ``serve_cell``, ``train_cell`` and
+    ``cell_meta``): the train step at train_batch, else the serve function
+    over meta parameters (``model.init_params(cfg, device="meta")``) and
+    inputs.  With ``mesh`` (a ``TracedMesh`` rank) the parameters are that
+    rank's blocks, placed under ``sharding_ctx(mesh, cell.rules)``, and
+    the AdamW state is made from them; the inputs stay whole."""
     cfg = mod.full_config()
     meta = mod.cell_meta(cfg, shape)
-    whole = mod.WHOLE_AXES[shape] if mesh is not None else ()
+    p_axes = mod.model.param_logical_axes(cfg)
+    rules = DEFAULT_RULES
+    with sharding_ctx(mesh, rules):
+        params = mod.model.init_params(cfg, device="meta", mesh=mesh)
     if shape == "train_batch":
         return train_dryrun_cell(mod.ARCH, shape, cfg, mod.model,
-                                 mod.train_cell(cfg), meta, whole)
+                                 mod.train_cell(cfg), meta, params=params,
+                                 p_axes=p_axes, rules=rules)
     serve = mod.serve_cell(shape, cfg)
-    params = mod.model.init_params(cfg, device="meta")
     fn = lambda p, *a: serve.fn(cfg, p, *a)  # noqa: E731
     return Cell(mod.ARCH, shape, "score", fn,
                 (params,) + abstract_inputs(serve.inputs), meta,
-                whole_axes=whole)
+                axes=(p_axes,) + input_axes(serve.inputs), rules=rules)
 
 
 def sequence_meta(cfg, shape: str) -> dict:
@@ -118,6 +143,7 @@ def sequence_meta(cfg, shape: str) -> dict:
                                  + (cfg.n_params() * 16 if mult == 3 else 0))}
 
 
-__all__ = ["SHAPES", "SERVE_SHAPES", "BATCHES", "Input", "ServeCell",
-           "TrainCell", "check_serve_shape", "train_cell", "abstract_inputs",
-           "train_dryrun_cell", "build_cell", "sequence_meta"]
+__all__ = ["SHAPES", "SERVE_SHAPES", "BATCHES", "ROW", "BAG", "Input",
+           "ServeCell", "TrainCell", "check_serve_shape", "train_cell", "abstract_inputs",
+           "input_axes", "train_dryrun_cell", "build_cell",
+           "sequence_meta"]

@@ -5,7 +5,8 @@ import sys
 
 from repro_torch.configs import recsys_common as rc
 from repro_torch.configs.common import Cell
-from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
+from repro_torch.configs.recsys_common import (ROW, Input, ServeCell,
+                                              TrainCell)
 from repro_torch.models.recsys import sasrec as model
 
 ARCH = "sasrec"
@@ -32,9 +33,10 @@ def serve_cell(shape: str, cfg: model.SasRecConfig = None) -> ServeCell:
     rc.check_serve_shape(shape)
     cfg = cfg or full_config()
     B, S = rc.BATCHES[shape], cfg.seq_len
-    ins = (Input("ids", (B, S), "int32"), Input("pad_mask", (B, S), "bool"))
+    ins = (Input("ids", (B, S), "int32", ROW),
+           Input("pad_mask", (B, S), "bool", ROW))
     if shape != "retrieval_cand":
-        ins += (Input("cand_ids", (B, N_CAND), "int32"),)
+        ins += (Input("cand_ids", (B, N_CAND), "int32", ROW),)
     return ServeCell(model.serve, ins)
 
 
@@ -44,19 +46,14 @@ def train_cell(cfg: model.SasRecConfig = None,
     by the batch."""
     cfg = cfg or full_config()
     S = cfg.seq_len
-    return rc.train_cell(cfg, model.loss, (
-        Input("ids", (batch, S), "int32"),
-        Input("labels", (batch, S), "int32"),
+    return rc.train_cell(cfg, model, (
+        Input("ids", (batch, S), "int32", ROW),
+        Input("labels", (batch, S), "int32", ROW),
         Input("negatives", (N_NEG,), "int32"),
-        Input("pad_mask", (batch, S), "bool")))
+        Input("pad_mask", (batch, S), "bool", ROW)))
 
 
 cell_meta = rc.sequence_meta
-
-
-# The logical axes the reference's cells place, by shape: the port keeps
-# them whole on every rank of a mesh (ROADMAP A16b 6.3).
-WHOLE_AXES = dict.fromkeys(rc.SHAPES, ("batch", "table_rows", "tensor"))
 
 
 def build_cell(shape: str, mesh=None) -> Cell:

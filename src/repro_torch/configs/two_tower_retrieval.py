@@ -8,7 +8,8 @@ import torch
 
 from repro_torch.configs import recsys_common as rc
 from repro_torch.configs.common import Cell
-from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
+from repro_torch.configs.recsys_common import (ROW, Input, ServeCell,
+                                              TrainCell)
 from repro_torch.models.recsys import two_tower as model
 
 ARCH = "two-tower-retrieval"
@@ -48,11 +49,12 @@ def serve_cell(shape: str, cfg: model.TwoTowerConfig = None) -> ServeCell:
     if shape == "retrieval_cand":
         return ServeCell(retrieve, (
             Input("user_ids", (1, cfg.n_user_fields), "int32"),
-            Input("cand_emb", (N_CAND, cfg.tower_dims[-1]), "float32")))
+            Input("cand_emb", (N_CAND, cfg.tower_dims[-1]), "float32",
+                  ("candidates", None))))
     B = rc.BATCHES[shape]
     return ServeCell(paired_score, (
-        Input("user_ids", (B, cfg.n_user_fields), "int32"),
-        Input("item_ids", (B, cfg.n_item_fields), "int32")))
+        Input("user_ids", (B, cfg.n_user_fields), "int32", ROW),
+        Input("item_ids", (B, cfg.n_item_fields), "int32", ROW)))
 
 
 def train_cell(cfg: model.TwoTowerConfig = None,
@@ -60,9 +62,9 @@ def train_cell(cfg: model.TwoTowerConfig = None,
     """``loss``: sampled softmax over in-batch negatives, so the batch size
     is part of the loss."""
     cfg = cfg or full_config()
-    return rc.train_cell(cfg, model.loss, (
-        Input("user_ids", (batch, cfg.n_user_fields), "int32"),
-        Input("item_ids", (batch, cfg.n_item_fields), "int32")))
+    return rc.train_cell(cfg, model, (
+        Input("user_ids", (batch, cfg.n_user_fields), "int32", ROW),
+        Input("item_ids", (batch, cfg.n_item_fields), "int32", ROW)))
 
 
 def cell_meta(cfg: model.TwoTowerConfig, shape: str) -> dict:
@@ -72,11 +74,6 @@ def cell_meta(cfg: model.TwoTowerConfig, shape: str) -> dict:
             "model_flops": _flops(cfg, B, shape), "tokens_per_step": B,
             "batch": B, "weight_bytes": cfg.n_params() * 4}
 
-
-# The logical axes the reference's cells place, by shape: the port keeps
-# them whole on every rank of a mesh (ROADMAP A16b 6.3).
-WHOLE_AXES = dict(dict.fromkeys(rc.SHAPES, ("batch", "table_rows")),
-                  retrieval_cand=("candidates", "table_rows"))
 
 
 def build_cell(shape: str, mesh=None) -> Cell:

@@ -5,7 +5,8 @@ import sys
 
 from repro_torch.configs import recsys_common as rc
 from repro_torch.configs.common import Cell
-from repro_torch.configs.recsys_common import Input, ServeCell, TrainCell
+from repro_torch.configs.recsys_common import (BAG, ROW, Input,
+                                              ServeCell, TrainCell)
 from repro_torch.models.recsys import wide_deep as model
 
 ARCH = "wide-deep"
@@ -31,9 +32,9 @@ def serve_cell(shape: str, cfg: model.WideDeepConfig = None) -> ServeCell:
     B = 1_000_000 if shape == "retrieval_cand" else rc.BATCHES[shape]
     F, L = cfg.n_sparse, cfg.multi_hot
     return ServeCell(model.forward, (
-        Input("sparse_ids", (B, F, L), "int32"),
-        Input("sparse_mask", (B, F, L), "bool"),
-        Input("dense", (B, cfg.n_dense), "float32")))
+        Input("sparse_ids", (B, F, L), "int32", BAG),
+        Input("sparse_mask", (B, F, L), "bool", BAG),
+        Input("dense", (B, cfg.n_dense), "float32", ROW)))
 
 
 def train_cell(cfg: model.WideDeepConfig = None,
@@ -43,11 +44,11 @@ def train_cell(cfg: model.WideDeepConfig = None,
     their gradient."""
     cfg = cfg or full_config()
     F, L = cfg.n_sparse, cfg.multi_hot
-    return rc.train_cell(cfg, model.loss, (
-        Input("sparse_ids", (batch, F, L), "int32"),
-        Input("sparse_mask", (batch, F, L), "bool"),
-        Input("dense", (batch, cfg.n_dense), "float32"),
-        Input("labels", (batch,), "float32")))
+    return rc.train_cell(cfg, model, (
+        Input("sparse_ids", (batch, F, L), "int32", BAG),
+        Input("sparse_mask", (batch, F, L), "bool", BAG),
+        Input("dense", (batch, cfg.n_dense), "float32", ROW),
+        Input("labels", (batch,), "float32", ("batch",))))
 
 
 def cell_meta(cfg: model.WideDeepConfig, shape: str) -> dict:
@@ -64,11 +65,6 @@ def cell_meta(cfg: model.WideDeepConfig, shape: str) -> dict:
                 B * cfg.n_sparse * cfg.multi_hot * cfg.embed_dim * 4 * mult
                 + B * sum(cfg.mlp_dims) * 4 * mult
                 + (cfg.n_params() * 16 if mult == 3 else 0))}
-
-
-# The logical axes the reference's cells place, by shape: the port keeps
-# them whole on every rank of a mesh (ROADMAP A16b 6.3).
-WHOLE_AXES = dict.fromkeys(rc.SHAPES, ("batch", "table_rows"))
 
 
 def build_cell(shape: str, mesh=None) -> Cell:

@@ -31,9 +31,12 @@ where the host reads them; on the train path under rules that map
 before the column-parallel products and the row-parallel partial sums
 reduce-scattered back to them (``reduce_scatter``: sequence
 parallelism).  Each of these moves is an ``autograd.Function`` with its
-transpose.  The recsys tables and the GNN stay replicated (ROADMAP
-A16b).  ``constrain`` returns its tensor
-unchanged: the model's activations are blocks by construction.
+transpose.  The recommenders' tables split their rows over the
+"table_rows" axes (``row_window``: a lookup is a masked local take summed
+over those ranks, ``sum_rows``), and a recsys call takes its rows of the
+inputs' "batch" and "candidates" dims (``placement(inputs=True)``); the
+GNN stays replicated (ROADMAP A16b 6.3b).  ``constrain`` returns its
+tensor unchanged: the model's activations are blocks by construction.
 
 A ``Mesh`` covers the initialized world (``init_process_group``), rank r
 at the row-major coordinates of r in the mesh shape (as
@@ -554,24 +557,31 @@ def named_sharding(mesh: Mesh, logical_axes: Sequence[Optional[str]],
     return NamedSharding(mesh, logical_spec(logical_axes, shape, mesh, rules))
 
 
-# The logical axes whose dims the port splits over ranks; a dim under any
-# other name stays whole on every rank (the recsys and GNN axes: ROADMAP
-# A16b).
-PLACED_AXES = frozenset({"fsdp", "tensor", "expert"})
+# The logical axes of parameters whose dims the port splits over ranks; a
+# dim under any other name stays whole on every rank (the GNN's "edges"
+# and "nodes": ROADMAP A16b 6.3b).  A recsys call also splits the dims of
+# its inputs named in INPUT_AXES (``placement(inputs=True)``); the LM's
+# inputs are whole, and ``models/transformer.Layout`` takes their lanes.
+PLACED_AXES = frozenset({"fsdp", "tensor", "expert", "table_rows"})
+INPUT_AXES = frozenset({"batch", "candidates"})
 
 
 def placement(mesh: Mesh, logical_axes: Sequence[Optional[str]],
               shape: Optional[Sequence[int]] = None,
-              rules: ShardingRules = DEFAULT_RULES) -> NamedSharding:
+              rules: ShardingRules = DEFAULT_RULES,
+              inputs: bool = False) -> NamedSharding:
     """Where the port keeps a tensor with these logical axes on ``mesh``:
     split along the dims named in ``PLACED_AXES`` (by ``rules``), whole
     along the others.  ``init_params(mesh=)``, ``shard_params`` and the
     checkpoint's ``save(mesh=)`` / ``restore(mesh=)`` all place by it.
-    With ``shape``, a mesh axis that does not divide its "fsdp" or
-    "tensor" dim is dropped, as ``logical_spec(shape=)`` drops it (that
-    dim stays whole), and an "expert" dim that the axes do not divide
-    raises (``moe_ep`` needs E a multiple of the ``model`` axis)."""
-    kept = [a if a in PLACED_AXES else None for a in logical_axes]
+    With ``shape``, a mesh axis that does not divide its "fsdp", "tensor",
+    "table_rows" (or input) dim is dropped, as ``logical_spec(shape=)``
+    drops it (that dim stays whole), and an "expert" dim that the axes do
+    not divide raises (``moe_ep`` needs E a multiple of the ``model``
+    axis).  ``inputs``: the dims named in ``INPUT_AXES`` split too — the
+    block of a recsys input a rank computes on."""
+    names = PLACED_AXES | INPUT_AXES if inputs else PLACED_AXES
+    kept = [a if a in names else None for a in logical_axes]
     spec = logical_spec(kept, None, mesh, rules)
     if shape is not None:
         fit = logical_spec([None if a == "expert" else a for a in kept],
@@ -752,6 +762,53 @@ def reduce_scatter(x: torch.Tensor, sharding: NamedSharding
     return _ReduceScatter.apply(x, sharding)
 
 
+@dataclass(frozen=True)
+class RowWindow:
+    """This rank's rows [start, start + rows) of a table of ``n_rows``
+    rows whose "table_rows" dim splits over ``axes`` of ``mesh``."""
+    mesh: Mesh
+    axes: Tuple[str, ...]
+    start: int
+    rows: int
+    n_rows: int
+
+
+def row_window(table: torch.Tensor, n_rows: int, row_dim: int = -2
+               ) -> Optional[RowWindow]:
+    """The window of ``table``'s rows (dim ``row_dim``) on the active
+    mesh: None where it holds all ``n_rows`` rows (no mesh, a whole
+    table, or rules that keep "table_rows" whole), else this rank's block
+    under ``placement`` of ("table_rows",) by the active rules; a table
+    that is neither raises."""
+    mesh, rules = _active()
+    rows = table.shape[row_dim]
+    if mesh is None or rows == n_rows:
+        return None
+    sh = placement(mesh, ("table_rows",), (n_rows,), rules)
+    axes = _live(mesh, dim_axes(sh.spec[0]))
+    if not axes or sh.shard_shape((n_rows,))[0] != rows:
+        raise ValueError(
+            f"a table of {rows} rows is neither whole ({n_rows}) nor this "
+            f"rank's block of them under the active rules ({sh.spec!r}); "
+            "place it inside the sharding_ctx it is used in")
+    return RowWindow(mesh, axes, sh._index(1)[0] * rows, rows, n_rows)
+
+
+def sum_rows(partial: torch.Tensor, window: Optional[RowWindow]
+             ) -> torch.Tensor:
+    """A lookup over a row split: every rank's partial result (its window's
+    rows, zeros for the ids the other ranks hold) summed over the window's
+    axes, the all-reduce GSPMD puts after the reference's masked local
+    gather.  The transpose is the identity: the output's gradient is alike
+    on the ranks of those axes, and each scatters it into its own rows
+    only, so a table's gradient is summed over the ranks of the batch
+    (``sum_grad``) and never over these.  ``partial`` itself without a
+    window."""
+    if window is None:
+        return partial
+    return reduce_sum(partial, window.mesh, window.axes)
+
+
 def block_sharding(what: str, shape: Sequence[int], axes: Sequence,
                    global_shape: Sequence[int], mesh: Mesh,
                    rules: ShardingRules) -> NamedSharding:
@@ -776,4 +833,5 @@ __all__ = ["Mesh", "TracedMesh", "COLLECTIVE_KINDS", "ring_traffic",
            "active_rules", "logical_spec", "named_sharding", "placement",
            "PLACED_AXES", "axis_size", "shard", "unshard", "sum_grad",
            "reduce_sum", "REDUCE_DTYPE", "gather_blocks", "reduce_scatter",
-           "block_sharding", "dim_axes"]
+           "block_sharding", "dim_axes", "INPUT_AXES", "RowWindow",
+           "row_window", "sum_rows"]

@@ -54,7 +54,9 @@ _ENTRY = {
 }
 # further C entry points of a library: name -> argtypes
 _EXTRA = {"gumbel_argmax": {"gumbel_noise_launch": [_P] * 4 + [_I] * 2
-                                                   + [_P]}}
+                                                   + [_P]},
+          "embedding_bag": {"embedding_bag_window_launch": [_P] * 5
+                            + [_I] * 8 + [_P]}}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -20,6 +20,18 @@
 // multiplies it by 0, so a NaN or Inf in the table gives NaN as jnp.take's
 // path does.
 //
+// A row window (embedding_bag_window_launch): the table is one rank's
+// block of rows [row_start, row_start + Vl) of a table of V rows split over
+// the ranks (a recommender's table_rows over the model axis).  An id wraps
+// by the global V as above; an id in the window reads row id - row_start of
+// the block; an id in [0, V) outside the window reads nothing and adds a
+// zero row (0 * w), so the ranks' partial bags sum to the whole bag and
+// none of them is NaN for an id that another rank holds; an id out of the
+// global range gives the NaN row on every rank, as the reference's mesh
+// program gives NaN after its masked gather and all-reduce.  Without a
+// window (row_start 0, Vl = V) no id falls outside it, and the kernel does
+// what it did before, bit for bit.
+//
 // Route: CUDA C++ built by nvcc with a plain C interface and loaded with
 // ctypes, like the port's other kernels.
 //
@@ -75,6 +87,7 @@ struct Args {
   const float* w;                      // null: weight 1
   void* out;
   int n_bags, L, F, V, D;
+  int row_start, Vl;                   // the block's rows of the V: window
   int group_log2;                      // lanes per bag = 1 << group_log2
   int n_chunks;                        // column chunks of a row (D / kVec)
   int per_field;                       // bags of one field (n_bags / F)
@@ -94,6 +107,7 @@ struct Slice<float, 4> {
   __device__ __forceinline__ void set_nan() {
     u = make_uint4(kNanF32, kNanF32, kNanF32, kNanF32);
   }
+  __device__ __forceinline__ void set_zero() { u = make_uint4(0, 0, 0, 0); }
   __device__ __forceinline__ float at(int k) const {
     return __uint_as_float(k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w);
   }
@@ -108,6 +122,7 @@ struct Slice<__nv_bfloat16, 8> {
   __device__ __forceinline__ void set_nan() {
     u = make_uint4(0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u);
   }
+  __device__ __forceinline__ void set_zero() { u = make_uint4(0, 0, 0, 0); }
   __device__ __forceinline__ float at(int k) const {   // bf16 -> f32 exactly
     const int j = k >> 1;
     const unsigned w = j == 0 ? u.x : j == 1 ? u.y : j == 2 ? u.z : u.w;
@@ -122,6 +137,7 @@ struct Slice<float, 1> {
     u = __float_as_uint(__ldg(p));
   }
   __device__ __forceinline__ void set_nan() { u = kNanF32; }
+  __device__ __forceinline__ void set_zero() { u = 0u; }
   __device__ __forceinline__ float at(int) const { return __uint_as_float(u); }
 };
 
@@ -132,6 +148,7 @@ struct Slice<__nv_bfloat16, 1> {
     u = __ldg(reinterpret_cast<const unsigned short*>(p));
   }
   __device__ __forceinline__ void set_nan() { u = 0x7fc0u; }
+  __device__ __forceinline__ void set_zero() { u = 0u; }
   __device__ __forceinline__ float at(int) const {
     return __uint_as_float(u << 16);
   }
@@ -180,12 +197,15 @@ __device__ __forceinline__ float fold(const Args& a, float w, unsigned m) {
   return a.mask ? __fmul_rn(a.w ? w : 1.f, (float)m) : (a.w ? w : 1.f);
 }
 
-// The element offset of id's row in field row0's table, or -1 for an id
-// out of range (jnp.take: NaN row).
+// The element offset of id's row in field row0's block, -1 for an id out
+// of the global range (jnp.take: NaN row), -2 for one in range that another
+// rank's window holds (a zero row, nothing read).
 __device__ __forceinline__ long long row_offset(int id, long long row0,
                                                 const Args& a) {
   if (id < 0) id += a.V;
-  return (unsigned)id < (unsigned)a.V ? (row0 + id) * a.D : -1;
+  if ((unsigned)id >= (unsigned)a.V) return -1;
+  id -= a.row_start;
+  return (unsigned)id < (unsigned)a.Vl ? (row0 + id) * a.D : -2;
 }
 
 template <typename T, int kVec>
@@ -193,8 +213,10 @@ __device__ __forceinline__ void gather(Slice<T, kVec>& x, const T* table,
                                        long long off) {
   if (off >= 0)
     x.load(table + off);
-  else
+  else if (off == -1)
     x.set_nan();
+  else
+    x.set_zero();
 }
 
 template <int kVec, typename S>
@@ -224,7 +246,7 @@ embedding_bag_kernel(const Args a) {
       f >= (unsigned)a.F)
     return;
   const unsigned n = b * a.F + f;
-  const long long row0 = (long long)f * a.V;
+  const long long row0 = (long long)f * a.Vl;
   T* dst = out + (size_t)n * a.D;
   if constexpr (kL4) {
     const size_t s0 = (size_t)n * 4;
@@ -292,7 +314,7 @@ int launch(Args a, cudaStream_t stream) {
   a.group_log2 = 0;
   while ((1 << a.group_log2) < a.n_chunks && a.group_log2 < 5)
     ++a.group_log2;
-  const size_t field_bytes = (size_t)a.V * a.D * sizeof(T);
+  const size_t field_bytes = (size_t)a.Vl * a.D * sizeof(T);
   a.tile = field_bytes > kTileBytes
                ? a.F
                : (int)(kTileBytes / field_bytes < (size_t)a.F
@@ -324,22 +346,33 @@ int run(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// table (F, V, D) (F = 1: a plain (V, D) table), any alignment; ids
-// (n_bags, L) int32 with bag n in field n % F; mask (n_bags, L) uint8 or
-// null; w (n_bags, L) f32 or null; out (n_bags, D), 16-byte aligned.
-// dtype 0 = f32, 1 = bf16.  Returns the CUDA error of the launch
-// (0 = success).
+// table (F, Vl, D) (F = 1: a plain (Vl, D) table), any alignment: rows
+// [row_start, row_start + Vl) of each field's V; ids (n_bags, L) int32 with
+// bag n in field n % F; mask (n_bags, L) uint8 or null; w (n_bags, L) f32
+// or null; out (n_bags, D), 16-byte aligned.  dtype 0 = f32, 1 = bf16.
+// Returns the CUDA error of the launch (0 = success).
+extern "C" int embedding_bag_window_launch(const void* table, const void* ids,
+                                           const void* mask, const void* w,
+                                           void* out, int n_bags, int L, int F,
+                                           int V, int row_start, int Vl, int D,
+                                           int dtype, void* stream) {
+  if (n_bags < 1 || L < 0 || F < 1 || V < 1 || D < 1 || n_bags % F ||
+      Vl < 1 || row_start < 0 || row_start > V - Vl || dtype < 0 ||
+      dtype > 1 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const Args a{table, static_cast<const int*>(ids),
+               static_cast<const uint8_t*>(mask),
+               static_cast<const float*>(w), out, n_bags, L, F, V, D,
+               row_start, Vl, 0, 0, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? run<float>(a, s) : run<__nv_bfloat16>(a, s);
+}
+
+// The whole table: (F, V, D), every id's row on this call.
 extern "C" int embedding_bag_launch(const void* table, const void* ids,
                                     const void* mask, const void* w,
                                     void* out, int n_bags, int L, int F,
                                     int V, int D, int dtype, void* stream) {
-  if (n_bags < 1 || L < 0 || F < 1 || V < 1 || D < 1 || n_bags % F ||
-      dtype < 0 || dtype > 1 || reinterpret_cast<uintptr_t>(out) % 16)
-    return (int)cudaErrorInvalidValue;
-  const Args a{table, static_cast<const int*>(ids),
-               static_cast<const uint8_t*>(mask),
-               static_cast<const float*>(w), out, n_bags, L, F, V, D, 0, 0, 0,
-               0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? run<float>(a, s) : run<__nv_bfloat16>(a, s);
+  return embedding_bag_window_launch(table, ids, mask, w, out, n_bags, L, F,
+                                     V, 0, V, D, dtype, stream);
 }

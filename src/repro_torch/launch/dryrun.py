@@ -20,8 +20,8 @@ arguments are that rank's blocks (``build_cell(shape, mesh)``), its
 function runs under ``sharding_ctx(mesh, cell.rules)``, and the mesh
 records each collective the rank would call, which the roofline prices
 (``collective_s``).  Memory, cost and the collectives are that rank's.  A
-cell the port does not place yet (the recsys and GNN cells, ROADMAP A16b
-6.3) runs whole on the rank: its record says ``placed: false`` and names
+cell the port does not place yet (the GNN's, ROADMAP A16b 6.3b) runs
+whole on the rank: its record says ``placed: false`` and names
 the axes left whole, and its roofline is the whole cell's on one card.
 
 Nothing runs on a device.  The reference lowers and compiles each cell on
@@ -63,6 +63,9 @@ aten = torch.ops.aten
 _VALUE_KEEPING = {aten.clone, aten._unsafe_view, aten.cat, aten.index,
                   aten.index_select, aten.gather, aten.embedding,
                   aten.repeat}
+# ops that allocate a tensor and write nothing into it
+_ALLOCATING = {aten.empty, aten.empty_like, aten.empty_strided,
+               aten.new_empty, aten.new_empty_strided}
 _WIDTH = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4,
           torch.float64: 8}
 # the products ``flop_registry`` leaves out: matrix-vector and dot
@@ -145,8 +148,9 @@ class CostMode(TorchDispatchMode):
       count does not.
     * ``raw_bytes``: every op that moves data reads each input once and
       writes each output once: the unfused count, the counterpart of XLA's
-      "bytes accessed".  Views, and ops whose output aliases an input
-      without writing it, move nothing.
+      "bytes accessed".  Views, ops whose output aliases an input without
+      writing it, and allocations (``empty_like``) move nothing; an
+      ``out=`` tensor is written, not read.
     * ``live``: a ``LiveTracker`` of the storages the ops make."""
 
     def __init__(self, live: LiveTracker = None):
@@ -184,9 +188,11 @@ class CostMode(TorchDispatchMode):
         mutates = func._schema.is_mutable
         in_keys = {_key(t) for t in ins}
         aliases = func.is_view or all(_key(t) in in_keys for t in outs)
-        if mutates or not aliases:
+        if (mutates or not aliases) and packet not in _ALLOCATING:
+            dests = {id(t) for t in _tensors(kwargs.get("out"))}
+            reads = [t for t in ins if id(t) not in dests]
             self.raw_bytes += sum(t.numel() * t.element_size()
-                                  for t in ins + outs)
+                                  for t in reads + outs)
         if mutates:
             for t in ins:      # a write may store other values
                 self._narrow.pop(_key(t), None)

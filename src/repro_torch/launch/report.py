@@ -103,7 +103,7 @@ def render_mesh(mesh: str, cells: Dict) -> str:
            f"- **{len(ok)}/{len(cells)}** cells traced OK: {len(placed)} "
            f"placed, {sum(v['fits_80gb'] for v in placed)} of them fit "
            f"80 GB a rank; {len(whole)} not placed yet (every rank holds "
-           "and runs the whole cell, ROADMAP A16b 6.3)"]
+           "and runs the whole cell, ROADMAP A16b 6.3b)"]
     fails = [(k, v.get("error", "")) for k, v in cells.items()
              if not v.get("ok")]
     for k, e in fails:

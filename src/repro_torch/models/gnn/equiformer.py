@@ -27,8 +27,10 @@ depend on the segment max mathematically, so the port takes no gradient
 through it (it is detached); the reference differentiates through
 ``segment_max``, and the tests hold the gradients against
 ``jax.value_and_grad``.  The reference's ``param_logical_axes`` and
-``constrain`` calls are not ported: they only place shardings, a no-op
-without a mesh (multi-GPU is ROADMAP A16).  No kernel of the port runs on
+``constrain`` calls are not ported: under a mesh every rank runs the
+whole graph (its placement, the edges over every rank, the nodes over
+the batch axes and the weights on "tensor", is ROADMAP A16b 6.3b).
+No kernel of the port runs on
 this path: the reference reaches no Pallas kernel here either.
 """
 from __future__ import annotations

@@ -9,9 +9,11 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.models.params import Device
-from .common import generator, torch_dtype, wrap_index
-from .seq_common import (catalog_scores, encode, init_encoder, last_hidden,
+from .common import Lanes, generator, torch_dtype, wrap_index
+from .seq_common import (catalog_scores, encode, encoder_logical_axes,
+                         encoder_shapes, init_encoder, last_hidden, placed,
                          sampled_softmax_nll)
 
 
@@ -32,17 +34,33 @@ class Bert4RecConfig:
                 + self.n_blocks * (4 * d * d + 8 * d * d) + d)
 
 
-def init_params(cfg: Bert4RecConfig, seed: int = 0,
-                device: Device = None) -> Dict:
+def init_params(cfg: Bert4RecConfig, seed: int = 0, device: Device = None,
+                mesh: Mesh = None) -> Dict:
+    """With ``mesh`` each rank keeps its block of every leaf, the same
+    numbers (``seq_common.init_encoder``)."""
     return init_encoder(generator(seed, device), cfg.n_items, cfg.embed_dim,
                         cfg.n_blocks, cfg.n_heads, cfg.seq_len,
-                        torch_dtype(cfg.dtype))
+                        torch_dtype(cfg.dtype), mesh)
+
+
+def param_logical_axes(cfg: Bert4RecConfig) -> Dict:
+    return encoder_logical_axes(cfg.n_blocks)
+
+
+def param_shapes(cfg: Bert4RecConfig) -> Dict:
+    return encoder_shapes(cfg.n_items, cfg.embed_dim, cfg.n_blocks,
+                          cfg.seq_len)
 
 
 def hidden(cfg: Bert4RecConfig, params: Dict, ids: torch.Tensor,
-           pad_mask: torch.Tensor) -> torch.Tensor:
-    return encode(params, ids, cfg.n_blocks, cfg.n_heads, causal=False,
-                  pad_mask=pad_mask)
+           pad_mask: torch.Tensor, lanes: Lanes = None) -> torch.Tensor:
+    """(B, S, d); under a mesh this rank's rows (``params`` as the rank
+    uses them: ``placed``)."""
+    if lanes is None:
+        lanes, params = placed(params, ids.shape[0])
+    return encode(params, lanes.local(ids), cfg.n_blocks, cfg.n_heads,
+                  causal=False, pad_mask=lanes.local(pad_mask),
+                  n_items=cfg.n_items)
 
 
 def loss(cfg: Bert4RecConfig, params: Dict, batch: Dict) -> torch.Tensor:
@@ -51,19 +69,24 @@ def loss(cfg: Bert4RecConfig, params: Dict, batch: Dict) -> torch.Tensor:
     batch: ids (B,S) with mask_id at cloze slots, masked_pos (B,M),
     masked_labels (B,M) (-1 = pad), negatives (NS,) shared sample,
     pad_mask (B,S).  Target = index 0 of [label ⧺ negatives]."""
-    h = hidden(cfg, params, batch["ids"], batch["pad_mask"])
-    pos = wrap_index(batch["masked_pos"], h.shape[1])
+    lanes, params = placed(params, batch["ids"].shape[0])
+    h = hidden(cfg, params, batch["ids"], batch["pad_mask"], lanes)
+    pos = wrap_index(lanes.local(batch["masked_pos"]), h.shape[1])
     hm = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))
     return sampled_softmax_nll(hm, params["item_emb"],
-                               batch["masked_labels"], batch["negatives"])
+                               lanes.local(batch["masked_labels"]),
+                               batch["negatives"], cfg.n_items, lanes)
 
 
 def serve(cfg: Bert4RecConfig, params: Dict, ids: torch.Tensor,
           pad_mask: torch.Tensor, cand_ids=None) -> torch.Tensor:
     """Last-position scoring.  cand_ids (B, C): ranking-stage candidate
     scoring; None: full-catalog scores (B, n_items) — retrieval stage."""
-    hl = last_hidden(hidden(cfg, params, ids, pad_mask), pad_mask)
-    return catalog_scores(params, hl, cand_ids)
+    lanes, params = placed(params, ids.shape[0])
+    hl = last_hidden(hidden(cfg, params, ids, pad_mask, lanes),
+                     lanes.local(pad_mask))
+    return catalog_scores(params, hl, lanes.local(cand_ids), cfg.n_items)
 
 
-__all__ = ["Bert4RecConfig", "init_params", "hidden", "loss", "serve"]
+__all__ = ["Bert4RecConfig", "init_params", "param_logical_axes",
+           "param_shapes", "hidden", "loss", "serve"]

@@ -1,13 +1,18 @@
 """Shared recsys helpers: MLP towers, losses (PyTorch port of
 ``repro.models.recsys.common``), differentiable: the train cells take
-their gradients through them (``configs/*::train_cell``)."""
+their gradients through them (``configs/*::train_cell``); ``Lanes``, how
+a recsys call lies on a mesh."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (P, NamedSharding, active_mesh,
+                                              active_rules, gather_blocks,
+                                              placement, reduce_sum,
+                                              sum_grad, unshard)
 from repro_torch.models.params import Device, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -68,10 +73,40 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, final_act: bool = False
     return x
 
 
-def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlp_logical_axes(n_layers: int) -> Dict:
+    """An ``init_mlp`` tree's logical axes: replicated, as the
+    reference's."""
+    return {**{f"w{i}": (None, None) for i in range(n_layers)},
+            **{f"b{i}": (None,) for i in range(n_layers)}}
+
+
+def place(mesh, shape, axes):
+    """This rank's ``placement`` of a leaf of ``shape`` and logical
+    ``axes`` under the active rules, or None without a mesh."""
+    if mesh is None:
+        return None
+    return placement(mesh, axes, tuple(shape), active_rules())
+
+
+def keep(block, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (whole) as this rank's block under ``block`` (a copy where it
+    splits, else ``t`` itself)."""
+    if block is None or not block.axes():
+        return t
+    return block.local(t).clone()
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
+             lanes: Optional["Lanes"] = None) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits; under a mesh (``lanes``
+    splitting the rows) this rank's rows summed, summed over the ranks,
+    over the whole batch."""
     z = logits.float()
     y = labels.float()
-    return torch.mean(z.clamp_min(0) - z * y + torch.log1p(torch.exp(-z.abs())))
+    terms = z.clamp_min(0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    if lanes is None or not lanes.axes:
+        return torch.mean(terms)
+    return lanes.total(terms.sum()) / lanes.batch
 
 
 def in_batch_softmax_loss(q: torch.Tensor, c: torch.Tensor,
@@ -86,6 +121,64 @@ def in_batch_softmax_loss(q: torch.Tensor, c: torch.Tensor,
     return -torch.mean(torch.diagonal(logp))
 
 
+class Lanes:
+    """How one recsys call lies on the active mesh for a batch of
+    ``batch`` rows: the reference's ``constrain(x, "batch", ...)`` written
+    out.  Every rank passes the whole inputs; the call computes on this
+    rank's rows (``local``: ``placement(inputs=True)`` of the "batch" dim,
+    whole where its axes do not divide ``batch``) and returns their block
+    of the output (``gather`` for the whole).  ``weight`` marks a leaf that
+    every rank uses on its own rows, so its gradient is summed over the
+    rows' axes (``sum_grad``); ``total`` sums per-rank partial sums over
+    them (a loss).  Without a mesh every method is the identity."""
+
+    def __init__(self, batch: int):
+        self.mesh, self.batch = active_mesh(), batch
+        self.axes: tuple = ()
+        self.sharding: Optional[NamedSharding] = None
+        self.start = 0
+        if self.mesh is None:
+            return
+        sh = placement(self.mesh, ("batch",), (batch,), active_rules(),
+                       inputs=True)
+        self.axes = tuple(a for a in sh.axes() if self.mesh.shape[a] > 1)
+        if self.axes:
+            self.sharding = NamedSharding(self.mesh, P(self.axes))
+            self.start = sh._index(1)[0] * sh.shard_shape((batch,))[0]
+
+    def local(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a global (batch, ...) input."""
+        if x is None or self.sharding is None:
+            return x
+        return self.sharding.local(x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global (batch, ...) output from every rank's rows."""
+        return x if self.sharding is None else unshard(x, self.sharding)
+
+    def gather_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The global rows from every rank's, as an input of this rank's
+        work (the transpose sums the ranks' gradients and keeps this
+        rank's rows)."""
+        return x if self.sharding is None else gather_blocks(x,
+                                                             self.sharding)
+
+    def weight(self, tree: Any) -> Any:
+        """``tree``'s leaves, each used on this rank's rows: its gradient
+        summed over the rows' axes."""
+        if isinstance(tree, dict):
+            return {k: self.weight(v) for k, v in tree.items()}
+        if self.mesh is None:
+            return tree
+        return sum_grad(tree, self.mesh, self.axes)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """A 0-d partial sum over this rank's rows summed over the ranks."""
+        if not self.axes:
+            return x
+        return reduce_sum(x.reshape(1), self.mesh, self.axes)[0]
+
+
 def wrap_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     """Negative indices wrapped as ``jnp.take_along_axis`` wraps them (-1 is
     the last of ``n``); torch's gather would raise on them."""
@@ -94,4 +187,5 @@ def wrap_index(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 __all__ = ["init_mlp", "mlp", "bce_loss", "in_batch_softmax_loss",
-           "torch_dtype", "generator", "normal", "wrap_index"]
+           "torch_dtype", "generator", "normal", "wrap_index", "Lanes",
+           "mlp_logical_axes", "place", "keep"]

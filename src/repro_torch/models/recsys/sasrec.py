@@ -10,9 +10,11 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.models.params import Device
-from .common import generator, torch_dtype
-from .seq_common import (catalog_scores, encode, init_encoder, last_hidden,
+from .common import Lanes, generator, torch_dtype
+from .seq_common import (catalog_scores, encode, encoder_logical_axes,
+                         encoder_shapes, init_encoder, last_hidden, placed,
                          sampled_softmax_nll)
 
 
@@ -32,34 +34,55 @@ class SasRecConfig:
                 + self.n_blocks * (4 * d * d + 8 * d * d) + d)
 
 
-def init_params(cfg: SasRecConfig, seed: int = 0,
-                device: Device = None) -> Dict:
+def init_params(cfg: SasRecConfig, seed: int = 0, device: Device = None,
+                mesh: Mesh = None) -> Dict:
+    """With ``mesh`` each rank keeps its block of every leaf, the same
+    numbers (``seq_common.init_encoder``)."""
     return init_encoder(generator(seed, device), cfg.n_items, cfg.embed_dim,
                         cfg.n_blocks, cfg.n_heads, cfg.seq_len,
-                        torch_dtype(cfg.dtype))
+                        torch_dtype(cfg.dtype), mesh)
+
+
+def param_logical_axes(cfg: SasRecConfig) -> Dict:
+    return encoder_logical_axes(cfg.n_blocks)
+
+
+def param_shapes(cfg: SasRecConfig) -> Dict:
+    return encoder_shapes(cfg.n_items, cfg.embed_dim, cfg.n_blocks,
+                          cfg.seq_len)
 
 
 def hidden(cfg: SasRecConfig, params: Dict, ids: torch.Tensor,
-           pad_mask: torch.Tensor) -> torch.Tensor:
-    return encode(params, ids, cfg.n_blocks, cfg.n_heads, causal=True,
-                  pad_mask=pad_mask)
+           pad_mask: torch.Tensor, lanes: Lanes = None) -> torch.Tensor:
+    """(B, S, d); under a mesh this rank's rows (``params`` as the rank
+    uses them: ``placed``)."""
+    if lanes is None:
+        lanes, params = placed(params, ids.shape[0])
+    return encode(params, lanes.local(ids), cfg.n_blocks, cfg.n_heads,
+                  causal=True, pad_mask=lanes.local(pad_mask),
+                  n_items=cfg.n_items)
 
 
 def loss(cfg: SasRecConfig, params: Dict, batch: Dict) -> torch.Tensor:
     """Next-item objective with SAMPLED softmax over a shared negative set.
 
     batch: ids (B,S), labels (B,S) (-1 pad), negatives (NS,), pad_mask."""
-    h = hidden(cfg, params, batch["ids"], batch["pad_mask"])
-    return sampled_softmax_nll(h, params["item_emb"], batch["labels"],
-                               batch["negatives"])
+    lanes, params = placed(params, batch["ids"].shape[0])
+    h = hidden(cfg, params, batch["ids"], batch["pad_mask"], lanes)
+    return sampled_softmax_nll(h, params["item_emb"],
+                               lanes.local(batch["labels"]),
+                               batch["negatives"], cfg.n_items, lanes)
 
 
 def serve(cfg: SasRecConfig, params: Dict, ids: torch.Tensor,
           pad_mask: torch.Tensor, cand_ids=None) -> torch.Tensor:
     """Next-item scores at the last valid position; cand_ids (B,C) for
     ranking-stage candidate scoring, None for full catalog (retrieval)."""
-    hl = last_hidden(hidden(cfg, params, ids, pad_mask), pad_mask)
-    return catalog_scores(params, hl, cand_ids)
+    lanes, params = placed(params, ids.shape[0])
+    hl = last_hidden(hidden(cfg, params, ids, pad_mask, lanes),
+                     lanes.local(pad_mask))
+    return catalog_scores(params, hl, lanes.local(cand_ids), cfg.n_items)
 
 
-__all__ = ["SasRecConfig", "init_params", "hidden", "loss", "serve"]
+__all__ = ["SasRecConfig", "init_params", "param_logical_axes",
+           "param_shapes", "hidden", "loss", "serve"]

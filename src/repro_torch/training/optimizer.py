@@ -9,7 +9,9 @@ non-floating leaf.  Not ``torch.optim.AdamW``: the state is the reference's
 ``o/2/...``) are the reference's.
 
 The update is out of place: it returns new tensors and never writes the
-ones it was given, as the JAX step (which donates nothing) does.
+ones it was given, as the JAX step (which donates nothing) does.  It
+writes the new tensors ``UPDATE_CHUNK`` elements at a time, so that its
+temporaries are a chunk's, not a large leaf's.
 ``run_with_timeout`` abandons a slow step on its thread and retries from
 the same parameters; an update in place could then be applied twice.
 
@@ -29,6 +31,12 @@ import torch
 
 from repro_torch.distributed.sharding import (active_mesh, active_rules,
                                               block_sharding)
+
+
+# Elements of a leaf that the update takes at a time: its temporaries (the
+# f32 gradient, the bias-corrected step) are a chunk's (256 MB in f32), not
+# a large leaf's (a recommender's table).
+UPDATE_CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -160,12 +168,24 @@ def adamw_update(params: Any, grads: Any, state: AdamWState, *,
     bc2 = 1.0 - torch.pow(b2, step.float())
 
     def upd(p, g, m, v):
+        """(new p, m, v): new tensors, written a chunk of UPDATE_CHUNK
+        elements at a time (a small leaf is one chunk)."""
         if g is None or m is None:
             return p, m, v
+        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        src = [t.reshape(-1) for t in (p, g, m, v)]
+        dst = [t.view(-1) for t in out]
+        for i in range(0, p.numel(), UPDATE_CHUNK):
+            upd_into(*(t[i:i + UPDATE_CHUNK] for t in src),
+                     [t[i:i + UPDATE_CHUNK] for t in dst])
+        return out
+
+    def upd_into(p, g, m, v, out):
+        """One chunk's new p, m, v, written into ``out``'s tensors."""
         g32 = g.float() if scale is None else g.float() * scale
-        m = m * b1
+        m = torch.mul(m, b1, out=out[1])
         m += g32 * (1 - b1)
-        v = v * b2
+        v = torch.mul(v, b2, out=out[2])
         v += torch.square(g32).mul_(1 - b2)
         del g32
         delta = torch.sqrt(v / bc2)
@@ -174,7 +194,10 @@ def adamw_update(params: Any, grads: Any, state: AdamWState, *,
         p32 = p.float()
         delta += p32 * weight_decay
         delta *= lr
-        return (p32 - delta).to(p.dtype), m, v
+        if out[0].dtype == torch.float32:
+            torch.sub(p32, delta, out=out[0])
+        else:
+            out[0].copy_(p32 - delta)
 
     def walk(p, g, m, v):          # -> (new p, new m, new v) subtrees
         if isinstance(p, dict):

@@ -179,6 +179,43 @@ def test_bf16_upcasts_count_as_bf16_products():
     assert _count(lambda: c.t() @ v) == {"float32": 2 * 16 * 4}
 
 
+def _raw_bytes(fn):
+    mode = CostMode()
+    with mode:
+        fn()
+    return mode.raw_bytes
+
+
+def test_raw_bytes_charge_no_allocation_and_write_an_out_tensor():
+    """An allocation moves nothing; ``out=`` writes its tensor without
+    reading it, so it moves what the functional form moves; an in-place
+    op reads and writes its tensor.  AdamW's update into new tensors a
+    chunk at a time moves what one chunk at once moves, and each further
+    chunk reads the three 0-d tensors (the clip scale, the two bias
+    corrections) again."""
+    from repro_torch.training import optimizer as topt
+    m = torch.empty(1000, device="meta")
+    o = torch.empty(1000, device="meta")
+    assert _raw_bytes(lambda: torch.empty_like(m)) == 0
+    assert _raw_bytes(lambda: torch.mul(m, 2.0, out=o)) == \
+        _raw_bytes(lambda: m * 2.0) == 8000
+    assert _raw_bytes(lambda: o.add_(m)) == 12000
+    params = {"t": torch.empty(7, 5, 3, device="meta")}
+    grads = {"t": torch.empty(7, 5, 3, dtype=torch.bfloat16,
+                              device="meta")}
+    state = topt.adamw_init(params)
+    one = _raw_bytes(lambda: topt.adamw_update(params, grads, state,
+                                               lr=1e-3))
+    old, topt.UPDATE_CHUNK = topt.UPDATE_CHUNK, 16
+    try:
+        chunked = _raw_bytes(lambda: topt.adamw_update(params, grads, state,
+                                                       lr=1e-3))
+    finally:
+        topt.UPDATE_CHUNK = old
+    n_chunks = -(-7 * 5 * 3 // 16)
+    assert one > 0 and chunked == one + (n_chunks - 1) * 3 * 4
+
+
 def test_live_tracker_peak_is_exact_on_a_hand_made_sequence():
     """Arguments live from the start; a view keeps its storage alive after
     the tensor it was taken from dies; a storage is freed once, when its
@@ -449,23 +486,48 @@ def test_mesh_leg_holds_the_ranks_blocks_at_full_width():
     assert all(g["rate"] == NET_BW for g in rf["collective_groups"])
 
 
-def test_recsys_and_gnn_under_a_mesh_name_the_axes_left_whole():
-    """The recsys and GNN cells are not placed yet (ROADMAP A16b 6.3):
-    under a mesh every rank runs the whole cell, the record says so and
-    names the axes the reference places, and its roofline is the one-card
-    leg's, no collective."""
+def test_recsys_cells_under_a_mesh_are_placed_and_count_collectives():
+    """The recsys cells are placed (ROADMAP A16b 6.3): under a mesh a
+    rank holds its blocks of the tables' rows (``Cell.shardings``) and the
+    whole inputs, computes its rows of the batch, and counts the
+    collectives a rank calls (the row-split lookups' sums over ``model``;
+    Two-Tower's merged top-k gathers over ``data``); its peak is below
+    the whole cell's on one card and its roofline has a collective
+    term."""
     one = dryrun.run_cell("sasrec", "serve_p99")
     rec = dryrun.run_cell("sasrec", "serve_p99", "16x16")
-    assert rec["ok"] and rec["placed"] is False
-    assert rec["whole_axes"] == ["batch", "table_rows", "tensor"]
-    assert rec["collectives"] == [] and rec["n_chips"] == 256
-    assert rec["roofline"] == one["roofline"]
-    assert rec["memory"] == one["memory"]
-    assert configs.get_arch("two_tower_retrieval").build_cell(
-        "retrieval_cand", object()).whole_axes == ("candidates",
-                                                   "table_rows")
-    assert configs.get_arch("equiformer_v2").WHOLE_AXES == ("edges",
-                                                            "tensor")
+    assert rec["ok"] and rec["placed"] is True and "whole_axes" not in rec
+    assert rec["n_chips"] == 256
+    kinds = {(c["kind"], c["group"]) for c in rec["collectives"]}
+    assert ("all-reduce", 16) in kinds
+    assert rec["roofline"]["collective_s"] > 0
+    peak = rec["memory"]["peak_memory_in_bytes"]
+    assert peak < one["memory"]["peak_memory_in_bytes"] / 8
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(rank=0)
+    cell = configs.get_arch("sasrec").build_cell("serve_p99", mesh)
+    want = _leaf_bytes(cell.global_args, cell.shardings(mesh))
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    # item_emb: a 16th of its 10^6 rows a rank; the inputs whole
+    assert cell.args[0]["item_emb"].shape == (62_500, 52)
+    assert cell.args[1].shape == (512, 50)
+    tt = dryrun.run_cell("two_tower_retrieval", "retrieval_cand", "16x16")
+    assert tt["placed"] and ("all-gather", 16) in {
+        (c["kind"], c["group"]) for c in tt["collectives"]}
+
+
+def test_gnn_under_a_mesh_names_the_axes_left_whole():
+    """The GNN is not placed yet (ROADMAP A16b 6.3b): under a mesh every
+    rank runs the whole cell and the cell names the axes the reference
+    places there."""
+    mod = configs.get_arch("equiformer_v2")
+    assert mod.WHOLE_AXES == ("edges", "tensor")
+    for shape in mod.SHAPES:
+        assert mod.build_cell(shape, object()).whole_axes == ("edges",
+                                                              "tensor")
+        assert mod.build_cell(shape).whole_axes == ()
+    for arch in ("wide_deep", "two_tower_retrieval", "sasrec", "bert4rec"):
+        assert not hasattr(configs.get_arch(arch), "WHOLE_AXES")
 
 
 def test_dryrun_cli_runs_resumes_and_skips_the_mesh_legs(tmp_path, capsys):

@@ -572,6 +572,43 @@ def test_embedding_bag_kernel_cases_equal_plain_bitwise(cuda, dtype, F, V, D,
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("F,D,L,n_win", [(40, 32, 4, 2), (40, 32, 4, 16),
+                                         (40, 1, 4, 16), (0, 8, 7, 4)])
+def test_embedding_bag_window_equals_plain_bitwise(cuda, dtype, F, D, L,
+                                                   n_win):
+    """B5's row window (``row_start``, ``n_rows``) on the card: each rank's
+    window of a table split ``n_win`` ways gives the plain version's bits
+    (zero for the ids another window holds, NaN for the ids out of range,
+    the ids at the windows' edges and wrapped ids read), and the windows'
+    bags sum to the whole table's within an order of sums."""
+    rng = np.random.RandomState(F + D + L + n_win)
+    V = 64 * n_win
+    Vl = V // n_win
+    shape = (F, V, D) if F else (V, D)
+    table = _t(rng.randn(*shape).astype(np.float32), dtype, cuda)
+    ids_shape = (33, F, L) if F else (33, L)
+    ids = rng.randint(-V - 2, V + 2, ids_shape)
+    ids[0, ..., :4] = [Vl - 1, Vl, 2 * Vl - 1, -1]
+    ids_t = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    m = torch.from_numpy(rng.rand(*ids_shape) > 0.3).to(cuda)
+    total = 0
+    for r in range(n_win):
+        block = table[..., r * Vl:(r + 1) * Vl, :].contiguous()
+        n0 = embedding_bag_fused.launches
+        out = embedding_bag_fused(block, ids_t, m, row_start=r * Vl,
+                                  n_rows=V)
+        torch.cuda.synchronize()
+        assert embedding_bag_fused.launches == n0 + 1
+        _assert_same_bits(out, embedding_bag_ref(block, ids_t, m.float(),
+                                                 r * Vl, V))
+        total = total + out.float()
+    whole = embedding_bag_fused(table, ids_t, m).float()
+    tol = dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" \
+        else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(total, whole, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 def test_embedding_bag_misaligned_table_takes_the_scalar_slice(cuda, dtype):
     """A table view whose data pointer is not 16-byte aligned (a storage
     offset of one element) is taken, through the scalar slice, with the

@@ -380,6 +380,83 @@ JAX_REFS = """
             moe_impl=impl)
         train_ref(f"moe_train/{name}", cfg, tree(f"moe{shared}/params"),
                   data, model, rname, 1, None)
+    # the recommenders: parameters placed by named_sharding under
+    # DEFAULT_RULES (tables' rows over model, the encoders' "tensor" dims),
+    # inputs on "batch" / "candidates", the serve cells and two train steps
+    # jitted on the Auto mesh, as the reference's dry-run places its cells
+    from repro.models.recsys import (wide_deep as RW, two_tower as RT,
+                                     sasrec as RS, bert4rec as RB)
+    from repro.configs import (wide_deep as CW, two_tower_retrieval as CT,
+                               sasrec as CS, bert4rec as CB)
+    rs_mods = {"wide_deep": (RW, CW), "two_tower_retrieval": (RT, CT),
+               "sasrec": (RS, CS), "bert4rec": (RB, CB)}
+    in_axes = {"user1": (None, None), "cand_emb": ("candidates", None),
+               "negatives": (None,)}
+    for name, (mname, data, model) in json.loads(
+            str(d["rs/cases"])).items():
+        mesh = Mesh(np.array(jax.devices()).reshape(data, model),
+                    ("data", "model"))
+        M, C = rs_mods[mname]
+        cfg = C.smoke_config()
+        pre = f"rs/{mname}"
+
+        def put(t, ax):
+            if isinstance(t, dict):
+                return {k: put(t[k], ax[k]) for k in t}
+            return jax.device_put(t, named_sharding(mesh, ax, t.shape,
+                                                    DEFAULT_RULES))
+
+        def inp(k):
+            a = jnp.asarray(d[f"{pre}/{k}"])
+            ax = in_axes.get(k.split("/")[-1], ("batch",) + (None,) * (
+                a.ndim - 1))
+            return put(a, ax)
+        p_axes = M.param_logical_axes(cfg)
+        params = put(tree(f"{pre}/params"), p_axes)
+        with sharding_ctx(mesh, DEFAULT_RULES):
+            if mname == "wide_deep":
+                got = {"scores": jax.jit(
+                    lambda p, *a: M.forward(cfg, p, *a))(
+                        params, inp("ids"), inp("mask"), inp("dense"))}
+            elif mname == "two_tower_retrieval":
+                f = jax.jit(lambda p, u, i: (
+                    M.user_embed(cfg, p, u), M.item_embed(cfg, p, i)))
+                q, e = f(params, inp("users"), inp("items"))
+                v, ix = jax.jit(lambda p, u, c: M.score_candidates(
+                    cfg, p, u, c, k=int(d["rs/k"])))(params, inp("user1"),
+                                                     inp("cand_emb"))
+                got = {"user": q, "item": e, "paired": jnp.sum(q * e, -1),
+                       "top_v": v, "top_i": ix}
+            else:
+                f = jax.jit(lambda p, *a: M.serve(cfg, p, *a))
+                got = {"rank": f(params, inp("ids"), inp("pad"),
+                                 inp("cand")),
+                       "catalog": f(params, inp("ids1"), inp("pad1"))}
+        for k, v in got.items():
+            out[f"rs/{name}/{k}"] = np.asarray(v)
+        keys = sorted(k[len(pre) + 4:] for k in d
+                      if k.startswith(pre + "/t0/"))
+        batches = [{k: jnp.asarray(d[f"{pre}/t{i}/{k}"]) for k in keys}
+                   for i in range(2)]
+        b_axes = {k: in_axes.get(k, ("batch",) + (None,) * (
+            batches[0][k].ndim - 1)) for k in keys}
+        tree_ = tree(f"{pre}/params")
+        opt = adamw_init(tree_)
+        step = make_train_step(lambda p, b: M.loss(cfg, p, b), lr=1e-3,
+                               grad_dtype="bfloat16")
+        shardings = tree_shardings(mesh, (tree_, opt, batches[0]),
+                                   (p_axes, opt_state_axes(p_axes), b_axes),
+                                   DEFAULT_RULES)
+        with sharding_ctx(mesh, DEFAULT_RULES):
+            fn = jax.jit(step, in_shardings=shardings)
+            for i, b in enumerate(batches):
+                tree_, opt = jax.device_put((tree_, opt), shardings[:2])
+                tree_, opt, m = fn(tree_, opt, b)
+                out[f"rs/{name}/loss{i}"] = np.asarray(m["loss"])
+                out[f"rs/{name}/norm{i}"] = np.asarray(m["grad_norm"])
+        flat(f"rs/{name}/p", tree_)
+        flat(f"rs/{name}/mu", opt.mu)
+        flat(f"rs/{name}/nu", opt.nu)
     np.savez(sys.argv[2], **out)
 """
 
@@ -513,6 +590,7 @@ def _inputs():
     d["train/toks"] = rng.randint(1, 96, (2, 8, 17)).astype(np.int32)
     d["train/cases"] = np.array(json.dumps(ranks.TRAIN_CASES))
     d["moe_train/cases"] = np.array(json.dumps(ranks.MOE_TRAIN_CASES))
+    _recsys_inputs(d)
     for shared in (0, 1):
         jcfg = ref_tx.TransformerConfig(
             n_layers=2, d_model=64, n_heads=8, n_kv_heads=4, d_ff=0,
@@ -522,6 +600,79 @@ def _inputs():
             ref_tx.init_params, static_argnums=0)(jcfg,
                                                   jax.random.key(11))))
     return d
+
+
+def _recsys_inputs(d):
+    """The recommenders' cases: the reference's smoke parameters, serve
+    inputs with ids at the row windows' edges, ids in [-V, 0) that wrap
+    into another rank's window and ids out of range (NaN on every path),
+    64 candidates with ties across the ranks' blocks, and two train
+    batches of in-range ids (some negative)."""
+    from repro.configs import (bert4rec as jb, sasrec as js,
+                               two_tower_retrieval as jt, wide_deep as jw)
+    from repro_torch.training import data as t_data
+    rng = np.random.RandomState(30)
+    B = ranks.RECSYS_B
+    d["rs/cases"] = np.array(json.dumps(ranks.RECSYS_CASES))
+    d["rs/k"] = np.array(ranks.RECSYS_K)
+    for seed, (name, jmod) in enumerate((
+            ("wide_deep", jw), ("two_tower_retrieval", jt),
+            ("sasrec", js), ("bert4rec", jb))):
+        cfg = jmod.smoke_config()
+        _put(d, f"rs/{name}/params", jax.tree.map(np.asarray, jax.jit(
+            jmod.model.init_params, static_argnums=0)(cfg, jax.random.key(
+                20 + seed))))
+        pre = f"rs/{name}"
+        if name == "wide_deep":
+            V, F, L = cfg.rows_per_table, cfg.n_sparse, cfg.multi_hot
+            b = t_data.wide_deep_batch(rng, B, F, V, L, cfg.n_dense)
+            ids = b["sparse_ids"]
+            ids[0, :, :] = [255, 256, 511]       # model 2: windows of 256
+            ids[1, :, :] = [127, 128, 383]       # model 4: windows of 128
+            ids[2, :, 0], ids[2, :, 1] = -1, -300    # wrap to 511, 212
+            ids[3, 0, 0], ids[4, 1, 2] = V + 5, -V - 1   # out of range
+            b["sparse_mask"][3, 0, 0] = False    # NaN under the mask too
+            d[f"{pre}/ids"], d[f"{pre}/mask"] = ids, b["sparse_mask"]
+            d[f"{pre}/dense"] = b["dense"]
+            for i in range(2):
+                t = t_data.wide_deep_batch(rng, B, F, V, L, cfg.n_dense)
+                t["sparse_ids"][i, :, 0] = -1 - i
+                _put(d, f"{pre}/t{i}", t)
+        elif name == "two_tower_retrieval":
+            V = cfg.rows_per_table
+            b = t_data.two_tower_batch(rng, B, cfg.n_user_fields,
+                                       cfg.n_item_fields, V)
+            b["user_ids"][0] = [127, 128, -1]    # model 2: windows of 128
+            b["item_ids"][1] = [-129, V - 1]     # -129 wraps to 127
+            b["item_ids"][2, 0] = V + 3          # out of range
+            d[f"{pre}/users"], d[f"{pre}/items"] = (b["user_ids"],
+                                                     b["item_ids"])
+            d[f"{pre}/user1"] = b["user_ids"][5:6]
+            cand = rng.randn(64, cfg.tower_dims[-1]).astype(np.float32)
+            cand[[9, 40, 41]] = cand[50]         # ties across the blocks
+            cand[[1, 63]] = cand[2]
+            d[f"{pre}/cand_emb"] = cand
+            for i in range(2):
+                t = t_data.two_tower_batch(rng, B, cfg.n_user_fields,
+                                           cfg.n_item_fields, V)
+                t["item_ids"][i, 0] = -5
+                _put(d, f"{pre}/t{i}", t)
+        else:
+            S, V = cfg.seq_len, cfg.n_items
+            causal = name == "sasrec"
+            b = t_data.seq_rec_batch(rng, B, S, V, causal)
+            pad = b["pad_mask"].copy()
+            pad[3, S // 2:] = False
+            cand = rng.randint(0, V, (B, 8)).astype(np.int32)
+            cand[0, :3] = [V // 2 - 1, V // 2, V - 1]    # windows' edges
+            cand[1, 0], cand[2, 1] = -1, V + 7   # wrap; out of range
+            d[f"{pre}/ids"], d[f"{pre}/pad"] = b["ids"], pad
+            d[f"{pre}/cand"] = cand
+            d[f"{pre}/ids1"], d[f"{pre}/pad1"] = b["ids"][:1], pad[:1]
+            for i in range(2):
+                t = t_data.seq_rec_batch(rng, B, S, V, causal)
+                t["negatives"][:2] = [-1, -V // 2]
+                _put(d, f"{pre}/t{i}", t)
 
 
 def _commit_inputs(d):
@@ -1448,3 +1599,122 @@ def test_train_cli_under_a_mesh_resumes_on_another_world(spawned,
         for k in b.files:
             assert np.abs(a[k].astype(np.float64) - b[k]).max() \
                 <= STATE_ATOL, k
+
+
+# ----------------------------------------------------------- recommenders
+RECSYS_TOL = dict(rtol=1e-4, atol=1e-5)     # test_torch_recsys.py's
+
+
+def _nan_close(got, want, **tol):
+    """allclose with NaN in the same places (and at least one compared
+    value that is not)."""
+    got, want = (torch.as_tensor(np.asarray(x)).double() for x in (got,
+                                                                  want))
+    assert torch.equal(got.isnan(), want.isnan())
+    assert (~got.isnan()).any()
+    torch.testing.assert_close(got, want, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("case", list(ranks.RECSYS_CASES))
+def test_recsys_serve_cells_under_the_mesh_equal_the_reference(spawned,
+                                                               case):
+    """Every serve cell of a recommender placed over the mesh (tables'
+    rows over ``model``, rows of the batch over ``data``; W&D at model 2
+    and 4, B5 over a rank's window, the partial bags summed) equals, on
+    every rank, the reference's program jitted on the Auto mesh with its
+    parameters and inputs placed by the same rules, and the single-device
+    port (``RECSYS_TOL``), NaN in the same places: an id out of range
+    gives NaN on the mesh as on one device (a masked one too), ids at the
+    windows' edges and ids in [-V, 0) that wrap into another rank's
+    window read their rows.  Two-Tower's single-hot embeddings and paired
+    scores are the single device's bit for bit (one row and zeros), and
+    its merged top-k's indices equal both, ties to the lower index."""
+    res, refs = spawned["res"], spawned["refs"]
+    r0 = res[0][f"rs/{case}"]
+    for r in res[1:]:
+        for k, v in r[f"rs/{case}"]["out"].items():
+            assert torch.equal(v.nan_to_num(), r0["out"][k].nan_to_num())
+    for k, got in r0["out"].items():
+        want = refs[f"rs/{case}/{k}"]
+        if k == "top_i":
+            assert torch.equal(got, torch.from_numpy(want).long())
+            assert torch.equal(got, r0["one"][k])
+            continue
+        _nan_close(got, want, **RECSYS_TOL)
+        if k in ("user", "item", "paired", "top_v"):
+            torch.testing.assert_close(got, r0["one"][k], rtol=0, atol=0,
+                                       equal_nan=True)
+        else:
+            _nan_close(got, r0["one"][k], **RECSYS_TOL)
+    if case.startswith("wd"):
+        nan = r0["out"]["scores"].isnan().nonzero()[:, 0].tolist()
+        assert nan == [3, 4]                   # the rows out of range
+    if case == "tt42":
+        ties = r0["out"]["top_i"].tolist()
+        for a, b in ((1, 2), (2, 63), (9, 40), (40, 41), (41, 50)):
+            if a in ties and b in ties:
+                assert ties.index(a) < ties.index(b)
+
+
+@pytest.mark.parametrize("case", list(ranks.RECSYS_CASES))
+def test_recsys_train_steps_under_the_mesh_equal_the_reference(spawned,
+                                                               case):
+    """Two steps of the recommender's ``train_cell`` (bf16 gradients,
+    AdamW, the global norm over the blocks) on its placed parameters:
+    every rank's losses and grad norms alike, equal to the reference's
+    ``make_train_step`` jitted with ``in_shardings`` on the Auto mesh and
+    to the single-device port's (rtol 1e-5), and the gathered parameters
+    and moments within ``STATE_ATOL`` of both.  A table's gradient summed
+    over ``model`` as well as ``data`` (each rank's rows counted once a
+    model rank) doubles the grad norm and fails here."""
+    res, refs = spawned["res"], spawned["refs"]
+    r0 = res[0][f"rs/{case}"]
+    for r in res[1:]:
+        assert r[f"rs/{case}"]["metrics"] == r0["metrics"]
+    for i, (loss, norm) in enumerate(r0["metrics"]):
+        np.testing.assert_allclose(loss, refs[f"rs/{case}/loss{i}"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(norm, refs[f"rs/{case}/norm{i}"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose((loss, norm), r0["one_metrics"][i],
+                                   rtol=1e-5)
+    want = {k: refs[f"rs/{case}/{k}"] for k in r0["state"]}
+    assert max(_state_err(r0["state"], want).values()) < STATE_ATOL
+    assert max(_state_err(r0["state"], r0["one_state"]).values()) \
+        < STATE_ATOL
+
+
+def test_recsys_init_params_keeps_the_single_device_blocks(spawned):
+    """``init_params(mesh=)`` of each recommender draws the single
+    device's numbers (tables a field at a time) and keeps this rank's
+    block of every leaf: W&D's tables 256 of 512 rows a rank at model 2
+    and 128 at model 4, SASRec's d 16 projections split on ``model``."""
+    for r in spawned["res"]:
+        for case in ranks.RECSYS_CASES:
+            assert r[f"rs/{case}"]["drawn_equal"], case
+        assert r["rs/wd42"]["blocks"]["tables"] == (6, 256, 8)
+        assert r["rs/wd24"]["blocks"]["tables"] == (6, 128, 8)
+        assert r["rs/wd24"]["blocks"]["wide_tables"] == (6, 128, 1)
+        assert r["rs/tt42"]["blocks"]["item_tables"] == (2, 128, 8)
+        assert r["rs/sr42"]["blocks"]["item_emb"] == (150, 16)
+        assert r["rs/sr42"]["blocks"]["blk0/wq"] == (16, 8)
+        assert r["rs/sr42"]["blocks"]["blk0/w2"] == (32, 16)
+        assert r["rs/br42"]["blocks"]["blk1/wo"] == (8, 16)
+
+
+def test_recsys_train_state_saved_on_8_ranks_restores_onto_4_and_one(
+        spawned):
+    """W&D's train state after two steps on (data 4, model 2), saved by
+    ``save(mesh=)`` with its parameters' and moments' axes, restores onto
+    (data 2, model 2) (each rank's block of the tables' rows) and onto one
+    device, whole: both equal the state the 8 ranks gathered, bit for
+    bit, at step 2."""
+    saved = spawned["res"][0][f"rs/{ranks.RECSYS_CKPT_CASE}"]["state"]
+    one = spawned["restored"][0]["recsys_one"]
+    for got in [r["recsys"] for r in spawned["restored"]] + [one]:
+        assert got["step"] == 2 and got["opt_step"] == 2
+        assert sorted(got["state"]) == sorted(saved)
+        for k, a in saved.items():
+            assert torch.equal(got["state"][k], a), k
+    assert spawned["restored"][0]["recsys"]["block"] == (6, 256, 8)
+    assert one["block"] == (6, 512, 8)

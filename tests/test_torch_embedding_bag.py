@@ -184,3 +184,70 @@ def test_plain_sums_in_l_order_bit_for_bit(dtype):
     assert got.dtype == tt.dtype
     np.testing.assert_array_equal(got.float().numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_win", [2, 16])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_row_window_sums_to_the_whole_table(n_win, stacked):
+    """B5's plain version over a rank's window of rows (``row_start``,
+    ``n_rows``; the table its block, as a table split over ``model`` 2 or
+    16 is held): the windows' bags sum to the whole table's bag (f32, an
+    order of sums apart), an id another window holds adds exactly 0 (a
+    window's bag of ids it does not hold is 0, never NaN), the ids at
+    each window's edges (``row_start - 1``, ``row_start``, ``row_start +
+    V_local - 1``) and ids in [-V, 0) that wrap into another window read
+    their rows, an id out of range gives NaN in every window, and the
+    backward scatters into the window's rows only: the windows'
+    gradients side by side are the whole table's."""
+    rng = np.random.RandomState(n_win)
+    F, V, D, N, L = (3 if stacked else 1), 64, 4, 10, 4
+    Vl = V // n_win
+    table = torch.from_numpy(rng.randn(F, V, D).astype(np.float32))
+    lead = (N, F) if stacked else (N,)
+    ids = rng.randint(0, V, lead + (L,)).astype(np.int32)
+    edges = [Vl - 1, Vl, 2 * Vl - 1, V - Vl]
+    ids[0, ..., :] = edges
+    ids[1, ..., :] = [-1, -Vl - 1, -V, 1]           # wrap into windows
+    ids[2, ..., 0] = V + 3                          # out of range: NaN
+    ids[3, ..., 1] = -V - 2
+    ids = torch.from_numpy(ids)
+    mask = torch.from_numpy(rng.rand(*ids.shape) > 0.2)
+    mask[0], mask[1] = True, True
+    t = table if stacked else table[0]
+    g = torch.from_numpy(rng.randn(*ids.shape[:-1], D).astype(np.float32))
+    whole = t.clone().requires_grad_(True)
+    want = embedding_bag_fused(whole, ids, mask)
+    want.backward(g)
+    total = torch.zeros_like(want)
+    grads = []
+    for r in range(n_win):
+        block = t[..., r * Vl:(r + 1) * Vl, :].clone().requires_grad_(True)
+        part = embedding_bag_fused(block, ids, mask, row_start=r * Vl,
+                                   n_rows=V)
+        ok = torch.ones(ids.shape[:-1], dtype=torch.bool)
+        ok[2], ok[3] = False, False
+        assert not part[ok].isnan().any()
+        assert part[~ok].isnan().all()
+        part.backward(g)
+        grads.append(block.grad)
+        total = total + part
+        held = ((ids.long() % V) // Vl == r)[0]     # row 0's edges
+        if not held.any():
+            assert torch.equal(part[0], torch.zeros_like(part[0]))
+    torch.testing.assert_close(total, want, atol=3e-6, rtol=1e-6,
+                               equal_nan=True)
+    assert torch.equal(torch.cat(grads, dim=-2), whole.grad)
+    rows = take_rows(t[..., Vl:2 * Vl, :], ids, row_start=Vl, n_rows=V)
+    full = take_rows(t, ids)
+    mine = ((ids.long() % V) // Vl == 1) & (ids >= -V) & (ids < V)
+    assert torch.equal(rows[mine], full[mine])
+    assert torch.equal(rows[~mine & (ids >= -V) & (ids < V)],
+                       torch.zeros_like(rows[~mine & (ids >= -V)
+                                             & (ids < V)]))
+
+
+def test_row_window_out_of_its_table_raises():
+    t = torch.zeros(8, 4)
+    with pytest.raises(ValueError, match="window"):
+        embedding_bag_fused(t, torch.zeros((2, 3), dtype=torch.int32),
+                            row_start=9, n_rows=16)

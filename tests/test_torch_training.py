@@ -199,6 +199,31 @@ def test_clip_and_adamw_update_match_jax_on_the_same_gradients(models):
                for a, b in zip(topt.tree_leaves(tp), jax.tree.leaves(jp)))
 
 
+def test_adamw_update_of_a_large_leaf_in_chunks_is_the_same(monkeypatch):
+    """A leaf of more than ``UPDATE_CHUNK`` elements is updated a chunk at
+    a time into new tensors: the same bits as the whole leaf in one chunk
+    (the update is elementwise), its inputs untouched."""
+    rng = np.random.RandomState(3)
+    params = {"t": torch.from_numpy(rng.randn(7, 5, 3).astype(np.float32)),
+              "b": torch.from_numpy(rng.randn(4).astype(np.float32))}
+    grads = topt.tree_map(lambda p: torch.from_numpy(
+        rng.randn(*p.shape).astype(np.float32)).to(torch.bfloat16), params)
+    state = topt.adamw_init(params)
+    whole = [params, state]
+    for _ in range(2):
+        whole = topt.adamw_update(*whole[:1], grads, whole[1], lr=LR)[:2]
+    monkeypatch.setattr(topt, "UPDATE_CHUNK", 16)      # 7 chunks of "t"
+    before = topt.tree_map(torch.clone, params)
+    chunked = [params, state]
+    for _ in range(2):
+        chunked = topt.adamw_update(*chunked[:1], grads, chunked[1],
+                                    lr=LR)[:2]
+    for a, b in zip(topt.tree_leaves(chunked), topt.tree_leaves(whole)):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(
+        topt.tree_leaves(params), topt.tree_leaves(before)))
+
+
 def test_grad_clip():
     g = {"a": torch.full((4,), 100.0)}
     clipped, norm = topt.clip_by_global_norm(g, 1.0)

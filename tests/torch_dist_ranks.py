@@ -9,8 +9,10 @@ serving through the engine — the parameter blocks of
 by the JAX package and restored under another, and the train step under
 the mesh: ``make_train_step`` on placed parameters and AdamW state, its
 checkpoint, the train CLI inside ``sharding_ctx``, and an MoE's train step
-under sequence parallelism), check what they can against the port's
-single-device paths, and leave their outputs in
+under sequence parallelism, and the four recommenders placed over the
+mesh: their serve cells and train steps, and a W&D train state saved on
+8 ranks and restored on 4 and on one device), check what they can against
+the port's single-device paths, and leave their outputs in
 ``<dir>/rank<r>.pt`` for the test to hold against the JAX package's
 sharded functions.  Imports torch and the port only, so a spawned rank
 does not import JAX."""
@@ -873,6 +875,8 @@ def world8(rank: int, directory: str) -> None:
             _train_case(meshes, ins, name, directory, res)
         for name in MOE_TRAIN_CASES:
             _moe_train_case(meshes, ins, name, res)
+        for name in RECSYS_CASES:
+            _recsys_case(meshes, ins, name, directory, res)
         torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -940,6 +944,9 @@ def world4(rank: int, directory: str) -> None:
                 str(CLI_STEPS[0]), "--ckpt-dir", os.path.join(directory,
                                                                "cli")])
         res["cli"] = {"losses": cli["losses"], "start": cli["start"]}
+        res["recsys"] = recsys_restored(mesh, directory)
+        if rank == 0:
+            res["recsys_one"] = recsys_restored(None, directory)
         torch.save(res, os.path.join(directory, f"restored{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -983,3 +990,150 @@ def world2(rank: int, directory: str) -> None:
                    os.path.join(directory, f"cli{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------ recommenders
+# The recommenders placed over a mesh (ROADMAP A16b 6.3): case -> (config
+# module, data, model).  W&D at model 2 and 4 (windows of 256 and 128 of
+# its 512 rows a table), the others at (data 4, model 2).
+RECSYS_CASES = {"wd42": ("wide_deep", 4, 2), "wd24": ("wide_deep", 2, 4),
+                "tt42": ("two_tower_retrieval", 4, 2),
+                "sr42": ("sasrec", 4, 2), "br42": ("bert4rec", 4, 2)}
+RECSYS_B = 16               # serve and train rows
+RECSYS_K = 16               # Two-Tower's top-k over 64 candidates
+RECSYS_CKPT_CASE = "wd42"   # its train state saved on 8 ranks
+
+
+def recsys_module(name):
+    from repro_torch import configs
+    return configs.get_arch(name)
+
+
+def recsys_serve(name, cfg, params, t):
+    """Every serve cell of config module ``name`` at the smoke size on
+    ``params`` (blocks under the active mesh), inputs ``t(key)``; returns
+    the whole outputs (gathered from the ranks' rows)."""
+    from repro_torch.models.recsys.common import Lanes
+    mod = recsys_module(name)
+    M, lanes = mod.model, Lanes(RECSYS_B)
+    if name == "wide_deep":
+        return {"scores": lanes.gather(M.forward(cfg, params, t("ids"),
+                                                 t("mask"), t("dense")))}
+    if name == "two_tower_retrieval":
+        values, idx = M.score_candidates(cfg, params, t("user1"),
+                                         t("cand_emb"), k=RECSYS_K)
+        return {"user": lanes.gather(M.user_embed(cfg, params, t("users"))),
+                "item": lanes.gather(M.item_embed(cfg, params, t("items"))),
+                "paired": lanes.gather(mod.paired_score(
+                    cfg, params, t("users"), t("items"))),
+                "top_v": values, "top_i": idx}
+    return {"rank": lanes.gather(M.serve(cfg, params, t("ids"), t("pad"),
+                                         t("cand"))),
+            "catalog": M.serve(cfg, params, t("ids1"), t("pad1"))}
+
+
+def recsys_gathered(mesh, axes, shapes, tree, prefix=""):
+    """The whole leaves of a tree of this rank's blocks, flat by key."""
+    out = {}
+    for k, a in _leaves(tree):
+        ax, shape = dict(_leaves(axes))[k], dict(_leaves(shapes))[k]
+        out[prefix + k] = placement(mesh, ax, shape).gather(a)
+    return out
+
+
+def _recsys_case(meshes, ins, name, directory, res):
+    """One ``RECSYS_CASES`` case: the reference's smoke parameters placed
+    by ``shard_params`` (= ``init_params(mesh=)``'s blocks of the port's
+    own draw, checked), every serve cell under the mesh, and two train
+    steps of the config's ``train_cell`` from the blocks and
+    ``adamw_init`` of them (each step's loss and grad norm, then the
+    gathered state); the checkpoint case saves that state.  The
+    single-device port's outputs beside them."""
+    from repro_torch.configs.common import opt_state_axes
+    from repro_torch.models.recsys import recsys_params_from_jax, shard_params
+    mname, data, model = RECSYS_CASES[name]
+    mesh, mod = meshes[(data, model)], recsys_module(mname)
+    cfg, M = mod.smoke_config(), mod.model
+    axes, shapes = M.param_logical_axes(cfg), M.param_shapes(cfg)
+    whole = recsys_params_from_jax(_tree(ins, f"rs/{mname}/params"), "cpu")
+    pre = f"rs/{mname}"
+
+    def t(k):
+        return torch.from_numpy(ins[f"{pre}/{k}"])
+
+    step = mod.train_cell(cfg, batch=RECSYS_B).step
+    keys = [k[len(pre) + 4:] for k in ins if k.startswith(pre + "/t0/")]
+
+    def batch(i):
+        return {k: t(f"t{i}/{k}") for k in keys}
+
+    with sharding_ctx(mesh):
+        params = shard_params(whole, axes, mesh)
+        drawn = init_params_of(M, cfg, mesh)
+        out = recsys_serve(mname, cfg, params, t)
+        opt, metrics = adamw_init(params), []
+        for i in range(2):
+            params, opt, m = step(params, opt, batch(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        state = recsys_gathered(mesh, axes, shapes, params, "p/")
+        state.update(recsys_gathered(mesh, axes, shapes, opt.mu, "mu/"))
+        state.update(recsys_gathered(mesh, axes, shapes, opt.nu, "nu/"))
+        if name == RECSYS_CKPT_CASE:
+            CheckpointManager(os.path.join(directory, "rs_ckpt")).save(
+                2, {"p": params, "o": opt},
+                logical_axes={"p": axes, "o": opt_state_axes(axes)},
+                shapes={"p": shapes, "o": opt_state_axes(shapes)},
+                mesh=mesh)
+    mine = init_params_of(M, cfg, None)
+    same = all(torch.equal(drawn[k], placement(
+        mesh, dict(_leaves(axes))[k], a.shape).local(a))
+        for k, a in _leaves(mine))
+    one = recsys_serve(mname, cfg, whole, t)
+    p1, o1, m1 = whole, adamw_init(whole), []
+    for i in range(2):
+        p1, o1, m = step(p1, o1, batch(i))
+        m1.append((float(m["loss"]), float(m["grad_norm"])))
+    res[f"rs/{name}"] = {
+        "out": out, "one": one, "metrics": metrics, "one_metrics": m1,
+        "state": state if mesh.rank == 0 else None,
+        "one_state": ({f"p/{k}": a for k, a in _leaves(p1)}
+                      | {f"mu/{k}": a for k, a in _leaves(o1.mu)}
+                      | {f"nu/{k}": a for k, a in _leaves(o1.nu)})
+        if mesh.rank == 0 else None,
+        "drawn_equal": same,
+        "blocks": {k: tuple(a.shape) for k, a in _leaves(params)}}
+
+
+def init_params_of(M, cfg, mesh):
+    """The port's own draw (seed 1), whole or this rank's blocks, flat."""
+    return dict(_leaves(M.init_params(cfg, seed=1, device="cpu",
+                                      mesh=mesh)))
+
+
+def recsys_restored(mesh, directory):
+    """``RECSYS_CKPT_CASE``'s train state restored under ``mesh`` (None:
+    one device, whole), gathered, flat."""
+    from repro_torch.configs.common import opt_state_axes
+    mname = RECSYS_CASES[RECSYS_CKPT_CASE][0]
+    mod = recsys_module(mname)
+    cfg, M = mod.smoke_config(), mod.model
+    axes, shapes = M.param_logical_axes(cfg), M.param_shapes(cfg)
+    with sharding_ctx(mesh):
+        blocks = M.init_params(cfg, device="cpu", mesh=mesh)
+        state, step = CheckpointManager(os.path.join(
+            directory, "rs_ckpt")).restore({"p": blocks,
+                                            "o": adamw_init(blocks)},
+                                           mesh=mesh)
+        state = tree_map(lambda a: tree_to_torch(a, torch.device("cpu")),
+                         state)
+        p, o = state["p"], state["o"]
+        if mesh is None:
+            flat = {f"{t}/{k}": a for t, tree in (("p", p), ("mu", o.mu),
+                                                   ("nu", o.nu))
+                    for k, a in _leaves(tree)}
+        else:
+            flat = recsys_gathered(mesh, axes, shapes, p, "p/")
+            flat.update(recsys_gathered(mesh, axes, shapes, o.mu, "mu/"))
+            flat.update(recsys_gathered(mesh, axes, shapes, o.nu, "nu/"))
+        return {"step": step, "opt_step": int(o.step), "state": flat,
+                "block": tuple(p["tables"].shape)}
