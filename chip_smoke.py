@@ -297,7 +297,24 @@ Phases, in order; any failure exits non-zero:
    BERT4Rec's scores within RECSYS_TOL); B5 twice a W&D forward; one
    serve_p99 forward's gloo records equal a ``TracedMesh``'s.  The
    recsys phase also holds B5's window form (EB_WINDOW_MODELS) and runs
-   SASRec's serve_bulk once.
+   SASRec's serve_bulk once.  (i) EquiformerV2 placed
+   (``dist_gnn_world``): 4 gloo ranks, mesh (data 2, model 2),
+   ``DEFAULT_RULES``, full_graph_sm and molecule at full width (12
+   layers, bf16, remat; the gnn phase's graphs, weights from seed 0:
+   each rank's edges and node block, the SO(2) and FFN weights' "tensor"
+   halves), one f32 and one bf16 forward, DIST_GNN_STEPS train steps and
+   the loss after them a cell, and full_graph_sm cut to
+   DIST_GNN_REPEAT_LAYERS layers on a graph whose edges split over
+   ``data`` alone (``gnn_repeat_cell``: the ranks along ``model`` repeat
+   them); rank 0 then alone holds them against one device
+   (``dist_gnn_rule``: the f32 outputs within GNN_WIDE_TOL, the bf16
+   outputs' RMS error from one device's f32 at most BF16_LOGIT_RATIO times
+   one device's bf16's, the losses and grad norms the same on every rank,
+   within DIST_GNN_STEP_RTOL of one device's and the loss falling, the
+   repeat cell's f32 outputs the same bits on every rank); one molecule
+   forward's gloo records equal a ``TracedMesh``'s.  No port kernel
+   launches there.  ``--gnn-controls`` runs (i) alone, then under two
+   faults (``gnn_control``), and prints what its checks see of them.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset and prints
@@ -6504,6 +6521,348 @@ def dist_recsys_rule(res):
         check(ok, f"(h) {k}: {err}")
 
 
+DIST_GNN_MESH = (2, 2)
+DIST_GNN_SHAPES = ("full_graph_sm", "molecule")
+DIST_GNN_STEPS = 1             # train steps a cell, then the loss after
+                               # them (cut from GNN_STEPS 2 for time)
+DIST_GNN_COUNTED = "molecule"  # its bf16 forward's gloo records vs traced
+DIST_GNN_STEP_RTOL = 1e-2      # a train step's loss and grad norm and the
+                               # loss after the steps, mesh vs one device
+                               # (readings and control in PERF.md §4)
+DIST_GNN_REPEAT = "full_graph_sm"  # the cell whose edges the model ranks
+DIST_GNN_REPEAT_LAYERS = 2         # repeat, cut from 12 layers for time
+
+
+def gnn_forward_outs(eq, cfg, params, ins, graph):
+    """One forward without grad: (node_out gathered whole, graph_out)."""
+    with torch.no_grad():
+        out = eq.forward(cfg, params, *ins)
+        return graph.gather(out["node_out"]).float(), out["graph_out"].float()
+
+
+def gnn_cell_inputs(shape, graph=None):
+    """(the cell's batch on the card, forward's positional inputs), on
+    ``graph`` (the gnn phase's by default)."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    batch = gnn_batch(ecfg, shape, graph or gnn_graph(shape))
+    ins = [batch[k] for k in ("node_feat", "positions", "edges",
+                              "edge_mask")]
+    if shape == "molecule":
+        ins += [batch["graph_ids"], ecfg.CELLS[shape]["n_graphs"]]
+    return batch, ins
+
+
+def gnn_repeat_cell():
+    """(config, batch, forward's inputs) of DIST_GNN_REPEAT cut to
+    DIST_GNN_REPEAT_LAYERS layers, on its graph with one more node (no
+    edge, label -1) and two more masked zero-length edges: at (2, 2) its
+    N is odd, so the nodes stay whole, and its E a multiple of ``data``
+    but not of 4, so the edges split over ``data`` alone and the ranks
+    along ``model`` repeat them (the layout of the tests' case g42x)."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    g = gnn_graph(DIST_GNN_REPEAT)
+    n = len(g["node_feat"])
+    g = dict(g, node_feat=np.concatenate([g["node_feat"],
+                                          np.zeros_like(g["node_feat"][:1])]),
+             positions=np.concatenate([g["positions"], g["positions"][:1]]),
+             labels=np.concatenate([g["labels"], [-1]]).astype(np.int32),
+             edges=np.concatenate([g["edges"], np.full((2, 2), n, np.int32)]),
+             edge_mask=np.concatenate([g["edge_mask"], [False, False]]))
+    cfg = dataclasses.replace(ecfg.full_config(DIST_GNN_REPEAT),
+                              n_layers=DIST_GNN_REPEAT_LAYERS)
+    return (cfg,) + gnn_cell_inputs(DIST_GNN_REPEAT, g)
+
+
+def gnn_control(eq):
+    """The controls of ``--gnn-controls``, for the rest of the process: a
+    node-side replicated weight's gradient summed over ``model`` too (the
+    tests' mutation), and sums in the atomics' order where the model
+    ranks repeat the edges (``Graph.ordered`` off)."""
+    from repro_torch.distributed.sharding import sum_grad
+
+    def over_model(self, w):
+        return sum_grad(w, self.split.mesh,
+                        self.split.node_axes + ("model",))
+    sound = eq.Graph.__init__
+
+    def unordered(self, *a):
+        sound(self, *a)
+        self.ordered = False
+    eq.Graph.node_weight, eq.Graph.__init__ = over_model, unordered
+
+
+def dist_gnn_world(rank, control=False):
+    """(i): EquiformerV2's DIST_GNN_SHAPES at full width placed over mesh
+    (data 2, model 2) under ``DEFAULT_RULES`` (``init_params(mesh=)``:
+    each rank draws the single device's numbers and keeps its "tensor"
+    blocks; it runs its rows of the edges and its block of the nodes):
+    an f32 and a bf16 forward (its collectives counted: DIST_GNN_COUNTED's
+    also on a ``TracedMesh`` over meta copies), DIST_GNN_STEPS bf16 train
+    steps (timed, the collectives timed) and the loss after them; then
+    ``gnn_repeat_cell``: an f32 forward, the steps and the loss after
+    them.  Then rank 0 alone, the others waiting: one device's forwards
+    and steps on the whole parameters (nothing raises inside a rank: the
+    parent checks).  ``control``: under ``gnn_control``."""
+    from repro_torch import kernels
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.distributed.sharding import TracedMesh, sharding_ctx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.training.optimizer import tree_leaves
+    if control:
+        gnn_control(eq)
+    mesh = make_host_mesh(*DIST_GNN_MESH, device="cuda:0")
+    before = kernels.snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    res, got = {"cells": {}}, {}
+    for shape in DIST_GNN_SHAPES:
+        cfg = ecfg.full_config(shape)
+        c = ecfg.CELLS[shape]
+        batch, ins = gnn_cell_inputs(shape)
+        x, t0 = {}, time.perf_counter()
+        with sharding_ctx(mesh):
+            graph = eq.Graph(cfg, c["n_nodes"], c["n_edges"])
+            sp = graph.split
+            x["split"] = dict(edges=(sp.edge_axes, sp.edge_rows),
+                              nodes=(sp.node_axes, sp.node_rows))
+            p32 = eq.init_params(dataclasses.replace(cfg, dtype="float32"),
+                                 seed=0, mesh=mesh)
+            got[f"{shape} f32"] = gnn_forward_outs(
+                eq, dataclasses.replace(cfg, dtype="float32"), p32, ins,
+                graph)
+            del p32
+            params = eq.init_params(cfg, seed=0, mesh=mesh)
+            x["blocks"] = {k: tuple(params["layers"][k].shape)
+                           for k in ("w0", "wr1", "ffn_w1", "ffn_w2")}
+            x["gb"] = sum(a.numel() * a.element_size()
+                          for a in tree_leaves(params)) / 1e9
+            mesh.reset_counts()
+            with torch.no_grad():
+                out = eq.forward(cfg, params, *ins)
+            x["counts"] = {"real": mesh.collective_records()}
+            got[f"{shape} bf16"] = (graph.gather(out["node_out"]).float(),
+                                    out["graph_out"].float())
+            del out
+            if shape == DIST_GNN_COUNTED:
+                traced = TracedMesh(mesh.shape, mesh.rank)
+                with sharding_ctx(traced), torch.no_grad():
+                    eq.forward(cfg, meta_tree(params), *(
+                        a.to("meta") if torch.is_tensor(a) else a
+                        for a in ins))
+                x["counts"]["traced"] = traced.collective_records()
+            x["losses"], x["secs"], x["shares"] = gnn_steps(
+                ecfg, eq, shape, cfg, params, batch, mesh)
+            del params
+        x["cell_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        res["cells"][shape] = x
+    cfg, batch, ins = gnn_repeat_cell()
+    t0 = time.perf_counter()
+    with sharding_ctx(mesh):
+        graph = eq.Graph(cfg, len(batch["node_feat"]), len(batch["edges"]))
+        sp = graph.split
+        x = {"split": (sp.edge_axes, sp.node_axes), "ordered": graph.ordered}
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        x["f32"] = gnn_forward_outs(eq, c32, eq.init_params(
+            c32, seed=0, mesh=mesh), ins, graph)
+        x["losses"] = gnn_steps(ecfg, eq, DIST_GNN_REPEAT, cfg,
+                                eq.init_params(cfg, seed=0, mesh=mesh),
+                                batch, mesh)[0]
+    x["cell_s"] = time.perf_counter() - t0
+    res["repeat"] = x
+    res["launches"] = {}
+    res["moved"] = kernels.diff(kernels.snapshot(), before)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    mesh.barrier()
+    if rank == 0:
+        res["one"] = dist_gnn_one_device()
+        res["got"] = got
+    mesh.barrier()
+    return res
+
+
+def gnn_steps(ecfg, eq, shape, cfg, params, batch, mesh=None):
+    """DIST_GNN_STEPS train steps of the cell from ``params`` and
+    ``adamw_init`` of them, then the loss after them (no grad): ((loss,
+    grad norm) a step and the last loss with a grad norm of None, each
+    step's seconds, the collectives' share of each step under ``mesh``)."""
+    from repro_torch.training.optimizer import adamw_init
+    step = ecfg.train_cell(shape, cfg).step
+    loss_fn = eq.energy_loss if shape == "molecule" else eq.node_class_loss
+    state, losses, secs, shares = [params, adamw_init(params)], [], [], []
+    del params
+    for _ in range(DIST_GNN_STEPS):
+        if mesh is None:
+            t0 = time.perf_counter()
+            p, o, m = step(*state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        else:
+            mesh.timing, mesh.collective_s = True, 0.0
+            ms, (p, o, m) = dist_timed(mesh, lambda: step(*state, batch), 1)
+            mesh.timing = False
+            secs.append(ms / 1e3)
+            shares.append(mesh.collective_s * 1e3 / ms)
+        state = [p, o]
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        del p, o, m
+    with torch.no_grad():
+        losses.append((float(loss_fn(cfg, state[0], batch)), None))
+    return losses, secs, shares
+
+
+def dist_gnn_one_device():
+    """Rank 0 alone: one device's f32 and bf16 forwards, bf16 train steps
+    and the loss after them of each DIST_GNN_SHAPES cell on the whole
+    parameters (seed 0, the numbers the ranks' blocks hold), and the f32
+    forward and the steps of ``gnn_repeat_cell``."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.models.gnn import equiformer as eq
+    out = {}
+    for shape in DIST_GNN_SHAPES:
+        cfg = ecfg.full_config(shape)
+        c = ecfg.CELLS[shape]
+        batch, ins = gnn_cell_inputs(shape)
+        graph = eq.Graph(cfg, c["n_nodes"], c["n_edges"])   # no mesh: whole
+        for dt in ("float32", "bfloat16"):
+            cd = dataclasses.replace(cfg, dtype=dt)
+            params = eq.init_params(cd, seed=0)
+            out[f"{shape} {'f32' if dt == 'float32' else 'bf16'}"] = \
+                gnn_forward_outs(eq, cd, params, ins, graph)
+        out[f"{shape} losses"] = gnn_steps(ecfg, eq, shape, cfg, params,
+                                          batch)[0]
+        del params
+        torch.cuda.empty_cache()
+    cfg, batch, ins = gnn_repeat_cell()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    out["repeat f32"] = gnn_forward_outs(
+        eq, c32, eq.init_params(c32, seed=0), ins,
+        eq.Graph(c32, len(batch["node_feat"]), len(batch["edges"])))
+    out["repeat losses"] = gnn_steps(ecfg, eq, DIST_GNN_REPEAT, cfg,
+                                     eq.init_params(cfg, seed=0), batch)[0]
+    return out
+
+
+def gnn_step_gaps(got, want):
+    """|mesh - one device| / |one device| of the first step's loss and
+    grad norm and of the loss after the steps (``gnn_steps``' first
+    lists)."""
+    pairs = {"loss": (got[0][0], want[0][0]),
+             "grad norm": (got[0][1], want[0][1]),
+             "loss after": (got[-1][0], want[-1][0])}
+    return {k: abs(a - b) / abs(b) for k, (a, b) in pairs.items()}
+
+
+def dist_gnn_rule(res):
+    """(i)'s checks on every rank's results (see ``dist_gnn_world``)."""
+    r0 = res[0]
+    one, got = r0["one"], r0["got"]
+    rep0 = r0["repeat"]
+    for r, x in enumerate(res):
+        check(not x["moved"], f"(i) rank {r} launched port kernels: "
+                              f"{x['moved']}")
+        for shape, c in x["cells"].items():
+            print(f"  (i) rank {r} {shape}: edges {c['split']['edges']}, "
+                  f"nodes {c['split']['nodes']} a rank (axes, rows); "
+                  f"blocks {c['blocks']}, weights {c['gb']:.4f} GB a rank; "
+                  f"train steps {[round(t, 3) for t in c['secs']]} s, "
+                  f"collectives {[round(v, 4) for v in c['shares']]} of a "
+                  f"step; (loss, grad norm) a step, then the loss after "
+                  f"them {c['losses']}; a bf16 forward hands gloo "
+                  f"{sum(v['bytes'] for v in c['counts']['real']):,} B; "
+                  f"the cell {c['cell_s']:.1f} s")
+            check(c["losses"] == r0["cells"][shape]["losses"],
+                  f"(i) rank {r} {shape}: losses differ from rank 0's")
+        rep = x["repeat"]
+        print(f"  (i) rank {r} {DIST_GNN_REPEAT} at "
+              f"{DIST_GNN_REPEAT_LAYERS} layers, edges repeated over model: "
+              f"(edge axes, node axes) {rep['split']}, ordered sums "
+              f"{rep['ordered']}; (loss, grad norm), then the loss after "
+              f"{rep['losses']}; the cell {rep['cell_s']:.1f} s")
+        check(rep["split"] == (("data",), ()) and rep["ordered"],
+              f"(i) rank {r} repeat cell: layout {rep['split']}, ordered "
+              f"{rep['ordered']}")
+        check(rep["losses"] == rep0["losses"] and all(
+            torch.equal(a, b) for a, b in zip(rep["f32"], rep0["f32"])),
+              f"(i) rank {r} repeat cell: its outputs or losses are not "
+              "rank 0's bits")
+        print(f"  (i) rank {r}: peak {x['peak_gb']:.2f} GB")
+        cnt = x["cells"][DIST_GNN_COUNTED]["counts"]
+        check(cnt["real"] and cnt["real"] == cnt["traced"],
+              f"(i) rank {r}: gloo's records {cnt['real']} != traced "
+              f"{cnt['traced']}")
+    for shape in DIST_GNN_SHAPES + ("repeat",):
+        losses = (rep0 if shape == "repeat" else r0["cells"][shape])["losses"]
+        gaps = gnn_step_gaps(losses, one[f"{shape} losses"])
+        ok = all(v <= DIST_GNN_STEP_RTOL for v in gaps.values())
+        print(f"  (i) {shape}: (loss, grad norm) mesh {losses}, one device "
+              f"{one[f'{shape} losses']}; relative gaps "
+              f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (limit "
+              f"{DIST_GNN_STEP_RTOL}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"(i) {shape}: mesh vs one device {gaps}")
+        check(all(np.isfinite(v) for pair in losses for v in pair
+                  if v is not None) and losses[-1][0] < losses[0][0],
+              f"(i) {shape}: the loss does not fall: {losses}")
+    worst = close_tree("(i) repeat f32 mesh vs one device", rep0["f32"],
+                       one["repeat f32"], GNN_WIDE_TOL)
+    print(f"  (i) repeat f32 node_out, graph_out vs one device: max err "
+          f"{worst:.3e} of each array's largest |value| ({GNN_WIDE_TOL}); "
+          "every rank's the same bits")
+    for shape in DIST_GNN_SHAPES:
+        ref = one[f"{shape} f32"]
+        worst = close_tree(f"(i) {shape} f32 mesh vs one device",
+                           got[f"{shape} f32"], ref, GNN_WIDE_TOL)
+        print(f"  (i) {shape} f32 node_out, graph_out vs one device: max "
+              f"err {worst:.3e} of each array's largest |value| "
+              f"({GNN_WIDE_TOL})")
+
+        def flat(outs):
+            return torch.cat([o.double().flatten().cpu() for o in outs])
+        want = flat(ref)
+        e_mesh = float((flat(got[f"{shape} bf16"]) - want).square().mean()
+                       .sqrt())
+        e_one = float((flat(one[f"{shape} bf16"]) - want).square().mean()
+                      .sqrt())
+        ok = e_mesh <= BF16_LOGIT_RATIO * e_one
+        print(f"  (i) {shape} bf16: RMS err from one device's f32, mesh "
+              f"{e_mesh:.4e}, one device {e_one:.4e} (x{e_mesh / e_one:.3f};"
+              f" limit x{BF16_LOGIT_RATIO}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"(i) {shape} bf16: RMS err {e_mesh} > {BF16_LOGIT_RATIO}"
+                  f" x {e_one}")
+    rec = r0["cells"][DIST_GNN_COUNTED]["counts"]["real"]
+    kinds = ", ".join(f"{c['kind']} x{c['calls']} over {c['group']}"
+                      for c in rec)
+    print(f"  (i) one {DIST_GNN_COUNTED} forward hands gloo "
+          f"{sum(c['calls'] for c in rec)} calls, "
+          f"{sum(c['bytes'] for c in rec):,} B a rank ({kinds}) = the traced "
+          "mesh's count")
+
+
+def gnn_control_report(res):
+    """What the checks of ``dist_gnn_rule`` see of world (i) run under
+    ``gnn_control``: each cell's relative gaps from one device, and the
+    repeat cell's f32 outputs and losses on every rank against rank 0's
+    (the elements whose bits differ)."""
+    r0 = res[0]
+    for shape in DIST_GNN_SHAPES + ("repeat",):
+        losses = (r0["repeat"] if shape == "repeat"
+                  else r0["cells"][shape])["losses"]
+        gaps = gnn_step_gaps(losses, r0["one"][f"{shape} losses"])
+        print(f"  (i) control {shape}: (loss, grad norm) mesh {losses}, one "
+              f"device {r0['one'][f'{shape} losses']}; relative gaps "
+              f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (limit "
+              f"{DIST_GNN_STEP_RTOL})")
+    for r, x in enumerate(res[1:], 1):
+        rep, rep0 = x["repeat"], r0["repeat"]
+        differ = [int((a != b).sum()) for a, b in zip(rep["f32"],
+                                                      rep0["f32"])]
+        print(f"  (i) control repeat rank {r} vs rank 0: f32 (node_out, "
+              f"graph_out) elements whose bits differ {differ} of "
+              f"{[a.numel() for a in rep['f32']]}; losses "
+              f"{'equal' if rep['losses'] == rep0['losses'] else 'differ'} "
+              f"{rep['losses']}")
+
+
 def dist_heads_phase():
     """(g): ``dist_heads_world``, each arch held by ``dist_tp_rule``;
     returns each arch's results a rank."""
@@ -7202,7 +7561,20 @@ def dist_phase(card):
     res = dist_spawn("dist_recsys_world", 4, "gloo")
     count(res)
     dist_recsys_rule(res)
+    res = dist_spawn("dist_gnn_world", 4, "gloo")
+    count(res)
+    dist_gnn_rule(res)
     return launches
+
+
+def gnn_controls_main():
+    """``--gnn-controls``: world (i) as the dist phase runs it, then again
+    under ``gnn_control``, each reported; no result line."""
+    t0 = time.perf_counter()
+    dist_gnn_rule(dist_spawn("dist_gnn_world", 4, "gloo"))
+    print(f"(i) {time.perf_counter() - t0:.1f} s")
+    gnn_control_report(dist_spawn("dist_gnn_world", 4, "gloo", True))
+    return 0
 
 
 PHASES = ("kernels", "model", "recsys", "dense", "paged", "invariance",
@@ -7217,6 +7589,12 @@ def main(argv=None) -> int:
                     help="comma-separated subset of the phases to run "
                          f"(default: all of {', '.join(PHASES)}); the last "
                          "line's ok needs all of them")
+    ap.add_argument("--gnn-controls", action="store_true",
+                    help="run only world (i) of the dist phase, then (i) "
+                         "again with a node-side weight's gradient summed "
+                         "over model too and the repeat cell's sums in the "
+                         "atomics' order, and print what its checks see "
+                         "there; no result line")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -7241,6 +7619,8 @@ def main(argv=None) -> int:
     print(smi[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    if args.gnn_controls:
+        return gnn_controls_main()
 
     t0 = time.perf_counter()
     _build.build()

@@ -9,10 +9,8 @@ and its ``rules``; ``build_cell(shape, mesh)`` makes its arguments one
 rank's blocks as the port keeps them under ``sharding_ctx(mesh, rules)``
 (``Cell.shardings``: the parameters by ``placement``, the optimizer state
 as its parameters (``opt_state_axes``), a cache by its sharding, the
-inputs whole).  A cell the port does not place yet (the GNN: ROADMAP
-A16b 6.3b) names in ``whole_axes`` the logical axes the
-reference places and the port keeps whole on every rank.  The port updates
-its caches in place, so a cell donates nothing.
+inputs whole).  Every cell is placed.  The port updates its caches in
+place, so a cell donates nothing.
 """
 from __future__ import annotations
 
@@ -76,8 +74,7 @@ class Cell:
     def __init__(self, arch: str, shape: str, kind: str, fn: Callable,
                  args: Tuple, meta: Optional[Dict] = None,
                  memory_fn: Optional[Callable] = None, axes: Any = None,
-                 rules: Optional[ShardingRules] = None,
-                 whole_axes: Sequence[str] = ()):
+                 rules: Optional[ShardingRules] = None):
         self.arch = arch
         self.shape = shape
         self.kind = kind          # train | decode | prefill | score
@@ -87,7 +84,6 @@ class Cell:
         self.memory_fn = memory_fn
         self.axes = axes
         self.rules = rules or DEFAULT_RULES
-        self.whole_axes = tuple(whole_axes)
 
     def arg_bytes(self) -> int:
         """Bytes of every argument tensor (parameters, optimizer state,

@@ -10,14 +10,19 @@ Positions for the non-geometric graphs are synthetic (see DESIGN.md).
 Every cell is a train cell (``train_cell``: the step and its batch's
 inputs); ``model_flops`` and ``bytes_floor`` are the reference's cost
 figures for one step, and ``build_cell`` the dry-run ``Cell`` with the
-reference's meta, the chunked path's cost corrections included.  Logical
-axes wait for ROADMAP A16.
+reference's meta, the chunked path's cost corrections included.  Under a
+mesh the cell's parameters and AdamW state are the rank's blocks (the
+SO(2) and FFN weights' "tensor" dims over ``model``), the inputs whole
+(every rank passes them; the model takes its rows of the edges and its
+block of the nodes), and the cell carries the reference's logical axes
+and ``DEFAULT_RULES``.
 """
 from __future__ import annotations
 
 from repro_torch.configs.common import Cell, pad_to_multiple
 from repro_torch.configs.recsys_common import (Input, TrainCell,
                                                train_dryrun_cell)
+from repro_torch.distributed.sharding import DEFAULT_RULES
 from repro_torch.models.gnn import equiformer as model
 from repro_torch.training.train_step import make_train_step
 
@@ -64,16 +69,17 @@ def smoke_config() -> model.EquiformerConfig:
 def train_cell(shape: str, cfg: model.EquiformerConfig = None) -> TrainCell:
     """The reference's train step for ``shape`` (lr 3e-4, bf16 gradients):
     ``energy_loss`` for molecule, ``node_class_loss`` for the others, and
-    the batch's inputs at the cell's sizes (``cfg`` defaults to
-    ``full_config(shape)``; the inputs' sizes are the cell's whatever
-    ``cfg`` is)."""
+    the batch's inputs at the cell's sizes with the reference's logical
+    axes (``cfg`` defaults to ``full_config(shape)``; the inputs' sizes
+    are the cell's whatever ``cfg`` is).  Under a mesh the global norm
+    runs over the blocks of ``param_logical_axes`` / ``param_shapes``."""
     c = CELLS[shape]
     cfg = cfg or full_config(shape)
     N, E = c["n_nodes"], c["n_edges"]
     inputs = [Input("node_feat", (N, c["d_feat"]), "float32"),
               Input("positions", (N, 3), "float32"),
-              Input("edges", (E, 2), "int32"),
-              Input("edge_mask", (E,), "bool")]
+              Input("edges", (E, 2), "int32", ("edges", None)),
+              Input("edge_mask", (E,), "bool", ("edges",))]
     if shape == "molecule":
         inputs += [Input("graph_ids", (N,), "int32"),
                    Input("energies", (c["n_graphs"],), "float32")]
@@ -81,13 +87,10 @@ def train_cell(shape: str, cfg: model.EquiformerConfig = None) -> TrainCell:
     else:
         inputs += [Input("labels", (N,), "int32")]
         loss = model.node_class_loss
-    return TrainCell(make_train_step(lambda p, b: loss(cfg, p, b), lr=3e-4,
-                                     grad_dtype="bfloat16"), tuple(inputs))
-
-
-# The logical axes the reference's cells place: the port keeps them whole
-# on every rank of a mesh (ROADMAP A16b 6.3b).
-WHOLE_AXES = ("edges", "tensor")
+    return TrainCell(make_train_step(
+        lambda p, b: loss(cfg, p, b), lr=3e-4, grad_dtype="bfloat16",
+        axes=model.param_logical_axes(cfg), shapes=model.param_shapes(cfg)),
+        tuple(inputs))
 
 
 def build_cell(shape: str, mesh=None) -> Cell:
@@ -96,8 +99,9 @@ def build_cell(shape: str, mesh=None) -> Cell:
     edge-chunk corrections although its E is no multiple of its
     edge_chunk and it runs dense, as in the reference (ROADMAP §C);
     ``launch.roofline`` adds no correction (the port's trace runs every
-    chunk).  Under ``mesh`` the arguments stay whole and the cell names
-    ``WHOLE_AXES``."""
+    chunk).  With ``mesh`` (a ``TracedMesh`` rank) the arguments are that
+    rank's (``train_dryrun_cell``): the parameters and AdamW state its
+    blocks under ``DEFAULT_RULES``, the inputs whole."""
     c = CELLS[shape]
     cfg = full_config(shape)
     N, E = c["n_nodes"], c["n_edges"]
@@ -114,7 +118,8 @@ def build_cell(shape: str, mesh=None) -> Cell:
         meta["bytes_correction"] = (nc - 1) / nc * (
             4.0 * E * cfg.lsq * cfg.channels * 2 * 6)
     return train_dryrun_cell(ARCH, shape, cfg, model, train_cell(shape, cfg),
-                             meta, WHOLE_AXES if mesh is not None else ())
+                             meta, p_axes=model.param_logical_axes(cfg),
+                             rules=DEFAULT_RULES, mesh=mesh)
 
 
 def model_flops(cfg: model.EquiformerConfig, E: int) -> int:
@@ -140,6 +145,6 @@ def bytes_floor(cfg: model.EquiformerConfig, N: int, E: int) -> float:
                  + cfg.n_layers * N * cfg.lsq * cfg.channels * 2 * 8)
 
 
-__all__ = ["ARCH", "SHAPES", "CELLS", "WHOLE_AXES", "full_config",
+__all__ = ["ARCH", "SHAPES", "CELLS", "full_config",
            "smoke_config", "train_cell", "build_cell", "model_flops",
            "bytes_floor", "pad_to_multiple"]

@@ -77,23 +77,29 @@ def abstract_inputs(inputs: Tuple[Input, ...]) -> Tuple:
 
 
 def train_dryrun_cell(arch: str, shape: str, cfg, model, train: TrainCell,
-                      meta: dict, whole_axes=(), params=None,
-                      p_axes=None, rules=None) -> Cell:
-    """``train.step(params, opt_state, batch)`` over meta parameters (the
-    whole ones unless ``params`` is given, a rank's blocks), their AdamW
-    state and the batch; ``whole_axes`` as ``Cell``'s (the GNN's cell).
-    With ``p_axes`` (the parameters' logical axes) the cell carries the
-    state's and the batch's ``axes`` and ``rules``."""
-    if params is None:
-        params = model.init_params(cfg, device="meta")
+                      meta: dict, p_axes=None, rules=None,
+                      mesh=None) -> Cell:
+    """``train.step(params, opt_state, batch)`` over meta parameters, their
+    AdamW state and the batch.  With ``p_axes`` (the parameters' logical
+    axes) the cell carries the state's and the batch's ``axes`` and
+    ``rules``.  With ``mesh`` (a ``TracedMesh`` rank) the parameters are
+    that rank's blocks, placed under ``sharding_ctx(mesh, cell.rules)``,
+    and the AdamW state is made from them; the batch stays whole and
+    ``global_args`` the whole arguments."""
+    params = model.init_params(cfg, device="meta")
     names = [i.name for i in train.inputs]
     batch = dict(zip(names, abstract_inputs(train.inputs)))
     axes = None if p_axes is None else (
         p_axes, opt_state_axes(p_axes),
         dict(zip(names, input_axes(train.inputs))))
-    return Cell(arch, shape, "train", train.step,
+    cell = Cell(arch, shape, "train", train.step,
                 (params, adamw_init(params), batch), meta, axes=axes,
-                rules=rules, whole_axes=whole_axes)
+                rules=rules)
+    if mesh is not None:
+        with sharding_ctx(mesh, cell.rules):
+            params = model.init_params(cfg, device="meta", mesh=mesh)
+        cell.args = (params, adamw_init(params), batch)
+    return cell
 
 
 def input_axes(inputs: Tuple[Input, ...]) -> Tuple:
@@ -105,24 +111,29 @@ def build_cell(mod, shape: str, mesh=None) -> Cell:
     ``model``, ``full_config``, ``serve_cell``, ``train_cell`` and
     ``cell_meta``): the train step at train_batch, else the serve function
     over meta parameters (``model.init_params(cfg, device="meta")``) and
-    inputs.  With ``mesh`` (a ``TracedMesh`` rank) the parameters are that
-    rank's blocks, placed under ``sharding_ctx(mesh, cell.rules)``, and
-    the AdamW state is made from them; the inputs stay whole."""
+    inputs.  With ``mesh`` (a ``TracedMesh`` rank) the arguments are that
+    rank's: the parameters its blocks, placed under ``sharding_ctx(mesh,
+    cell.rules)``, the AdamW state made from them, the inputs whole;
+    ``global_args`` stay the whole arguments."""
     cfg = mod.full_config()
     meta = mod.cell_meta(cfg, shape)
     p_axes = mod.model.param_logical_axes(cfg)
     rules = DEFAULT_RULES
-    with sharding_ctx(mesh, rules):
-        params = mod.model.init_params(cfg, device="meta", mesh=mesh)
     if shape == "train_batch":
         return train_dryrun_cell(mod.ARCH, shape, cfg, mod.model,
-                                 mod.train_cell(cfg), meta, params=params,
-                                 p_axes=p_axes, rules=rules)
+                                 mod.train_cell(cfg), meta, p_axes=p_axes,
+                                 rules=rules, mesh=mesh)
     serve = mod.serve_cell(shape, cfg)
     fn = lambda p, *a: serve.fn(cfg, p, *a)  # noqa: E731
-    return Cell(mod.ARCH, shape, "score", fn,
-                (params,) + abstract_inputs(serve.inputs), meta,
+    cell = Cell(mod.ARCH, shape, "score", fn,
+                (mod.model.init_params(cfg, device="meta"),)
+                + abstract_inputs(serve.inputs), meta,
                 axes=(p_axes,) + input_axes(serve.inputs), rules=rules)
+    if mesh is not None:
+        with sharding_ctx(mesh, rules):
+            params = mod.model.init_params(cfg, device="meta", mesh=mesh)
+        cell.args = (params,) + cell.args[1:]
+    return cell
 
 
 def sequence_meta(cfg, shape: str) -> dict:

@@ -34,9 +34,14 @@ parallelism).  Each of these moves is an ``autograd.Function`` with its
 transpose.  The recommenders' tables split their rows over the
 "table_rows" axes (``row_window``: a lookup is a masked local take summed
 over those ranks, ``sum_rows``), and a recsys call takes its rows of the
-inputs' "batch" and "candidates" dims (``placement(inputs=True)``); the
-GNN stays replicated (ROADMAP A16b 6.3b).  ``constrain`` returns its
-tensor unchanged: the model's activations are blocks by construction.
+inputs' "batch" and "candidates" dims (``placement(inputs=True)``).  A
+graph call (``graph_split``) takes its rows of the edge arrays over the
+live "edges" axes and holds its block of the node rows over the live
+"nodes" axes; the node features it gathers are summed back over the edge
+axes (``gather_blocks(sum_axes=)``) and its per-edge partial sums
+reduce-scattered over them onto its node block (``reduce_scatter(
+sum_axes=)``).  ``constrain`` returns its tensor unchanged: the model's
+activations are blocks by construction.
 
 A ``Mesh`` covers the initialized world (``init_process_group``), rank r
 at the row-major coordinates of r in the mesh shape (as
@@ -558,12 +563,13 @@ def named_sharding(mesh: Mesh, logical_axes: Sequence[Optional[str]],
 
 
 # The logical axes of parameters whose dims the port splits over ranks; a
-# dim under any other name stays whole on every rank (the GNN's "edges"
-# and "nodes": ROADMAP A16b 6.3b).  A recsys call also splits the dims of
-# its inputs named in INPUT_AXES (``placement(inputs=True)``); the LM's
-# inputs are whole, and ``models/transformer.Layout`` takes their lanes.
+# dim under any other name stays whole on every rank.  A recsys or graph
+# call also splits the dims of its inputs named in INPUT_AXES
+# (``placement(inputs=True)``; a graph's node rows by ``graph_split``); the
+# LM's inputs are whole, and ``models/transformer.Layout`` takes their
+# lanes.
 PLACED_AXES = frozenset({"fsdp", "tensor", "expert", "table_rows"})
-INPUT_AXES = frozenset({"batch", "candidates"})
+INPUT_AXES = frozenset({"batch", "candidates", "edges"})
 
 
 def placement(mesh: Mesh, logical_axes: Sequence[Optional[str]],
@@ -669,11 +675,12 @@ class _GatherBlocks(torch.autograd.Function):
     """The global tensor from the blocks, as ``_Unshard``, for a block
     that every rank then uses on its own share of the work (an FSDP
     weight on each rank's lanes, the sequence blocks of the residual
-    before a column-parallel product); the transpose is a reduce-scatter:
-    the ranks' gradients summed over ``sum_axes``, each rank keeping its
-    block.  Ranks that differ only along an axis left out of ``sum_axes``
-    did the same work (lanes replicated over it): each already holds the
-    whole gradient, which a sum would count once a rank."""
+    before a column-parallel product, a graph's node features on each
+    rank's edges); the transpose is a reduce-scatter: the ranks'
+    gradients summed over ``sum_axes``, each rank keeping its block.
+    Ranks that differ only along an axis left out of ``sum_axes`` did the
+    same work (lanes replicated over it): each already holds the whole
+    gradient, which a sum would count once a rank."""
 
     @staticmethod
     def forward(ctx, x, sharding, sum_axes):
@@ -688,24 +695,26 @@ class _GatherBlocks(torch.autograd.Function):
 
 
 class _ReduceScatter(torch.autograd.Function):
-    """Per-rank partial sums of a global tensor summed over the
-    sharding's axes (in REDUCE_DTYPE, cast back), each rank keeping its
-    block: the reduce-scatter that ends a row-parallel product under
-    sequence parallelism.  It runs as an all-reduce and a slice: what
-    the model runs on CUDA tensors keeps to the four collectives that
-    gloo is checked to take there (``chip_smoke.py --phases dist``).  The
-    transpose is the all-gather of the blocks' gradients."""
+    """Per-rank partial sums of a global tensor summed over ``sum_axes``
+    (in REDUCE_DTYPE, cast back), each rank keeping its block under
+    ``sharding``: the reduce-scatter that ends a row-parallel product
+    under sequence parallelism (``sum_axes`` the sharding's own), or a
+    graph's per-edge sums onto a rank's node block (the edge axes).  It
+    runs as an all-reduce and a slice: what the model runs on CUDA
+    tensors keeps to the four collectives that gloo is checked to take
+    there (``chip_smoke.py --phases dist``).  The transpose is the
+    all-gather of the blocks' gradients."""
 
     @staticmethod
-    def forward(ctx, x, sharding):
+    def forward(ctx, x, sharding, sum_axes):
         ctx.sharding = sharding
         total = sharding.mesh.all_reduce(x.to(REDUCE_DTYPE), "sum",
-                                         sharding.axes())
+                                         sum_axes)
         return sharding.local(total).to(x.dtype).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.sharding.gather(g.contiguous()), None
+        return ctx.sharding.gather(g.contiguous()), None, None
 
 
 def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
@@ -740,26 +749,34 @@ def reduce_sum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
 
 
 def gather_blocks(x: torch.Tensor, sharding: NamedSharding,
-                  replicas: Sequence[str] = ()) -> torch.Tensor:
-    """The global tensor from this rank's block (see ``_GatherBlocks``);
-    ``x`` itself where the sharding splits nothing.  ``replicas``: axes
-    along which the ranks use the gathered tensor on the same work, whose
-    gradients the transpose takes once instead of summing."""
-    if not _live(sharding.mesh, sharding.axes()):
-        return x
-    return _GatherBlocks.apply(x, sharding, tuple(
-        a for a in sharding.axes() if a not in replicas))
+                  sum_axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """The global tensor from this rank's block (see ``_GatherBlocks``).
+    The transpose sums over ``sum_axes``: the axes along which the ranks
+    did different work with the whole tensor (a graph's edge axes), by
+    default the sharding's own; an axis left out is one along which the
+    ranks used it on the same work, whose gradient it takes once.  Where
+    the sharding splits nothing, ``x`` itself, its gradient summed over
+    ``sum_axes`` (``sum_grad``)."""
+    mesh = sharding.mesh
+    sum_axes = _live(mesh, sharding.axes() if sum_axes is None else sum_axes)
+    if not _live(mesh, sharding.axes()):
+        return sum_grad(x, mesh, sum_axes)
+    return _GatherBlocks.apply(x, sharding, sum_axes)
 
 
-def reduce_scatter(x: torch.Tensor, sharding: NamedSharding
+def reduce_scatter(x: torch.Tensor, sharding: NamedSharding,
+                   sum_axes: Optional[Sequence[str]] = None
                    ) -> torch.Tensor:
-    """Partial sums of the global ``x`` summed over the ranks of the
-    sharding's axes, this rank's block of the total kept (see
-    ``_ReduceScatter``); ``x`` itself where the sharding splits
-    nothing."""
-    if not _live(sharding.mesh, sharding.axes()):
-        return x
-    return _ReduceScatter.apply(x, sharding)
+    """Partial sums of the global ``x`` summed over the ranks of
+    ``sum_axes`` (by default the sharding's axes), this rank's block of
+    the total under ``sharding`` kept (see ``_ReduceScatter``); where the
+    sharding splits nothing, the sum itself (``reduce_sum``: ``x`` where
+    the axes hold one rank)."""
+    mesh = sharding.mesh
+    sum_axes = _live(mesh, sharding.axes() if sum_axes is None else sum_axes)
+    if not _live(mesh, sharding.axes()):
+        return reduce_sum(x, mesh, sum_axes)
+    return _ReduceScatter.apply(x, sharding, sum_axes)
 
 
 @dataclass(frozen=True)
@@ -809,6 +826,59 @@ def sum_rows(partial: torch.Tensor, window: Optional[RowWindow]
     return reduce_sum(partial, window.mesh, window.axes)
 
 
+@dataclass(frozen=True)
+class GraphSplit:
+    """How a graph call lies on the mesh (``graph_split``): this rank's
+    rows [edge_start, edge_start + edge_rows) of the edge arrays, split
+    over the live ``edge_axes``, and its block [node_start, node_start +
+    node_rows) of the node rows, split over the live ``node_axes``; no
+    axes and all the rows where the mesh (None without one) leaves them
+    whole."""
+    mesh: Optional[Mesh]
+    edge_axes: Tuple[str, ...]
+    node_axes: Tuple[str, ...]
+    edge_start: int
+    edge_rows: int
+    node_start: int
+    node_rows: int
+
+    @property
+    def node_sharding(self) -> NamedSharding:
+        """A node array's dim 0 split over the node axes."""
+        return NamedSharding(self.mesh, P(self.node_axes or None))
+
+    def edges(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global (E, ...) edge array."""
+        return x[self.edge_start:self.edge_start + self.edge_rows]
+
+    def nodes(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global (N, ...) node array."""
+        return x[self.node_start:self.node_start + self.node_rows]
+
+
+def graph_split(n_nodes: int, n_edges: int) -> GraphSplit:
+    """A graph call of ``n_nodes`` nodes and ``n_edges`` edges on the
+    active mesh: the reference's ``constrain(src, "edges")`` and its
+    node-sharded residual (``constrain(x, "nodes", ...)``) written out.
+    The live axes are those that ``logical_spec(shape=)`` keeps for
+    ("edges",) over E and ("nodes",) over N under the active rules, so an
+    axis that does not divide its dim is dropped, as the reference's
+    ``constrain`` drops it; they are not read off the rules."""
+    mesh, rules = _active()
+    if mesh is None:
+        return GraphSplit(None, (), (), 0, n_edges, 0, n_nodes)
+
+    def rows(sh: NamedSharding, n: int):
+        block = sh.shard_shape((n,))[0]
+        return _live(mesh, sh.axes()), sh._index(1)[0] * block, block
+
+    e_axes, e0, ne = rows(placement(mesh, ("edges",), (n_edges,), rules,
+                                    inputs=True), n_edges)
+    n_axes, n0, nn = rows(named_sharding(mesh, ("nodes",), (n_nodes,),
+                                         rules), n_nodes)
+    return GraphSplit(mesh, e_axes, n_axes, e0, ne, n0, nn)
+
+
 def block_sharding(what: str, shape: Sequence[int], axes: Sequence,
                    global_shape: Sequence[int], mesh: Mesh,
                    rules: ShardingRules) -> NamedSharding:
@@ -834,4 +904,4 @@ __all__ = ["Mesh", "TracedMesh", "COLLECTIVE_KINDS", "ring_traffic",
            "PLACED_AXES", "axis_size", "shard", "unshard", "sum_grad",
            "reduce_sum", "REDUCE_DTYPE", "gather_blocks", "reduce_scatter",
            "block_sharding", "dim_axes", "INPUT_AXES", "RowWindow",
-           "row_window", "sum_rows"]
+           "row_window", "sum_rows", "GraphSplit", "graph_split"]

@@ -19,10 +19,8 @@ production meshes, (data 16, model 16) (``--single-pod``, key
 arguments are that rank's blocks (``build_cell(shape, mesh)``), its
 function runs under ``sharding_ctx(mesh, cell.rules)``, and the mesh
 records each collective the rank would call, which the roofline prices
-(``collective_s``).  Memory, cost and the collectives are that rank's.  A
-cell the port does not place yet (the GNN's, ROADMAP A16b 6.3b) runs
-whole on the rank: its record says ``placed: false`` and names
-the axes left whole, and its roofline is the whole cell's on one card.
+(``collective_s``).  Memory, cost and the collectives are that rank's;
+every cell is placed.
 
 Nothing runs on a device.  The reference lowers and compiles each cell on
 abstract values and reads XLA's cost and memory analyses; the port runs the
@@ -236,11 +234,9 @@ def _trace_cell(cell: Cell, fn=None) -> Dict:
 
 
 def record_roofline(rec: Dict, meta: Dict) -> Dict:
-    """The roofline of a record's counts: per card over its ``n_chips``
-    where the cell is placed, the whole cell's on one card where it runs
-    whole on every rank (``placed`` false), with the rank's collectives."""
-    n = rec["n_chips"] if rec.get("placed", True) else 1
-    return roofline(rec["cost"], n, meta=meta,
+    """The roofline of a record's counts per card over its ``n_chips``,
+    with the rank's collectives."""
+    return roofline(rec["cost"], rec["n_chips"], meta=meta,
                     collectives=rec.get("collectives", ()))
 
 
@@ -256,10 +252,9 @@ def run_cell(arch: str, shape: str, mesh: Optional[str] = None,
     traced = None if mesh is None else make_production_mesh(
         multi_pod=MESHES[mesh], rank=rank)
     cell = cfgreg.get_arch(arch).build_cell(shape, traced)
-    placed = traced is not None and not cell.whole_axes
-    with sharding_ctx(traced if placed else None, cell.rules):
+    with sharding_ctx(traced, cell.rules):
         tr = _trace_cell(cell)
-        records = traced.collective_records() if placed else []
+        records = traced.collective_records() if traced is not None else []
         mem = _trace_cell(cell, cell.memory_fn) if cell.memory_fn else tr
     cost = {k: tr[k] for k in ("flops", "bytes accessed", "flops_by_dtype",
                                "n_ops")}
@@ -277,9 +272,7 @@ def run_cell(arch: str, shape: str, mesh: Optional[str] = None,
         "meta": cell.meta,
     }
     if traced is not None:
-        rec.update(rank=rank, placed=placed, collectives=records)
-        if not placed:
-            rec["whole_axes"] = list(cell.whole_axes)
+        rec.update(rank=rank, placed=True, collectives=records)
     rec["roofline"] = record_roofline(rec, cell.meta)
     return rec
 
@@ -306,9 +299,7 @@ def sweep(cells: Iterable, out: str, meshes: Sequence[Optional[str]] = (
                       f"bottleneck={rf['bottleneck']} "
                       f"peak={rec['memory']['peak_memory_in_bytes'] / 1e9:.2f}"
                       f"GB collective="
-                      f"{rf['collective_bytes_per_chip'] / 1e9:.3f}GB"
-                      + ("" if rec.get("placed", True) else
-                         f" unplaced (whole: {rec['whole_axes']})"),
+                      f"{rf['collective_bytes_per_chip'] / 1e9:.3f}GB",
                       flush=True)
             except Exception as e:  # noqa: BLE001
                 rec = {"arch": arch, "shape": shape, "ok": False,

@@ -95,27 +95,23 @@ def render(results: Dict) -> str:
 def render_mesh(mesh: str, cells: Dict) -> str:
     """A mesh leg's tables: per rank, the counts of one traced rank."""
     ok = [v for v in cells.values() if v.get("ok")]
-    placed = [v for v in ok if v.get("placed", True)]
-    whole = [v for v in ok if not v.get("placed", True)]
     n = ok[0]["n_chips"] if ok else 0
     out = [f"\n### Mesh {mesh} ({n} ranks; one traced rank's counts, not "
            "times)\n",
-           f"- **{len(ok)}/{len(cells)}** cells traced OK: {len(placed)} "
-           f"placed, {sum(v['fits_80gb'] for v in placed)} of them fit "
-           f"80 GB a rank; {len(whole)} not placed yet (every rank holds "
-           "and runs the whole cell, ROADMAP A16b 6.3b)"]
+           f"- **{len(ok)}/{len(cells)}** cells traced OK, all placed: "
+           f"{sum(v['fits_80gb'] for v in ok)} of them fit 80 GB a rank"]
     fails = [(k, v.get("error", "")) for k, v in cells.items()
              if not v.get("ok")]
     for k, e in fails:
         out.append(f"- `{k}`: {e[:160]}")
-    out.append(f"\n#### Placed cells ({mesh}, per rank)\n")
+    out.append(f"\n#### Cells ({mesh}, per rank)\n")
     out.append("| arch | shape | rank | peak | fits 80GB | args | "
                "collective | all-reduce | all-gather | all-to-all | "
                "compute | memory(floor) | collective_s | bottleneck | "
                "bound |")
     out.append("|---|---|---:|---:|:--:|---:|---:|---:|---:|---:|---:|---:|"
                "---:|---|---:|")
-    for v in placed:
+    for v in ok:
         m, r = v["memory"], v["roofline"]
         kind = r["collective_by_kind"]
         out.append(
@@ -133,20 +129,6 @@ def render_mesh(mesh: str, cells: Dict) -> str:
                "node of 8 ranks and at the network's for any other "
                "(launch/mesh.py).  memory(floor): the cell's floor over "
                "the mesh's ranks, as the reference divides it.")
-    if whole:
-        out.append(f"\n#### Not placed yet ({mesh}: every rank runs the "
-                   "whole cell; its terms are one card's)\n")
-        out.append("| arch | shape | axes left whole | peak | fits 80GB | "
-                   "compute | memory(floor) |")
-        out.append("|---|---|---|---:|:--:|---:|---:|")
-        for v in whole:
-            r = v["roofline"]
-            out.append(
-                f"| {v['arch']} | {v['shape']} | "
-                f"{', '.join(v['whole_axes'])} | "
-                f"{fmt_b(v['memory']['peak_memory_in_bytes'])} | "
-                f"{'✓' if v['fits_80gb'] else '✗'} | "
-                f"{fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} |")
     return "\n".join(out)
 
 

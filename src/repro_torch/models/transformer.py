@@ -489,10 +489,12 @@ class Layout:
             fsdp = {a for g in gat if g for a in g}     # every gathered axis
         else:
             split = set(self.lane_axes)
-        if any(gat):      # the ranks that do the same work: replicas
-            w = gather_blocks(w, NamedSharding(self.mesh, P(*gat)),
-                              self.mesh.axis_names if total
-                              else tuple(fsdp - split))
+        if any(gat):
+            # the transpose sums over the gathered axes but the replicas'
+            # (the ranks that do the same work)
+            sh = NamedSharding(self.mesh, P(*gat))
+            same = set(self.mesh.axis_names) if total else fsdp - split
+            w = gather_blocks(w, sh, [a for a in sh.axes() if a not in same])
         if any(cut):
             w = shard(w, NamedSharding(self.mesh, P(*cut)))
         if w.requires_grad and torch.is_grad_enabled() and not total:

@@ -517,17 +517,40 @@ def test_recsys_cells_under_a_mesh_are_placed_and_count_collectives():
 
 
 def test_gnn_under_a_mesh_names_the_axes_left_whole():
-    """The GNN is not placed yet (ROADMAP A16b 6.3b): under a mesh every
-    rank runs the whole cell and the cell names the axes the reference
-    places there."""
+    """The GNN's cells are placed (ROADMAP A16b 6.3b), so no record names
+    axes left whole: under a mesh a rank of molecule at (16, 16) holds
+    its "tensor" blocks of the SO(2) and FFN weights (``Cell.shardings``)
+    and the whole inputs, runs its edges and node block, and counts the
+    collectives a rank calls (the node features' all-gathers, the edge
+    sums' all-reduces over every rank); its peak is below one card's
+    record and its roofline has a collective term.  No cell and no record
+    carries ``whole_axes`` any more."""
     mod = configs.get_arch("equiformer_v2")
-    assert mod.WHOLE_AXES == ("edges", "tensor")
-    for shape in mod.SHAPES:
-        assert mod.build_cell(shape, object()).whole_axes == ("edges",
-                                                              "tensor")
-        assert mod.build_cell(shape).whole_axes == ()
-    for arch in ("wide_deep", "two_tower_retrieval", "sasrec", "bert4rec"):
-        assert not hasattr(configs.get_arch(arch), "WHOLE_AXES")
+    assert not hasattr(mod, "WHOLE_AXES")
+    one = dryrun.run_cell("equiformer_v2", "molecule")
+    rec = dryrun.run_cell("equiformer_v2", "molecule", "16x16")
+    assert rec["ok"] and rec["placed"] is True and "whole_axes" not in rec
+    assert rec["n_chips"] == 256
+    kinds = {(c["kind"], c["group"]) for c in rec["collectives"]}
+    assert {("all-gather", 16), ("all-reduce", 256)} <= kinds, kinds
+    assert rec["roofline"]["collective_s"] > 0
+    assert rec["memory"]["peak_memory_in_bytes"] \
+        < one["memory"]["peak_memory_in_bytes"]
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(rank=0)
+    cell = mod.build_cell("molecule", mesh)
+    assert not hasattr(cell, "whole_axes")
+    want = _leaf_bytes(cell.global_args, cell.shardings(mesh))
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    assert cell.arg_bytes() == want
+    layers = cell.args[0]["layers"]
+    # 12 layers; l_max 6, C 128: a 16th of the "tensor" dims a rank
+    assert layers["w0"].shape == (12, 1792, 56)
+    assert layers["wr2"].shape == (12, 1280, 40)
+    assert layers["ffn_w1"].shape == (12, 7, 128, 16)
+    assert layers["ffn_w2"].shape == (12, 7, 16, 128)
+    assert layers["rad_w"].shape == (12, 32, 1792)
+    assert cell.args[2]["edges"].shape == (8192, 2)
 
 
 def test_dryrun_cli_runs_resumes_and_skips_the_mesh_legs(tmp_path, capsys):

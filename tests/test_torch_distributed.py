@@ -17,7 +17,9 @@ placed with ``named_sharding`` under ``DEFAULT_RULES`` or the serve cells'
 ``override(fsdp=())`` (also with query heads that split off one KV
 head), and its ``make_train_step`` jitted with the ``in_shardings`` of
 ``tree_shardings`` under the train_4k cells' rules (the residual split
-along the sequence over ``model``; dense and MoE through ``moe_ep``).  A
+along the sequence over ``model``; dense and MoE through ``moe_ep``), and
+EquiformerV2 jitted under its rules, in a second JAX subprocess beside the
+first (``JAX_GNN_REFS``).  A
 second spawn of 4 ranks restores the checkpoints the first saved
 (parameters, and a train state it then steps on), and one the JAX
 package saved, onto (data 2, model 2), and runs the train CLI inside
@@ -461,6 +463,97 @@ JAX_REFS = """
 """
 
 
+JAX_GNN_REFS = """
+    import sys, dataclasses, json
+    import numpy as np, jax, jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.configs import equiformer_v2 as CE
+    from repro.configs.common import opt_state_axes, tree_shardings
+    from repro.distributed.sharding import (DEFAULT_RULES, named_sharding,
+                                            sharding_ctx)
+    from repro.models.gnn import equiformer as EQ
+    from repro.training.optimizer import adamw_init
+    from repro.training.train_step import make_train_step
+    d = dict(np.load(sys.argv[1]))
+    out = {}
+
+    def tree(prefix):
+        res = {}
+        for k, v in d.items():
+            if k.startswith(prefix + "/"):
+                node = res
+                parts = k[len(prefix) + 1:].split("/")
+                for p in parts[:-1]:
+                    node = node.setdefault(p, {})
+                node[parts[-1]] = jnp.asarray(v)
+        return res
+
+    def flat(prefix, t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                flat(f"{prefix}/{k}", v)
+            else:
+                out[f"{prefix}/{k}"] = np.asarray(v)
+
+    # EquiformerV2 under the reference's rules (src and dst on "edges", the
+    # residual on "nodes", the SO(2) and FFN weights on "tensor"): its
+    # parameters and its edge inputs placed by named_sharding under
+    # DEFAULT_RULES, the node inputs whole, as its cells place them; the
+    # forward, the loss and its gradient, and two train steps jitted on
+    # the Auto mesh
+    gnn_axes = {"edges": ("edges", None), "edge_mask": ("edges",)}
+    for name, (lname, data, model, N, E, chunk) in json.loads(
+            str(d["gnn/cases"])).items():
+        mesh = Mesh(np.array(jax.devices()).reshape(data, model),
+                    ("data", "model"))
+        cfg = dataclasses.replace(CE.smoke_config(), edge_chunk=chunk)
+        pre = f"gnn/{name}/"
+        raw = {k[len(pre):]: jnp.asarray(v) for k, v in d.items()
+               if k.startswith(pre)}
+        b_axes = {k: gnn_axes.get(k, (None,) * v.ndim)
+                  for k, v in raw.items()}
+
+        def put(t, ax):
+            if isinstance(t, dict):
+                return {k: put(t[k], ax[k]) for k in t}
+            return jax.device_put(t, named_sharding(mesh, ax, t.shape,
+                                                    DEFAULT_RULES))
+        p_axes = EQ.param_logical_axes(cfg)
+        params, batch = put(tree("gnn/params"), p_axes), put(raw, b_axes)
+        loss = lambda p, b, f=getattr(EQ, lname): f(cfg, p, b)
+        G = int(d["gnn/graphs"]) if "graph_ids" in raw else 1
+
+        def fwd_and_grad(p, b):
+            return EQ.forward(cfg, p, b["node_feat"], b["positions"],
+                              b["edges"], b["edge_mask"],
+                              graph_ids=b.get("graph_ids"),
+                              n_graphs=G), jax.value_and_grad(loss)(p, b)
+        with sharding_ctx(mesh, DEFAULT_RULES):
+            o, (v, g) = jax.jit(fwd_and_grad)(params, batch)
+        for k in ("node_out", "graph_out", "l1_feats"):
+            out[f"gnn/{name}/{k}"] = np.asarray(o[k])
+        out[f"gnn/{name}/loss"] = np.asarray(v)
+        flat(f"gnn/{name}/grad", g)
+        tree_ = tree("gnn/params")
+        opt = adamw_init(tree_)
+        step = make_train_step(loss, lr=3e-4, grad_dtype="bfloat16")
+        shardings = tree_shardings(mesh, (tree_, opt, raw),
+                                   (p_axes, opt_state_axes(p_axes), b_axes),
+                                   DEFAULT_RULES)
+        with sharding_ctx(mesh, DEFAULT_RULES):
+            fn = jax.jit(step, in_shardings=shardings)
+            for i in range(2):
+                tree_, opt = jax.device_put((tree_, opt), shardings[:2])
+                tree_, opt, m = fn(tree_, opt, raw)
+                out[f"gnn/{name}/loss{i}"] = np.asarray(m["loss"])
+                out[f"gnn/{name}/norm{i}"] = np.asarray(m["grad_norm"])
+        flat(f"gnn/{name}/p", tree_)
+        flat(f"gnn/{name}/mu", opt.mu)
+        flat(f"gnn/{name}/nu", opt.nu)
+    np.savez(sys.argv[2], **out)
+"""
+
+
 def _put(d, prefix, t):
     """A nested dict of arrays into ``d`` under flat ``prefix/...`` keys."""
     for k, v in t.items():
@@ -591,6 +684,7 @@ def _inputs():
     d["train/cases"] = np.array(json.dumps(ranks.TRAIN_CASES))
     d["moe_train/cases"] = np.array(json.dumps(ranks.MOE_TRAIN_CASES))
     _recsys_inputs(d)
+    _gnn_inputs(d)
     for shared in (0, 1):
         jcfg = ref_tx.TransformerConfig(
             n_layers=2, d_model=64, n_heads=8, n_kv_heads=4, d_ff=0,
@@ -675,6 +769,36 @@ def _recsys_inputs(d):
                 _put(d, f"{pre}/t{i}", t)
 
 
+def _gnn_inputs(d):
+    """The GNN cases: the reference's smoke parameters and a random graph
+    a case, with masked edges and zero-length padding edges (0 -> 0,
+    masked) at the end and on both sides of the edge blocks' first
+    boundaries at 8 and 4 blocks."""
+    from repro.configs import equiformer_v2 as jcfg
+    from repro.models.gnn import equiformer as jeq
+    rng = np.random.RandomState(31)
+    d["gnn/cases"] = np.array(json.dumps(ranks.GNN_CASES))
+    d["gnn/graphs"] = np.array(ranks.GNN_GRAPHS)
+    _put(d, "gnn/params", jax.tree.map(np.asarray, jax.jit(
+        jeq.init_params, static_argnums=0)(jcfg.smoke_config(),
+                                           jax.random.key(40))))
+    G = ranks.GNN_GRAPHS
+    for name, (loss, _, _, N, E, _) in ranks.GNN_CASES.items():
+        edges = rng.randint(0, N, (E, 2)).astype(np.int32)
+        mask = rng.rand(E) > 0.2
+        pad = [E // 8 - 1, E // 8, E // 4 - 1, E // 4, E - 2, E - 1]
+        edges[pad], mask[pad] = 0, False
+        pre = f"gnn/{name}/"
+        d[pre + "node_feat"] = rng.randn(N, 8).astype(np.float32)
+        d[pre + "positions"] = rng.randn(N, 3).astype(np.float32)
+        d[pre + "edges"], d[pre + "edge_mask"] = edges, mask
+        if loss == "energy_loss":
+            d[pre + "graph_ids"] = (np.arange(N) * G // N).astype(np.int32)
+            d[pre + "energies"] = rng.randn(G).astype(np.float32)
+        else:
+            d[pre + "labels"] = rng.randint(-1, 3, (N,)).astype(np.int32)
+
+
 def _commit_inputs(d):
     """The fused step's arguments for case b at cache_lens 6: a tree of 5
     slots (parents -1, 0, 0, 2, 2) whose tokens make the reference's dense
@@ -738,13 +862,19 @@ def spawned(tmp_path_factory):
     JaxCkpt(os.path.join(directory, "jckpt")).save(
         5, {"params": params},
         logical_axes={"params": ref_tx.param_logical_axes(jcfg)})
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+    # XLA's CPU client runs the 8 devices' collectives on one thread pool,
+    # NPROC threads (the cores by default): with several collectives in
+    # flight a device, every thread can wait in a rendezvous whose other
+    # members get no thread, and XLA aborts the process
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu", NPROC="64",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    refs_path = os.path.join(directory, "refs.npz")
-    jax_proc = subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_REFS),
-         os.path.join(directory, "inputs.npz"), refs_path],
+    refs = [os.path.join(directory, f"refs{i}.npz") for i in range(2)]
+    # the GNN's references in a second process beside the first
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(script),
+         os.path.join(directory, "inputs.npz"), path],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for script, path in zip((JAX_REFS, JAX_GNN_REFS), refs)]
     try:
         tmp.start_processes(ranks.world8, args=(directory,), nprocs=8,
                             join=True, start_method="spawn")
@@ -752,13 +882,17 @@ def spawned(tmp_path_factory):
                             join=True, start_method="spawn")
         tmp.start_processes(ranks.world2, args=(directory,), nprocs=2,
                             join=True, start_method="spawn")
-        out, err = jax_proc.communicate(timeout=300)
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, out + err
     finally:
-        if jax_proc.poll() is None:
-            jax_proc.kill()
-            jax_proc.communicate()
-    assert jax_proc.returncode == 0, out + err
-    return dict(inputs=d, refs=dict(np.load(refs_path)), dir=directory,
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return dict(inputs=d, refs={k: v for path in refs
+                                for k, v in np.load(path).items()},
+                dir=directory,
                 res=[torch.load(os.path.join(directory, f"rank{r}.pt"),
                                 weights_only=False) for r in range(8)],
                 restored=[torch.load(os.path.join(directory,
@@ -1718,3 +1852,225 @@ def test_recsys_train_state_saved_on_8_ranks_restores_onto_4_and_one(
             assert torch.equal(got["state"][k], a), k
     assert spawned["restored"][0]["recsys"]["block"] == (6, 256, 8)
     assert one["block"] == (6, 512, 8)
+
+
+# ------------------------------------------------------------------- the GNN
+GNN_RTOL, GNN_ATOL = 1e-4, 1e-5  # tests/test_torch_gnn.py's: ATOL of the
+# largest |value| of each array (of the whole gradient for gradient leaves:
+# attn_b's is zero but for rounding)
+# case -> (edge axes, node axes, edges a rank, nodes a rank)
+# (edge axes, node axes, edge rows, node rows, FFN axes, ordered sums)
+GNN_SPLITS = {"g42n": (("data", "model"), ("data",), 8, 8, ("model",), False),
+              "g24e": (("data", "model"), ("data",), 8, 16, ("model",),
+                       False),
+              "g42c": (("data", "model"), ("data",), 12, 8, ("model",),
+                       False),
+              "g42x": (("data",), (), 15, 30, ("model",), True)}
+
+
+def _gnn_bad(got, want, scale=None):
+    """The keys of ``got`` outside the GNN tolerance of ``want`` (atol of
+    ``scale``, or each array's own largest |value|)."""
+    bad = []
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        s = scale if scale is not None else max(np.abs(w).max(), 1e-30)
+        if g.shape != w.shape or not np.allclose(
+                g, w, rtol=GNN_RTOL, atol=GNN_ATOL * s):
+            bad.append(k)
+    return bad
+
+
+def _gnn_grad_scale(grads):
+    return max(float(np.abs(np.asarray(g)).max()) for g in grads.values())
+
+
+@pytest.mark.parametrize("case", list(ranks.GNN_CASES))
+def test_gnn_under_the_mesh_equals_the_reference(spawned, case):
+    """EquiformerV2 placed over the mesh (``ranks.GNN_CASES``: the dense
+    path with node_class_loss at (data 4, model 2), energy_loss with
+    graph_ids at (2, 4), the chunked path with a rank's 12 edges in
+    chunks of 8 and 4, and N no multiple of ``data`` with E one of
+    ``data`` but not of data x model): each rank's live edge and node
+    axes as ``logical_spec(shape=)`` keeps them; the gathered node
+    outputs, the graph outputs, the loss and every gathered gradient
+    leaf alike on every rank and, at the GNN tests' tolerance, equal to
+    the reference's program jitted on the Auto mesh with its parameters
+    and edge inputs placed by the same rules, and to the single-device
+    port."""
+    res, refs = spawned["res"], spawned["refs"]
+    r0 = res[0][f"gnn/{case}"]
+    assert r0["split"] == GNN_SPLITS[case]
+    for r in res[1:]:
+        x = r[f"gnn/{case}"]
+        assert x["split"][:2] + x["split"][4:] == \
+            r0["split"][:2] + r0["split"][4:]
+        assert torch.equal(x["loss"], r0["loss"])
+        for k, v in x["out"].items():
+            assert torch.equal(v, r0["out"][k]), k
+        for k, v in x["grads"].items():
+            assert torch.equal(v, r0["grads"][k]), k
+    one = r0["one"]
+    outs = dict(r0["out"], loss=r0["loss"])
+    want = {k: refs[f"gnn/{case}/{k}"] for k in outs}
+    assert _gnn_bad(outs, want) == []
+    assert _gnn_bad(outs, dict(one["out"], loss=one["loss"])) == []
+    want = {k: refs[f"gnn/{case}/grad/{k}"] for k in r0["grads"]}
+    assert sorted(r0["grads"]) == sorted(one["grads"])
+    assert _gnn_bad(r0["grads"], want, _gnn_grad_scale(want)) == []
+    assert _gnn_bad(r0["grads"], one["grads"],
+                    _gnn_grad_scale(one["grads"])) == []
+
+
+@pytest.mark.parametrize("case", list(ranks.GNN_CASES))
+def test_gnn_train_steps_under_the_mesh_equal_the_reference(spawned, case):
+    """Two steps of the config's train step (bf16 gradients, AdamW, the
+    global norm over the blocks) on the placed parameters: every rank's
+    losses and grad norms alike, equal to the reference's
+    ``make_train_step`` jitted with ``in_shardings`` on the Auto mesh and
+    to the single-device port's (rtol 1e-5), and the gathered parameters
+    and moments within ``STATE_ATOL`` of both."""
+    res, refs = spawned["res"], spawned["refs"]
+    r0 = res[0][f"gnn/{case}"]
+    for r in res[1:]:
+        assert r[f"gnn/{case}"]["metrics"] == r0["metrics"]
+    for i, (loss, norm) in enumerate(r0["metrics"]):
+        np.testing.assert_allclose(loss, refs[f"gnn/{case}/loss{i}"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(norm, refs[f"gnn/{case}/norm{i}"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose((loss, norm), r0["one"]["metrics"][i],
+                                   rtol=1e-5)
+    want = {k: refs[f"gnn/{case}/{k}"] for k in r0["state"]}
+    assert max(_state_err(r0["state"], want).values()) < STATE_ATOL
+    assert max(_state_err(r0["state"], r0["one"]["state"]).values()) \
+        < STATE_ATOL
+
+
+def test_gnn_gradient_summed_over_model_too_fails(spawned):
+    """The mutation that sums every node-side replicated weight's gradient
+    over ``model`` as well as the node axes (the ranks along ``model``
+    ran the same node block) doubles the replicated ones at model 2 (and
+    adds the other rank's block to the FFN's "tensor" blocks): the check
+    of the gathered gradients against the reference then fails on node-side
+    leaves only, and the edge-side and SO(2) leaves stay right."""
+    refs = spawned["refs"]
+    case = ranks.GNN_MUTANT_CASE
+    r0 = spawned["res"][0][f"gnn/{case}"]
+    want = {k: refs[f"gnn/{case}/grad/{k}"] for k in r0["grads"]}
+    scale = _gnn_grad_scale(want)
+    assert _gnn_bad(r0["grads"], want, scale) == []
+    node_side = {"w_in", "head_w1", "head_w2", "ln_f", "layers/out_proj",
+                 "layers/ln1", "layers/ln2", "layers/ffn_w1",
+                 "layers/ffn_gate", "layers/ffn_w2"}
+    bad = set(_gnn_bad(r0["mutant_grads"], want, scale))
+    assert bad and bad <= node_side, bad
+    for k in node_side - {"layers/ffn_w1", "layers/ffn_gate",
+                          "layers/ffn_w2"}:      # replicated: doubled
+        torch.testing.assert_close(r0["mutant_grads"][k], 2 * r0["grads"][k])
+
+
+def test_gnn_param_logical_axes_and_shapes_equal_the_reference():
+    """``param_logical_axes`` is the reference's at the smoke and the full
+    configs; ``param_shapes`` is the shape of each of the reference's
+    ``init_params`` leaves."""
+    from repro.configs import equiformer_v2 as jcfg
+    from repro.models.gnn import equiformer as jeq
+    from repro_torch.configs import equiformer_v2 as tcfg
+    from repro_torch.models.gnn import equiformer as teq
+    for tc, jc in ((tcfg.smoke_config(), jcfg.smoke_config()),
+                   (tcfg.full_config("molecule"),
+                    jcfg.full_config("molecule"))):
+        assert teq.param_logical_axes(tc) == jeq.param_logical_axes(jc)
+        shapes = jax.eval_shape(lambda k, c=jc: jeq.init_params(c, k),
+                                jax.random.key(0))
+        want = jax.tree.map(lambda a: tuple(a.shape), shapes)
+        assert teq.param_shapes(tc) == want
+
+
+def test_gnn_init_params_keeps_the_single_device_blocks(spawned):
+    """``init_params(mesh=)`` draws one device's numbers and keeps this
+    rank's block of every leaf: the SO(2) weights' output columns and the
+    FFN's 2C over ``model`` (halves at model 2, quarters at 4), the rest
+    whole."""
+    C, L = 16, 2
+    for r in spawned["res"]:
+        for case, (_, _, model, _, _, _) in ranks.GNN_CASES.items():
+            x = r[f"gnn/{case}"]
+            assert x["drawn_equal"], case
+            assert x["blocks"]["layers/w0"] == (2, 2 * (L + 1) * C,
+                                                (L + 1) * C // model)
+            assert x["blocks"]["layers/wi1"] == (2, 2 * L * C, L * C // model)
+            assert x["blocks"]["layers/ffn_w1"] == (2, L + 1, C,
+                                                    2 * C // model)
+            assert x["blocks"]["layers/ffn_w2"] == (2, L + 1, 2 * C // model,
+                                                    C)
+            assert x["blocks"]["layers/rad_w"] == (2, 8, 2 * (L + 1) * C)
+
+
+def test_traced_mesh_counts_what_gloo_is_handed_for_a_gnn_forward(spawned):
+    """One GNN forward at (data 4, model 2) under ``DEFAULT_RULES``, dense
+    and chunked: on every rank the ``TracedMesh`` of that rank, run on
+    meta copies, records what the real ``Mesh`` handed gloo, to the byte
+    and by kind and group: the node features' all-gathers over ``data``,
+    the SO(2) weights' over ``model``, the segment max and the edge sums'
+    all-reduces over data x model, the FFN's over ``model`` and the mean
+    pool's over ``data``."""
+    for rank, r in enumerate(spawned["res"]):
+        for case in ranks.GNN_COUNT_CASES:
+            real, traced = (r[f"gnn/{case}"][f"count/{t}"]
+                            for t in ("real", "traced"))
+            assert real and real == traced, (rank, case)
+            kinds = {(x["kind"], x["group"]) for x in real}
+            assert kinds == {("all-gather", 4), ("all-gather", 2),
+                             ("all-reduce", 8), ("all-reduce", 2),
+                             ("all-reduce", 4)}, kinds
+
+
+def test_gnn_train_state_saved_on_8_ranks_restores_onto_4_and_one(spawned):
+    """The GNN's train state after two steps on (data 4, model 2), saved by
+    ``save(mesh=)`` with its parameters' and moments' axes, restores onto
+    (data 2, model 2) (each rank's "tensor" blocks) and onto one device,
+    whole: both equal the state the 8 ranks gathered, bit for bit, at
+    step 2."""
+    saved = spawned["res"][0][f"gnn/{ranks.GNN_CKPT_CASE}"]["state"]
+    one = spawned["restored"][0]["gnn_one"]
+    for got in [r["gnn"] for r in spawned["restored"]] + [one]:
+        assert got["step"] == 2 and got["opt_step"] == 2
+        assert sorted(got["state"]) == sorted(saved)
+        for k, a in saved.items():
+            assert torch.equal(got["state"][k], a), k
+    assert spawned["restored"][0]["gnn"]["w0"] == (2, 96, 24)
+    assert one["w0"] == (2, 96, 48)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_graph_split_of_every_gnn_cell_on_the_production_meshes(multi_pod):
+    """Rank 0's rows of each GNN cell on the reference's production meshes
+    under ``DEFAULT_RULES``: every cell's padded E splits over every rank;
+    full_graph_sm's N 2,708 is no multiple of ``data`` 16, so its nodes
+    stay whole at (16, 16) and go over ``pod`` alone at (2, 16, 16);
+    ogb_products' 2,449,408 nodes and 61,859,328 edges give a rank 153,088
+    and 241,638 at (16, 16)."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    from repro_torch.distributed.sharding import graph_split, sharding_ctx
+    mesh = make_production_mesh(multi_pod=multi_pod, rank=0)
+    pod = ("pod",) if multi_pod else ()
+    want = {  # shape -> (node axes, nodes a rank)
+        "full_graph_sm": (pod, 1354 if multi_pod else 2708),
+        "minibatch_lg": (pod + ("data",), 169_984 // (32 if multi_pod
+                                                     else 16)),
+        "ogb_products": (pod + ("data",), 2_449_408 // (32 if multi_pod
+                                                       else 16)),
+        "molecule": (pod + ("data",), 3840 // (32 if multi_pod else 16))}
+    for shape, c in ecfg.CELLS.items():
+        with sharding_ctx(mesh, DEFAULT_RULES):
+            sp = graph_split(c["n_nodes"], c["n_edges"])
+        assert sp.edge_axes == pod + ("data", "model"), shape
+        assert sp.edge_rows == c["n_edges"] // mesh.size, shape
+        assert (sp.node_axes, sp.node_rows) == want[shape], shape
+    if not multi_pod:
+        with sharding_ctx(mesh, DEFAULT_RULES):
+            sp = graph_split(2_449_408, 61_859_328)
+        assert (sp.node_rows, sp.edge_rows) == (153_088, 241_638)

@@ -11,7 +11,10 @@ the mesh: ``make_train_step`` on placed parameters and AdamW state, its
 checkpoint, the train CLI inside ``sharding_ctx``, and an MoE's train step
 under sequence parallelism, and the four recommenders placed over the
 mesh: their serve cells and train steps, and a W&D train state saved on
-8 ranks and restored on 4 and on one device), check what they can against
+8 ranks and restored on 4 and on one device, and EquiformerV2 placed over
+the mesh: its forward, loss, gradients and train steps on the dense and
+chunked paths, and its train state saved on 8 ranks and restored on 4 and
+on one device), check what they can against
 the port's single-device paths, and leave their outputs in
 ``<dir>/rank<r>.pt`` for the test to hold against the JAX package's
 sharded functions.  Imports torch and the port only, so a spawned rank
@@ -34,7 +37,7 @@ from repro_torch.core.request import SamplingParams
 from repro_torch.distributed.flash_decode import cache_partition_spec
 from repro_torch.distributed.sharding import (DEFAULT_RULES, NamedSharding,
                                               P, TracedMesh, placement,
-                                              sharding_ctx)
+                                              sharding_ctx, sum_grad)
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe
@@ -877,6 +880,8 @@ def world8(rank: int, directory: str) -> None:
             _moe_train_case(meshes, ins, name, res)
         for name in RECSYS_CASES:
             _recsys_case(meshes, ins, name, directory, res)
+        for name in GNN_CASES:
+            _gnn_case(meshes, ins, name, directory, res)
         torch.save(res, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -945,8 +950,10 @@ def world4(rank: int, directory: str) -> None:
                                                                "cli")])
         res["cli"] = {"losses": cli["losses"], "start": cli["start"]}
         res["recsys"] = recsys_restored(mesh, directory)
+        res["gnn"] = gnn_restored(mesh, directory)
         if rank == 0:
             res["recsys_one"] = recsys_restored(None, directory)
+            res["gnn_one"] = gnn_restored(None, directory)
         torch.save(res, os.path.join(directory, f"restored{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -1137,3 +1144,193 @@ def recsys_restored(mesh, directory):
             flat.update(recsys_gathered(mesh, axes, shapes, o.nu, "nu/"))
         return {"step": step, "opt_step": int(o.step), "state": flat,
                 "block": tuple(p["tables"].shape)}
+
+
+# --------------------------------------------------------------- the GNN
+# EquiformerV2 placed over a mesh (ROADMAP A16b 6.3b): case -> (loss,
+# data, model, N, E, edge_chunk), at the smoke config.  g42n: the nodes
+# over data (8 a rank), the edges over data x model (8 a rank); g24e the
+# same at (2, 4) with graph_ids; g42c the chunked path, 12 edges a rank in
+# chunks of 8 and 4 (12 chunks of the global E); g42x: N 30 is no multiple
+# of data (the nodes whole on every rank), E 60 one of data but not of
+# data x model (the edges over data alone).
+GNN_CASES = {"g42n": ("node_class_loss", 4, 2, 32, 64, 0),
+             "g24e": ("energy_loss", 2, 4, 32, 64, 0),
+             "g42c": ("node_class_loss", 4, 2, 32, 96, 8),
+             "g42x": ("energy_loss", 4, 2, 30, 60, 0)}
+GNN_GRAPHS = 4              # graphs of the energy cases
+GNN_COUNT_CASES = ("g42n", "g42c")   # one forward counted, real vs traced
+GNN_CKPT_CASE = "g42n"      # its train state saved on 8 ranks
+GNN_MUTANT_CASE = "g42n"    # its gradient with node-side sums over model too
+GNN_INPUTS = ("node_feat", "positions", "edges", "edge_mask")
+
+
+def gnn_cfg(chunk):
+    from repro_torch.configs import equiformer_v2 as ecfg
+    return dataclasses.replace(ecfg.smoke_config(), edge_chunk=chunk)
+
+
+def gnn_step(cfg, loss_name):
+    """The config's train step (lr 3e-4, bf16 gradients, the global norm
+    over the blocks) for the case's loss."""
+    from repro_torch.configs import equiformer_v2 as ecfg
+    shape = "molecule" if loss_name == "energy_loss" else "full_graph_sm"
+    return ecfg.train_cell(shape, cfg).step
+
+
+def gnn_batch(ins, name):
+    pre = f"gnn/{name}/"
+    return {k[len(pre):]: torch.from_numpy(v) for k, v in ins.items()
+            if k.startswith(pre)}
+
+
+def gnn_forward(cfg, params, b):
+    """forward on the batch: graph_out pooled by graph_ids where the batch
+    has them, else the mean; the node outputs gathered whole."""
+    from repro_torch.models.gnn import equiformer as eq
+    ids = b.get("graph_ids")
+    out = eq.forward(cfg, params, *(b[k] for k in GNN_INPUTS),
+                     graph_ids=ids,
+                     n_graphs=GNN_GRAPHS if ids is not None else 1)
+    g = eq.Graph(cfg, b["node_feat"].shape[0], b["edges"].shape[0])
+    return {"node_out": g.gather(out["node_out"]),
+            "l1_feats": g.gather(out["l1_feats"]),
+            "graph_out": out["graph_out"]}
+
+
+def gnn_loss_grads(cfg, loss_name, params, b, mesh=None):
+    """(loss, every gradient leaf flat, gathered whole under ``mesh``)."""
+    from repro_torch.models.gnn import equiformer as eq
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    keys, leaves = zip(*_leaves(live))
+    loss = getattr(eq, loss_name)(cfg, live, b)
+    flat = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+    if mesh is not None:
+        axes = dict(_leaves(eq.param_logical_axes(cfg)))
+        shapes = dict(_leaves(eq.param_shapes(cfg)))
+        flat = {k: placement(mesh, axes[k], shapes[k]).gather(g)
+                for k, g in flat.items()}
+    return loss.detach(), flat
+
+
+def gnn_train(cfg, loss_name, params, b, mesh=None):
+    """Two train steps on the batch from ``adamw_init``: ((loss, grad
+    norm) a step, the state flat (``p/``, ``mu/``, ``nu/``), gathered
+    whole under ``mesh``), and the last params and state."""
+    from repro_torch.models.gnn import equiformer as eq
+    step, opt, metrics = gnn_step(cfg, loss_name), adamw_init(params), []
+    for _ in range(2):
+        params, opt, m = step(params, opt, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    if mesh is None:
+        state = {f"{t}/{k}": a for t, tree in (("p", params), ("mu", opt.mu),
+                                                ("nu", opt.nu))
+                 for k, a in _leaves(tree)}
+    else:
+        axes, shapes = eq.param_logical_axes(cfg), eq.param_shapes(cfg)
+        state = {}
+        for t, tree in (("p", params), ("mu", opt.mu), ("nu", opt.nu)):
+            state.update(recsys_gathered(mesh, axes, shapes, tree, t + "/"))
+    return metrics, state, params, opt
+
+
+def _gnn_case(meshes, ins, name, directory, res):
+    """One ``GNN_CASES`` case: the reference's smoke parameters placed by
+    ``shard_params`` under ``DEFAULT_RULES``, the forward (gathered), the
+    loss and every gathered gradient leaf, and two train steps under the
+    mesh; the port's own draw by ``init_params(mesh=)`` against one
+    device's blocks; one forward's collectives on the real mesh and on a
+    ``TracedMesh`` (``GNN_COUNT_CASES``); the gradient with the node-side
+    weights' sums taken over ``model`` too (``GNN_MUTANT_CASE``); the
+    checkpoint case saves its state.  Rank 0 adds the single-device
+    port's results."""
+    from repro_torch.configs.common import opt_state_axes
+    from repro_torch.models.gnn import equiformer as eq
+    from repro_torch.models.recsys import shard_params as place_tree
+    loss_name, data, model, N, E, chunk = GNN_CASES[name]
+    mesh, cfg = meshes[(data, model)], gnn_cfg(chunk)
+    axes, shapes = eq.param_logical_axes(cfg), eq.param_shapes(cfg)
+    whole = eq.equiformer_params_from_jax(cfg, _tree(ins, "gnn/params"),
+                                          device="cpu")
+    b = gnn_batch(ins, name)
+    r = {}
+    with sharding_ctx(mesh, DEFAULT_RULES):
+        params = place_tree(whole, axes, mesh)
+        graph = eq.Graph(cfg, N, E)
+        split = graph.split
+        r["split"] = (split.edge_axes, split.node_axes, split.edge_rows,
+                      split.node_rows, graph.ffn_axes, graph.ordered)
+        r["out"] = gnn_forward(cfg, params, b)
+        r["loss"], r["grads"] = gnn_loss_grads(cfg, loss_name, params, b,
+                                               mesh)
+        r["metrics"], state, p2, o2 = gnn_train(cfg, loss_name, params, b,
+                                                mesh)
+        r["state"] = state if mesh.rank == 0 else None
+        drawn = dict(_leaves(eq.init_params(cfg, seed=1, device="cpu",
+                                            mesh=mesh)))
+        r["blocks"] = {k: tuple(a.shape) for k, a in drawn.items()}
+        if name in GNN_COUNT_CASES:
+            traced = TracedMesh(mesh.shape, mesh.rank)
+            for tag, m, on in (("real", mesh, lambda x: x),
+                               ("traced", traced, _meta)):
+                with sharding_ctx(m, DEFAULT_RULES):
+                    m.reset_counts()
+                    eq.forward(cfg, on(params), *(on(b[k])
+                                                  for k in GNN_INPUTS))
+                    r[f"count/{tag}"] = m.collective_records()
+        if name == GNN_MUTANT_CASE:
+            sound = eq.Graph.node_weight
+
+            def over_model(self, w):     # a replicated weight summed twice
+                return sum_grad(w, self.split.mesh,
+                                self.split.node_axes + ("model",))
+            eq.Graph.node_weight = over_model
+            try:
+                r["mutant_grads"] = gnn_loss_grads(cfg, loss_name, params, b,
+                                                   mesh)[1]
+            finally:
+                eq.Graph.node_weight = sound
+        if name == GNN_CKPT_CASE:
+            CheckpointManager(os.path.join(directory, "gnn_ckpt")).save(
+                2, {"p": p2, "o": o2},
+                logical_axes={"p": axes, "o": opt_state_axes(axes)},
+                shapes={"p": shapes, "o": opt_state_axes(shapes)},
+                mesh=mesh)
+    mine = dict(_leaves(eq.init_params(cfg, seed=1, device="cpu")))
+    r["drawn_equal"] = sorted(mine) == sorted(drawn) and all(
+        torch.equal(drawn[k], placement(mesh, dict(_leaves(axes))[k],
+                                        a.shape).local(a))
+        for k, a in mine.items())
+    if mesh.rank == 0:
+        r["one"] = {"out": gnn_forward(cfg, whole, b)}
+        r["one"]["loss"], r["one"]["grads"] = gnn_loss_grads(
+            cfg, loss_name, whole, b)
+        r["one"]["metrics"], r["one"]["state"], _, _ = gnn_train(
+            cfg, loss_name, whole, b)
+    res[f"gnn/{name}"] = r
+
+
+def gnn_restored(mesh, directory):
+    """``GNN_CKPT_CASE``'s train state restored under ``mesh`` (None: one
+    device, whole), gathered, flat."""
+    from repro_torch.models.gnn import equiformer as eq
+    cfg = gnn_cfg(GNN_CASES[GNN_CKPT_CASE][5])
+    axes, shapes = eq.param_logical_axes(cfg), eq.param_shapes(cfg)
+    with sharding_ctx(mesh):
+        blocks = eq.init_params(cfg, device="cpu", mesh=mesh)
+        state, step = CheckpointManager(os.path.join(
+            directory, "gnn_ckpt")).restore({"p": blocks,
+                                             "o": adamw_init(blocks)},
+                                            mesh=mesh)
+        state = tree_map(lambda a: tree_to_torch(a, torch.device("cpu")),
+                         state)
+        p, o = state["p"], state["o"]
+        flat = {}
+        for t, tree in (("p", p), ("mu", o.mu), ("nu", o.nu)):
+            if mesh is None:
+                flat.update({f"{t}/{k}": a for k, a in _leaves(tree)})
+            else:
+                flat.update(recsys_gathered(mesh, axes, shapes, tree,
+                                            t + "/"))
+        return {"step": step, "opt_step": int(o.step), "state": flat,
+                "w0": tuple(p["layers"]["w0"].shape)}
